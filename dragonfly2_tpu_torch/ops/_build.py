@@ -1,0 +1,131 @@
+"""Build and load the package's CUDA kernels.
+
+``csrc/fused_score.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``: no
+PyTorch headers, so the build takes seconds.  It runs at first use,
+under a lock (the batcher's leader thread and the caller's thread can
+race on it), into ``build/dragonfly2_tpu_torch_kernels/`` beside the
+package, and again whenever the source's hash changes.
+
+Every C entry returns ``cudaGetLastError()`` after its launch; ``check``
+turns a non-zero code into an exception.  Pointers and the stream cross
+as ``ctypes.c_void_p``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SOURCE = PACKAGE_DIR / "csrc" / "fused_score.cu"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "dragonfly2_tpu_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# What the last build in this process said (nvcc's -Xptxas -v report:
+# registers, shared memory, spills per kernel) and how long it took.
+build_log = ""
+build_seconds = 0.0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # mat, n_slots, slots, dslots, edge, w0c, w0p, w0e, b0, w1, b1, w2, b2,
+    # out, n, d1, d2, stream
+    "df_fused_gather_mlp_score": (
+        [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _P, _I, _I, _I, _P],
+        ctypes.c_int,
+    ),
+    # components, out, n, w0..w5, stream
+    "df_rule_weighted_sum": ([_P, _P, _I, _F, _F, _F, _F, _F, _F, _P], ctypes.c_int),
+    "df_fused_score_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "df_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for an entry point's ``device`` argument.  A CUDA
+    device with no card raises: there is no silent CPU path."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _compile(target: Path) -> None:
+    global build_log, build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        capture_output=True, text=True,
+    )
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    # Atomic publish: a concurrent process sees the whole library or none.
+    os.replace(tmp, target)
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built if this source has not been built."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+        target = BUILD_DIR / f"libdf_fused_score_{digest}.so"
+        if not target.exists():
+            _compile(target)
+        lib = ctypes.CDLL(str(target))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise on a non-zero ``cudaError_t`` from a C entry."""
+    if code != 0:
+        what = lib.df_error_string(code).decode("utf-8", "replace")
+        raise RuntimeError(f"{name}: CUDA error {code} ({what}) at launch")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,370 @@
+"""Model export: trained params → scheduler-side scorer artifact.
+
+The reference planned scheduler→Triton RPC inference per scheduling
+decision (KServe client at pkg/rpc/inference/client/client_v1.go:86-100,
+never wired; Triton model layout at manager/types/model.go:24-73).  A
+network round-trip on the parent-selection hot path is the wrong design
+for a scheduler that decides in microseconds — instead the trainer exports
+the model as a **self-contained numpy artifact** the scheduler applies
+locally (scheduler/evaluator.py MLEvaluator).  The manager still versions
+and activates these artifacts exactly like the reference versions Triton
+dirs (manager/service/model.go:103-190).
+
+Artifact format (.npz):
+    meta: json (model type, feature names, version schema)
+    w0,b0,w1,b1,...: dense layer weights
+
+``MLPScorer`` is the pure-numpy scorer and the reference every device
+path is held to; ``ops/fused_score.py`` serves the same blob on the card.
+The ``GNNScorer`` half of the artifact family waits for the graph models.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..records.features import DOWNLOAD_FEATURE_NAMES
+
+SCORER_SCHEMA_VERSION = 1
+
+
+@dataclass
+class MLPScorer:
+    """EdgeScorer implementation (scheduler/evaluator.py protocol): gelu MLP
+    with the training-time feature standardization baked in.
+
+    Batched-score contract: every row of ``features`` is scored from that
+    row alone (row-wise standardize → row-wise dense stack), so the
+    scheduler's ``ScorerBatcher`` may pad the matrix and coalesce rows
+    from unrelated announces into one call — padded/stranger rows cannot
+    perturb a request's scores."""
+
+    weights: List[Tuple[np.ndarray, np.ndarray]]  # [(W, b), ...]
+    feat_mean: Optional[np.ndarray] = None
+    feat_std: Optional[np.ndarray] = None
+    # True when the model was trained with post-hoc transfer features zeroed
+    # (records/features.mask_post_hoc). The scorer applies the SAME mask at
+    # serve time so the train/serve contract travels WITH the artifact —
+    # callers never pre-mask.
+    post_hoc_masked: bool = True
+    # Training-snapshot feature histograms (rollout/shadow.py drift PSI):
+    # per-feature quantile bin edges [D, B+1] and the expected bin mass
+    # [D, B] over the rows this model trained on.  Stamped INTO the blob
+    # so the drift baseline always matches the weights it ships with;
+    # None on artifacts exported without rows (drift gating then skips).
+    train_bin_edges: Optional[np.ndarray] = None
+    train_bin_fracs: Optional[np.ndarray] = None
+    feature_names: Tuple[str, ...] = DOWNLOAD_FEATURE_NAMES
+    model_type: str = "mlp"
+    version: int = SCORER_SCHEMA_VERSION
+
+    def _serving_weights(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Serving fast path: with no standardization in front, zeroing the
+        post-hoc feature COLUMNS of x is bit-identical to zeroing those
+        input ROWS of W1 (both make the dot-product terms exact 0.0), so
+        the per-call mask copy folds into the weights once.  Cached on
+        first use; scorer artifacts are immutable after load."""
+        folded = getattr(self, "_folded_weights", None)
+        if folded is None:
+            from ..records.features import POST_HOC_FEATURE_IDX
+
+            w0, b0 = self.weights[0]
+            w0 = w0.copy()
+            w0[list(POST_HOC_FEATURE_IDX), :] = 0.0
+            folded = [(w0, b0)] + list(self.weights[1:])
+            object.__setattr__(self, "_folded_weights", folded)
+        return folded
+
+    def score(self, features: np.ndarray, **_buckets) -> np.ndarray:  # dflint: hotpath
+        # _buckets: src/dst host buckets offered uniformly by the evaluator;
+        # the feature-based MLP ignores them (the GNN scorer consumes them).
+        x = np.asarray(features, dtype=np.float32)
+        if self.feat_mean is not None:
+            # Standardization sits BETWEEN mask and stack: masked columns
+            # become (0-mean)/std ≠ 0, so the mask cannot fold into W1 —
+            # apply it per call, exactly as trained.
+            if self.post_hoc_masked:
+                from ..records.features import mask_post_hoc
+
+                x = mask_post_hoc(x)
+            x = (x - self.feat_mean) / self.feat_std
+            weights = self.weights
+        elif self.post_hoc_masked:
+            weights = self._serving_weights()
+        else:
+            weights = self.weights
+        n = len(weights)
+        for i, (w, b) in enumerate(weights):  # dflint: disable=DF007 — per-LAYER (3 fixed), not per-item
+            x = x @ w + b
+            if i < n - 1:
+                x = _np_gelu(x)
+        return x[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Post-training quantization: int8 / bf16 serving variants
+# ---------------------------------------------------------------------------
+
+QUANT_MODES = ("int8", "bf16")
+
+
+def _bf16_round(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(bf16 bit pattern uint16, float32 round-trip) of ``w`` with
+    round-to-nearest-even — bf16 is the top 16 bits of float32, so the
+    round-trip is pure bit math (no ml_dtypes dependency)."""
+    u = np.ascontiguousarray(w, dtype=np.float32).view(np.uint32)
+    bits = ((u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))
+            >> np.uint32(16)).astype(np.uint16)
+    back = (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
+    return bits, back
+
+
+def _int8_quantize(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(int8 weights, per-output-column float32 scales, float32
+    dequantized round-trip) — symmetric per-channel weight-only PTQ:
+    ``W ≈ Wq * scale`` with scale_j = max|W[:, j]| / 127."""
+    w = np.asarray(w, dtype=np.float32)
+    amax = np.max(np.abs(w), axis=0)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    deq = (q.astype(np.float32) * scale).astype(np.float32)
+    return q, scale, deq
+
+
+@dataclass
+class QuantizedMLPScorer(MLPScorer):
+    """Post-training-quantized serving variant of ``MLPScorer``.
+
+    ``weights`` holds the DEQUANTIZED float32 weights, so the entire
+    serving machinery (mask-fold into W1, batched-score contract, gelu
+    stack) is inherited unchanged — the quantization effect on scores is
+    exactly the weight rounding, which is what the rollout plane's
+    replay evaluation judges (DESIGN.md §15/§18: a quantized scorer is
+    admitted to ACTIVE only through the CANDIDATE → replay-gate flow,
+    never assumed score-equivalent).  The blob stores the int8/bf16
+    payloads + scales (``_pack``), stamped next to the drift histograms.
+    """
+
+    quant_mode: str = "int8"
+    # Per-layer quantized payloads: [(int8 W, f32 scales)] for int8,
+    # [(uint16 bf16 bits, None)] for bf16.  Kept for packing; scoring
+    # uses the dequantized ``weights``.
+    qlayers: Optional[List[Tuple[np.ndarray, Optional[np.ndarray]]]] = None
+
+
+def quantize_scorer(scorer: MLPScorer, mode: str = "int8") -> QuantizedMLPScorer:
+    """PTQ an exported float scorer into an int8/bf16 serving variant.
+
+    Carries the ENTIRE serving contract over: post-hoc mask flag,
+    standardizer, feature names, and the training-snapshot drift
+    histograms (the scales are stamped next to them in the blob, so the
+    PSI gate judges the quantized artifact against its own baseline).
+    """
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unknown quantization mode {mode!r}; use {QUANT_MODES}")
+    qlayers: List[Tuple[np.ndarray, Optional[np.ndarray]]] = []
+    deq_weights: List[Tuple[np.ndarray, np.ndarray]] = []
+    for w, b in scorer.weights:
+        if mode == "int8":
+            q, scale, deq = _int8_quantize(w)
+            qlayers.append((q, scale))
+        else:
+            bits, deq = _bf16_round(w)
+            qlayers.append((bits, None))
+        deq_weights.append((deq, np.asarray(b, np.float32)))
+    return QuantizedMLPScorer(
+        weights=deq_weights,
+        feat_mean=scorer.feat_mean,
+        feat_std=scorer.feat_std,
+        post_hoc_masked=scorer.post_hoc_masked,
+        train_bin_edges=scorer.train_bin_edges,
+        train_bin_fracs=scorer.train_bin_fracs,
+        feature_names=scorer.feature_names,
+        model_type=f"mlp_{mode}",
+        version=scorer.version,
+        quant_mode=mode,
+        qlayers=qlayers,
+    )
+
+
+def _dequantize_layers(
+    mode: str,
+    qlayers: List[Tuple[np.ndarray, Optional[np.ndarray]]],
+    biases: List[np.ndarray],
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    out: List[Tuple[np.ndarray, np.ndarray]] = []
+    for (payload, scale), b in zip(qlayers, biases):
+        if mode == "int8":
+            deq = (payload.astype(np.float32) * scale).astype(np.float32)
+        else:
+            deq = (payload.astype(np.uint32) << np.uint32(16)).view(np.float32)
+        out.append((deq, np.asarray(b, np.float32)))
+    return out
+
+
+def _flatten_mlp_params(params: Dict) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """flax MLPRegressor params (``{"Dense_i": {"kernel", "bias"}}`` as
+    numpy, kernels ``[in, out]``) → ordered [(W, b)] list, layout kept."""
+    layers = sorted(params.keys(), key=lambda k: int(k.split("_")[-1]) if "_" in k else 0)
+    out = []
+    for name in layers:
+        leaf = params[name]
+        out.append((np.asarray(leaf["kernel"], np.float32), np.asarray(leaf["bias"], np.float32)))
+    return out
+
+
+def export_mlp_scorer(
+    params: Dict,
+    *,
+    feat_mean: Optional[np.ndarray] = None,
+    feat_std: Optional[np.ndarray] = None,
+    post_hoc_masked: bool = True,
+    feature_names: Tuple[str, ...] = DOWNLOAD_FEATURE_NAMES,
+) -> MLPScorer:
+    return MLPScorer(
+        weights=_flatten_mlp_params(params),
+        feat_mean=None if feat_mean is None else np.asarray(feat_mean, np.float32),
+        feat_std=None if feat_std is None else np.asarray(feat_std, np.float32),
+        post_hoc_masked=post_hoc_masked,
+        feature_names=feature_names,
+    )
+
+
+DRIFT_BINS = 10
+
+
+def feature_snapshot_stats(
+    feature_rows: np.ndarray, n_bins: int = DRIFT_BINS
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(bin edges [D, n_bins+1], bin fractions [D, n_bins]) of the
+    training feature distribution — the drift baseline the rollout
+    plane's PSI check runs against (rollout/shadow.py).  Quantile edges
+    so every feature's expected mass is ~uniform regardless of scale;
+    constant features degenerate to one occupied bin, which PSI handles
+    (the serve side bins with the SAME edges)."""
+    # Reviewed float64 binning intermediates: quantile edges/fractions
+    # compute in float64 and round ONCE to float32 on return.
+    rows = np.asarray(feature_rows, dtype=np.float64)  # dflint: disable=DF012
+    d = rows.shape[1]
+    qs = np.linspace(0.0, 1.0, n_bins + 1)
+    edges = np.quantile(rows, qs, axis=0).T  # [D, B+1]
+    fracs = np.empty((d, n_bins), dtype=np.float64)  # dflint: disable=DF012
+    for j in range(d):  # per-FEATURE (32 fixed), export time only
+        idx = np.searchsorted(edges[j, 1:-1], rows[:, j])
+        fracs[j] = np.bincount(idx, minlength=n_bins) / rows.shape[0]
+    return edges.astype(np.float32), fracs.astype(np.float32)
+
+
+def _pack(scorer: MLPScorer) -> Dict[str, np.ndarray]:
+    arrays: Dict[str, np.ndarray] = {}
+    quant_mode = None
+    if isinstance(scorer, QuantizedMLPScorer) and scorer.qlayers is not None:
+        # Quantized payloads + scales travel IN the blob (scales sit
+        # next to the drift histograms below — the artifact is
+        # self-contained exactly like the float one).
+        quant_mode = scorer.quant_mode
+        for i, ((payload, scale), (_, b)) in enumerate(
+            zip(scorer.qlayers, scorer.weights)
+        ):
+            arrays[f"wq{i}"] = payload
+            if scale is not None:
+                arrays[f"wscale{i}"] = scale
+            arrays[f"b{i}"] = b
+    else:
+        for i, (w, b) in enumerate(scorer.weights):
+            arrays[f"w{i}"] = w
+            arrays[f"b{i}"] = b
+    if scorer.feat_mean is not None:
+        arrays["feat_mean"] = scorer.feat_mean
+        arrays["feat_std"] = scorer.feat_std
+    if scorer.train_bin_edges is not None:
+        arrays["train_bin_edges"] = scorer.train_bin_edges
+        arrays["train_bin_fracs"] = scorer.train_bin_fracs
+    meta = json.dumps(
+        {
+            "model_type": scorer.model_type,
+            "version": scorer.version,
+            "n_layers": len(scorer.weights),
+            "post_hoc_masked": scorer.post_hoc_masked,
+            "feature_names": list(scorer.feature_names),
+            "quant_mode": quant_mode,
+        }
+    )
+    arrays["meta"] = np.frombuffer(meta.encode("utf-8"), dtype=np.uint8)
+    return arrays
+
+
+def save_scorer(scorer: MLPScorer, path: str) -> None:
+    np.savez(path, **_pack(scorer))
+
+
+def scorer_to_bytes(scorer: MLPScorer) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **_pack(scorer))
+    return buf.getvalue()
+
+
+def load_scorer(path_or_bytes):
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        src = io.BytesIO(bytes(path_or_bytes))
+    else:
+        src = path_or_bytes
+    with np.load(src) as data:
+        meta = json.loads(bytes(data["meta"]).decode("utf-8"))
+        if meta["model_type"] == "gnn":
+            raise ValueError("GNN scorer artifacts are not served by this package yet")
+        quant_mode = meta.get("quant_mode")
+        if quant_mode:
+            qlayers = [
+                (
+                    data[f"wq{i}"],
+                    data[f"wscale{i}"] if f"wscale{i}" in data else None,
+                )
+                for i in range(meta["n_layers"])
+            ]
+            biases = [data[f"b{i}"] for i in range(meta["n_layers"])]
+        else:
+            weights = [
+                (data[f"w{i}"], data[f"b{i}"]) for i in range(meta["n_layers"])
+            ]
+        feat_mean = data["feat_mean"] if "feat_mean" in data else None
+        feat_std = data["feat_std"] if "feat_std" in data else None
+        bin_edges = data["train_bin_edges"] if "train_bin_edges" in data else None
+        bin_fracs = data["train_bin_fracs"] if "train_bin_fracs" in data else None
+    common = dict(
+        feat_mean=feat_mean,
+        feat_std=feat_std,
+        post_hoc_masked=meta.get("post_hoc_masked", True),
+        train_bin_edges=bin_edges,
+        train_bin_fracs=bin_fracs,
+        feature_names=tuple(meta["feature_names"]),
+        model_type=meta["model_type"],
+        version=meta["version"],
+    )
+    if quant_mode:
+        return QuantizedMLPScorer(
+            weights=_dequantize_layers(quant_mode, qlayers, biases),
+            quant_mode=quant_mode,
+            qlayers=qlayers,
+            **common,
+        )
+    return MLPScorer(weights=weights, **common)
+
+
+# ---------------------------------------------------------------------------
+# gelu
+# ---------------------------------------------------------------------------
+
+
+def _np_gelu(x: np.ndarray) -> np.ndarray:
+    """gelu (tanh approx — matches flax nn.gelu default).  ``x * x * x``,
+    NOT ``x**3``: float32 integer-power lowers to a per-element libm
+    ``powf`` call (~100× the cost of two multiplies) and was the single
+    largest term in the serving path's scorer profile (BENCHMARKS.md)."""
+    x3 = x * x * x
+    return 0.5 * x * (1.0 + np.tanh(0.7978845608 * (x + 0.044715 * x3)))

@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  A CUDA kernel has no CPU mode, so these skip where no CUDA device
+is available; on a machine with one (and without JAX) run them with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: K1 1e-5 scaled by max(1, max |score|) (f32, another sum
+order, tanhf ulps); K2 1e-6; the fused scorer against the numpy scorer
+1e-4.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _weights(seed=0, dims=(32, 64, 64, 1)):
+    rng = np.random.default_rng(seed)
+    return [
+        (
+            rng.standard_normal((dims[i], dims[i + 1])).astype(np.float32) * 0.3,
+            rng.standard_normal(dims[i + 1]).astype(np.float32) * 0.05,
+        )
+        for i in range(len(dims) - 1)
+    ]
+
+
+@pytest.mark.parametrize("n", [1, 7, 128, 512, 4096])
+@pytest.mark.parametrize("dims", [(32, 64, 64, 1), (32, 96, 48, 1)], ids=["64x64", "96x48"])
+def test_k1_matches_its_plain_version(cuda, n, dims):
+    import torch
+
+    from dragonfly2_tpu_torch.ops import fused_score as ops
+
+    rng = np.random.default_rng(n)
+    mlp = ops.ServingMLP(_weights(1, dims), device=cuda)
+    mat = torch.from_numpy(rng.standard_normal((65536, 12)).astype(np.float32)).to(cuda)
+    s = torch.from_numpy(rng.integers(0, 65536, n).astype(np.int32)).to(cuda)
+    d = torch.from_numpy(rng.integers(0, 65536, n).astype(np.int32)).to(cuda)
+    e = torch.from_numpy(rng.standard_normal((n, 8)).astype(np.float32)).to(cuda)
+    before = ops.LAUNCHES["fused_gather_mlp_score"]
+    got = ops.fused_gather_mlp_score(mat, s, d, e, mlp)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_gather_mlp_score"] == before + 1
+    want = ops._fused_score_plain(mat, s, d, e, mlp.w0c, mlp.w0p, mlp.w0e, mlp.b0,
+                                  mlp.layers())
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def test_k1_scores_an_out_of_range_slot_nan(cuda):
+    import torch
+
+    from dragonfly2_tpu_torch.ops import fused_score as ops
+
+    mlp = ops.ServingMLP(_weights(), device=cuda)
+    mat = torch.zeros((16, 12), device=cuda)
+    s = torch.tensor([0, 16, 3], dtype=torch.int32, device=cuda)
+    e = torch.zeros((3, 8), device=cuda)
+    got = ops.fused_gather_mlp_score(mat, s, torch.zeros_like(s), e, mlp).cpu()
+    assert torch.isnan(got[1]) and torch.isfinite(got[[0, 2]]).all()
+
+
+@pytest.mark.parametrize("n", [1, 512, 5000])
+def test_k2_matches_its_plain_version(cuda, n):
+    import torch
+
+    from dragonfly2_tpu_torch.ops import fused_score as ops
+
+    comp = torch.from_numpy(
+        np.random.default_rng(n).standard_normal((n, 6)).astype(np.float32)
+    ).to(cuda)
+    got = ops.rule_sum(comp)
+    torch.cuda.synchronize()
+    want = ops._rule_sum_plain(comp, ops.RULE_COMPONENT_WEIGHTS)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_fused_scorer_on_the_card_matches_the_numpy_scorer(cuda):
+    from dragonfly2_tpu_torch.ops import fused_score as ops
+    from dragonfly2_tpu_torch.scheduler import HostFeatureCache, MLEvaluator
+    from dragonfly2_tpu_torch.sim.swarm import build_announce_swarm
+    from dragonfly2_tpu_torch.trainer.export import MLPScorer
+
+    weights = _weights(3)
+    task, peers = build_announce_swarm(60, seed=3)
+    cache = HostFeatureCache(max_hosts=512)
+    ref = MLEvaluator(MLPScorer(weights=weights), feature_cache=cache)
+    fused = ops.FusedMLPScorer(cache, weights, device=cuda)
+    ml = MLEvaluator(fused, feature_cache=cache)
+    edge, slots, cslot, _, _ = ml._featurize_slots(peers[1:25], peers[0])
+    got = fused.score(edge, src_buckets=slots, dst_buckets=np.full(len(slots), cslot))
+    feats, _, _ = ref._featurize_batch(peers[1:25], peers[0])
+    np.testing.assert_allclose(got, MLPScorer(weights=weights).score(feats),
+                               rtol=1e-4, atol=1e-4)
+    ranked = ml.evaluate_parents(peers[1:25], peers[0], task.total_piece_count)
+    assert ml.degrades == 0 and len(ranked) == 24
