@@ -33,11 +33,34 @@ Phases:
    rate and register_peer p50/p99 are those of the 512 concurrent
    requests (a closed loop of 32 clients); evaluate_parents and the
    scorer flush are timed per call around the same requests.
+6. Training path: the GAT parent-peer ranker (BASELINE configs[2]) at
+   full width — a 100,000-host synthetic cluster, its probe graph at 16
+   probes a host, ``build_neighbor_table`` with K = 16, 1,310,720
+   download edges with log1p ground-truth bandwidth targets — trained by
+   ``train_gat_ranker`` on the card with ``GNNConfig()`` defaults (hidden
+   128, out 64, 2 layers, 4 heads, embed 32, dropout 0.1) and the K3
+   neighbor gather, batch 131,072, 2 epochs (18 steps).  Launch counts
+   are zeroed just before ``train_gat_ranker`` and read just after.
+   Checks: K3 launches = 2 × steps; finite losses, the last 3 steps'
+   mean below the first; finite validation metrics; one train step with
+   the K3 gather against the same step with the index gather's own
+   backward (dropout from the same generator state; loss within 1e-3
+   relative, gradient abs-sum within 5e-2); the exported GNN scorer
+   (``export_gnn_scorer`` → blob → ``load_scorer``) against the model's
+   validation predictions.  Then K3 against its plain version at the
+   path's two shapes (bf16, D 44 and 128, over the real bucketed
+   layout), at an f32 ``exact=True`` shape, with zero edges and with an
+   empty node block; and its device time, its plain version's and
+   ``index_add_``'s at the path's shapes, and the train step time.
 
 Prints JSON lines, the ``kernels`` line second to last and the contract
 line ``{"ok": true, "device": {...}}`` last.  Any failed check exits
 non-zero before that line.  Exits 2 without a result when no CUDA device
 is available.
+
+The training phase ends with three more train steps under
+``torch.profiler``: device time by kernel and the device's idle share of
+the steps' wall time (``training_profile`` line).
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -45,6 +68,7 @@ is available.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import random
@@ -70,6 +94,16 @@ SCORE_TOL = 1e-4          # path vs numpy MLPScorer (scores and ties)
 K1_TOL = 1e-5             # K1 vs plain, scaled by max(1, max |score|)
 K2_TOL = 1e-6             # K2 vs plain
 TIMING_SAMPLES = 25
+# The training phase (BASELINE configs[2], the bench's batch).
+GAT_NODES = 100_000
+GAT_NEIGHBORS = 16
+GAT_EDGES = 1_310_720
+GAT_BATCH = 131_072
+GAT_EPOCHS = 2
+K3_TOL = 1e-5             # K3 vs plain, scaled by max(1, max |sum|)
+STEP_LOSS_TOL = 1e-3      # K3 gather step vs index gather step: loss (relative)
+STEP_GRAD_TOL = 5e-2      # ... and gradient abs-sum (relative)
+EXPORT_TOL = 3e-2         # exported scorer vs the model's predictions (absolute)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -350,6 +384,283 @@ def bound(nbytes, flops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# ---------------------------------------------------------------------------
+# The training path: the GAT ranker with K3
+# ---------------------------------------------------------------------------
+
+
+def gat_workload(seed: int):
+    """configs[2]'s graph and download edges, made from ``seed``."""
+    from dragonfly2_tpu_torch.models.gnn import build_neighbor_table
+    from dragonfly2_tpu_torch.records.synthetic import SyntheticCluster
+
+    n = GAT_NODES
+    cluster = SyntheticCluster(num_hosts=n, seed=seed)
+    src, dst, rtt = cluster.probe_edges(density=GAT_NEIGHBORS / (n - 1), seed=seed)
+    table = build_neighbor_table(n, src, dst, rtt / 1e9, max_neighbors=GAT_NEIGHBORS)
+    rng = np.random.default_rng(seed)
+    e_src = rng.integers(0, n, GAT_EDGES)
+    e_dst = (e_src + rng.integers(1, n, GAT_EDGES)) % n
+    target = np.log1p(cluster._bandwidth_vec(e_src, e_dst)).astype(np.float32)
+    return {
+        "node_feats": cluster._host_feature_matrix(), "table": table,
+        "src": e_src, "dst": e_dst, "target": target, "probe_edges": int(len(src)),
+    }
+
+
+def step_equivalence(torch, state, work, gather_cfg, dev, seed):
+    """One train step's loss and gradients from the trained state on the
+    first batch, with the K3 gather and with the index gather's own
+    backward; dropout from one generator state in both."""
+    from dragonfly2_tpu_torch.models.gnn import GATRanker
+    from dragonfly2_tpu_torch.trainer.train import (
+        TrainState, _graph_loss_and_grads, epoch_batches, split_edges,
+    )
+
+    _, train_idx = split_edges(GAT_EDGES, seed)
+    idx = next(epoch_batches(train_idx, GAT_BATCH, seed, 0))
+    nf = torch.from_numpy(work["node_feats"]).to(dev)
+    table = work["table"].to(dev)
+    src = torch.from_numpy(work["src"][idx]).to(dev)
+    dst = torch.from_numpy(work["dst"][idx]).to(dev)
+    target = torch.from_numpy(work["target"][idx]).to(dev)
+    plain = GATRanker(
+        dataclasses.replace(gather_cfg, gather_fn=None),
+        num_nodes=GAT_NODES, in_dim=work["node_feats"].shape[1],
+    ).to(dev)
+    plain.load_state_dict(state.model.state_dict())
+    gen_state = state.generator.get_state()
+    out = []
+    for model in (state.model, plain):
+        gen = torch.Generator(device=dev)
+        gen.set_state(gen_state)
+        loss, grads = _graph_loss_and_grads(
+            TrainState(model=model, opt=None, generator=gen), nf, table, src, dst, target, None
+        )
+        out.append((float(loss), [g.double() for g in grads]))
+    (l0, g0), (l1, g1) = out
+    abs0 = sum(float(g.abs().sum()) for g in g0)
+    abs1 = sum(float(g.abs().sum()) for g in g1)
+    diff = sum(float(((a - b) ** 2).sum()) for a, b in zip(g0, g1)) ** 0.5
+    norm = sum(float((a ** 2).sum()) for a in g0) ** 0.5
+    return {
+        "loss_k3": l0, "loss_index": l1, "loss_rel": abs(l0 - l1) / max(abs(l0), 1e-6),
+        "grad_abs_sum_rel": abs(abs0 - abs1) / max(abs0, 1e-6), "grad_l2_rel": diff / norm,
+    }
+
+
+def k3_cost(plan, d, itemsize):
+    """(bytes, FLOPs) K3 needs: every real edge's value row, perm entry
+    and weight; the work items; the output rows; one multiply-add per
+    value."""
+    runs = plan.runs
+    e = int(plan.w.sum().item())
+    item_bytes = 4 * sum(int(runs[k].numel()) for k in runs)
+    nbytes = e * d * itemsize + e * 8 + item_bytes + plan.num_segments * d * 4
+    return nbytes, 2 * e * d
+
+
+def k3_checks(torch, dev, plan, seed):
+    """K3 against its plain version: the path's two bf16 shapes over the
+    real bucketed layout, one f32 exact shape, zero edges, an empty node
+    block.  Returns the errors and the path-shape inputs."""
+    from dragonfly2_tpu_torch.ops.segment import _segment_sum_plain, build_plan, segment_sum_bucketed
+
+    rng = np.random.default_rng(seed)
+    rows = GAT_NODES * GAT_NEIGHBORS
+    cases = {}
+    inputs = {}
+    for name, d, dtype, exact in (("bf16_d44", 44, torch.bfloat16, False),
+                                  ("bf16_d128", 128, torch.bfloat16, False),
+                                  ("f32_exact_d44", 44, torch.float32, True)):
+        vals = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(dtype).to(dev)
+        got = segment_sum_bucketed(vals, plan, exact=exact)
+        torch.cuda.synchronize()
+        want = _segment_sum_plain(vals, plan, exact=exact, presorted=False)
+        cases[name] = (got, want)
+        if dtype == torch.bfloat16:
+            inputs[d] = vals
+    zero_plan = build_plan(np.zeros(0, np.int64), GAT_NODES, device=dev)
+    zeros = torch.zeros((zero_plan.e_pad, 44), dtype=torch.bfloat16, device=dev)
+    cases["zero_edges"] = (segment_sum_bucketed(zeros, zero_plan, exact=False, presorted=True),
+                           _segment_sum_plain(zeros, zero_plan, exact=False, presorted=True))
+    hole_ids = np.array([5, 5, 6, 200, 520, 521])     # node block 1 (256..511) empty
+    hole_plan = build_plan(hole_ids, 600, device=dev)
+    hole = torch.from_numpy(rng.standard_normal((6, 44), dtype=np.float32)).to(dev)
+    cases["empty_node_block"] = (segment_sum_bucketed(hole, hole_plan, exact=False),
+                                 _segment_sum_plain(hole, hole_plan, exact=False, presorted=False))
+    torch.cuda.synchronize()
+    errs, scales = {}, {}
+    for name, (got, want) in cases.items():
+        check(got.shape == want.shape and got.dtype == torch.float32, f"K3 {name}: shape/dtype")
+        check(bool(torch.isfinite(got).all()), f"K3 {name}: non-finite")
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        errs[name], scales[name] = err, scale
+        check(err <= K3_TOL * scale, f"K3 off its plain version by {err} ({name}, scale {scale})")
+    check(not bool(cases["zero_edges"][0].any()), "K3 with zero edges is not all zero")
+    check(not bool(cases["empty_node_block"][0][256:512].any()), "K3 empty node block not zero")
+    return errs, scales, inputs
+
+
+def profile_steps(torch, state, work, dev, seed, steps=3, top=15):
+    """``steps`` more train steps on the first batch under
+    ``torch.profiler``: the kernels with the most device time and the
+    device's idle share of the steps' wall time (one stream, so kernel
+    times do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dragonfly2_tpu_torch.trainer.train import _graph_train_step, epoch_batches, split_edges
+
+    _, train_idx = split_edges(GAT_EDGES, seed)
+    idx = next(epoch_batches(train_idx, GAT_BATCH, seed, 0))
+    args = (
+        torch.from_numpy(work["node_feats"]).to(dev), work["table"].to(dev),
+        torch.from_numpy(work["src"][idx]).to(dev), torch.from_numpy(work["dst"][idx]).to(dev),
+        torch.from_numpy(work["target"][idx]).to(dev), None,
+    )
+    _graph_train_step(state, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _graph_train_step(state, *args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows = []
+    for ev in prof.key_averages():
+        # Kernels only: an operator's own entry repeats its kernels' time.
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / steps, ev.count // steps, ev.key))
+    rows.sort(reverse=True)
+    device_ms_step = sum(r[0] for r in rows)
+    return {
+        "steps": steps, "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms_step,
+        "device_idle_share": 1.0 - device_ms_step / wall_ms,
+        "kernels_per_step": sum(r[1] for r in rows),
+        "top": [{"ms_per_step": ms, "calls_per_step": n, "name": name[:120]}
+                for ms, n, name in rows[:top]],
+    }
+
+
+def train_phase(torch, dev, seed):
+    """Phase 6: train the GAT ranker on the card, check it, export it,
+    hold and time K3.  Returns (K3's kernels entry, summary)."""
+    from dragonfly2_tpu_torch.models.gnn import GNNConfig
+    from dragonfly2_tpu_torch.ops import fused_score, segment
+    from dragonfly2_tpu_torch.ops.segment import (
+        _segment_sum_plain, make_neighbor_gather, segment_sum_bucketed,
+    )
+    from dragonfly2_tpu_torch.trainer.export import (
+        export_gnn_scorer, gnn_scorer_to_bytes, load_scorer,
+    )
+    from dragonfly2_tpu_torch.trainer.train import TrainConfig, train_gat_ranker
+
+    t0 = time.perf_counter()
+    work = gat_workload(seed)
+    gather = make_neighbor_gather(work["table"].indices, GAT_NODES, device=dev)
+    prep_s = time.perf_counter() - t0
+    mcfg = GNNConfig(gather_fn=gather)
+    tcfg = TrainConfig(epochs=GAT_EPOCHS, warmup_steps=2, log_every=1, seed=seed)
+
+    fused_score.reset_launch_counts()
+    segment.reset_launch_counts()
+    t1 = time.perf_counter()
+    state, metrics, history = train_gat_ranker(
+        work["node_feats"], work["table"], work["src"], work["dst"], work["target"],
+        model_config=mcfg, config=tcfg, device=dev, batch_size=GAT_BATCH,
+    )
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    k3_launches = segment.LAUNCHES["segment_sum"]
+    steps = state.step
+    losses = [h["loss"] for h in history]
+    elapsed = [h["elapsed_s"] for h in history]
+    step_ms = [(b - a) * 1e3 for a, b in zip(elapsed[1:], elapsed[2:])]   # steps 3..
+    step_p50 = float(np.median(step_ms))
+    emit({"phase": "training", "prep_seconds": prep_s, "train_seconds": train_s,
+          "probe_edges": work["probe_edges"], "steps": steps, "k3_launches": k3_launches,
+          "losses": losses, "metrics": metrics.to_dict(), "step_ms_p50": step_p50,
+          "step_ms_steps_3_on": step_ms, "records_per_s": GAT_BATCH / (step_p50 / 1e3),
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    check(steps == GAT_EPOCHS * ((GAT_EDGES - GAT_EDGES // 10) // GAT_BATCH),
+          f"{steps} train steps")
+    check(k3_launches == 2 * steps, f"K3 launches {k3_launches} != 2 x {steps} steps")
+    check(fused_score.LAUNCHES["fused_gather_mlp_score"] == 0, "K1 launched by training")
+    check(len(losses) == steps and all(np.isfinite(losses)), "a non-finite or missing loss")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"loss did not fall: first {losses[0]}, last 3 {losses[-3:]}")
+    check(all(np.isfinite(list(metrics.to_dict().values()))), "non-finite validation metrics")
+
+    equiv = step_equivalence(torch, state, work, mcfg, dev, seed)
+    check(equiv["loss_rel"] <= STEP_LOSS_TOL, f"K3 step loss off the index step: {equiv}")
+    check(equiv["grad_abs_sum_rel"] <= STEP_GRAD_TOL, f"K3 step gradients off: {equiv}")
+
+    scorer = load_scorer(gnn_scorer_to_bytes(export_gnn_scorer(
+        state.model, work["node_feats"], work["table"], np.arange(GAT_NODES))))
+    val_idx = state.val_idx
+    scores = scorer.score(None, src_buckets=work["src"][val_idx], dst_buckets=work["dst"][val_idx])
+    export_err = float(np.max(np.abs(scores - state.val_pred)))
+    check(scores.shape == val_idx.shape and bool(np.isfinite(scores).all()), "exported scores")
+    check(export_err <= EXPORT_TOL, f"exported scorer off the model by {export_err}")
+    emit({"phase": "training_checks", "step_equivalence": equiv,
+          "export_max_abs_err": export_err, "export_tol": EXPORT_TOL})
+
+    # K3 against its plain version, then its times at the path's shapes.
+    plan = gather.plan
+    errs, scales, inputs = k3_checks(torch, dev, plan, seed)
+    runs = {k: v.cpu().numpy() for k, v in plan.runs.items()}
+    on_split = np.isin(runs["item_seg"], runs["long_seg"])
+    flat_ids = gather.flat_indices
+    per_shape = {}
+    for d, vals in inputs.items():
+        vals32 = vals.float()
+        ms = device_ms(torch, lambda: segment_sum_bucketed(vals, plan, exact=False))
+        plain_ms = device_ms(torch, lambda: _segment_sum_plain(vals, plan, exact=False,
+                                                               presorted=False), samples=5, reps=2)
+        lib_ms = device_ms(torch, lambda: torch.zeros((GAT_NODES, d), device=dev).index_add_(
+            0, flat_ids, vals32), samples=10, reps=5)
+        bound_ms, bound_by = bound(*k3_cost(plan, d, 2))
+        per_shape[d] = {"ms": ms, "plain_ms": plain_ms, "index_add_ms": lib_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        del vals32
+    k3_step_ms = sum(v["ms"] for v in per_shape.values())
+    emit({"phase": "k3", "max_abs_err": errs, "max_abs_want": scales, "tol_scaled": K3_TOL,
+          "shapes": per_shape,
+          "path_launches": k3_launches, "launches_per_step": 2,
+          "check_and_timing_launches": segment.LAUNCHES["segment_sum"] - k3_launches,
+          "k3_ms_per_step": k3_step_ms, "step_ms_p50": step_p50,
+          "k3_share_of_step": k3_step_ms / step_p50,
+          "rows": GAT_NODES * GAT_NEIGHBORS, "e_pad": plan.e_pad,
+          "padded_slots": int((work["table"].mask == 0).sum()),
+          "split_segments": int(runs["long_seg"].size), "partials": plan.n_partials,
+          "split_segment_edges": int((runs["item_hi"] - runs["item_lo"])[on_split].sum()),
+          "edge_blocks": plan.e_pad // plan.edge_block,
+          "node_block_0_edge_blocks": int((plan.block_node == 0).sum())})
+
+    def mean(key):
+        return sum(v[key] for v in per_shape.values()) / len(per_shape)
+
+    entry = {"name": "segment_sum", "route": "cuda",
+             "source": "dragonfly2_tpu_torch/csrc/segment_sum.cu",
+             "replaces": "dragonfly2_tpu/ops/pallas_segment.py:98",
+             "launches": k3_launches, "max_abs_err": max(errs.values()),
+             "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+             "bound_by": "bytes", "library_ms": mean("index_add_ms")}
+    summary = {"steps": steps, "step_ms_p50": step_p50, "k3": per_shape,
+               "metrics": metrics.to_dict(), "step_equivalence": equiv}
+    summary["profile"] = profile_steps(torch, state, work, dev, seed)
+    emit({"phase": "training_profile", **summary["profile"]})
+    return entry, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -365,7 +676,7 @@ def main(argv=None) -> int:
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     from dragonfly2_tpu_torch.cli.scheduler import SchedulerConfig, build
-    from dragonfly2_tpu_torch.ops import _build
+    from dragonfly2_tpu_torch.ops import _build, segment
     from dragonfly2_tpu_torch.ops.fused_score import (
         LAUNCHES,
         RULE_COMPONENT_WEIGHTS,
@@ -416,6 +727,7 @@ def main(argv=None) -> int:
     hosts = [host_from_latent(lh) for lh in cluster.hosts]
 
     reset_launch_counts()
+    segment.reset_launch_counts()
     t_path = time.perf_counter()
     for h in hosts:
         service.announce_host(h)
@@ -470,6 +782,7 @@ def main(argv=None) -> int:
           f"K1 launches {launches['fused_gather_mlp_score']} != batcher scorer "
           f"calls {batcher.scorer_calls}")
     check(launches["rule_weighted_sum"] == len(records), "K2 launches != rule-arm calls")
+    check(segment.LAUNCHES["segment_sum"] == 0, "K3 launched by the serving path")
     check(batcher.fallbacks == 0, f"{batcher.fallbacks} batcher fallbacks")
     check(ev.degrades == 0, f"{ev.degrades} announces degraded to the rule ranking")
     check(len(scored) >= 0.9 * n_req,
@@ -536,6 +849,9 @@ def main(argv=None) -> int:
           "k1_device_s": busy_s, "device_busy_share": busy_s / timing["wall"]})
     k1_bound, k1_by = bound(*k1_cost(512, d1, d2))
     k2_bound, k2_by = bound(*k2_cost(512))
+
+    # -- 6. training path ---------------------------------------------------
+    k3_entry, training = train_phase(torch, dev, args.seed)
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
@@ -549,13 +865,14 @@ def main(argv=None) -> int:
          "launches": launches["rule_weighted_sum"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms},
+        k3_entry,
     ]}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_nvcc.txt"), "w") as f:
             f.write(_build.build_log)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"), "w") as f:
-            json.dump({"card": card, **kernels}, f, indent=1)
+            json.dump({"card": card, **kernels, "training": training}, f, indent=1)
     print(card, flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,14 @@
-"""Device ops of the serving path.
+"""Device ops of the serving and training paths.
 
 - ``fused_score`` — the fused slot-row gather + mask-folded MLP scoring
   kernel over the columnar host store's slot matrix, and the rule path's
-  weighted-sum kernel.  Both are CUDA C++ (``csrc/fused_score.cu``),
-  built at first use by ``_build``; each has its plain PyTorch version
-  beside it, which a CPU tensor takes.
+  weighted-sum kernel (``csrc/fused_score.cu``).
+- ``segment`` — the segment sum by destination (``csrc/segment_sum.cu``)
+  and the neighbor gather whose backward it is (the GAT trainer).
+- ``aggregate`` — plain PyTorch aggregation ops, the numerics oracles.
+
+The kernels are CUDA C++, built at first use by ``_build``; each has its
+plain PyTorch version beside it, which a CPU tensor takes.
 """
 
 from .fused_score import (  # noqa: F401
@@ -17,3 +21,4 @@ from .fused_score import (  # noqa: F401
     rule_weighted_sum,
     split_first_layer,
 )
+from .segment import make_neighbor_gather, segment_sum  # noqa: F401

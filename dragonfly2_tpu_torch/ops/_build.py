@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-``csrc/fused_score.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface and loaded with ``ctypes``: no
-PyTorch headers, so the build takes seconds.  It runs at first use,
-under a lock (the batcher's leader thread and the caller's thread can
-race on it), into ``build/dragonfly2_tpu_torch_kernels/`` beside the
-package, and again whenever the source's hash changes.
+PyTorch headers, so the build takes seconds.  Each source compiles in
+its own ``nvcc`` process, all started together, and one more links them.
+The build runs at first use, under a lock (the batcher's leader thread
+and the caller's thread can race on it), into
+``build/dragonfly2_tpu_torch_kernels/`` beside the package, and again
+whenever the sources' hash changes.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; ``check``
 turns a non-zero code into an exception.  Pointers and the stream cross
@@ -22,16 +24,16 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE_DIR / "csrc" / "fused_score.cu"
+SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "dragonfly2_tpu_torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
 )
 
 _lock = threading.Lock()
@@ -55,6 +57,13 @@ _SIGNATURES = {
     # components, out, n, w0..w5, stream
     "df_rule_weighted_sum": ([_P, _P, _I, _F, _F, _F, _F, _F, _F, _P], ctypes.c_int),
     "df_fused_score_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    # values, values_bf16, round_bf16, perm, w, item_seg, item_lo, item_hi,
+    # item_slot, n_items, long_seg, long_first, n_long, partial, out, d,
+    # stream
+    "df_segment_sum": (
+        [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P],
+        ctypes.c_int,
+    ),
     "df_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -83,34 +92,60 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _compile(target: Path) -> None:
+def sources() -> List[Path]:
+    return sorted(SOURCE_DIR.glob("*.cu"))
+
+
+def _compile(target: Path, srcs: List[Path]) -> None:
+    """One ``nvcc -c`` per source, all at once, then one link."""
     global build_log, build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+    nvcc = _nvcc()
+    tag = f"{target.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
+    procs = [
+        subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(srcs, objs)
+    ]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}" for src, proc in zip(srcs, procs)]
+    failed = [src.name for src, proc in zip(srcs, procs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     # Atomic publish: a concurrent process sees the whole library or none.
     os.replace(tmp, target)
 
 
 def load() -> ctypes.CDLL:
-    """The kernels' library, built if this source has not been built."""
+    """The kernels' library, built if these sources have not been built."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        target = BUILD_DIR / f"libdf_fused_score_{digest}.so"
+        srcs = sources()
+        h = hashlib.sha256()
+        for src in srcs:
+            h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+        target = BUILD_DIR / f"libdf_kernels_{h.hexdigest()[:16]}.so"
         if not target.exists():
-            _compile(target)
+            _compile(target, srcs)
         lib = ctypes.CDLL(str(target))
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -3,15 +3,18 @@
 A latent cluster model whose per-edge bandwidth is a deterministic
 function of latent host capacities, load and topology plus noise.  This
 package keeps the host latents (the announce swarm and the serving
-smoke run build their hosts from them) and the bandwidth ground truth; the
-record-level and vectorized training-row generators wait for the trainer.
+smoke run build their hosts from them), the bandwidth and RTT ground
+truth, the host feature matrix and the probe graph (the GAT trainer's
+inputs).  The record-level and vectorized training-row generators wait
+for the MLP trainer.  Every draw happens in the JAX package's order, so
+one seed gives the same cluster, probe edges and noise in both.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -59,6 +62,7 @@ class SyntheticCluster:
     bandwidth(parent→child) =
         min(parent_up / (1 + a·uploads), child_down)
         · idc/region affinity factor · cpu-load factor · lognormal noise
+    rtt(src→dst) = base(region, idc, zone) + load jitter.
     """
 
     def __init__(self, num_hosts: int = 64, seed: int = 0, seed_peer_fraction: float = 0.06):
@@ -148,3 +152,56 @@ class SyntheticCluster:
         if noise:
             bw = bw * np.exp((rng or self.rng).normal(0.0, 0.12, bw.shape))
         return np.maximum(bw, 1e3)
+
+    def rtt_ns(self, src: int, dst: int, noise: bool = True) -> float:
+        return float(self._rtt_vec(np.array([src]), np.array([dst]), noise)[0])
+
+    def _rtt_vec(
+        self,
+        src: np.ndarray,
+        dst: np.ndarray,
+        noise: bool = True,
+        rng: Optional[np.random.Generator] = None,
+    ) -> np.ndarray:
+        """``rng`` overrides the shared generator for the jitter, like
+        ``_bandwidth_vec`` — position-deterministic topology streams (the
+        online soak's resumable probe feed) need it."""
+        base = np.where(
+            self.idc[src] == self.idc[dst],
+            0.3e6,  # 0.3 ms intra-idc
+            np.where(self.region[src] == self.region[dst], 2e6, 30e6),
+        ).astype(np.float64)
+        base = base * (1.0 + (self.zone[src] != self.zone[dst]) * 0.5)
+        base = base + 0.5e6 * self.cpu_load[dst]
+        if noise:
+            base = base * np.exp((rng or self.rng).normal(0.0, 0.08, base.shape))
+        return base
+
+    # -- vectorized generation (bench scale) ---------------------------------
+
+    def _host_feature_matrix(self) -> np.ndarray:
+        """[num_hosts, HOST_FEATURE_DIM] matching features.host_features()."""
+        n = self.num_hosts
+        out = np.zeros((n, 12), dtype=np.float32)
+        out[:, 0] = self.cpu_load
+        out[:, 1] = self.mem_load
+        out[:, 2] = self.disk_load
+        out[:, 3] = np.log1p(self.tcp_conns)
+        out[:, 4] = np.log1p(self.upload_conns)
+        out[:, 5] = np.minimum(self.concurrent_uploads / np.maximum(self.upload_limit, 1), 4.0)
+        out[:, 6] = 1.0 - np.minimum(self.upload_failed / np.maximum(self.upload_count, 1), 1.0)
+        out[:, 7] = np.log1p(self.upload_count)
+        out[:, 8] = (self.host_type == 0).astype(np.float32)
+        out[:, 9] = (self.host_type == 1).astype(np.float32)
+        return out
+
+    def probe_edges(self, density: float = 0.1, seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Random directed probe edges: (senders, receivers, rtt_ns). No self loops."""
+        r = np.random.default_rng(seed)
+        n_edges = int(self.num_hosts * max(self.num_hosts - 1, 1) * density)
+        n_edges = max(n_edges, self.num_hosts)
+        src = r.integers(0, self.num_hosts, n_edges)
+        dst = r.integers(0, self.num_hosts, n_edges)
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        return src, dst, self._rtt_vec(src, dst)

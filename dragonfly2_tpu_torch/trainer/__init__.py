@@ -1,3 +1,11 @@
-"""Trainer side of the serving contract: the exported MLP scorer artifact."""
+"""Trainer: the GAT ranker's training loop and the scorer artifacts."""
 
-from .export import MLPScorer, export_mlp_scorer, load_scorer, scorer_to_bytes  # noqa: F401
+from .export import (  # noqa: F401
+    GNNScorer,
+    MLPScorer,
+    export_gnn_scorer,
+    export_mlp_scorer,
+    gnn_scorer_to_bytes,
+    load_scorer,
+    scorer_to_bytes,
+)

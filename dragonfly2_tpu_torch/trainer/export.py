@@ -16,7 +16,9 @@ Artifact format (.npz):
 
 ``MLPScorer`` is the pure-numpy scorer and the reference every device
 path is held to; ``ops/fused_score.py`` serves the same blob on the card.
-The ``GNNScorer`` half of the artifact family waits for the graph models.
+``GNNScorer`` is the GAT ranker's artifact: the trained encoder baked
+into an embedding table plus the head (``export_gnn_scorer``).  Blobs of
+both kinds load in either package.
 """
 
 from __future__ import annotations
@@ -317,7 +319,14 @@ def load_scorer(path_or_bytes):
     with np.load(src) as data:
         meta = json.loads(bytes(data["meta"]).decode("utf-8"))
         if meta["model_type"] == "gnn":
-            raise ValueError("GNN scorer artifacts are not served by this package yet")
+            return GNNScorer(
+                buckets=data["buckets"],
+                embeddings=data["embeddings"],
+                head_weights=[
+                    (data[f"w{i}"], data[f"b{i}"]) for i in range(meta["n_layers"])
+                ],
+                version=meta["version"],
+            )
         quant_mode = meta.get("quant_mode")
         if quant_mode:
             qlayers = [
@@ -357,7 +366,7 @@ def load_scorer(path_or_bytes):
 
 
 # ---------------------------------------------------------------------------
-# gelu
+# GNN scorer: embedding table + head, served host-side by bucket lookup
 # ---------------------------------------------------------------------------
 
 
@@ -368,3 +377,146 @@ def _np_gelu(x: np.ndarray) -> np.ndarray:
     largest term in the serving path's scorer profile (BENCHMARKS.md)."""
     x3 = x * x * x
     return 0.5 * x * (1.0 + np.tanh(0.7978845608 * (x + 0.044715 * x3)))
+
+
+@dataclass
+class GNNScorer:
+    """The GAT ranker's serve-time form.
+
+    The trainer bakes the encoder INTO an embedding table (one forward pass
+    per training round — node embeddings change with the graph, not per
+    request) and exports table + head.  Serving is two table lookups and a
+    3-layer numpy head — same no-RPC hot-path budget as the MLP scorer.
+    Hosts unseen at training time fall back to the mean embedding.
+    """
+
+    buckets: np.ndarray                       # [N] sorted hash buckets
+    embeddings: np.ndarray                    # [N, D]
+    head_weights: List[Tuple[np.ndarray, np.ndarray]]
+    model_type: str = "gnn"
+    version: int = SCORER_SCHEMA_VERSION
+    # The evaluator skips per-parent featurization for scorers that rank
+    # purely from host identity (scheduler hot-path economy).
+    wants_features: bool = False
+
+    def __post_init__(self) -> None:
+        self._mean_emb = self.embeddings.mean(axis=0)
+
+    def _lookup(self, bucket_ids: np.ndarray) -> np.ndarray:
+        idx = np.searchsorted(self.buckets, bucket_ids)
+        idx = np.clip(idx, 0, len(self.buckets) - 1)
+        hit = self.buckets[idx] == bucket_ids
+        emb = self.embeddings[idx]
+        emb[~hit] = self._mean_emb
+        return emb
+
+    def score(  # dflint: hotpath
+        self,
+        features: np.ndarray,
+        *,
+        src_buckets: Optional[np.ndarray] = None,
+        dst_buckets: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        # Batched-score contract (EdgeScorer): rows score independently —
+        # two table lookups + a row-wise head — so padded micro-batches
+        # are safe.
+        if src_buckets is None or dst_buckets is None:
+            raise ValueError("GNNScorer needs src/dst host buckets")
+        s = self._lookup(np.asarray(src_buckets, np.int64))
+        d = self._lookup(np.asarray(dst_buckets, np.int64))
+        x = np.concatenate([s, d, s * d], axis=-1).astype(np.float32)  # dflint: disable=DF007
+        n = len(self.head_weights)
+        for i, (w, b) in enumerate(self.head_weights):  # dflint: disable=DF007 — per-LAYER (3 fixed), not per-item
+            x = x @ w + b
+            if i < n - 1:
+                x = _np_gelu(x)
+        return x[..., 0]
+
+
+def export_gnn_scorer(model, node_feats: np.ndarray, table, buckets: np.ndarray) -> GNNScorer:
+    """Bake a trained ``GATRanker`` (``models/gnn.py``) into a scorer
+    artifact: its node embeddings from one forward pass (eval mode, on
+    the model's device) and its head.
+
+    ``buckets[i]`` is the hash bucket of graph node i (the trainer's dense
+    index ↔ host keyspace map).
+    """
+    import torch
+
+    dev = next(model.parameters()).device
+    was_training = model.training
+    model.eval()
+    with torch.no_grad():
+        emb = model.embeddings(
+            torch.as_tensor(np.asarray(node_feats, np.float32)).to(dev), table.to(dev)
+        ).float().cpu().numpy()
+    model.train(was_training)
+    # Head layers: the top-level Dense stack consuming [s, d, s*d].  The
+    # GATRanker carries one leading non-head Dense (the embedding
+    # projection); detect the head start by input width.
+    dense = {
+        name: (
+            mod.kernel.detach().float().cpu().numpy(),
+            mod.bias.detach().float().cpu().numpy(),
+        )
+        for name, mod in model.named_children()
+        if name.startswith("Dense_")
+    }
+    dense_names = sorted(dense, key=lambda k: int(k.split("_")[1]))
+    expected_in = 3 * emb.shape[1]
+
+    def _head_from(start: int):
+        """Validate the trailing Dense chain [start:]: widths must chain
+        and the final layer must be the scalar score head."""
+        ws = [dense[k] for k in dense_names[start:]]
+        if not ws or ws[0][0].shape[0] != expected_in or ws[-1][0].shape[1] != 1:
+            return None
+        for (w1, _), (w2, _) in zip(ws, ws[1:]):
+            if w1.shape[1] != w2.shape[0]:
+                return None
+        return ws
+
+    # LAST matching start wins: a leading non-head Dense can share the
+    # input width, but it cannot chain through to the scalar output.
+    head = next(
+        (
+            h
+            for i in range(len(dense_names) - 1, -1, -1)
+            if dense[dense_names[i]][0].shape[0] == expected_in
+            and (h := _head_from(i)) is not None
+        ),
+        None,
+    )
+    if head is None:
+        raise ValueError(
+            f"no trailing Dense chain consumes [s,d,s*d] width {expected_in} "
+            "and ends in a scalar head: models trained with query_edge_feats "
+            "are not exportable as a GNNScorer"
+        )
+    order = np.argsort(buckets)
+    return GNNScorer(
+        buckets=np.asarray(buckets, np.int64)[order],
+        embeddings=emb[order].astype(np.float32),
+        head_weights=head,
+    )
+
+
+def gnn_scorer_to_bytes(scorer: GNNScorer) -> bytes:
+    arrays: Dict[str, np.ndarray] = {
+        "buckets": scorer.buckets,
+        "embeddings": scorer.embeddings,
+    }
+    for i, (w, b) in enumerate(scorer.head_weights):
+        arrays[f"w{i}"] = w
+        arrays[f"b{i}"] = b
+    meta = json.dumps(
+        {
+            "model_type": "gnn",
+            "version": scorer.version,
+            "n_layers": len(scorer.head_weights),
+        }
+    )
+    arrays["meta"] = np.frombuffer(meta.encode("utf-8"), dtype=np.uint8)
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()

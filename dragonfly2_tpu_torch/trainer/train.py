@@ -1,0 +1,339 @@
+"""Graph model training, single device: the GAT parent-peer ranker.
+
+Port of the graph half of ``dragonfly2_tpu/trainer/train.py``
+(``train_gat_ranker`` → ``_train_graph_model`` → ``_graph_train_step``).
+``device=`` takes the place of the JAX package's ``mesh=``; meshes,
+``train_graphsage``, ``train_hop_ranker`` and the MLP trainer come later.
+
+What is kept exactly:
+- the numpy train/validation split and the per-epoch batch order, so both
+  packages train on the same batches in the same order;
+- the optimizer's semantics: optax ``clip_by_global_norm(1.0)`` (scale by
+  ``max_norm / norm`` only when the norm exceeds it — not torch's
+  ``clip_grad_norm_``, which divides by norm + 1e-6), then ``adamw``
+  (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay on every
+  parameter) over ``warmup_cosine_decay_schedule(init_value=0.0, ...)``,
+  whose first step's learning rate is 0;
+- the output-bias warm start at the training split's target mean, the
+  Huber loss and the evaluation metrics.
+
+Dropout draws from the state's ``torch.Generator``, so its masks differ
+from JAX's; parity runs use dropout 0.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.gnn import GATRanker, GNNConfig, NeighborTable
+from ..models.mlp import warm_start_output_bias
+from ..ops import _build
+
+
+@dataclass
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 1e-4
+    epochs: int = 5
+    warmup_steps: int = 100
+    log_every: int = 50
+    seed: int = 0
+
+
+@dataclass
+class EvalMetrics:
+    """What gets recorded in the model registry (manager model evaluation)."""
+
+    mse: float = 0.0
+    mae: float = 0.0                  # log-space MAE
+    bandwidth_mae_mbps: float = 0.0   # unlogged, MB/s — BASELINE's headline metric
+    precision: float = 0.0
+    recall: float = 0.0
+    f1: float = 0.0
+
+    def to_dict(self) -> Dict[str, float]:
+        return {
+            "mse": self.mse,
+            "mae": self.mae,
+            "bandwidth_mae_mbps": self.bandwidth_mae_mbps,
+            "precision": self.precision,
+            "recall": self.recall,
+            "f1": self.f1,
+        }
+
+
+class AdamW:
+    """optax ``chain(clip_by_global_norm(1.0), adamw(schedule, wd))`` with
+    optax's defaults (b1 0.9, b2 0.999, eps 1e-8).
+
+    ``update(grads)`` applies one step to ``params`` in place: clip by
+    the global norm, Adam moments and bias correction, decoupled weight
+    decay, then ``-lr(count)`` with ``count`` the number of earlier
+    updates (0 on the first)."""
+
+    MAX_NORM = 1.0
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, params: List[nn.Parameter], schedule, *, weight_decay: float) -> None:
+        self.params = list(params)
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor]) -> None:
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        # optax: where(norm < max_norm, g, g / norm * max_norm).
+        clipped = [
+            torch.where(g_norm < self.MAX_NORM, g, (g / g_norm) * self.MAX_NORM)
+            for g in grads
+        ]
+        b1, b2 = self.B1, self.B2
+        count = self.count + 1
+        lr = float(self.schedule(self.count))
+        c1 = 1.0 - b1 ** count
+        c2 = 1.0 - b2 ** count
+        for p, g, mu, nu in zip(self.params, clipped, self.mu, self.nu):
+            mu.copy_((1.0 - b1) * g + b1 * mu)
+            nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
+            upd = (mu / c1) / (torch.sqrt(nu / c2) + self.EPS)
+            upd = upd + self.weight_decay * p
+            p.add_(-lr * upd)
+        self.count = count
+
+
+def warmup_cosine_decay_schedule(
+    init_value: float,
+    peak_value: float,
+    warmup_steps: int,
+    decay_steps: int,
+    end_value: float = 0.0,
+):
+    """optax's schedule of the same name: linear from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then cosine decay to
+    ``end_value`` over the remaining ``decay_steps - warmup_steps``."""
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError(f"decay_steps {decay_steps} must exceed warmup_steps {warmup_steps}")
+    alpha = end_value / peak_value if peak_value else 0.0
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - max(count, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(count - warmup_steps, cos_steps)
+        decayed = (1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / cos_steps)) + alpha
+        return peak_value * decayed
+
+    return schedule
+
+
+def _make_optimizer(params, cfg: TrainConfig, steps_per_epoch: int) -> AdamW:
+    total = max(cfg.epochs * steps_per_epoch, cfg.warmup_steps + 1)
+    schedule = warmup_cosine_decay_schedule(
+        init_value=0.0,
+        peak_value=cfg.learning_rate,
+        warmup_steps=cfg.warmup_steps,
+        decay_steps=total,
+    )
+    return AdamW(params, schedule, weight_decay=cfg.weight_decay)
+
+
+@dataclass
+class TrainState:
+    """The model (its parameters), the optimizer, the step count, the
+    dropout generator and, after training, the validation edges and the
+    model's predictions for them."""
+
+    model: nn.Module
+    opt: AdamW
+    generator: torch.Generator
+    step: int = 0
+    val_idx: Optional[np.ndarray] = None
+    val_pred: Optional[np.ndarray] = None
+
+
+def _huber(pred: torch.Tensor, target: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    err = pred - target
+    abs_err = torch.abs(err)
+    quad = torch.clamp(abs_err, max=delta)
+    return torch.mean(0.5 * quad**2 + delta * (abs_err - quad))
+
+
+def _regression_metrics(pred: np.ndarray, target: np.ndarray) -> EvalMetrics:
+    err = pred - target
+    mse = float(np.mean(err**2))
+    mae = float(np.mean(np.abs(err)))
+    bw_mae = float(np.mean(np.abs(np.expm1(pred) - np.expm1(target)))) / 1e6
+    # "Good parent" = top-half bandwidth; measures ranking usefulness the way
+    # the registry's gnn evaluation wants precision/recall/f1.
+    thresh = np.median(target)
+    pos_pred, pos_true = pred >= thresh, target >= thresh
+    tp = float(np.sum(pos_pred & pos_true))
+    precision = tp / max(float(np.sum(pos_pred)), 1.0)
+    recall = tp / max(float(np.sum(pos_true)), 1.0)
+    f1 = 2 * precision * recall / max(precision + recall, 1e-9)
+    return EvalMetrics(
+        mse=mse,
+        mae=mae,
+        bandwidth_mae_mbps=bw_mae,
+        precision=precision,
+        recall=recall,
+        f1=f1,
+    )
+
+
+def _graph_loss_and_grads(
+    state: TrainState, node_feats, table, src, dst, target, qef
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Loss of one batch (dropout from the state's generator) and the
+    gradient of every parameter."""
+    model = state.model
+    pred = model(node_feats, table, src, dst, qef, train=True, generator=state.generator)
+    loss = _huber(pred, target)
+    params = list(model.parameters())
+    grads = torch.autograd.grad(loss, params)
+    return loss.detach(), list(grads)
+
+
+def _graph_train_step(
+    state: TrainState, node_feats, table, src, dst, target, qef
+) -> Tuple[TrainState, torch.Tensor]:
+    loss, grads = _graph_loss_and_grads(state, node_feats, table, src, dst, target, qef)
+    state.opt.update(grads)
+    state.step += 1
+    return state, loss
+
+
+def split_edges(n_edges: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(val_idx, train_idx): the JAX trainer's 10 % validation split."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(n_edges)
+    n_val = max(int(n_edges * 0.1), 1)
+    return order[:n_val], order[n_val:]
+
+
+def epoch_batches(train_idx: np.ndarray, batch: int, seed: int, epoch: int):
+    """The index arrays of one epoch's full batches, in the JAX trainer's order."""
+    ep_order = np.random.default_rng(seed + epoch).permutation(train_idx)
+    for start in range(0, len(ep_order) - batch + 1, batch):
+        yield ep_order[start : start + batch]
+
+
+def train_gat_ranker(
+    node_feats: np.ndarray,
+    table: NeighborTable,
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    edge_target: np.ndarray,          # log1p bandwidth per download edge
+    query_edge_feats: Optional[np.ndarray] = None,
+    *,
+    model_config: Optional[GNNConfig] = None,
+    config: Optional[TrainConfig] = None,
+    device="cuda",
+    batch_size: int = 4096,
+) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
+    """Train a ``GATRanker`` (initialized from ``config.seed``) on the
+    download edges; → (state, validation metrics, history)."""
+    cfg = config or TrainConfig()
+    mcfg = model_config or GNNConfig()
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = GATRanker(
+        mcfg,
+        num_nodes=int(node_feats.shape[0]),
+        in_dim=int(node_feats.shape[1]),
+        query_edge_dim=0 if query_edge_feats is None else int(query_edge_feats.shape[1]),
+        generator=gen,
+    )
+    return _train_graph_model(
+        model, node_feats, table, edge_src, edge_dst, edge_target,
+        query_edge_feats, cfg, device, batch_size,
+    )
+
+
+def _train_graph_model(
+    model: nn.Module,
+    node_feats: np.ndarray,
+    table: NeighborTable,
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    edge_target: np.ndarray,
+    query_edge_feats: Optional[np.ndarray],
+    cfg: TrainConfig,
+    device,
+    batch_size: int,
+) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
+    """Train ``model`` from its current parameters.  History entries add
+    ``elapsed_s`` (seconds since the first step began, taken after the
+    step's loss reached the host) to the JAX trainer's keys."""
+    dev = _build.resolve_device(device)
+    val_idx, train_idx = split_edges(len(edge_src), cfg.seed)
+
+    b0 = min(batch_size, max(len(train_idx), 2))
+    if len(train_idx) < b0:
+        raise ValueError(f"no full batches: {len(train_idx)} train edges < batch {b0}")
+    # Output-bias warm start at the training-split target mean (Huber's
+    # linear tail otherwise spends the whole run closing the offset).
+    warm_start_output_bias(model, float(edge_target[train_idx].mean()))
+    model.to(dev)
+    steps_per_epoch = max(len(train_idx) // b0, 1)
+    state = TrainState(
+        model=model,
+        opt=_make_optimizer(list(model.parameters()), cfg, steps_per_epoch),
+        generator=torch.Generator(device=dev).manual_seed(cfg.seed + 1),
+    )
+    nf = torch.as_tensor(np.asarray(node_feats, np.float32)).to(dev)
+    dev_table = table.to(dev)
+    has_qef = query_edge_feats is not None
+
+    def batch(idx: np.ndarray):
+        args = [
+            torch.from_numpy(np.asarray(edge_src[idx], np.int64)).to(dev),
+            torch.from_numpy(np.asarray(edge_dst[idx], np.int64)).to(dev),
+        ]
+        qef = (
+            torch.from_numpy(np.asarray(query_edge_feats[idx], np.float32)).to(dev)
+            if has_qef else None
+        )
+        return args, qef
+
+    history: List[Dict[str, float]] = []
+    model.train()
+    t0 = time.perf_counter()
+    seen = 0
+    for epoch in range(cfg.epochs):
+        for idx in epoch_batches(train_idx, b0, cfg.seed, epoch):
+            (src, dst), qef = batch(idx)
+            target = torch.from_numpy(np.asarray(edge_target[idx], np.float32)).to(dev)
+            state, loss = _graph_train_step(state, nf, dev_table, src, dst, target, qef)
+            seen += b0
+            if state.step % cfg.log_every == 0:
+                loss_v = float(loss)
+                elapsed = time.perf_counter() - t0
+                history.append(
+                    {
+                        "step": state.step,
+                        "epoch": epoch,
+                        "loss": loss_v,
+                        "records_per_sec": seen / elapsed,
+                        "elapsed_s": elapsed,
+                    }
+                )
+
+    # Validation on the held-out edges.
+    model.eval()
+    (src, dst), qef = batch(val_idx)
+    with torch.no_grad():
+        pred = model(nf, dev_table, src, dst, qef).float().cpu().numpy()
+    metrics = _regression_metrics(pred, edge_target[val_idx])
+    state.val_idx, state.val_pred = val_idx, pred
+    return state, metrics, history

@@ -6,7 +6,9 @@ is available; on a machine with one (and without JAX) run them with
 
 Tolerances: K1 1e-5 scaled by max(1, max |score|) (f32, another sum
 order, tanhf ulps); K2 1e-6; the fused scorer against the numpy scorer
-1e-4.
+1e-4.  K3 1e-5 scaled by max(1, max |sum|): both sides round the values
+to bf16 the same way, the plain version sums in float64, the kernel in
+f32 in its own order.
 """
 
 from __future__ import annotations
@@ -108,3 +110,80 @@ def test_fused_scorer_on_the_card_matches_the_numpy_scorer(cuda):
                                rtol=1e-4, atol=1e-4)
     ranked = ml.evaluate_parents(peers[1:25], peers[0], task.total_piece_count)
     assert ml.degrades == 0 and len(ranked) == 24
+
+
+def _k3_case(cuda, e, d, n, dtype, exact, *, hot=0, node_block=256, edge_block=512):
+    """K3 against its plain version on seeded values; ``hot`` edges all
+    go to segment 0 (the GAT's padded-slot run)."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import segment as seg
+
+    rng = np.random.default_rng(e + d)
+    ids = rng.integers(0, n, e)
+    ids[:hot] = 0
+    vals = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(dtype).to(cuda)
+    plan = seg.build_plan(ids, n, node_block=node_block, edge_block=edge_block, device=cuda)
+    before = seg.LAUNCHES["segment_sum"]
+    got = seg.segment_sum_bucketed(vals, plan, exact=exact)
+    torch.cuda.synchronize()
+    assert seg.LAUNCHES["segment_sum"] == before + 1
+    want = seg._segment_sum_plain(vals, plan, exact=exact, presorted=False)
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("d", [1, 44, 128, 200])
+@pytest.mark.parametrize("dtype,exact", [("bf16", False), ("f32", True), ("f32", False)])
+def test_k3_matches_its_plain_version(cuda, d, dtype, exact):
+    import torch
+
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    _k3_case(cuda, 20000, d, 3000, dt, exact, hot=5000)
+
+
+def test_k3_at_the_gat_shape(cuda):
+    """1.6M edges into 100k segments with ~158k on node 0, D = 128 bf16."""
+    import torch
+
+    _k3_case(cuda, 1_600_000, 128, 100_000, torch.bfloat16, False, hot=158_638)
+
+
+def test_k3_zero_edges_and_empty_node_blocks_are_zero(cuda):
+    import torch
+
+    from dragonfly2_tpu_torch.ops import segment as seg
+
+    got = seg.segment_sum(torch.zeros((0, 8), device=cuda), np.zeros(0, np.int64), 300)
+    assert got.shape == (300, 8) and not bool(got.any())
+    vals = torch.ones((4, 8), device=cuda)
+    got = seg.segment_sum(vals, np.array([5, 5, 6, 200]), 600).cpu()
+    assert float(got[5].sum()) == 16.0 and float(got[200].sum()) == 8.0
+    assert float(got.sum()) == 32.0
+
+
+def test_k3_neighbor_gather_backward(cuda):
+    import torch
+
+    from dragonfly2_tpu_torch.ops import segment as seg
+
+    rng = np.random.default_rng(7)
+    n, k, d = 3000, 16, 44
+    idx = rng.integers(0, n, (n, k)).astype(np.int32)
+    idx[: n // 3, 8:] = 0
+    gather = seg.make_neighbor_gather(idx, n, device=cuda)
+    table = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(
+        torch.bfloat16).to(cuda).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((n, k, d)).astype(np.float32)).to(
+        torch.bfloat16).to(cuda)
+    out = gather(table)
+    assert torch.equal(out, table.detach()[torch.from_numpy(idx).long().to(cuda)])
+    before = seg.LAUNCHES["segment_sum"]
+    out.backward(g)
+    assert seg.LAUNCHES["segment_sum"] == before + 1
+    want = torch.zeros((n, d), dtype=torch.float64, device=cuda).index_add_(
+        0, torch.from_numpy(idx.reshape(-1)).long().to(cuda), g.reshape(-1, d).double())
+    assert table.grad.dtype == torch.bfloat16
+    err = float((table.grad.double() - want).abs().max())
+    assert err <= 1e-2 * max(1.0, float(want.abs().max()))

@@ -76,6 +76,9 @@ print("OK")
         "dragonfly2_tpu_torch.ops.fused_score",
         "dragonfly2_tpu_torch.scheduler.service",
         "dragonfly2_tpu_torch.sim.swarm",
+        "dragonfly2_tpu_torch.ops.segment",
+        "dragonfly2_tpu_torch.trainer.train",
+        "dragonfly2_tpu_torch.trainer.export",
         "chip_smoke",
     ],
 )

@@ -3,7 +3,7 @@
 
 A blob written by either package loads in the other and scores
 bit-equal on the numpy path, for float, int8 and bf16 artifacts (the
-``test_ops`` quantized-blob contract).  ``export_mlp_scorer`` turns
+``test_ops`` quantized-blob contract) and for GNN artifacts.  ``export_mlp_scorer`` turns
 flax ``MLPRegressor`` params, converted to numpy, into the same weights
 in both packages, and the port serves them as the flax model computes.
 """
@@ -74,14 +74,27 @@ def test_blob_loads_across_packages_and_scores_bit_equal(mode, writer, reader):
     assert np.array_equal(again.score(rows), written.score(rows))
 
 
-def test_gnn_blob_is_refused_until_the_graph_models_are_ported():
-    scorer = jax_export.GNNScorer(
-        buckets=np.arange(4, dtype=np.int64),
-        embeddings=np.ones((4, 2), np.float32),
-        head_weights=[(np.ones((6, 1), np.float32), np.zeros(1, np.float32))],
+@pytest.mark.parametrize(
+    "writer,reader", [(jax_export, export), (export, jax_export)],
+    ids=["jax_to_torch", "torch_to_jax"],
+)
+def test_gnn_blob_round_trips_across_packages(writer, reader):
+    rng = np.random.default_rng(5)
+    scorer = writer.GNNScorer(
+        buckets=np.arange(4, dtype=np.int64) * 3,
+        embeddings=rng.standard_normal((4, 2)).astype(np.float32),
+        head_weights=[(rng.standard_normal((6, 1)).astype(np.float32),
+                       np.full(1, 0.5, np.float32))],
     )
-    with pytest.raises(ValueError):
-        export.load_scorer(jax_export.gnn_scorer_to_bytes(scorer))
+    loaded = reader.load_scorer(writer.gnn_scorer_to_bytes(scorer))
+    assert type(loaded).__name__ == "GNNScorer" and loaded.model_type == "gnn"
+    src, dst = np.array([0, 3, 9, 7]), np.array([6, 6, 0, 3])
+    assert np.array_equal(
+        loaded.score(None, src_buckets=src, dst_buckets=dst),
+        scorer.score(None, src_buckets=src, dst_buckets=dst),
+    )
+    again = writer.load_scorer(reader.gnn_scorer_to_bytes(loaded))
+    assert np.array_equal(again.embeddings, scorer.embeddings)
 
 
 def _flax_params(hidden=(64, 64), seed=0):
