@@ -26,10 +26,13 @@ Phases:
    through the evaluator and scored by K1 directly, and held to the
    numpy ``MLPScorer`` on ``_featurize_batch`` rows: scores within 1e-4,
    orders equal wherever adjacent reference scores differ by > 1e-4.
+   The scorer made one upload and one download per K1 launch.
 4. Kernels against their plain versions on the same inputs: K1 at the
    path's padded sizes (128, 256, 512 rows) and at 4,096 rows over the
    full 65,536-row mirror, K2 at [512, 6].
-5. Times from CUDA events at 512 rows (median of 25).  The announce
+5. Times from CUDA events (median of 25): K1 at 128 rows (the pad most
+   flushes take) and 512, K2 at 512, and the launch floor (an empty
+   launch, ``torch.cuda._sleep(1)``, timed the same way).  The announce
    rate and register_peer p50/p99 are those of the 512 concurrent
    requests (a closed loop of 32 clients); evaluate_parents and the
    scorer flush are timed per call around the same requests.
@@ -50,8 +53,9 @@ Phases:
    validation predictions.  Then K3 against its plain version at the
    path's two shapes (bf16, D 44 and 128, over the real bucketed
    layout), at an f32 ``exact=True`` shape, with zero edges and with an
-   empty node block; and its device time, its plain version's and
-   ``index_add_``'s at the path's shapes, and the train step time.
+   empty node block; and its device time (and its two passes' from
+   ``torch.profiler``), its plain version's and ``index_add_``'s at the
+   path's shapes, and the train step time.
 
 Prints JSON lines, the ``kernels`` line second to last and the contract
 line ``{"ok": true, "device": {...}}`` last.  Any failed check exits
@@ -72,13 +76,14 @@ import dataclasses
 import json
 import os
 import random
-import statistics
 import subprocess
 import sys
 import threading
 import time
 
 import numpy as np
+
+from dragonfly2_tpu_torch.bench.timing import bound, device_ms, k1_cost, k2_cost, k3_cost
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -93,7 +98,6 @@ STORE_SLOTS = 65536
 SCORE_TOL = 1e-4          # path vs numpy MLPScorer (scores and ties)
 K1_TOL = 1e-5             # K1 vs plain, scaled by max(1, max |score|)
 K2_TOL = 1e-6             # K2 vs plain
-TIMING_SAMPLES = 25
 # The training phase (BASELINE configs[2], the bench's batch).
 GAT_NODES = 100_000
 GAT_NEIGHBORS = 16
@@ -104,10 +108,6 @@ K3_TOL = 1e-5             # K3 vs plain, scaled by max(1, max |sum|)
 STEP_LOSS_TOL = 1e-3      # K3 gather step vs index gather step: loss (relative)
 STEP_GRAD_TOL = 5e-2      # ... and gradient abs-sum (relative)
 EXPORT_TOL = 3e-2         # exported scorer vs the model's predictions (absolute)
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
-# the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -335,55 +335,6 @@ def verify_rankings(ev, scorer, ref, records):
 # ---------------------------------------------------------------------------
 
 
-def device_ms(torch, fn, samples=TIMING_SAMPLES, reps=10):
-    """Median device time of one ``fn()`` over ``samples`` runs of
-    ``reps`` back-to-back calls.  A spin kernel queued first keeps the
-    card busy while the host issues the calls, so the events bracket
-    device time, not the host's issue rate."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    # ~1.5 GHz: spin at least twice the host issue time.
-    cycles = int(max(host_s * 2.0, 1e-4) * 1.5e9)
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def k1_cost(n, d1, d2):
-    """(bytes, FLOPs) K1 needs for n rows: slot ids, edge rows, the two
-    gathered host rows and the score per row, plus the weights once;
-    the dense stack's multiply-adds plus ~9 operations per gelu."""
-    row_bytes = 2 * 4 + 8 * 4 + 2 * 12 * 4 + 4
-    weight_bytes = 4 * (32 * d1 + d1 + d1 * d2 + d2 + d2 + 1)
-    flops = n * (2 * 32 * d1 + d1 + 2 * d1 * d2 + d2 + 2 * d2 + 1 + 9 * (d1 + d2))
-    return n * row_bytes + weight_bytes, flops
-
-
-def k2_cost(n):
-    return n * (6 * 4 + 4), n * 11
-
-
-def bound(nbytes, flops):
-    t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = flops / PEAK_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 # ---------------------------------------------------------------------------
 # The training path: the GAT ranker with K3
 # ---------------------------------------------------------------------------
@@ -449,17 +400,6 @@ def step_equivalence(torch, state, work, gather_cfg, dev, seed):
     }
 
 
-def k3_cost(plan, d, itemsize):
-    """(bytes, FLOPs) K3 needs: every real edge's value row, perm entry
-    and weight; the work items; the output rows; one multiply-add per
-    value."""
-    runs = plan.runs
-    e = int(plan.w.sum().item())
-    item_bytes = 4 * sum(int(runs[k].numel()) for k in runs)
-    nbytes = e * d * itemsize + e * 8 + item_bytes + plan.num_segments * d * 4
-    return nbytes, 2 * e * d
-
-
 def k3_checks(torch, dev, plan, seed):
     """K3 against its plain version: the path's two bf16 shapes over the
     real bucketed layout, one f32 exact shape, zero edges, an empty node
@@ -501,6 +441,32 @@ def k3_checks(torch, dev, plan, seed):
     check(not bool(cases["zero_edges"][0].any()), "K3 with zero edges is not all zero")
     check(not bool(cases["empty_node_block"][0][256:512].any()), "K3 empty node block not zero")
     return errs, scales, inputs
+
+
+def kernel_device_ms(torch, fn, names, calls=10):
+    """Device ms per ``fn()`` of each kernel whose name holds one of
+    ``names``, from ``torch.profiler``: the split of one wrapper call into
+    its launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in names}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        for name in names:
+            if name in ev.key:
+                out[name] += dev_us / 1e3 / calls
+    return out
 
 
 def profile_steps(torch, state, work, dev, seed, steps=3, top=15):
@@ -616,20 +582,27 @@ def train_phase(torch, dev, seed):
     # K3 against its plain version, then its times at the path's shapes.
     plan = gather.plan
     errs, scales, inputs = k3_checks(torch, dev, plan, seed)
-    runs = {k: v.cpu().numpy() for k, v in plan.runs.items()}
-    on_split = np.isin(runs["item_seg"], runs["long_seg"])
+    chunks = {k: v.cpu().numpy() for k, v in plan.chunks.items()}
+    on_split = chunks["chunk_slot"] >= 0
+    chunk_edges = chunks["chunk_hi"] - chunks["chunk_lo"]
     flat_ids = gather.flat_indices
     per_shape = {}
     for d, vals in inputs.items():
         vals32 = vals.float()
-        ms = device_ms(torch, lambda: segment_sum_bucketed(vals, plan, exact=False))
-        plain_ms = device_ms(torch, lambda: _segment_sum_plain(vals, plan, exact=False,
+        ms = device_ms(lambda: segment_sum_bucketed(vals, plan, exact=False))
+        plain_ms = device_ms(lambda: _segment_sum_plain(vals, plan, exact=False,
                                                                presorted=False), samples=5, reps=2)
-        lib_ms = device_ms(torch, lambda: torch.zeros((GAT_NODES, d), device=dev).index_add_(
+        lib_ms = device_ms(lambda: torch.zeros((GAT_NODES, d), device=dev).index_add_(
             0, flat_ids, vals32), samples=10, reps=5)
         bound_ms, bound_by = bound(*k3_cost(plan, d, 2))
+        # The two passes' device time (the combine pass is launched as a
+        # dependent of the first, so its span includes its wait).
+        passes = kernel_device_ms(
+            torch, lambda: segment_sum_bucketed(vals, plan, exact=False),
+            ("segment_sum_chunks", "segment_sum_combine"))
         per_shape[d] = {"ms": ms, "plain_ms": plain_ms, "index_add_ms": lib_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by}
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "share_of_bound": bound_ms / ms, "pass_ms": passes}
         del vals32
     k3_step_ms = sum(v["ms"] for v in per_shape.values())
     emit({"phase": "k3", "max_abs_err": errs, "max_abs_want": scales, "tol_scaled": K3_TOL,
@@ -640,8 +613,9 @@ def train_phase(torch, dev, seed):
           "k3_share_of_step": k3_step_ms / step_p50,
           "rows": GAT_NODES * GAT_NEIGHBORS, "e_pad": plan.e_pad,
           "padded_slots": int((work["table"].mask == 0).sum()),
-          "split_segments": int(runs["long_seg"].size), "partials": plan.n_partials,
-          "split_segment_edges": int((runs["item_hi"] - runs["item_lo"])[on_split].sum()),
+          "chunks": int(chunk_edges.size), "chunk_edges_mean": float(chunk_edges.mean()),
+          "split_segments": int(chunks["long_seg"].size), "partials": plan.n_partials,
+          "split_segment_edges": int(chunk_edges[on_split].sum()),
           "edge_blocks": plan.e_pad // plan.edge_block,
           "node_block_0_edge_blocks": int((plan.block_node == 0).sum())})
 
@@ -653,7 +627,9 @@ def train_phase(torch, dev, seed):
              "replaces": "dragonfly2_tpu/ops/pallas_segment.py:98",
              "launches": k3_launches, "max_abs_err": max(errs.values()),
              "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-             "bound_by": "bytes", "library_ms": mean("index_add_ms")}
+             "bound_by": "bytes", "library_ms": mean("index_add_ms"),
+             "share_of_bound": mean("bound_ms") / mean("ms"),
+             "ms_d44": per_shape[44]["ms"], "ms_d128": per_shape[128]["ms"]}
     summary = {"steps": steps, "step_ms_p50": step_p50, "k3": per_shape,
                "metrics": metrics.to_dict(), "step_equivalence": equiv}
     summary["profile"] = profile_steps(torch, state, work, dev, seed)
@@ -764,6 +740,7 @@ def main(argv=None) -> int:
     comps, k2_path_err = rule_arm(ev, records, dev)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
+    copies = {"uploads": scorer.uploads, "downloads": scorer.downloads}
     path_s = time.perf_counter() - t_path
     emit({
         "phase": "serving", "seconds": path_s, "warm_seconds": warm_s,
@@ -772,7 +749,7 @@ def main(argv=None) -> int:
         "batcher": {"scorer_calls": batcher.scorer_calls, "batches": batcher.batches,
                     "mean_occupancy": batcher.mean_occupancy(),
                     "fallbacks": batcher.fallbacks},
-        "rule_degrades": ev.degrades, "launches": launches,
+        "rule_degrades": ev.degrades, "launches": launches, "scorer_copies": copies,
         "k2_path_max_abs_err": k2_path_err,
     })
 
@@ -781,6 +758,8 @@ def main(argv=None) -> int:
     check(launches["fused_gather_mlp_score"] == batcher.scorer_calls,
           f"K1 launches {launches['fused_gather_mlp_score']} != batcher scorer "
           f"calls {batcher.scorer_calls}")
+    check(copies["uploads"] == copies["downloads"] == launches["fused_gather_mlp_score"],
+          f"scorer copies {copies} != one upload and one download per K1 launch")
     check(launches["rule_weighted_sum"] == len(records), "K2 launches != rule-arm calls")
     check(segment.LAUNCHES["segment_sum"] == 0, "K3 launched by the serving path")
     check(batcher.fallbacks == 0, f"{batcher.fallbacks} batcher fallbacks")
@@ -834,21 +813,31 @@ def main(argv=None) -> int:
           "k2_max_abs_err": k2_err, "k2_tol": K2_TOL})
 
     # -- 5. times -----------------------------------------------------------
-    s, d, e = k1_inputs(512)
     d1, d2 = mlp.w0c.shape[1], mlp.w1.shape[1]
     w_t = torch.tensor(RULE_COMPONENT_WEIGHTS, dtype=torch.float32, device=dev)
     # Timing launches are not path launches: counted apart.
-    k1_ms = device_ms(torch, lambda: fused_gather_mlp_score(mat, s, d, e, mlp))
-    k1_plain_ms = device_ms(torch, lambda: k1_plain(s, d, e))
-    k2_ms = device_ms(torch, lambda: rule_sum(c512))
-    k2_plain_ms = device_ms(torch, lambda: _rule_sum_plain(c512, RULE_COMPONENT_WEIGHTS))
-    k2_lib_ms = device_ms(torch, lambda: torch.mv(c512, w_t))
-    # The card's busy share of the concurrent phase, from K1's device time.
-    busy_s = concurrent["k1_launches"] * k1_ms / 1e3
-    emit({"phase": "times", "concurrent_wall_s": timing["wall"],
-          "k1_device_s": busy_s, "device_busy_share": busy_s / timing["wall"]})
-    k1_bound, k1_by = bound(*k1_cost(512, d1, d2))
+    floor_ms = device_ms(lambda: torch.cuda._sleep(1))
+    k1_times = {}
+    for n in (128, 512):
+        s, d, e = k1_inputs(n)
+        k1_times[n] = (device_ms(lambda: fused_gather_mlp_score(mat, s, d, e, mlp)),
+                       device_ms(lambda: k1_plain(s, d, e)),
+                       bound(*k1_cost(n, d1, d2, mlp.k1_blob.numel())))
+    k1_ms, k1_plain_ms, (k1_bound, k1_by) = k1_times[512]
+    k2_ms = device_ms(lambda: rule_sum(c512))
+    k2_plain_ms = device_ms(lambda: _rule_sum_plain(c512, RULE_COMPONENT_WEIGHTS))
+    k2_lib_ms = device_ms(lambda: torch.mv(c512, w_t))
     k2_bound, k2_by = bound(*k2_cost(512))
+    # The card's busy share of the concurrent phase, from K1's device time
+    # at 128 rows (the pad most flushes take).
+    busy_s = concurrent["k1_launches"] * k1_times[128][0] / 1e3
+    emit({"phase": "times", "concurrent_wall_s": timing["wall"],
+          "k1_device_s": busy_s, "device_busy_share": busy_s / timing["wall"],
+          "launch_floor_ms": floor_ms,
+          "k1": {n: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
+                     "share_of_bound": t[2][0] / t[0], "over_launch_floor": t[0] / floor_ms}
+                 for n, t in k1_times.items()},
+          "k2": {"ms": k2_ms, "over_launch_floor": k2_ms / floor_ms}})
 
     # -- 6. training path ---------------------------------------------------
     k3_entry, training = train_phase(torch, dev, args.seed)
@@ -858,15 +847,20 @@ def main(argv=None) -> int:
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:114",
          "launches": launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "share_of_bound": k1_bound / k1_ms, "ms_128": k1_times[128][0],
+         "bound_ms_128": k1_times[128][2][0]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",
          "launches": launches["rule_weighted_sum"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
+         "share_of_bound": k2_bound / k2_ms},
         k3_entry,
     ]}
+    for entry in kernels["kernels"]:
+        entry["launch_floor_ms"] = floor_ms
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_nvcc.txt"), "w") as f:

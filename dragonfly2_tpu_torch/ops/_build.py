@@ -47,21 +47,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # mat, n_slots, slots, dslots, edge, w0c, w0p, w0e, b0, w1, b1, w2, b2,
-    # out, n, d1, d2, stream
+    # mat, n_slots, slots, dslots, edge, blob, out, n, d1, d2, stream
     "df_fused_gather_mlp_score": (
-        [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _P, _I, _I, _I, _P],
+        [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         ctypes.c_int,
     ),
     # components, out, n, w0..w5, stream
     "df_rule_weighted_sum": ([_P, _P, _I, _F, _F, _F, _F, _F, _F, _P], ctypes.c_int),
     "df_fused_score_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    # values, values_bf16, round_bf16, perm, w, item_seg, item_lo, item_hi,
-    # item_slot, n_items, long_seg, long_first, n_long, partial, out, d,
-    # stream
+    "df_fused_score_blob_floats": ([_I, _I], ctypes.c_int),
+    # values, values_bf16, round_bf16, edge_row, edge_seg, chunk_lo,
+    # chunk_hi, chunk_seg_lo, chunk_seg_hi, chunk_slot, n_chunks, long_seg,
+    # long_first, n_long, partial, out, d, stream
     "df_segment_sum": (
-        [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P],
+        [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P],
         ctypes.c_int,
     ),
     "df_error_string": ([_I], ctypes.c_char_p),

@@ -17,6 +17,12 @@ produces the scores.
   once at scorer construction (trainer/export.py ``_serving_weights``).
 - **gelu chain on chip** — the rest of the exported serving MLP
   (32→64→64→1) runs without leaving the SM.
+- **one weight blob** — the served weights are packed once into one
+  16-byte-aligned buffer (``pack_k1_weights``) that each block of the
+  kernel copies into shared memory with two bulk asynchronous copies.
+- **one upload, one download a flush** — ``FusedMLPScorer.score`` packs
+  the slot ids and the edge block into one pinned buffer and reads the
+  scores back through another.
 
 The kernels are CUDA C++ (``csrc/fused_score.cu``); each wrapper here
 launches its kernel for CUDA tensors and takes the plain PyTorch version
@@ -60,6 +66,10 @@ _launch_mu = threading.Lock()
 
 # The largest dynamic shared memory one block may use on Hopper.
 _MAX_SMEM_BYTES = 232448
+
+# 4-byte words a row of one flush's staging: parent slot, child slot and
+# the edge features (FusedMLPScorer.score).
+_IN_WORDS = 2 + EDGE_FEATURE_DIM
 
 
 def _count_launch(name: str) -> None:
@@ -107,11 +117,61 @@ def split_first_layer(
     )
 
 
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def k1_blob_layout(d1: int, d2: int) -> Tuple[int, int, int, int]:
+    """(part A floats, part B floats, padded d1, padded d2) of K1's
+    weight blob — the layout ``BlobLayout`` in ``csrc/fused_score.cu``
+    reads.  Part A: W0 [32, d1] (child, parent, edge rows) | b0 [d1p];
+    part B: W1 [d1p, d2p] | b1 [d2p] | W2 [d2p] | b2, each width padded
+    to a multiple of 4; every piece starts on 16 bytes and the pads are
+    zero."""
+    d1p, d2p = _round4(d1), _round4(d2)
+    return 32 * d1 + d1p, d1p * d2p + 2 * d2p + 4, d1p, d2p
+
+
+def pack_k1_weights(w0c, w0p, w0e, b0, w1, b1, w2, b2) -> np.ndarray:
+    """The 3-layer serving MLP as K1's one f32 weight blob."""
+    d1, d2 = w0c.shape[1], w1.shape[1]
+    a, b, d1p, d2p = k1_blob_layout(d1, d2)
+    blob = np.zeros(a + b, np.float32)
+    blob[: 32 * d1] = np.concatenate([w0c, w0p, w0e]).reshape(-1)
+    blob[32 * d1 : 33 * d1] = np.reshape(b0, -1)
+    part_b = blob[a:]
+    part_b[: d1p * d2p].reshape(d1p, d2p)[:d1, :d2] = w1
+    o = d1p * d2p
+    part_b[o : o + d2] = np.reshape(b1, -1)
+    part_b[o + d2p : o + d2p + d2] = np.reshape(w2, -1)
+    part_b[o + 2 * d2p] = np.reshape(b2, -1)[0]
+    return blob
+
+
+def unpack_k1_weights(blob, d1: int, d2: int) -> Dict:
+    """Inverse of ``pack_k1_weights``, in ``ServingMLP``'s buffer shapes:
+    views of ``blob`` (a numpy array or a tensor)."""
+    a, _, d1p, d2p = k1_blob_layout(d1, d2)
+    w0 = blob[: 32 * d1].reshape(32, d1)
+    part_b = blob[a:]
+    o = d1p * d2p
+    return {
+        "w0c": w0[:HOST_FEATURE_DIM], "w0p": w0[HOST_FEATURE_DIM : 2 * HOST_FEATURE_DIM],
+        "w0e": w0[2 * HOST_FEATURE_DIM :], "b0": blob[32 * d1 : 33 * d1],
+        "w1": part_b[:o].reshape(d1p, d2p)[:d1, :d2], "b1": part_b[o : o + d2],
+        "w2": part_b[o + d2p : o + d2p + d2].reshape(d2, 1),
+        "b2": part_b[o + 2 * d2p : o + 2 * d2p + 1],
+    }
+
+
 class ServingMLP(nn.Module):
     """The served (mask-folded, first-layer-split) weights as
     non-trainable device buffers, in the exported ``[in, out]`` layout:
     ``w0c``/``w0p``/``w0e``/``b0`` for the first layer, then ``w{i}``/
-    ``b{i}`` for each later layer."""
+    ``b{i}`` for each later layer.  At the kernel's depth the weights are
+    stored once, as ``k1_blob`` (``pack_k1_weights``), the buffer K1
+    copies into shared memory, and the per-layer buffers are views of it
+    (``unpack_k1_weights``)."""
 
     def __init__(
         self,
@@ -130,11 +190,19 @@ class ServingMLP(nn.Module):
         )
         device = _build.resolve_device(device)
 
-        def buf(name: str, a: np.ndarray) -> None:
+        def buf(name: str, a: np.ndarray) -> torch.Tensor:
             t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
             self.register_buffer(name, t.to(device))
+            return getattr(self, name)
 
         w0c, w0p, w0e = split_first_layer(served[0][0])
+        self.depth = len(served)
+        if self.depth == _KERNEL_LAYERS:
+            (w1, b1), (w2, b2) = served[1:]
+            blob = buf("k1_blob", pack_k1_weights(w0c, w0p, w0e, served[0][1], w1, b1, w2, b2))
+            for name, view in unpack_k1_weights(blob, w0c.shape[1], w1.shape[1]).items():
+                self.register_buffer(name, view)
+            return
         buf("w0c", w0c)
         buf("w0p", w0p)
         buf("w0e", w0e)
@@ -142,7 +210,6 @@ class ServingMLP(nn.Module):
         for i, (w, b) in enumerate(served[1:], start=1):
             buf(f"w{i}", w)
             buf(f"b{i}", b.reshape(-1))
-        self.depth = len(served)
 
     def layers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """[(W, b)] of the layers after the first."""
@@ -226,12 +293,13 @@ def fused_gather_mlp_score(
     CPU tensors take ``_fused_score_plain``.  Slot ids must lie in
     ``[0, S)``: the kernel never reads outside the matrix and scores a
     row whose id does not NaN (``FusedMLPScorer.score`` checks the ids
-    on the host before they are uploaded)."""
+    on the host before they are uploaded).  The kernel reads the
+    weights from ``mlp.k1_blob``; the plain version from the per-layer
+    views of it."""
     if mlp.depth != _KERNEL_LAYERS:
         raise ValueError(f"K1 runs the {_KERNEL_LAYERS}-layer serving MLP")
     (w1, b1), (w2, b2) = mlp.layers()
-    weights = (mlp.w0c, mlp.w0p, mlp.w0e, mlp.b0, w1, b1, w2, b2)
-    _check_k1_inputs(matrix, slots, dslots, edge, weights)
+    _check_k1_inputs(matrix, slots, dslots, edge, (mlp.k1_blob,))
     if matrix.device.type == "cpu":
         return _fused_score_plain(
             matrix, slots, dslots, edge,
@@ -244,15 +312,20 @@ def fused_gather_mlp_score(
     d2 = w1.shape[1]
     if w1.shape != (d1, d2) or w2.shape != (d2, 1) or b2.numel() != 1:
         raise ValueError("K1 takes widths 32→d1→d2→1")
+    blob = mlp.k1_blob
+    if blob.data_ptr() % 16:
+        raise ValueError("K1's weight blob must be 16-byte aligned")
     out = torch.empty(n, dtype=torch.float32, device=matrix.device)
     if n == 0:
         return out
     lib = _build.load()
     if lib.df_fused_score_smem_bytes(d1, d2) > _MAX_SMEM_BYTES:
         raise ValueError(f"K1's weights for widths {d1}, {d2} exceed shared memory")
+    if lib.df_fused_score_blob_floats(d1, d2) != blob.numel():
+        raise ValueError("K1's weight blob does not match its widths")
     code = lib.df_fused_gather_mlp_score(
         matrix.data_ptr(), matrix.shape[0], slots.data_ptr(), dslots.data_ptr(),
-        edge.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(),
+        edge.data_ptr(), blob.data_ptr(), out.data_ptr(),
         n, d1, d2, _build.stream_handle(matrix.device),
     )
     _build.check(lib, "fused_gather_mlp_score", code)
@@ -308,6 +381,15 @@ class FusedMLPScorer:
         self._mirror_mu = threading.Lock()
         self._mat_dev = None
         self._mat_version = None
+        # Staging of one flush (``_staging``): slot ids and edge block in
+        # one host buffer (pinned on the card), its device twin, and the
+        # pinned buffer the scores come back through.  ``_io_mu`` guards
+        # them: the batcher's leader and direct callers both reach score.
+        self._io_mu = threading.Lock()
+        self._host_in = self._dev_in = self._host_out = None
+        # Host<->device copies made by score, the mirror's re-syncs apart.
+        self.uploads = 0
+        self.downloads = 0
 
     @classmethod
     def from_scorer(cls, store, scorer, **kw) -> "FusedMLPScorer":
@@ -332,39 +414,75 @@ class FusedMLPScorer:
                 self._mat_version = version
             return self._mat_dev
 
+    def _staging(self, n_pad: int):
+        """(host words, device words, host scores) holding at least
+        ``n_pad`` rows: ``_IN_WORDS`` 4-byte words a row — parent slot,
+        child slot, then the 8 edge features — and one score a row."""
+        words = _IN_WORDS * n_pad
+        if self._host_in is None or self._host_in.numel() < words:
+            cap = max(words, 2 * (0 if self._host_in is None else self._host_in.numel()))
+            pin = self.device.type == "cuda"
+            self._host_in = torch.empty(cap, dtype=torch.int32, pin_memory=pin)
+            self._host_out = torch.empty(cap // _IN_WORDS, dtype=torch.float32, pin_memory=pin)
+            self._dev_in = (
+                torch.empty(cap, dtype=torch.int32, device=self.device) if pin
+                else self._host_in
+            )
+        return self._host_in, self._dev_in, self._host_out
+
     def score(self, features, *, src_buckets=None, dst_buckets=None) -> np.ndarray:
         """[n, EDGE_FEATURE_DIM] edge block + parent/child SLOT ids →
         [n] scores, one kernel launch (row-independent: padded rows and
         co-batched strangers cannot bleed — the batched-score
-        contract)."""
+        contract).  On the card a flush makes one host→device copy (slot
+        ids and edge block packed into one pinned buffer) and one
+        device→host copy (the scores), besides a mirror re-sync when the
+        store moved."""
         if src_buckets is None or dst_buckets is None:
             raise ValueError("FusedMLPScorer needs parent/child slot ids")
         edge = np.asarray(features, dtype=np.float32)
+        src = np.asarray(src_buckets)
+        dst = np.asarray(dst_buckets)
         n = edge.shape[0]
         cb = self.cand_block
         n_pad = -(-n // cb) * cb
-        # int32 copies, contiguous: slot ids arrive as int64 and as
-        # broadcast views (evaluator.py).
-        e = np.zeros((n_pad, EDGE_FEATURE_DIM), dtype=np.float32)
-        e[:n] = edge
-        s = np.zeros(n_pad, dtype=np.int32)
-        s[:n] = src_buckets
-        d = np.zeros(n_pad, dtype=np.int32)
-        d[:n] = dst_buckets
         mat = self._sync_mirror()
         if n and (
-            min(s[:n].min(), d[:n].min()) < 0
-            or max(s[:n].max(), d[:n].max()) >= mat.shape[0]
+            min(src.min(), dst.min()) < 0
+            or max(src.max(), dst.max()) >= mat.shape[0]
         ):
             raise ValueError("slot id outside the slot matrix")
-        dev = self.device
-        out = self.mlp(
-            mat,
-            torch.from_numpy(s).to(dev),
-            torch.from_numpy(d).to(dev),
-            torch.from_numpy(e).to(dev),
-        )
-        return out.cpu().numpy()[:n]
+        on_card = self.device.type == "cuda"
+        with self._io_mu:
+            host_in, dev_in, host_out = self._staging(n_pad)
+            words = host_in[: _IN_WORDS * n_pad]
+            # int32 words, zero-padded: slot ids arrive as int64 and as
+            # broadcast views (evaluator.py).
+            w = words.numpy()
+            w[:n] = src
+            w[n:n_pad] = 0
+            w[n_pad : n_pad + n] = dst
+            w[n_pad + n : 2 * n_pad] = 0
+            e = w[2 * n_pad :].view(np.float32).reshape(n_pad, EDGE_FEATURE_DIM)
+            e[:n] = edge
+            e[n:] = 0.0
+            if on_card:
+                dev = dev_in[: _IN_WORDS * n_pad]
+                dev.copy_(words, non_blocking=True)
+                self.uploads += 1
+            else:
+                dev = words
+            out = self.mlp(
+                mat, dev[:n_pad], dev[n_pad : 2 * n_pad],
+                dev[2 * n_pad :].view(torch.float32).view(n_pad, EDGE_FEATURE_DIM),
+            )
+            if not on_card:
+                return out.numpy()[:n]
+            scores = host_out[:n_pad]
+            scores.copy_(out, non_blocking=True)
+            self.downloads += 1
+            torch.cuda.current_stream(self.device).synchronize()
+            return scores.numpy()[:n].copy()
 
     def score_rows(self, features, **buckets) -> np.ndarray:
         """Assembled-row fallback: byte-identical to the plain numpy

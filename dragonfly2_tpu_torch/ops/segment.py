@@ -5,8 +5,9 @@ Port of ``dragonfly2_tpu/ops/pallas_segment.py``.  The host prep is the
 JAX package's: ``bucket_edges_by_block`` sorts the edge stream by
 destination node block and pads each block's run.  Within a run the
 edges are sorted by destination, so each segment's edges are one
-contiguous range of the bucketed stream; ``kernel_runs`` cuts those
-ranges into the work items of the CUDA kernel (``csrc/segment_sum.cu``),
+contiguous range of the bucketed stream; ``kernel_chunks`` lists the
+stream's real edges in that order and cuts them into chunks of whole
+segments, one warp's work in the CUDA kernel (``csrc/segment_sum.cu``),
 splitting any segment longer than ``max_run`` edges into runs whose
 partial sums a second pass adds up.  The GAT's neighbor table sends
 every padded slot to node 0 (``build_neighbor_table`` writes index 0
@@ -39,10 +40,16 @@ from . import _build
 LAUNCHES: Dict[str, int] = {"segment_sum": 0}
 _launch_mu = threading.Lock()
 
-# Longest run of one segment that one warp of the kernel walks alone.
+# Most edges one warp of the kernel walks as one chunk of whole segments.
+CHUNK_EDGES = 256
+# A segment longer than this is cut into runs of MAX_RUN edges whose
+# partial rows a second pass adds.
 MAX_RUN = 256
-# The kernel's column tile and the grid's y limit bound the row width.
-_MAX_D = 65535 * 128
+# Most segments one chunk writes: bounds a warp's work on empty segments.
+CHUNK_SEGMENTS = 256
+# The combine pass's 32-column tile and the grid's y limit bound the row
+# width.
+_MAX_D = 65535 * 32
 
 
 def reset_launch_counts() -> None:
@@ -105,7 +112,7 @@ def bucket_edges_by_block(
     )
 
 
-def kernel_runs(
+def kernel_chunks(
     dstl: np.ndarray,
     w: np.ndarray,
     block_node: np.ndarray,
@@ -115,52 +122,82 @@ def kernel_runs(
     edge_block: int,
     max_run: int = MAX_RUN,
 ) -> Dict[str, np.ndarray]:
-    """The kernel's work items over a bucketed stream (int32 arrays).
+    """The kernel's walk and chunks over a bucketed stream (int32 arrays).
 
-    One item per segment, or one per run of at most ``max_run`` edges of
-    a longer one: ``item_seg``, the bucketed range ``item_lo`` ..
-    ``item_hi`` (empty for a segment with no edges) and ``item_slot``,
-    the item's partial-sum row (-1: the item writes the output row
-    itself).  ``long_seg`` lists the split segments and ``long_first``
-    [n_long + 1] their partial-row ranges, in item order."""
+    The walk is the stream's real edges (weight 1) in bucketed order:
+    ``edge_pos`` their bucketed positions and ``edge_seg`` their
+    segments, non-decreasing.  The bucketing's pads (weight 0) add
+    nothing and are left out, so the kernel needs no weights.
+
+    A chunk is one warp's work: the walk's range ``chunk_lo`` ..
+    ``chunk_hi`` and the consecutive segments ``chunk_seg_lo`` ..
+    ``chunk_seg_hi`` it writes, empty ones included — at most
+    ``CHUNK_EDGES`` edges and ``CHUNK_SEGMENTS`` segments, whole
+    segments only.  A segment of more than ``max_run`` edges is cut into
+    runs of ``max_run``, one chunk each, whose ``chunk_slot`` is the
+    partial row it writes (-1 for every other chunk); ``long_seg`` lists
+    those segments and ``long_first`` [n_long + 1] their partial-row
+    ranges.  Every segment lies in exactly one chunk or in its runs."""
     if num_segments < 1:
         raise ValueError(f"num_segments must be >= 1, got {num_segments}")
+    if max_run > CHUNK_EDGES:
+        raise ValueError("a run of a long segment must fit in one chunk")
+    if not np.all((w == 0) | (w == 1)):
+        raise ValueError("the bucketed stream's weights must be its 0/1 padding mask")
     real = np.nonzero(w > 0)[0]
     seg = block_node[real // edge_block].astype(np.int64) * node_block + dstl[real]
     inside = seg < num_segments      # the tail of the last node block
     real, seg = real[inside], seg[inside]
-    counts = np.bincount(seg, minlength=num_segments)
-    start = np.cumsum(counts) - counts           # index into ``real``
-    has = counts > 0
-    first = np.zeros(num_segments, np.int64)
-    first[has] = real[start[has]]
     # bucket_edges_by_block sorts each node block's run by destination:
-    # one segment's edges are consecutive bucketed positions.
-    if not np.array_equal(real[start[has] + counts[has] - 1] - first[has], counts[has] - 1):
+    # one segment's edges are consecutive in the walk.
+    if np.any(np.diff(seg) < 0):
         raise ValueError("bucketed stream is not sorted by destination within its runs")
-    n_runs = np.maximum(-(-counts // max_run), 1)
-    item_seg = np.repeat(np.arange(num_segments), n_runs)
-    run_idx = np.arange(len(item_seg)) - np.repeat(np.cumsum(n_runs) - n_runs, n_runs)
-    item_lo = first[item_seg] + run_idx * max_run
-    item_hi = np.minimum(item_lo + max_run, first[item_seg] + counts[item_seg])
-    split = n_runs > 1
-    on_split = split[item_seg]
-    item_slot = np.full(len(item_seg), -1, np.int64)
-    item_slot[on_split] = np.arange(int(on_split.sum()))
-    long_seg = np.nonzero(split)[0]
-    long_first = np.concatenate([[0], np.cumsum(n_runs[split])])
+    counts = np.bincount(seg, minlength=num_segments)
+    off = np.concatenate([[0], np.cumsum(counts)])    # segment s: off[s] .. off[s + 1]
+    long = counts > max_run
+    # The first long segment at or after s (num_segments: none).
+    next_long = np.minimum.accumulate(
+        np.where(long, np.arange(num_segments), num_segments)[::-1]
+    )[::-1]
+    lo, hi, seg_lo, seg_hi, slot = [], [], [], [], []
+    long_seg, long_first = [], [0]
+    s = 0
+    while s < num_segments:
+        if long[s]:
+            starts = np.arange(off[s], off[s + 1], max_run)
+            lo.extend(starts)
+            hi.extend(np.minimum(starts + max_run, off[s + 1]))
+            seg_lo.extend([s] * len(starts))
+            seg_hi.extend([s + 1] * len(starts))
+            slot.extend(range(long_first[-1], long_first[-1] + len(starts)))
+            long_seg.append(s)
+            long_first.append(long_first[-1] + len(starts))
+            s += 1
+            continue
+        # The most whole segments from s whose edges fit in the chunk.
+        t = int(np.searchsorted(off, off[s] + CHUNK_EDGES, side="right")) - 1
+        t = max(min(t, s + CHUNK_SEGMENTS, int(next_long[s])), s + 1)
+        lo.append(off[s])
+        hi.append(off[t])
+        seg_lo.append(s)
+        seg_hi.append(t)
+        slot.append(-1)
+        s = t
     out = {
-        "item_seg": item_seg, "item_lo": item_lo, "item_hi": item_hi,
-        "item_slot": item_slot, "long_seg": long_seg, "long_first": long_first,
+        "edge_pos": real, "edge_seg": seg, "chunk_lo": lo, "chunk_hi": hi,
+        "chunk_seg_lo": seg_lo, "chunk_seg_hi": seg_hi, "chunk_slot": slot,
+        "long_seg": long_seg, "long_first": long_first,
     }
-    return {k: v.astype(np.int32) for k, v in out.items()}
+    return {k: np.asarray(v, np.int64).astype(np.int32) for k, v in out.items()}
 
 
 @dataclass
 class SegmentPlan:
     """A bucketed stream of ``n_edges`` edges on one device: the JAX
     layout (``perm``, ``dstl``, ``w``, ``block_node``) for the plain
-    version and the kernel's work items (``kernel_runs``)."""
+    version and the kernel's walk and chunks (``kernel_chunks``, plus
+    ``edge_row`` = ``perm[edge_pos]``, each walked edge's row in the
+    original edge order)."""
 
     n_edges: int
     num_segments: int
@@ -170,7 +207,7 @@ class SegmentPlan:
     dstl: torch.Tensor
     w: torch.Tensor
     block_node: torch.Tensor
-    runs: Dict[str, torch.Tensor]
+    chunks: Dict[str, torch.Tensor]
     n_partials: int
 
     @property
@@ -191,16 +228,18 @@ def build_plan(
     max_run: int = MAX_RUN,
     device="cuda",
 ) -> SegmentPlan:
-    """Bucket ``segment_ids`` (host-side) and put the arrays on ``device``."""
+    """Bucket ``segment_ids`` (host-side), plan the kernel's chunks and
+    put the arrays on ``device``."""
     dev = _build.resolve_device(device)
     segment_ids = np.asarray(segment_ids)
     perm, dstl, w, block_node, _ = bucket_edges_by_block(
         segment_ids, num_segments, node_block=node_block, edge_block=edge_block
     )
-    runs = kernel_runs(
+    chunks = kernel_chunks(
         dstl, w, block_node, num_segments, node_block=node_block,
         edge_block=edge_block, max_run=max_run,
     )
+    chunks["edge_row"] = perm[chunks["edge_pos"]]
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -209,8 +248,8 @@ def build_plan(
         n_edges=int(len(segment_ids)), num_segments=int(num_segments),
         node_block=node_block, edge_block=edge_block, perm=put(perm),
         dstl=put(dstl), w=put(w), block_node=put(block_node),
-        runs={k: put(v) for k, v in runs.items()},
-        n_partials=int(runs["long_first"][-1]),
+        chunks={k: put(v) for k, v in chunks.items()},
+        n_partials=int(chunks["long_first"][-1]),
     )
 
 
@@ -278,8 +317,8 @@ def segment_sum_bucketed(
     d = values.shape[1]
     if not 1 <= d <= _MAX_D:
         raise ValueError(f"K3 takes 1 <= D <= {_MAX_D}, got {d}")
-    runs = plan.runs
-    n_long = int(runs["long_seg"].shape[0])
+    ch = plan.chunks
+    n_long = int(ch["long_seg"].shape[0])
     out = torch.empty((plan.num_segments, d), dtype=torch.float32, device=values.device)
     partial: Optional[torch.Tensor] = None
     if n_long:
@@ -287,11 +326,11 @@ def segment_sum_bucketed(
     lib = _build.load()
     code = lib.df_segment_sum(
         values.data_ptr(), int(values.dtype == torch.bfloat16), int(not exact),
-        None if presorted else plan.perm.data_ptr(), plan.w.data_ptr(),
-        runs["item_seg"].data_ptr(), runs["item_lo"].data_ptr(),
-        runs["item_hi"].data_ptr(), runs["item_slot"].data_ptr(),
-        int(runs["item_seg"].shape[0]), runs["long_seg"].data_ptr(),
-        runs["long_first"].data_ptr(), n_long,
+        ch["edge_pos" if presorted else "edge_row"].data_ptr(), ch["edge_seg"].data_ptr(),
+        *(ch[k].data_ptr() for k in (
+            "chunk_lo", "chunk_hi", "chunk_seg_lo", "chunk_seg_hi", "chunk_slot")),
+        int(ch["chunk_lo"].shape[0]), ch["long_seg"].data_ptr(),
+        ch["long_first"].data_ptr(), n_long,
         None if partial is None else partial.data_ptr(), out.data_ptr(), d,
         _build.stream_handle(values.device),
     )

@@ -40,8 +40,15 @@ def _weights(seed=0, dims=(32, 64, 64, 1)):
     ]
 
 
-@pytest.mark.parametrize("n", [1, 7, 128, 512, 4096])
-@pytest.mark.parametrize("dims", [(32, 64, 64, 1), (32, 96, 48, 1)], ids=["64x64", "96x48"])
+# Widths: the serving shape; a wider first layer; widths whose weight
+# pieces are not all multiples of 16 bytes (b0, b1, W2 and W1's rows at
+# 50x30); more than 128 second-layer units (several passes of quads).
+K1_DIMS = {"64x64": (32, 64, 64, 1), "96x48": (32, 96, 48, 1), "60x36": (32, 60, 36, 1),
+           "50x30": (32, 50, 30, 1), "40x160": (32, 40, 160, 1)}
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 31, 32, 33, 128, 129, 512, 4096])
+@pytest.mark.parametrize("dims", list(K1_DIMS.values()), ids=list(K1_DIMS))
 def test_k1_matches_its_plain_version(cuda, n, dims):
     import torch
 
@@ -112,17 +119,58 @@ def test_fused_scorer_on_the_card_matches_the_numpy_scorer(cuda):
     assert ml.degrades == 0 and len(ranked) == 24
 
 
-def _k3_case(cuda, e, d, n, dtype, exact, *, hot=0, node_block=256, edge_block=512):
+def test_fused_scorer_makes_one_upload_and_one_download_a_flush(cuda):
+    """With the mirror current, a flush copies once to the card (slot ids
+    and edge block in one pinned buffer) and once back (the scores), as
+    the profiler sees the copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dragonfly2_tpu_torch.ops import fused_score as ops
+    from dragonfly2_tpu_torch.scheduler import HostFeatureCache, MLEvaluator
+    from dragonfly2_tpu_torch.sim.swarm import build_announce_swarm
+    from dragonfly2_tpu_torch.trainer.export import MLPScorer
+
+    weights = _weights(4)
+    _, peers = build_announce_swarm(60, seed=4)
+    cache = HostFeatureCache(max_hosts=512)
+    fused = ops.FusedMLPScorer(cache, weights, device=cuda)
+    ml = MLEvaluator(fused, feature_cache=cache)
+    ref = MLEvaluator(MLPScorer(weights=weights), feature_cache=cache)
+    edge, slots, cslot, _, _ = ml._featurize_slots(peers[1:40], peers[0])
+    dst = np.full(len(slots), cslot)
+    fused.score(edge, src_buckets=slots, dst_buckets=dst)      # syncs the mirror
+    up, down = fused.uploads, fused.downloads
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = fused.score(edge, src_buckets=slots, dst_buckets=dst)
+    copies = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "Memcpy" in e.name]
+    assert sum("HtoD" in c for c in copies) == 1, copies
+    assert sum("DtoH" in c for c in copies) == 1, copies
+    assert (fused.uploads, fused.downloads) == (up + 1, down + 1)
+    feats, _, _ = ref._featurize_batch(peers[1:40], peers[0])
+    np.testing.assert_allclose(got, MLPScorer(weights=weights).score(feats),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _k3_case(cuda, e, d, n, dtype, exact, *, hot=0, node_block=256, edge_block=512,
+             ids=None, offset=0):
     """K3 against its plain version on seeded values; ``hot`` edges all
-    go to segment 0 (the GAT's padded-slot run)."""
+    go to segment 0 (the GAT's padded-slot run).  ``offset`` > 0 starts
+    the values that many elements into their buffer, so rows are not
+    aligned to a vector load."""
     import torch
 
     from dragonfly2_tpu_torch.ops import segment as seg
 
     rng = np.random.default_rng(e + d)
-    ids = rng.integers(0, n, e)
-    ids[:hot] = 0
-    vals = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(dtype).to(cuda)
+    if ids is None:
+        ids = rng.integers(0, n, e)
+        ids[:hot] = 0
+    e = len(ids)
+    flat = torch.from_numpy(rng.standard_normal(e * d + offset).astype(np.float32)).to(dtype)
+    vals = flat.to(cuda)[offset:].view(e, d)
+    assert vals.data_ptr() % 8 == (2 * offset if dtype == torch.bfloat16 else 4 * offset) % 8
     plan = seg.build_plan(ids, n, node_block=node_block, edge_block=edge_block, device=cuda)
     before = seg.LAUNCHES["segment_sum"]
     got = seg.segment_sum_bucketed(vals, plan, exact=exact)
@@ -134,13 +182,38 @@ def _k3_case(cuda, e, d, n, dtype, exact, *, hot=0, node_block=256, edge_block=5
     assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("d", [1, 44, 128, 200])
+@pytest.mark.parametrize("d", [1, 3, 44, 45, 64, 65, 128, 200, 256])
 @pytest.mark.parametrize("dtype,exact", [("bf16", False), ("f32", True), ("f32", False)])
 def test_k3_matches_its_plain_version(cuda, d, dtype, exact):
     import torch
 
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     _k3_case(cuda, 20000, d, 3000, dt, exact, hot=5000)
+
+
+@pytest.mark.parametrize("d", [44, 45, 128])
+@pytest.mark.parametrize("dtype,exact", [("bf16", False), ("f32", True)])
+def test_k3_at_chunk_boundaries(cuda, d, dtype, exact):
+    """Segments ending exactly on a chunk's limit, of MAX_RUN and MAX_RUN
+    + 1 edges, and runs of empty segments between full ones."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import segment as seg
+
+    counts = [32] * 8 + [0, 0, 0, 5, 0, 1, seg.MAX_RUN, 0, 0, seg.MAX_RUN + 1, 3,
+                         seg.CHUNK_EDGES - 3, 2 * seg.MAX_RUN + 5, 0, 7] + [0] * 600
+    ids = np.random.default_rng(d).permutation(np.repeat(np.arange(len(counts)), counts))
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    _k3_case(cuda, 0, d, len(counts), dt, exact, ids=ids, node_block=128, edge_block=128)
+
+
+@pytest.mark.parametrize("d", [44, 64, 128])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_k3_takes_rows_not_aligned_to_a_vector(cuda, d, dtype):
+    import torch
+
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    _k3_case(cuda, 20000, d, 3000, dt, False, hot=5000, offset=1)
 
 
 def test_k3_at_the_gat_shape(cuda):

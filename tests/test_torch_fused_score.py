@@ -198,6 +198,80 @@ def test_mask_folding_matches_jax_and_zeroes_post_hoc_columns():
     )
 
 
+@pytest.mark.parametrize("dims", [(32, 64, 64, 1), (32, 96, 48, 1), (32, 50, 30, 1),
+                                  (32, 40, 160, 1)], ids=["64x64", "96x48", "50x30", "40x160"])
+def test_k1_weight_blob_unpacks_to_the_serving_buffers(dims):
+    mlp = ops.ServingMLP(_weights(6, dims), device="cpu")
+    d1, d2 = dims[1], dims[2]
+    blob = mlp.k1_blob.numpy()
+    a, b, d1p, d2p = ops.k1_blob_layout(d1, d2)
+    assert blob.dtype == np.float32 and blob.shape == (a + b,)
+    assert a % 4 == 0 and b % 4 == 0 and d2p % 4 == 0      # every part on 16 bytes
+    assert d1p % 4 == 0 and d1 <= d1p < d1 + 4 and d2 <= d2p < d2 + 4
+    # The served weights, made apart from the blob: mask-folded, W0 split.
+    served = ops.fold_post_hoc_weights(_weights(6, dims))
+    w0c, w0p, w0e = ops.split_first_layer(served[0][0])
+    (w1, b1), (w2, b2) = served[1:]
+    want = {"w0c": w0c, "w0p": w0p, "w0e": w0e, "b0": served[0][1], "w1": w1, "b1": b1,
+            "w2": w2, "b2": b2}
+    got = ops.unpack_k1_weights(blob, d1, d2)
+    (mw1, mb1), (mw2, mb2) = mlp.layers()
+    buffers = {"w0c": mlp.w0c, "w0p": mlp.w0p, "w0e": mlp.w0e, "b0": mlp.b0,
+               "w1": mw1, "b1": mb1, "w2": mw2, "b2": mb2}
+    assert set(got) == set(want) == set(buffers)
+    for name, arr in want.items():
+        arr = np.asarray(arr, np.float32).reshape(buffers[name].shape)
+        assert got[name].shape == arr.shape, name
+        assert np.array_equal(got[name].view(np.uint32), arr.view(np.uint32)), name
+        assert np.array_equal(buffers[name].numpy().view(np.uint32), arr.view(np.uint32)), name
+        # One store: the module's per-layer buffers are views of the blob.
+        assert (buffers[name].untyped_storage().data_ptr()
+                == mlp.k1_blob.untyped_storage().data_ptr()), name
+    # Everything else in the blob is padding, and zero.
+    mask = np.ones(a + b, bool)
+    mask[: 33 * d1] = False
+    w1_used = np.zeros((d1p, d2p), bool)
+    w1_used[:d1, :d2] = True
+    mask[a : a + d1p * d2p] = ~w1_used.reshape(-1)
+    o = a + d1p * d2p
+    mask[o : o + d2] = mask[o + d2p : o + d2p + d2] = False
+    mask[o + 2 * d2p] = False
+    assert not blob[mask].any()
+
+
+def test_k1_stamp_points_lie_on_the_kernel_source():
+    """The K1 profiling copy (bench/k1_stamps.py) finds each of its stamp
+    points once in the package's kernel source."""
+    from dragonfly2_tpu_torch.bench import k1_stamps
+    from dragonfly2_tpu_torch.ops import _build
+
+    source = (_build.SOURCE_DIR / "fused_score.cu").read_text()
+    assert "K1_STAMP" not in source and "clock64" not in source
+    stamped = k1_stamps.instrument(source)
+    for i in range(len(k1_stamps.STAMP_POINTS)):
+        assert stamped.count(f"K1_STAMP({i});") == 1
+    assert "df_k1_stamps_read" in stamped
+    with pytest.raises(ValueError):
+        k1_stamps.instrument(source.replace("  mbar_wait0(&bars[1]);\n", ""))
+
+
+def test_fused_scorer_staging_across_flush_sizes_matches_jax():
+    """One scorer over flushes of three padded sizes (its staging buffer
+    grows and is reused) against the JAX package's fused scorer."""
+    weights, (jpeers, jcache, jml), (peers, cache, ml) = _serving(60)
+    jfused = jax_ops.FusedMLPScorer(jcache, weights, use_pallas=False, cand_block=8)
+    fused = ops.FusedMLPScorer(cache, weights, cand_block=8, device="cpu")
+    for n in (3, 20, 9):
+        edge, slots, cslot, _, _ = ml._featurize_slots(peers[1 : n + 1], peers[0])
+        jedge, jslots, jcslot, _, _ = jml._featurize_slots(jpeers[1 : n + 1], jpeers[0])
+        dst = np.full(n, cslot, dtype=np.int64)
+        got = fused.score(edge, src_buckets=slots, dst_buckets=dst)
+        want = jfused.score(jedge, src_buckets=jslots, dst_buckets=np.full(n, jcslot))
+        assert got.shape == (n,) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert fused.uploads == fused.downloads == 0      # the CPU makes no copies
+
+
 def test_split_first_layer_matches_jax():
     w0 = _weights(2)[0][0]
     for a, b in zip(ops.split_first_layer(w0), jax_ops.split_first_layer(w0)):

@@ -79,6 +79,8 @@ print("OK")
         "dragonfly2_tpu_torch.ops.segment",
         "dragonfly2_tpu_torch.trainer.train",
         "dragonfly2_tpu_torch.trainer.export",
+        "dragonfly2_tpu_torch.bench.k1_stamps",
+        "dragonfly2_tpu_torch.bench.timing",
         "chip_smoke",
     ],
 )

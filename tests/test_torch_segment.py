@@ -4,9 +4,10 @@ backward it is, ``dragonfly2_tpu_torch/ops/segment.py`` against
 both packages' ``ops/aggregate.py`` oracles.
 
 On the CPU the port's wrapper takes K3's plain version.  The kernel's
-host prep (``kernel_runs``) is held here by a numpy emulation of the
+host prep (``kernel_chunks``) is held here by a numpy emulation of the
 kernel's two passes; the kernel itself is held to the plain version on
 the card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
+The chunk planner (``kernel_chunks``) is held to its contract directly.
 
 Tolerances: 1e-5 × max(1, max |want|) against the Pallas kernel in
 both modes — both round the values to bf16 the same way with
@@ -123,27 +124,96 @@ def test_mismatched_value_rows_are_refused():
         seg.segment_sum(torch.ones((2, 4), dtype=torch.float64), np.array([0, 1]), 10)
 
 
-def _emulate_kernel(values: np.ndarray, plan: seg.SegmentPlan, presorted: bool) -> np.ndarray:
-    """The CUDA kernel's two passes over the plan's work items, in numpy:
-    pass 1 sums each item's bucketed range in order into the output row
-    or its partial row, pass 2 sums each split segment's partials.  Rows
-    never written stay NaN, so a segment the items miss fails."""
-    r = {k: v.numpy() for k, v in plan.runs.items()}
-    perm, w = plan.perm.numpy(), plan.w.numpy()
+def _emulate_kernel(values: np.ndarray, plan: seg.SegmentPlan, presorted: bool,
+                   half: bool = False) -> np.ndarray:
+    """The CUDA kernel's two passes over the plan's chunks, in numpy f32
+    and in the kernel's order: pass 1 walks each chunk's edges, adding
+    each value row (with ``half``, even and odd edges of the chunk into
+    two sums, as the half-warps of D <= 64 do) and writing a segment's
+    row, and zero rows for the empty segments before the next, when the
+    segment id changes; pass 2 adds each long segment's partials: lane
+    row r of warp w sums partials 4w + r, 4w + r + 128, ..., the four
+    lane rows are added as (0 + 1) + (2 + 3), then the 32 warps in order.
+    Rows never written stay NaN, so a segment the chunks miss fails."""
+    c = {k: v.numpy() for k, v in plan.chunks.items()}
+    rows = c["edge_pos"] if presorted else c["edge_row"]
     d = values.shape[1]
     out = np.full((plan.num_segments, d), np.nan, np.float32)
     part = np.full((plan.n_partials, d), np.nan, np.float32)
-    for i in range(len(r["item_seg"])):
-        acc = np.zeros(d, np.float32)
-        for e in range(r["item_lo"][i], r["item_hi"][i]):
-            acc += w[e] * values[e if presorted else perm[e]]
-        if r["item_slot"][i] < 0:
-            out[r["item_seg"][i]] = acc
-        else:
-            part[r["item_slot"][i]] = acc
-    for b in range(len(r["long_seg"])):
-        out[r["long_seg"][b]] = part[r["long_first"][b] : r["long_first"][b + 1]].sum(0)
+    for i in range(len(c["chunk_lo"])):
+        lo, hi = c["chunk_lo"][i], c["chunk_hi"][i]
+        slot = c["chunk_slot"][i]
+        cur = c["chunk_seg_lo"][i]
+        acc = np.zeros((2, d), np.float32)
+
+        def close(nxt):
+            nonlocal cur
+            row = acc[0] + acc[1]
+            if slot < 0:
+                out[cur] = row
+                out[cur + 1 : nxt] = 0.0
+            else:
+                part[slot] = row
+            acc[:] = 0.0
+            cur = nxt
+
+        for e in range(lo, hi):
+            if c["edge_seg"][e] != cur:
+                close(c["edge_seg"][e])
+            acc[(e - lo) % 2 if half else 0] += values[rows[e]]
+        close(c["chunk_seg_hi"][i])
+    for b in range(len(c["long_seg"])):
+        p = part[c["long_first"][b] : c["long_first"][b + 1]]
+        def lane_sum(first):
+            acc = np.zeros(d, np.float32)
+            for row in p[first::128]:
+                acc += row
+            return acc
+
+        warp_sums = []
+        for w in range(32):
+            r0, r1, r2, r3 = (lane_sum(4 * w + r) for r in range(4))
+            warp_sums.append((r0 + r1) + (r2 + r3))
+        total = np.zeros(d, np.float32)
+        for ws in warp_sums:
+            total += ws
+        out[c["long_seg"][b]] = total
     return out
+
+
+def _chunk_invariants(plan: seg.SegmentPlan, max_run: int):
+    """The planner's contract: the walk is every real edge of the
+    bucketed stream once, in order; the chunks cut the walk into
+    consecutive ranges of at most ``CHUNK_EDGES`` edges; every segment
+    lies in exactly one chunk or is a long segment split into runs of at
+    most ``max_run``, and each chunk holds whole segments only."""
+    c = {k: v.numpy() for k, v in plan.chunks.items()}
+    w = plan.w.numpy()
+    real = np.nonzero(w > 0)[0]
+    seg_of = (plan.block_node.numpy()[real // plan.edge_block].astype(np.int64)
+              * plan.node_block + plan.dstl.numpy()[real])
+    real = real[seg_of < plan.num_segments]
+    assert np.array_equal(c["edge_pos"], real)
+    assert np.array_equal(c["edge_row"], plan.perm.numpy()[real])
+    lo, hi = c["chunk_lo"], c["chunk_hi"]
+    assert lo[0] == 0 and hi[-1] == len(real) and np.array_equal(lo[1:], hi[:-1])
+    assert np.all(hi - lo <= seg.CHUNK_EDGES)
+    short = c["chunk_slot"] < 0
+    owner = np.full(plan.num_segments, -1)
+    for i in np.nonzero(short)[0]:
+        assert np.all(owner[c["chunk_seg_lo"][i] : c["chunk_seg_hi"][i]] == -1)
+        owner[c["chunk_seg_lo"][i] : c["chunk_seg_hi"][i]] = i
+        edge_segs = c["edge_seg"][lo[i] : hi[i]]
+        assert np.all((edge_segs >= c["chunk_seg_lo"][i]) & (edge_segs < c["chunk_seg_hi"][i]))
+    assert np.array_equal(np.nonzero(owner < 0)[0], c["long_seg"])
+    counts = np.bincount(c["edge_seg"], minlength=plan.num_segments)
+    assert np.all(counts[owner >= 0] <= max_run) and np.all(counts[c["long_seg"]] > max_run)
+    for b, s in enumerate(c["long_seg"]):
+        runs = np.arange(c["long_first"][b], c["long_first"][b + 1])
+        assert np.array_equal(c["chunk_slot"][~short][runs], runs)
+        assert np.all(c["chunk_seg_lo"][~short][runs] == s)
+        assert np.all((hi - lo)[~short][runs] <= max_run)
+        assert (hi - lo)[~short][runs].sum() == counts[s]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -152,9 +222,7 @@ def test_kernel_work_items_cover_every_segment_once(case, max_run):
     ids, n = _ids(case)
     vals = np.random.default_rng(4).normal(size=(len(ids), 5)).astype(np.float32)
     plan = seg.build_plan(ids, n, node_block=128, edge_block=128, max_run=max_run, device="cpu")
-    runs = {k: v.numpy() for k, v in plan.runs.items()}
-    assert np.all(runs["item_hi"] - runs["item_lo"] <= max_run)
-    assert np.array_equal(np.unique(runs["item_seg"]), np.arange(n))
+    _chunk_invariants(plan, max_run)
     # Zero edges: segment_sum hands the kernel an all-padding stream.
     presorted = len(ids) == 0
     if presorted:
@@ -162,7 +230,87 @@ def test_kernel_work_items_cover_every_segment_once(case, max_run):
     want = seg._segment_sum_plain(
         torch.from_numpy(vals), plan, exact=True, presorted=presorted
     )
-    _close(_emulate_kernel(vals, plan, presorted), want.numpy())
+    for half in (False, True):
+        _close(_emulate_kernel(vals, plan, presorted, half), want.numpy())
+
+
+def _boundary_ids():
+    """Segments that end exactly on a chunk boundary (eight of 32 edges
+    fill the first chunk), segments of MAX_RUN and MAX_RUN + 1 edges, runs
+    of empty segments between full ones, and a tail of empty segments."""
+    counts = [32] * 8 + [0, 0, 0, 5, 0, 1, seg.MAX_RUN, 0, 0, seg.MAX_RUN + 1, 3,
+                         seg.CHUNK_EDGES - 3, 2 * seg.MAX_RUN + 5, 0, 7] + [0] * 600
+    ids = np.repeat(np.arange(len(counts)), counts)
+    return np.random.default_rng(10).permutation(ids), len(counts), counts
+
+
+def test_chunk_plan_at_its_boundaries():
+    ids, n, counts = _boundary_ids()
+    plan = seg.build_plan(ids, n, node_block=128, edge_block=128, device="cpu")
+    _chunk_invariants(plan, seg.MAX_RUN)
+    c = {k: v.numpy() for k, v in plan.chunks.items()}
+    short = c["chunk_slot"] < 0
+    spans = list(zip(c["chunk_seg_lo"][short], c["chunk_seg_hi"][short],
+                     (c["chunk_hi"] - c["chunk_lo"])[short]))
+    # The first chunk is exactly the eight 32-edge segments, and the empty
+    # segments after them ride along.
+    assert (c["chunk_lo"][0], c["chunk_hi"][0]) == (0, seg.CHUNK_EDGES)
+    assert spans[0] == (0, 11, seg.CHUNK_EDGES)
+    # MAX_RUN edges stay whole in one chunk; MAX_RUN + 1 and more split.
+    assert (14, 17, seg.MAX_RUN) in spans
+    assert list(c["long_seg"]) == [17, 20]
+    assert list(np.diff(c["long_first"])) == [2, 3]
+    # 3 + (CHUNK_EDGES - 3) edges end exactly on the chunk's limit.
+    assert (18, 20, seg.CHUNK_EDGES) in spans
+    # A chunk writes at most CHUNK_SEGMENTS segments: the empty tail spans
+    # several chunks.
+    assert np.all(c["chunk_seg_hi"] - c["chunk_seg_lo"] <= seg.CHUNK_SEGMENTS)
+    vals = np.random.default_rng(11).normal(size=(len(ids), 6)).astype(np.float32)
+    want = seg._segment_sum_plain(torch.from_numpy(vals), plan, exact=True, presorted=False)
+    assert not bool(want[np.asarray(counts) == 0].any())
+    for half in (False, True):
+        _close(_emulate_kernel(vals, plan, False, half), want.numpy())
+
+
+@pytest.mark.parametrize("max_run", [16, 64, 256])
+def test_chunk_planner_takes_whole_segments_up_to_its_size(max_run):
+    # 200 segments of 0-119 edges: a chunk holds a few, and with a small
+    # max_run many are cut into runs.
+    n = 200
+    counts = np.random.default_rng(13).integers(0, 120, n)
+    ids = np.random.default_rng(14).permutation(np.repeat(np.arange(n), counts))
+    perm, dstl, w, block_node, _ = seg.bucket_edges_by_block(ids, n, node_block=128, edge_block=128)
+    c = seg.kernel_chunks(dstl, w, block_node, n, node_block=128, edge_block=128,
+                          max_run=max_run)
+    assert np.array_equal(np.bincount(c["edge_seg"], minlength=n), counts)
+    sizes = c["chunk_hi"] - c["chunk_lo"]
+    segs = c["chunk_seg_hi"] - c["chunk_seg_lo"]
+    assert np.all(sizes <= seg.CHUNK_EDGES) and np.all(segs <= seg.CHUNK_SEGMENTS)
+    assert list(c["long_seg"]) == list(np.nonzero(counts > max_run)[0])
+    # Greedy: the next segment would not have fit.
+    for i in np.nonzero(c["chunk_slot"][:-1] < 0)[0]:
+        nxt = c["chunk_seg_hi"][i]
+        if nxt < n and counts[nxt] <= max_run and c["chunk_slot"][i + 1] < 0:
+            assert sizes[i] + counts[nxt] > seg.CHUNK_EDGES
+    with pytest.raises(ValueError):
+        seg.kernel_chunks(dstl, w * 0.5, block_node, n, node_block=128, edge_block=128)
+    with pytest.raises(ValueError):
+        seg.kernel_chunks(dstl, w, block_node, n, node_block=128, edge_block=128,
+                          max_run=seg.CHUNK_EDGES + 1)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_a_reading_of_the_chunk_plan_equals_the_pallas_kernel(exact):
+    ids, n, _ = _boundary_ids()
+    vals = np.random.default_rng(12).normal(size=(len(ids), 12)).astype(np.float32)
+    want = np.asarray(jseg.segment_sum_pallas(
+        jnp.asarray(vals), ids, n, node_block=128, edge_block=128, exact=exact,
+        interpret=True,
+    ))
+    plan = seg.build_plan(ids, n, node_block=128, edge_block=128, device="cpu")
+    v = vals if exact else torch.from_numpy(vals).to(torch.bfloat16).float().numpy()
+    for half in (False, True):
+        _close(_emulate_kernel(v, plan, False, half), want)
 
 
 def test_the_gat_tables_padded_slots_split_node_0():
@@ -170,9 +318,9 @@ def test_the_gat_tables_padded_slots_split_node_0():
     idx = np.zeros((400, 8), np.int64)
     idx[:, :3] = np.random.default_rng(6).integers(0, 400, (400, 3))
     plan = seg.build_plan(idx.reshape(-1), 400, device="cpu")
-    runs = {k: v.numpy() for k, v in plan.runs.items()}
-    assert list(runs["long_seg"]) == [0]
-    assert runs["long_first"][1] == -(-int((idx == 0).sum()) // seg.MAX_RUN)
+    chunks = {k: v.numpy() for k, v in plan.chunks.items()}
+    assert list(chunks["long_seg"]) == [0]
+    assert chunks["long_first"][1] == -(-int((idx == 0).sum()) // seg.MAX_RUN)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
