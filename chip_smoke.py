@@ -66,6 +66,41 @@ The training phase ends with three more train steps under
 ``torch.profiler``: device time by kernel and the device's idle share of
 the steps' wall time (``training_profile`` line).
 
+7. Streaming path (``stream``): the MLP bandwidth regressor (BASELINE
+   configs[4]) at full width — ``StreamingConfig()`` and ``MLPConfig()``:
+   batch 4,096, 32→256→256→128→1, bf16 compute with f32 params — trained
+   by ``StreamingTrainer`` on the card from 1,048,576 rows (256 steps)
+   drawn from the lifecycle drill's seeded ground truth.  Prints step ms
+   (per-step host time, p50 over steps 16-255, no sync inside the window;
+   and the window's synced mean), records/s, peak memory and a
+   ``torch.profiler`` breakdown of 16 more steps.  The step-128
+   checkpoint and the copy of the step-144 parameters are taken outside
+   the timed window.  Checks: the loss falls (mean of the last 16 steps
+   below the first 16); the step-128 checkpoint resumed in a fresh
+   trainer takes steps 129-144 on the same batches to bit-identical
+   parameters; the exported scorer carries drift bins, its
+   numpy scores on 4,096 held rows are within 3e-2 × max(1, |score|) of
+   the bf16 module's and 1e-4 of a float32 twin's, and its blob
+   round-trips through ``scorer_to_bytes`` / ``load_scorer``.
+8. Lifecycle (``lifecycle``): ``run_lifecycle_drill(LifecycleDrillConfig(),
+   device="cuda")`` — train → export → register → SHADOW → CANARY →
+   ACTIVE, an injected regression rolled back, a manager bounce resumed.
+   Checks ``ok`` and the rollback; prints the three stage times.
+9. Rollout serving (``rollout_serving``): the drill's plane on a fresh
+   ``MemoryBackend`` feeding a port scheduler (``build`` with algorithm
+   ``ml``, no blob, on the card) through a ``ModelSubscriber``: each
+   round is ``daemon.step()``, ``subscriber.refresh()`` and 16
+   ``register_peer`` calls, until v1 is ACTIVE.  Checks: a shadow engine
+   attached in every SHADOW round, a canary route in every CANARY
+   round, v1 served at the end, and every ML-scored announce's scores
+   equal, bit for bit, to the registry artifact's numpy scorer on the
+   same feature matrix.
+
+No kernel of the port runs on paths 7-9 (the streaming scorer is
+standardized and 4 layers deep, which K1 does not serve; the subscriber
+installs what ``load_scorer`` returns, as the reference does): their
+launch counts are zeroed before each and must read 0 after.
+
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
 
@@ -76,6 +111,7 @@ import dataclasses
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
 import threading
@@ -83,7 +119,9 @@ import time
 
 import numpy as np
 
-from dragonfly2_tpu_torch.bench.timing import bound, device_ms, k1_cost, k2_cost, k3_cost
+from dragonfly2_tpu_torch.bench.timing import (
+    bound, device_ms, k1_cost, k2_cost, k3_cost,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -108,6 +146,19 @@ K3_TOL = 1e-5             # K3 vs plain, scaled by max(1, max |sum|)
 STEP_LOSS_TOL = 1e-3      # K3 gather step vs index gather step: loss (relative)
 STEP_GRAD_TOL = 5e-2      # ... and gradient abs-sum (relative)
 EXPORT_TOL = 3e-2         # exported scorer vs the model's predictions (absolute)
+# The streaming phase (BASELINE configs[4] at full width; 1B records cut to 1M).
+STREAM_ROWS = 1_048_576
+STREAM_WINDOW = (16, 256)   # steps timed: 16..255
+STREAM_CKPT = 128           # checkpoint step; the resumed trainer takes 16 more
+STREAM_RESUME_STEPS = 16
+STREAM_PROFILE = 16
+STREAM_HELD = 4096
+STREAM_EXPORT_F32_TOL = 1e-4  # exported scorer vs a float32 twin of the module
+# Rollout serving: the scheduler's warm-up and the rounds of the walk.
+ROLL_TASKS = 4
+ROLL_HOSTS_PER_TASK = 64
+ROLL_PER_ROUND = 16
+ROLL_ROUNDS = 12
 
 
 class SmokeFailure(RuntimeError):
@@ -121,6 +172,21 @@ def check(cond: bool, what: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_kernel_counts():
+    """Zero every kernel wrapper's launch count (K1, K2, K3)."""
+    from dragonfly2_tpu_torch.ops import fused_score, segment
+
+    fused_score.reset_launch_counts()
+    segment.reset_launch_counts()
+
+
+def kernel_counts():
+    """Every kernel wrapper's launch count since the last reset."""
+    from dragonfly2_tpu_torch.ops import fused_score, segment
+
+    return {**fused_score.LAUNCHES, **segment.LAUNCHES}
 
 
 def weights_from_seed(seed: int, dims=(32, 64, 64, 1)):
@@ -469,42 +535,38 @@ def kernel_device_ms(torch, fn, names, calls=10):
     return out
 
 
-def profile_steps(torch, state, work, dev, seed, steps=3, top=15):
-    """``steps`` more train steps on the first batch under
+def profile_steps(torch, step, steps, top=15):
+    """``steps`` calls of ``step()`` (after one unprofiled call) under
     ``torch.profiler``: the kernels with the most device time and the
     device's idle share of the steps' wall time (one stream, so kernel
-    times do not overlap)."""
+    times do not overlap); on the host, the operators and runtime calls
+    with the most self time and their sum (the rest of the wall time is
+    Python and numpy outside any operator)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dragonfly2_tpu_torch.trainer.train import _graph_train_step, epoch_batches, split_edges
-
-    _, train_idx = split_edges(GAT_EDGES, seed)
-    idx = next(epoch_batches(train_idx, GAT_BATCH, seed, 0))
-    args = (
-        torch.from_numpy(work["node_feats"]).to(dev), work["table"].to(dev),
-        torch.from_numpy(work["src"][idx]).to(dev), torch.from_numpy(work["dst"][idx]).to(dev),
-        torch.from_numpy(work["target"][idx]).to(dev), None,
-    )
-    _graph_train_step(state, *args)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            _graph_train_step(state, *args)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = []
+    rows, host = [], []
     for ev in prof.key_averages():
-        # Kernels only: an operator's own entry repeats its kernels' time.
         if ev.device_type != DeviceType.CUDA:
+            if ev.self_cpu_time_total > 0:
+                host.append((ev.self_cpu_time_total / 1e3 / steps, ev.count // steps, ev.key))
             continue
+        # Kernels only: an operator's own entry repeats its kernels' time.
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
         if dev_us > 0:
             rows.append((dev_us / 1e3 / steps, ev.count // steps, ev.key))
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     device_ms_step = sum(r[0] for r in rows)
     return {
         "steps": steps, "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms_step,
@@ -512,6 +574,10 @@ def profile_steps(torch, state, work, dev, seed, steps=3, top=15):
         "kernels_per_step": sum(r[1] for r in rows),
         "top": [{"ms_per_step": ms, "calls_per_step": n, "name": name[:120]}
                 for ms, n, name in rows[:top]],
+        "host_ops_ms_per_step": sum(r[0] for r in host),
+        "host_calls_per_step": sum(r[1] for r in host),
+        "host_top": [{"ms_per_step": ms, "calls_per_step": n, "name": name[:80]}
+                     for ms, n, name in host[:10]],
     }
 
 
@@ -526,7 +592,9 @@ def train_phase(torch, dev, seed):
     from dragonfly2_tpu_torch.trainer.export import (
         export_gnn_scorer, gnn_scorer_to_bytes, load_scorer,
     )
-    from dragonfly2_tpu_torch.trainer.train import TrainConfig, train_gat_ranker
+    from dragonfly2_tpu_torch.trainer.train import (
+        TrainConfig, _graph_train_step, epoch_batches, split_edges, train_gat_ranker,
+    )
 
     t0 = time.perf_counter()
     work = gat_workload(seed)
@@ -535,8 +603,7 @@ def train_phase(torch, dev, seed):
     mcfg = GNNConfig(gather_fn=gather)
     tcfg = TrainConfig(epochs=GAT_EPOCHS, warmup_steps=2, log_every=1, seed=seed)
 
-    fused_score.reset_launch_counts()
-    segment.reset_launch_counts()
+    reset_kernel_counts()
     t1 = time.perf_counter()
     state, metrics, history = train_gat_ranker(
         work["node_feats"], work["table"], work["src"], work["dst"], work["target"],
@@ -632,9 +699,278 @@ def train_phase(torch, dev, seed):
              "ms_d44": per_shape[44]["ms"], "ms_d128": per_shape[128]["ms"]}
     summary = {"steps": steps, "step_ms_p50": step_p50, "k3": per_shape,
                "metrics": metrics.to_dict(), "step_equivalence": equiv}
-    summary["profile"] = profile_steps(torch, state, work, dev, seed)
+    # Three more steps on the first batch, profiled.
+    _, train_idx = split_edges(GAT_EDGES, seed)
+    idx = next(epoch_batches(train_idx, GAT_BATCH, seed, 0))
+    args = (
+        torch.from_numpy(work["node_feats"]).to(dev), work["table"].to(dev),
+        torch.from_numpy(work["src"][idx]).to(dev), torch.from_numpy(work["dst"][idx]).to(dev),
+        torch.from_numpy(work["target"][idx]).to(dev), None,
+    )
+    summary["profile"] = profile_steps(torch, lambda: _graph_train_step(state, *args), steps=3)
     emit({"phase": "training_profile", **summary["profile"]})
     return entry, summary
+
+
+# ---------------------------------------------------------------------------
+# The learned-scheduling loop: streaming trainer, lifecycle, rollout serving
+# ---------------------------------------------------------------------------
+
+
+def stream_phase(torch, dev, seed, out_dir):
+    """Phase 7: the streaming MLP trainer at full width.  Returns its
+    summary."""
+    from dragonfly2_tpu_torch.models.mlp import MLPConfig, MLPRegressor
+    from dragonfly2_tpu_torch.records.features import DOWNLOAD_FEATURE_DIM, mask_post_hoc
+    from dragonfly2_tpu_torch.sim.lifecycle import LifecycleDrillConfig, _World
+    from dragonfly2_tpu_torch.trainer.export import load_scorer, scorer_to_bytes
+    from dragonfly2_tpu_torch.trainer.streaming import StreamingConfig, StreamingTrainer
+
+    # run() never checkpoints: the step-128 checkpoint is taken below,
+    # outside the timed window.
+    cfg = StreamingConfig(seed=seed, checkpoint_every=10**9)
+    mcfg = MLPConfig()
+    bs = cfg.batch_size
+    steps = STREAM_ROWS // bs
+    t0 = time.perf_counter()
+    rows = _World(LifecycleDrillConfig(seed=seed)).record_rows(
+        STREAM_ROWS + (STREAM_PROFILE + 1) * bs + STREAM_HELD)
+    batches = [rows[i * bs:(i + 1) * bs] for i in range(steps + STREAM_PROFILE + 1)]
+    held = rows[-STREAM_HELD:]
+    prep_s = time.perf_counter() - t0
+    ckpt_dir = os.path.join(out_dir, "stream_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = StreamingTrainer(cfg, mcfg, checkpoint_dir=ckpt_dir, device=dev)
+    host_ms, losses = [], []
+    lo, hi = STREAM_WINDOW
+    pauses = (STREAM_CKPT, STREAM_CKPT + STREAM_RESUME_STEPS)
+    window_s = 0.0
+    t_train = time.perf_counter()
+    for i in range(steps):
+        trainer.feed(batches[i])
+        t1 = time.perf_counter()
+        trainer.run(max_steps=1, idle_timeout=0)
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(trainer.last_loss)
+        if lo <= i < hi and (trainer.step in pauses or i + 1 == hi):
+            torch.cuda.synchronize()
+            window_s += time.perf_counter() - t_seg
+        if trainer.step == STREAM_CKPT:
+            trainer.checkpoint()
+        if trainer.step == STREAM_CKPT + STREAM_RESUME_STEPS:
+            original_params = [p.detach().clone() for p in trainer.model.parameters()]
+        if i + 1 == lo or (lo <= i < hi and trainer.step in pauses):
+            torch.cuda.synchronize()
+            t_seg = time.perf_counter()
+    train_s = time.perf_counter() - t_train
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu().numpy()
+    launches = kernel_counts()
+    window = host_ms[lo:hi]
+    summary = {
+        "prep_seconds": prep_s, "train_seconds": train_s, "steps": trainer.step,
+        "batch": bs, "widths": [mcfg.in_dim, *mcfg.hidden, 1], "dtype": str(mcfg.dtype),
+        "step_ms_p50": float(np.median(window)), "step_ms_p90": float(np.percentile(window, 90)),
+        "window_steps": hi - lo, "window_mean_ms": window_s * 1e3 / (hi - lo),
+        "records_per_s": bs * (hi - lo) / window_s,
+        "peak_memory_gib": peak / 2**30, "kernel_launches": launches,
+        "loss_first16": float(losses[:16].mean()), "loss_last16": float(losses[-16:].mean()),
+        "losses_every16": losses[::16].tolist(),
+    }
+    check(trainer.step == steps and bool(np.isfinite(losses).all()), "stream: steps or losses")
+    check(summary["loss_last16"] < summary["loss_first16"],
+          f"stream loss did not fall: {summary['loss_first16']} -> {summary['loss_last16']}")
+    check(not any(launches.values()), f"a kernel launched on the streaming path: {launches}")
+
+    # The step-128 checkpoint, resumed in a fresh trainer, takes the same
+    # batches as the original's steps 129..144.
+    resumed = StreamingTrainer(cfg, mcfg, checkpoint_dir=ckpt_dir, device=dev)
+    check(resumed.resume() and resumed.step == STREAM_CKPT, "stream: resume")
+    for b in batches[STREAM_CKPT:STREAM_CKPT + STREAM_RESUME_STEPS]:
+        resumed.feed(b)
+    check(resumed.run(max_steps=STREAM_RESUME_STEPS, idle_timeout=0) == STREAM_RESUME_STEPS,
+          "stream: resumed steps")
+    mismatched = [n for (n, p), q in zip(resumed.model.named_parameters(), original_params)
+                  if not torch.equal(p.detach(), q)]
+    check(not mismatched, f"resumed parameters differ from the original's: {mismatched}")
+    del resumed
+
+    # 16 more steps under the profiler.
+    extra = iter(batches[steps:])
+
+    def one_step():
+        trainer.feed(next(extra))
+        trainer.run(max_steps=1, idle_timeout=0)
+
+    profile = profile_steps(torch, one_step, steps=STREAM_PROFILE)
+
+    # The exported scorer against the module on held rows: the module
+    # computes in bf16, the numpy scorer in f32, so it is held at bf16
+    # tolerance (3e-2 × max(1, |score|)); a float32 twin of the module
+    # (same parameters) holds the export itself to 1e-4.
+    scorer = trainer.export_scorer()
+    feats = held[:, 2:2 + DOWNLOAD_FEATURE_DIM]
+    x = torch.from_numpy((mask_post_hoc(feats) - trainer.moments.mean.astype(np.float32))
+                         / trainer.moments.std.astype(np.float32)).to(dev)
+    twin = MLPRegressor(dataclasses.replace(mcfg, dtype=torch.float32)).to(dev)
+    twin.load_state_dict(trainer.model.state_dict())
+    with torch.no_grad():
+        want = trainer.model(x).float().cpu().numpy()
+        want_f32 = twin(x).cpu().numpy()
+    got = scorer.score(feats)
+    export_err = np.abs(got - want)
+    export_scaled = float(np.max(export_err / np.maximum(1.0, np.abs(want))))
+    export_f32_err = float(np.max(np.abs(got - want_f32)))
+    blob = scorer_to_bytes(scorer)
+    round_trip = load_scorer(blob).score(feats)
+    check(scorer.train_bin_edges is not None and scorer.train_bin_fracs is not None,
+          "stream export carries no drift bins")
+    check(bool(np.isfinite(got).all()) and export_scaled <= EXPORT_TOL,
+          f"stream export off the bf16 module by {export_scaled} (scaled)")
+    check(export_f32_err <= STREAM_EXPORT_F32_TOL,
+          f"stream export off the float32 module by {export_f32_err}")
+    check(np.array_equal(round_trip, got), "stream blob does not round-trip")
+    summary.update({"resume_bit_identical": True,
+                    "export_max_abs_err": float(export_err.max()),
+                    "export_max_scaled_err": export_scaled, "export_tol_scaled": EXPORT_TOL,
+                    "export_f32_max_abs_err": export_f32_err,
+                    "export_f32_tol": STREAM_EXPORT_F32_TOL,
+                    "held_max_abs_score": float(np.abs(want).max()), "blob_bytes": len(blob),
+                    "drift_bins": list(scorer.train_bin_edges.shape)})
+    emit({"phase": "stream", **summary})
+    emit({"phase": "stream_profile", **profile})
+    summary["profile"] = profile
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return summary
+
+
+def lifecycle_phase(dev):
+    """Phase 8: the zero-human lifecycle drill on the card."""
+    from dragonfly2_tpu_torch.sim.lifecycle import LifecycleDrillConfig, run_lifecycle_drill
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = run_lifecycle_drill(LifecycleDrillConfig(), device=dev)
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    summary = {
+        "seconds": wall, "ok": out["ok"], "rolled_back": out["stage2"]["rolled_back"],
+        "records_to_active_s": out["stage1"]["wall_s"],
+        "regression_to_rollback_s": out["stage2"]["wall_s"],
+        "bounce_resume_s": out["stage3"]["wall_s"],
+        "pumps": [out[f"stage{i}"]["pumps"] for i in (1, 2, 3)],
+        "rollback_reason": out["stage2"]["rollback_reason"], "events": out["events"],
+        "kernel_launches": launches,
+    }
+    emit({"phase": "lifecycle", **summary})
+    check(out["ok"], f"lifecycle drill not ok: {out}")
+    check(out["stage2"]["rolled_back"], "lifecycle drill: the regression was not rolled back")
+    check(not any(launches.values()), f"a kernel launched on the lifecycle path: {launches}")
+    return summary
+
+
+def register_round(service, hosts, urls, *, hosts_per_task, first, n):
+    """``n`` sequential ``register_peer`` calls, requests ``first`` on,
+    on ``serve_requests``' plan (a host of the next task's group, new to
+    the task)."""
+    n_tasks = len(urls)
+    for q in range(first, first + n):
+        task_i = q % n_tasks
+        hi = ((task_i + 1) % n_tasks) * hosts_per_task + q // n_tasks
+        service.register_peer(host=hosts[hi], url=urls[task_i], peer_id=f"roll-{q}")
+
+
+def rollout_serving_phase(dev, seed):
+    """Phase 9: the lifecycle plane walks v1 to ACTIVE while a port
+    scheduler, subscribed to its registry, serves announces."""
+    from dragonfly2_tpu_torch.cli.scheduler import SchedulerConfig, build
+    from dragonfly2_tpu_torch.manager.state import MemoryBackend
+    from dragonfly2_tpu_torch.records.synthetic import SyntheticCluster
+    from dragonfly2_tpu_torch.scheduler import ModelSubscriber
+    from dragonfly2_tpu_torch.sim.lifecycle import LifecycleDrillConfig, _build_plane, _World
+    from dragonfly2_tpu_torch.sim.swarm import host_from_latent
+    from dragonfly2_tpu_torch.trainer.export import load_scorer
+
+    # Sample floors above one pump's 480 joined edges: each phase spans
+    # two daemon steps, so the subscriber's poll between them sees it.
+    dcfg = LifecycleDrillConfig(seed=seed, min_shadow_samples=600, min_canary_samples=600)
+    world = _World(dcfg)
+    registry, _, daemon = _build_plane(dcfg, MemoryBackend(), world, {"invert": False}, dev)
+    cfg = SchedulerConfig()
+    cfg.scheduling.algorithm = "ml"
+    cfg.scheduling.retry_interval_s = 0.0
+    service = build(cfg, device=dev, rng=random.Random(seed))
+    ev = service.scheduling.evaluator
+    batcher = ev.batcher
+    cluster = SyntheticCluster(num_hosts=ROLL_TASKS * ROLL_HOSTS_PER_TASK, seed=seed)
+    hosts = [host_from_latent(lh) for lh in cluster.hosts]
+    for h in hosts:
+        service.announce_host(h)
+    urls = warm_tasks(service, cluster, hosts, n_tasks=ROLL_TASKS,
+                      hosts_per_task=ROLL_HOSTS_PER_TASK)
+    sub = ModelSubscriber(registry, ev, scheduler_id=dcfg.scheduler_id,
+                          model_name=dcfg.model_name, rollout_client=daemon.client,
+                          shadow_sample_rate=1.0)
+    scored = []                               # (feature matrix, served scores)
+    batch_score = batcher.score
+
+    def recording(features, **kw):
+        out = batch_score(features, **kw)
+        scored.append((np.array(features, np.float32), np.array(out)))
+        return out
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    daemon.feed(world.record_rows(dcfg.epoch_records + dcfg.batch_size))
+    rounds = []
+    batcher.score = recording
+    try:
+        for r in range(ROLL_ROUNDS):
+            daemon.step()
+            sub.refresh()
+            cand = registry.candidate_model(dcfg.scheduler_id, dcfg.model_name)
+            active = registry.active_model(dcfg.scheduler_id, dcfg.model_name)
+            rounds.append({
+                "candidate": cand.state.value if cand else None,
+                "active_version": active.version if active else 0,
+                "shadow_attached": ev.shadow is not None,
+                "canary_percent": ev.canary.percent if ev.canary else None,
+                "serving_version": sub._loaded_version,
+            })
+            register_round(service, hosts, urls, hosts_per_task=ROLL_HOSTS_PER_TASK,
+                           first=r * ROLL_PER_ROUND, n=ROLL_PER_ROUND)
+            if active is not None and active.version == 1 and sub._loaded_version == 1:
+                break
+    finally:
+        del batcher.score
+        sub.stop()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    active = registry.active_model(dcfg.scheduler_id, dcfg.model_name)
+    ref = load_scorer(registry.load_artifact(active)) if active else None
+    exact = ref is not None and all(np.array_equal(ref.score(f), s) for f, s in scored)
+    summary = {"seconds": wall, "rounds": rounds, "ml_scored_announces": len(scored),
+               "served_rows": int(sum(len(s) for _, s in scored)),
+               "scores_equal_registry_artifact": exact, "degrades": ev.degrades,
+               "kernel_launches": launches}
+    emit({"phase": "rollout_serving", **summary})
+    phases = [x["candidate"] for x in rounds]
+    check("shadow" in phases and "canary" in phases, f"rollout phases seen: {phases}")
+    check(all(x["shadow_attached"] and x["canary_percent"] is None
+              for x in rounds if x["candidate"] == "shadow"),
+          "a SHADOW round without a shadow engine (or with a canary route)")
+    check(all(x["shadow_attached"] and x["canary_percent"] == dcfg.canary_percent
+              for x in rounds if x["candidate"] == "canary"),
+          "a CANARY round without the canary route")
+    check(active is not None and active.version == 1 and sub._loaded_version == 1
+          and ev.shadow is None and ev.canary is None, "the subscriber does not serve v1")
+    check(len(scored) > 0 and exact, "served ML scores differ from the registry artifact's")
+    check(ev.degrades == 0, f"{ev.degrades} announces degraded to the rule ranking")
+    check(not any(launches.values()), f"a kernel launched on the rollout path: {launches}")
+    return summary
 
 
 def main(argv=None) -> int:
@@ -659,7 +995,6 @@ def main(argv=None) -> int:
         _fused_score_plain,
         _rule_sum_plain,
         fused_gather_mlp_score,
-        reset_launch_counts,
         rule_sum,
     )
     from dragonfly2_tpu_torch.records.synthetic import SyntheticCluster
@@ -702,8 +1037,7 @@ def main(argv=None) -> int:
     cluster = SyntheticCluster(num_hosts=N_HOSTS, seed=args.seed)
     hosts = [host_from_latent(lh) for lh in cluster.hosts]
 
-    reset_launch_counts()
-    segment.reset_launch_counts()
+    reset_kernel_counts()
     t_path = time.perf_counter()
     for h in hosts:
         service.announce_host(h)
@@ -841,6 +1175,13 @@ def main(argv=None) -> int:
 
     # -- 6. training path ---------------------------------------------------
     k3_entry, training = train_phase(torch, dev, args.seed)
+
+    # -- 7-9. the learned-scheduling loop -----------------------------------
+    work_dir = args.out or os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work_dir, exist_ok=True)
+    loop = {"stream": stream_phase(torch, dev, args.seed, work_dir),
+            "lifecycle": lifecycle_phase(dev),
+            "rollout_serving": rollout_serving_phase(dev, args.seed)}
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
@@ -866,7 +1207,7 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out, "chip_smoke_nvcc.txt"), "w") as f:
             f.write(_build.build_log)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"), "w") as f:
-            json.dump({"card": card, **kernels, "training": training}, f, indent=1)
+            json.dump({"card": card, **kernels, "training": training, **loop}, f, indent=1)
     print(card, flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,5 @@
-"""Models: the GAT parent-peer ranker over the probe graph."""
+"""Models: the GAT parent-peer ranker over the probe graph and the MLP
+bandwidth regressor."""
 
 from .gnn import (  # noqa: F401
     GATLayer,
@@ -10,4 +11,4 @@ from .gnn import (  # noqa: F401
     load_flax_params,
     to_flax_params,
 )
-from .mlp import warm_start_output_bias  # noqa: F401
+from .mlp import MLPConfig, MLPRegressor, warm_start_output_bias  # noqa: F401

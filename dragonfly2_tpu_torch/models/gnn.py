@@ -348,14 +348,16 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def load_flax_params(model: nn.Module, params: Dict) -> nn.Module:
-    """Copy a flax ``GATRanker`` param tree (nested dicts of arrays, e.g.
-    after ``jax.tree_util.tree_map(np.asarray, params)``) into ``model``.
+    """Copy a flax param tree (nested dicts of arrays, e.g. after
+    ``jax.tree_util.tree_map(np.asarray, params)``) into ``model``, a
+    ``GATRanker`` or an ``MLPRegressor``.
 
-    Flax paths map one for one onto ``state_dict`` keys:
+    Flax paths map one for one onto ``state_dict`` keys.  GATRanker:
     ``NodeEmbedding_0/embedding``; ``GATLayer_i/Dense_0..4/{kernel,bias}``
     (q, k, v, edge bias, output); ``Dense_0..3/{kernel,bias}``
-    (embedding projection, then the head).  Kernels are ``[in, out]`` on
-    both sides.  A missing, extra or misshapen leaf raises."""
+    (embedding projection, then the head).  MLPRegressor:
+    ``Dense_0..n/{kernel,bias}``.  Kernels are ``[in, out]`` on both
+    sides.  A missing, extra or misshapen leaf raises."""
     flat = _flatten(params)
     state = dict(model.named_parameters())
     want = {k.replace(".", "/") for k in state}

@@ -84,3 +84,8 @@ CANARY_ANNOUNCES_TOTAL = _reg.counter(
     "scheduler_canary_announces_total",
     "Announces routed per canary arm", ["arm"],  # candidate|active
 )
+ROLLOUT_SERVING_STATE = _reg.gauge(
+    "scheduler_rollout_state",
+    "Local rollout serving state per model name: 0 active-only, "
+    "2 shadow, 3 canary (codes match manager rollout_state)", ["name"],
+)

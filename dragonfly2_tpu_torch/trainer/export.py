@@ -209,9 +209,15 @@ def _dequantize_layers(
     return out
 
 
-def _flatten_mlp_params(params: Dict) -> List[Tuple[np.ndarray, np.ndarray]]:
-    """flax MLPRegressor params (``{"Dense_i": {"kernel", "bias"}}`` as
-    numpy, kernels ``[in, out]``) → ordered [(W, b)] list, layout kept."""
+def _flatten_mlp_params(params) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """MLPRegressor params → ordered [(W, b)] list, layout kept.  Takes
+    the port's module (``models/mlp.MLPRegressor``, read through
+    ``to_flax_params``) or a flax-layout tree (``{"Dense_i": {"kernel",
+    "bias"}}`` as numpy, kernels ``[in, out]``)."""
+    if hasattr(params, "named_parameters"):
+        from ..models.gnn import to_flax_params
+
+        params = to_flax_params(params)
     layers = sorted(params.keys(), key=lambda k: int(k.split("_")[-1]) if "_" in k else 0)
     out = []
     for name in layers:
@@ -221,7 +227,7 @@ def _flatten_mlp_params(params: Dict) -> List[Tuple[np.ndarray, np.ndarray]]:
 
 
 def export_mlp_scorer(
-    params: Dict,
+    params,
     *,
     feat_mean: Optional[np.ndarray] = None,
     feat_std: Optional[np.ndarray] = None,
@@ -260,6 +266,31 @@ def feature_snapshot_stats(
         idx = np.searchsorted(edges[j, 1:-1], rows[:, j])
         fracs[j] = np.bincount(idx, minlength=n_bins) / rows.shape[0]
     return edges.astype(np.float32), fracs.astype(np.float32)
+
+
+def export_from_state(
+    state, *, post_hoc_masked: bool = True, train_feature_rows=None
+) -> MLPScorer:
+    """TrainState (trainer/train.py: an ``MLPRegressor`` with the feature
+    standardization it trained under) → scorer with its normalizer.
+
+    ``post_hoc_masked`` must state how the training rows were prepared:
+    True when they went through features.mask_post_hoc (the deployment
+    pipeline), False for raw-row experiments.  ``train_feature_rows``
+    ([n, DOWNLOAD_FEATURE_DIM], already prepared exactly as trained)
+    stamps the drift-baseline histograms into the artifact.
+    """
+    scorer = export_mlp_scorer(
+        state.model,
+        feat_mean=state.feat_mean,
+        feat_std=state.feat_std,
+        post_hoc_masked=post_hoc_masked,
+    )
+    if train_feature_rows is not None and len(train_feature_rows):
+        edges, fracs = feature_snapshot_stats(train_feature_rows)
+        scorer.train_bin_edges = edges
+        scorer.train_bin_fracs = fracs
+    return scorer
 
 
 def _pack(scorer: MLPScorer) -> Dict[str, np.ndarray]:

@@ -151,13 +151,16 @@ def _make_optimizer(params, cfg: TrainConfig, steps_per_epoch: int) -> AdamW:
 @dataclass
 class TrainState:
     """The model (its parameters), the optimizer, the step count, the
-    dropout generator and, after training, the validation edges and the
-    model's predictions for them."""
+    dropout generator, the feature standardization an MLP was trained
+    under (``None`` for graph models) and, after training, the
+    validation edges and the model's predictions for them."""
 
     model: nn.Module
     opt: AdamW
     generator: torch.Generator
     step: int = 0
+    feat_mean: Optional[np.ndarray] = None
+    feat_std: Optional[np.ndarray] = None
     val_idx: Optional[np.ndarray] = None
     val_pred: Optional[np.ndarray] = None
 

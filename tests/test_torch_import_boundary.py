@@ -81,6 +81,10 @@ print("OK")
         "dragonfly2_tpu_torch.trainer.export",
         "dragonfly2_tpu_torch.bench.k1_stamps",
         "dragonfly2_tpu_torch.bench.timing",
+        "dragonfly2_tpu_torch.trainer.streaming",
+        "dragonfly2_tpu_torch.lifecycle.daemon",
+        "dragonfly2_tpu_torch.scheduler.model_loader",
+        "dragonfly2_tpu_torch.sim.lifecycle",
         "chip_smoke",
     ],
 )
