@@ -101,12 +101,54 @@ standardized and 4 layers deep, which K1 does not serve; the subscriber
 installs what ``load_scorer`` returns, as the reference does): their
 launch counts are zeroed before each and must read 0 after.
 
+10. The flagship (``hop``): the hop ranker at full width on phase 6's
+    workload (100,000 nodes, K 16, 1,310,720 download edges, batch
+    131,072) with ``HopConfig(hidden=1024)`` (2 hops, embed 32, dropout
+    0.1, bf16 compute) and phase 6's ``TrainConfig``: once for phase 6's
+    2 epochs (18 steps; its validation metrics printed beside the GAT's)
+    and once for 6 epochs (54 steps), which the checks, the export and
+    the times read: after 18 steps the validation MAE sits at the mean
+    predictor's, too close to hold it to.  The hop features are
+    precomputed once on the card (timed), then ``train_hop_ranker``
+    trains on them and ``export_gnn_scorer`` bakes the scorer.  Checks:
+    54 steps, finite losses falling (the last 3 steps' mean below the
+    first), validation MAE below the train-mean predictor's, the
+    exported scorer within 3e-2 × max(1, |score|) of the model's
+    validation predictions, no kernel launched (the hop ranker has
+    none); the 18-step run's validation MAE not above the mean
+    predictor's.  Prints step ms (host, p50 from step 3 on, each synced by its
+    loss) and from CUDA events over 10 more steps with no sync inside,
+    records/s, MFU (dense operations from the shapes over the events
+    step and the bf16 dense peak), peak memory, validation MAE and F1
+    beside the GAT's, and a ``torch.profiler`` breakdown of 3 steps.
+11. The trainer service (``trainer_service``): 65,536 download rows from
+    a 16,384-host ``SyntheticCluster`` and the topology rows of 16,384
+    ``generate_topology_records`` over the same hosts, written as DFC1
+    shards with the port's ``ColumnarWriter``; then
+    ``cli.trainer.run(["--train-once", DIR, "--device", "cuda"])`` with
+    the default config (30 epochs, lr 3e-3: 420 MLP steps at batch
+    4,096, 840 hop steps at batch 2,048).  Checks: exit 0, the two
+    models registered (``parent-bandwidth-mlp`` and
+    ``parent-ranker-gnn``), both artifacts load through ``load_scorer``
+    and score finite values, no kernel launched.  Prints the round's
+    seconds from shards to registered models and each model's metrics.
+    Then ``TrainerService(gnn_model="gat", device="cuda")`` trains once
+    more on the same shards under the round's config (840 GAT steps);
+    its GAT gather's backward is K3.  Launch counts are zeroed just
+    before this run and read just after.  Checks: K3 launches = steps ×
+    GAT layers; K3 against its plain version on the run's own first
+    backward input and plan (taken by a tap), within 1e-5 × max |sum|
+    (no floor: the gradients are far below 1); the GAT's validation MAE
+    below the train-mean predictor's.
+    The kernels line's K3 launches are phase 6's plus this run's.
+
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -154,6 +196,14 @@ STREAM_RESUME_STEPS = 16
 STREAM_PROFILE = 16
 STREAM_HELD = 4096
 STREAM_EXPORT_F32_TOL = 1e-4  # exported scorer vs a float32 twin of the module
+# The flagship phase: the hop ranker at bench.py's width on phase 6's workload.
+HOP_HIDDEN = 1024
+HOP_EPOCHS = 6            # 54 steps: after 18 the MAE is at the mean predictor's
+HOP_EVENT_STEPS = 10
+# The trainer-service phase: DFC1 shards for one --train-once round.
+SVC_HOSTS = 16_384
+SVC_DOWNLOADS = 65_536
+SVC_TOPOLOGY_RECORDS = 16_384
 # Rollout serving: the scheduler's warm-up and the rounds of the walk.
 ROLL_TASKS = 4
 ROLL_HOSTS_PER_TASK = 64
@@ -163,6 +213,18 @@ ROLL_ROUNDS = 12
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+@contextlib.contextmanager
+def tapped(module, name, wrap):
+    """``module.name`` replaced by ``wrap(original)`` inside the block, so
+    that the smoke reads what a path passes to a function and gets back."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
 
 
 def check(cond: bool, what: str) -> None:
@@ -583,7 +645,7 @@ def profile_steps(torch, step, steps, top=15):
 
 def train_phase(torch, dev, seed):
     """Phase 6: train the GAT ranker on the card, check it, export it,
-    hold and time K3.  Returns (K3's kernels entry, summary)."""
+    hold and time K3.  Returns (K3's kernels entry, summary, workload)."""
     from dragonfly2_tpu_torch.models.gnn import GNNConfig
     from dragonfly2_tpu_torch.ops import fused_score, segment
     from dragonfly2_tpu_torch.ops.segment import (
@@ -709,7 +771,292 @@ def train_phase(torch, dev, seed):
     )
     summary["profile"] = profile_steps(torch, lambda: _graph_train_step(state, *args), steps=3)
     emit({"phase": "training_profile", **summary["profile"]})
-    return entry, summary
+    return entry, summary, work
+
+
+# ---------------------------------------------------------------------------
+# The flagship: the hop ranker at full width
+# ---------------------------------------------------------------------------
+
+
+def mean_predictor_mae(target, val_idx, train_idx):
+    """Validation MAE of predicting the training split's mean target."""
+    return float(np.mean(np.abs(target[val_idx] - target[train_idx].mean())))
+
+
+def hop_phase(torch, dev, seed, work, gat_metrics):
+    """Phase 10: precompute, train, export and time the hop ranker on
+    phase 6's workload.  Returns its summary."""
+    from dragonfly2_tpu_torch.bench.flagship import (
+        PEAK_BF16_FLOPS, hop_train_flops, mfu, step_window,
+    )
+    from dragonfly2_tpu_torch.models.hop import (
+        HopConfig, hop_feature_dim, precompute_hop_features,
+    )
+    from dragonfly2_tpu_torch.trainer.export import (
+        export_gnn_scorer, gnn_scorer_to_bytes, load_scorer,
+    )
+    from dragonfly2_tpu_torch.trainer.train import (
+        TrainConfig, _graph_train_step, epoch_batches, split_edges, train_hop_ranker,
+    )
+
+    mcfg = HopConfig(hidden=HOP_HIDDEN)
+    table = work["table"].to(dev)
+    nf = torch.from_numpy(work["node_feats"]).to(dev)
+    precompute_ms = []
+    for _ in range(2):                       # the first call, then a warm one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hop = precompute_hop_features(nf, table, hops=mcfg.hops)
+        torch.cuda.synchronize()
+        precompute_ms.append((time.perf_counter() - t0) * 1e3)
+    want_shape = (GAT_NODES, hop_feature_dim(work["node_feats"].shape[1], mcfg.hops))
+    check(tuple(hop.shape) == want_shape and bool(torch.isfinite(hop).all()),
+          f"hop features {tuple(hop.shape)}")
+
+    def train(epochs):
+        """train_hop_ranker on the precomputed features; launch counts
+        zeroed just before and read just after."""
+        tcfg = TrainConfig(epochs=epochs, warmup_steps=2, log_every=1, seed=seed)
+        reset_kernel_counts()
+        out = train_hop_ranker(
+            work["node_feats"], work["table"], work["src"], work["dst"], work["target"],
+            model_config=mcfg, config=tcfg, device=dev, batch_size=GAT_BATCH, hop_feats=hop,
+        )
+        torch.cuda.synchronize()
+        return out, kernel_counts()
+
+    # Phase 6's depth first, for its validation metrics beside the GAT's.
+    (_, metrics_18, history_18), launches_18 = train(GAT_EPOCHS)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    (state, metrics, history), launches = train(HOP_EPOCHS)
+    train_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    elapsed = [h["elapsed_s"] for h in history]
+    step_ms = [(b - a) * 1e3 for a, b in zip(elapsed[1:], elapsed[2:])]   # steps 3..
+    step_p50 = float(np.median(step_ms))
+    val_idx, train_idx = split_edges(GAT_EDGES, seed)
+    mean_mae = mean_predictor_mae(work["target"], val_idx, train_idx)
+
+    scorer = load_scorer(gnn_scorer_to_bytes(export_gnn_scorer(
+        state.model, hop, work["table"], np.arange(GAT_NODES))))
+    scores = scorer.score(None, src_buckets=work["src"][val_idx],
+                          dst_buckets=work["dst"][val_idx])
+    export_scaled = float(np.max(np.abs(scores - state.val_pred)
+                                 / np.maximum(1.0, np.abs(state.val_pred))))
+
+    # The step on the device's clock: 10 more steps on the first batch,
+    # no host sync inside the window.
+    idx = next(epoch_batches(train_idx, GAT_BATCH, seed, 0))
+    args = (hop, table, torch.from_numpy(work["src"][idx]).to(dev),
+            torch.from_numpy(work["dst"][idx]).to(dev),
+            torch.from_numpy(work["target"][idx]).to(dev), None)
+    _graph_train_step(state, *args)
+    event_ms, _, _ = step_window(lambda: _graph_train_step(state, *args), HOP_EVENT_STEPS)
+    flops = hop_train_flops(mcfg, work["node_feats"].shape[1], GAT_BATCH)
+    profile = profile_steps(torch, lambda: _graph_train_step(state, *args), steps=3)
+
+    summary = {
+        "precompute_ms": precompute_ms, "hop_dim": int(hop.shape[1]),
+        "train_seconds": train_s, "steps": len(losses),
+        "hidden": mcfg.hidden, "dtype": str(mcfg.dtype), "dropout": mcfg.dropout,
+        "losses": losses, "metrics": metrics.to_dict(),
+        "metrics_after_18_steps": metrics_18.to_dict(), "gat_metrics": gat_metrics,
+        "mean_predictor_mae": mean_mae,
+        "step_ms_p50": step_p50, "step_ms_steps_3_on": step_ms,
+        "records_per_s": GAT_BATCH / (step_p50 / 1e3),
+        "step_ms_events": event_ms, "records_per_s_events": GAT_BATCH / (event_ms / 1e3),
+        "flops_per_step": flops, "peak_bf16_flops": PEAK_BF16_FLOPS,
+        "mfu": mfu(flops, event_ms), "mfu_p50": mfu(flops, step_p50),
+        "peak_memory_gib": peak / 2**30, "kernel_launches": launches,
+        "kernel_launches_18_steps": launches_18,
+        "export_max_scaled_err": export_scaled, "export_tol_scaled": EXPORT_TOL,
+    }
+    emit({"phase": "hop", **summary})
+    emit({"phase": "hop_profile", **profile})
+    check(len(losses) == HOP_EPOCHS * ((GAT_EDGES - GAT_EDGES // 10) // GAT_BATCH),
+          f"{len(losses)} hop train steps")
+    check(all(np.isfinite(losses)), "a non-finite hop loss")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"hop loss did not fall: first {losses[0]}, last 3 {losses[-3:]}")
+    check(metrics.mae < mean_mae,
+          f"hop validation MAE {metrics.mae} not below the mean predictor's {mean_mae}")
+    check(bool(np.isfinite(scores).all()) and export_scaled <= EXPORT_TOL,
+          f"hop export off the model by {export_scaled} (scaled)")
+    check(len(history_18) == GAT_EPOCHS * ((GAT_EDGES - GAT_EDGES // 10) // GAT_BATCH)
+          and all(np.isfinite([h["loss"] for h in history_18])), "hop 18-step run")
+    check(metrics_18.mae <= mean_mae,
+          f"hop validation MAE after 18 steps {metrics_18.mae} above the mean "
+          f"predictor's {mean_mae}")
+    check(not any(launches.values()) and not any(launches_18.values()),
+          f"a kernel launched on the hop path: {launches}, {launches_18}")
+    summary["profile"] = profile
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# The trainer service: cli/trainer --train-once on the card
+# ---------------------------------------------------------------------------
+
+
+def write_service_shards(directory, seed):
+    """DFC1 download and topology shards from one synthetic cluster."""
+    from dragonfly2_tpu_torch.records.columnar import ColumnarWriter
+    from dragonfly2_tpu_torch.records.features import (
+        DOWNLOAD_COLUMNS, TOPO_COLUMNS, topology_to_rows,
+    )
+    from dragonfly2_tpu_torch.records.synthetic import SyntheticCluster
+
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    cluster = SyntheticCluster(num_hosts=SVC_HOSTS, seed=seed)
+    with ColumnarWriter(os.path.join(directory, "download_0.dfc"), DOWNLOAD_COLUMNS) as w:
+        w.append(cluster.generate_feature_rows(SVC_DOWNLOADS, seed=seed))
+    topo_rows = 0
+    with ColumnarWriter(os.path.join(directory, "networktopology_0.dfc"), TOPO_COLUMNS) as w:
+        for record in cluster.generate_topology_records(SVC_TOPOLOGY_RECORDS):
+            topo_rows += w.append(topology_to_rows(record, now_ns=record.created_at))
+    return topo_rows
+
+
+def trainer_service_phase(torch, dev, seed, out_dir):
+    """Phase 11: one --train-once round of the trainer binary on the card,
+    then the service's GAT branch on the same shards.  Returns its
+    summary (with the GAT run's K3 launches)."""
+    from dragonfly2_tpu_torch.cli import trainer as trainer_cli
+    from dragonfly2_tpu_torch.manager.registry import ModelRegistry
+    from dragonfly2_tpu_torch.ops import segment
+    from dragonfly2_tpu_torch.trainer.export import GNNScorer, MLPScorer, load_scorer
+    from dragonfly2_tpu_torch.trainer.service import (
+        GNN_MODEL_NAME, MLP_MODEL_NAME, TrainerService,
+    )
+    from dragonfly2_tpu_torch.ops.segment import _segment_sum_plain
+    from dragonfly2_tpu_torch.trainer import train as train_mod
+    from dragonfly2_tpu_torch.config import TrainerConfigFile, load_config
+    from dragonfly2_tpu_torch.trainer.train import split_edges
+
+    shard_dir = os.path.join(out_dir, "trainer_shards")
+    t0 = time.perf_counter()
+    topo_rows = write_service_shards(shard_dir, seed)
+    write_s = time.perf_counter() - t0
+
+    registry = ModelRegistry()
+    reset_kernel_counts()
+    t1 = time.perf_counter()
+    rc = trainer_cli.run(["--train-once", shard_dir, "--device", "cuda"], registry=registry)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t1
+    launches = kernel_counts()
+    models = {m.name: m for m in registry.list()}
+    loaded = {name: load_scorer(registry.load_artifact(m)) for name, m in models.items()}
+    check(rc == 0, f"trainer --train-once exited {rc}")
+    check(sorted(models) == sorted([MLP_MODEL_NAME, GNN_MODEL_NAME]),
+          f"registered models: {sorted(models)}")
+    check(isinstance(loaded[MLP_MODEL_NAME], MLPScorer)
+          and isinstance(loaded[GNN_MODEL_NAME], GNNScorer), "artifact types")
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((64, 32)).astype(np.float32)
+    gnn = loaded[GNN_MODEL_NAME]
+    b = gnn.buckets[rng.integers(0, len(gnn.buckets), 64)]
+    check(bool(np.isfinite(loaded[MLP_MODEL_NAME].score(feats)).all())
+          and bool(np.isfinite(gnn.score(None, src_buckets=b, dst_buckets=b[::-1])).all()),
+          "registered artifacts score non-finite values")
+    check(not any(launches.values()), f"a kernel launched on the trainer round: {launches}")
+
+    # The service's GAT branch on the same shards: K3 is its gather's
+    # backward.  Taps keep the run's first K3 input (the gather's
+    # backward input and its plan) and its trained state and data.
+    seen = {}
+
+    def keep_first_k3(fn):
+        def wrapped(values, plan, **kw):
+            seen.setdefault("k3", (values.detach().clone(), plan, kw))
+            return fn(values, plan, **kw)
+        return wrapped
+
+    def keep_run(fn):
+        def wrapped(node_feats, table, src, dst, target, **kw):
+            out = fn(node_feats, table, src, dst, target, **kw)
+            seen["run"] = (out[0], target, kw)
+            return out
+        return wrapped
+
+    # The --train-once round's config: under TrainConfig(epochs=2) (lr
+    # 3e-4, 100 warm-up steps) the 56 steps end inside the warm-up, at the
+    # mean predictor's MAE, in the JAX package as in the port.
+    gat_config = trainer_cli.train_config(load_config(TrainerConfigFile, env=False))
+    reset_kernel_counts()
+    t2 = time.perf_counter()
+    with tapped(segment, "segment_sum_bucketed", keep_first_k3), \
+            tapped(train_mod, "train_gat_ranker", keep_run):
+        svc = TrainerService(ModelRegistry(), gnn_model="gat",
+                             train_config=gat_config, device=dev)
+        session = svc.open_train_stream(ip="127.0.0.1", hostname="chip-smoke",
+                                        scheduler_id="s")
+        session.send_download_shard(os.path.join(shard_dir, "download_0.dfc"))
+        session.send_network_topology_shard(os.path.join(shard_dir, "networktopology_0.dfc"))
+        gat_run = svc.runs[session.close_and_train()]
+        torch.cuda.synchronize()
+    gat_s = time.perf_counter() - t2
+    gat_launches = kernel_counts()
+    check(gat_run.error is None and GNN_MODEL_NAME in gat_run.metrics and "run" in seen
+          and "k3" in seen, f"service gat run: {gat_run.error}")
+
+    # K3 against its plain version at this path's shapes, on the tapped
+    # input; these launches come after the counts were read.
+    state, target, run_kw = seen["run"]
+    values, plan, k3_kw = seen["k3"]
+    got = segment.segment_sum_bucketed(values, plan, **k3_kw)
+    torch.cuda.synchronize()
+    want = _segment_sum_plain(values, plan, exact=k3_kw["exact"],
+                              presorted=k3_kw.get("presorted", False))
+    k3_err = float((got - want).abs().max())
+    # Held relative to the sums themselves: these gradients are far below
+    # 1, where phase 6's floor of 1 would let a wrong sum through.
+    k3_max = float(want.abs().max())
+    k3_nonzero = int((want != 0).any(dim=1).sum())
+    k3_ms = device_ms(lambda: segment.segment_sum_bucketed(values, plan, **k3_kw))
+    k3_bound_ms, _ = bound(*k3_cost(plan, values.shape[1], values.element_size()))
+    steps = state.step
+    layers = run_kw["model_config"].num_layers
+    val_idx, train_idx = split_edges(len(target), run_kw["config"].seed)
+    gat_mean_mae = mean_predictor_mae(target, val_idx, train_idx)
+    gat_metrics = gat_run.metrics[GNN_MODEL_NAME]
+    summary = {
+        "write_seconds": write_s, "download_rows": SVC_DOWNLOADS, "topology_rows": topo_rows,
+        "hosts": SVC_HOSTS, "round_seconds": round_s, "rc": rc,
+        "models": {name: {"type": m.type, "version": m.version, "evaluation": m.evaluation}
+                   for name, m in models.items()},
+        "gnn_nodes": int(len(gnn.buckets)), "kernel_launches": launches,
+        "gat_epochs": gat_config.epochs, "gat_seconds": gat_s, "gat_steps": steps,
+        "gat_layers": layers, "gat_error": gat_run.error,
+        "gat_metrics": {k: v.to_dict() for k, v in gat_run.metrics.items()},
+        "gat_mean_predictor_mae": gat_mean_mae,
+        "gat_kernel_launches": gat_launches,
+        "k3": {"rows": int(values.shape[0]), "d": int(values.shape[1]),
+               "dtype": str(values.dtype), "segments": plan.num_segments,
+               "chunks": int(plan.chunks["chunk_lo"].numel()), "partials": plan.n_partials,
+               "max_abs_err": k3_err, "max_abs_want": k3_max, "nonzero_rows": k3_nonzero,
+               "tol_relative": K3_TOL,
+               "ms": k3_ms, "bound_ms": k3_bound_ms},
+    }
+    emit({"phase": "trainer_service", **summary})
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+          "K3 on the service's GAT input: shape or non-finite")
+    check(k3_nonzero > 0, "the service's GAT run sent K3 only zero rows")
+    check(k3_err <= K3_TOL * k3_max,
+          f"K3 off its plain version by {k3_err} on the service's GAT input "
+          f"(max |sum| {k3_max})")
+    check(gat_launches["segment_sum"] == steps * layers,
+          f"K3 launches {gat_launches['segment_sum']} != {steps} steps x {layers} layers "
+          "in the service's GAT run")
+    check(gat_metrics.mae < gat_mean_mae,
+          f"service GAT validation MAE {gat_metrics.mae} not below the mean "
+          f"predictor's {gat_mean_mae}")
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -1174,7 +1521,7 @@ def main(argv=None) -> int:
           "k2": {"ms": k2_ms, "over_launch_floor": k2_ms / floor_ms}})
 
     # -- 6. training path ---------------------------------------------------
-    k3_entry, training = train_phase(torch, dev, args.seed)
+    k3_entry, training, work = train_phase(torch, dev, args.seed)
 
     # -- 7-9. the learned-scheduling loop -----------------------------------
     work_dir = args.out or os.path.join(REPO, "build", "chip_smoke")
@@ -1182,6 +1529,19 @@ def main(argv=None) -> int:
     loop = {"stream": stream_phase(torch, dev, args.seed, work_dir),
             "lifecycle": lifecycle_phase(dev),
             "rollout_serving": rollout_serving_phase(dev, args.seed)}
+
+    # -- 10-11. the flagship and the trainer service ------------------------
+    loop["hop"] = hop_phase(torch, dev, args.seed, work, training["metrics"])
+    del work
+    loop["trainer_service"] = trainer_service_phase(torch, dev, args.seed, work_dir)
+    service_k3 = loop["trainer_service"]["gat_kernel_launches"]["segment_sum"]
+    service_k3_err = loop["trainer_service"]["k3"]["max_abs_err"]
+    k3_entry.update({"launches_training": k3_entry["launches"],
+                     "launches_service_gat": service_k3,
+                     "max_abs_err_service_gat": service_k3_err,
+                     "ms_service_gat": loop["trainer_service"]["k3"]["ms"]})
+    k3_entry["launches"] += service_k3
+    k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"], service_k3_err)
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",

@@ -5,17 +5,30 @@ each module's counterpart is easy to find.  It imports ``torch``,
 ``numpy`` and the standard library only; the JAX package stays in the
 repository as the reference the port is tested against.
 
-Ported so far: the scheduler's ML parent-ranking (serving) path —
+Ported so far: the scheduler's ML parent-ranking (serving) path, the
+graph rankers' training, the learned-scheduling loop and the trainer
+service —
 
-- ``utils``     — types, hostinfo, FSM, DAG, digest, idgen, metrics.
-- ``records``   — record schemas, featurization, synthetic host latents.
+- ``utils``     — types, hostinfo, FSM, DAG, digest, idgen, metrics,
+                  logging, the debug endpoint, SLO declarations.
+- ``records``   — record schemas, featurization, DFC1 columnar files, the
+                  reference-CSV codec, the synthetic cluster.
 - ``scheduler`` — resources, columnar host store, evaluators, scorer
-                  micro-batcher, scheduling engine, service.
-- ``trainer``   — the MLP scorer artifact (``export``).
-- ``ops``       — the fused slot-row gather + MLP scoring kernel and the
-                  rule weighted-sum kernel, CUDA C++ under ``csrc/``.
-- ``sim``       — announce-swarm fixtures.
-- ``cli``       — the scheduler composition root (``build``).
+                  micro-batcher, scheduling engine, service, model
+                  subscription.
+- ``models``    — the GAT and hop rankers, the MLP regressor.
+- ``trainer``   — batch MLP and graph training, the streaming trainer,
+                  the scorer artifacts, the trainer service.
+- ``manager``, ``rollout``, ``lifecycle`` — the model registry, the
+                  rollout plane, the lifecycle daemon.
+- ``ops``       — the fused slot-row gather + MLP scoring kernel, the
+                  rule weighted-sum kernel and the segment sum, CUDA C++
+                  under ``csrc/``.
+- ``sim``       — announce-swarm fixtures, the lifecycle drill.
+- ``config``    — the trainer's config file.
+- ``cli``       — the scheduler composition root (``build``) and the
+                  trainer binary (``--train-once``).
+- ``bench``     — timing helpers and the card's measurement scripts.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 """

@@ -1,5 +1,5 @@
-"""Models: the GAT parent-peer ranker over the probe graph and the MLP
-bandwidth regressor."""
+"""Models: the GAT and hop parent-peer rankers over the probe graph and
+the MLP bandwidth regressor."""
 
 from .gnn import (  # noqa: F401
     GATLayer,
@@ -11,4 +11,5 @@ from .gnn import (  # noqa: F401
     load_flax_params,
     to_flax_params,
 )
+from .hop import HopConfig, HopRanker, precompute_hop_features  # noqa: F401
 from .mlp import MLPConfig, MLPRegressor, warm_start_output_bias  # noqa: F401

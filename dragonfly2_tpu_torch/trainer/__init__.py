@@ -1,5 +1,6 @@
-"""Trainer: the GAT ranker's training loop, the streaming MLP trainer
-(``trainer/streaming.py``) and the scorer artifacts."""
+"""Trainer: the batch MLP and graph training loops (``train.py``), the
+streaming MLP trainer (``streaming.py``), the scorer artifacts
+(``export.py``) and the trainer service (``service.py``)."""
 
 from .export import (  # noqa: F401
     GNNScorer,

@@ -16,7 +16,8 @@ Artifact format (.npz):
 
 ``MLPScorer`` is the pure-numpy scorer and the reference every device
 path is held to; ``ops/fused_score.py`` serves the same blob on the card.
-``GNNScorer`` is the GAT ranker's artifact: the trained encoder baked
+``GNNScorer`` is the graph rankers' artifact (the GAT or the hop
+ranker): the trained encoder baked
 into an embedding table plus the head (``export_gnn_scorer``).  Blobs of
 both kinds load in either package.
 """
@@ -464,10 +465,12 @@ class GNNScorer:
         return x[..., 0]
 
 
-def export_gnn_scorer(model, node_feats: np.ndarray, table, buckets: np.ndarray) -> GNNScorer:
-    """Bake a trained ``GATRanker`` (``models/gnn.py``) into a scorer
-    artifact: its node embeddings from one forward pass (eval mode, on
-    the model's device) and its head.
+def export_gnn_scorer(model, node_feats, table, buckets: np.ndarray) -> GNNScorer:
+    """Bake a trained graph ranker into a scorer artifact: its node
+    embeddings from one forward pass (eval mode, on the model's device)
+    and its head.  ``model`` is a ``GATRanker`` (``models/gnn.py``) with
+    its node features, or a ``HopRanker`` (``models/hop.py``) with its
+    precomputed hop features; numpy or a tensor.
 
     ``buckets[i]`` is the hash bucket of graph node i (the trainer's dense
     index ↔ host keyspace map).
@@ -479,12 +482,13 @@ def export_gnn_scorer(model, node_feats: np.ndarray, table, buckets: np.ndarray)
     model.eval()
     with torch.no_grad():
         emb = model.embeddings(
-            torch.as_tensor(np.asarray(node_feats, np.float32)).to(dev), table.to(dev)
+            torch.as_tensor(node_feats, dtype=torch.float32).to(dev), table.to(dev)
         ).float().cpu().numpy()
     model.train(was_training)
     # Head layers: the top-level Dense stack consuming [s, d, s*d].  The
     # GATRanker carries one leading non-head Dense (the embedding
-    # projection); detect the head start by input width.
+    # projection); the HopRanker's encoder Denses live in a submodule, so
+    # its head starts at Dense_0.  Detect the head start by input width.
     dense = {
         name: (
             mod.kernel.detach().float().cpu().numpy(),

@@ -1,13 +1,18 @@
-"""Graph model training, single device: the GAT parent-peer ranker.
+"""Train loops on one device: the MLP regressor and the graph rankers.
 
-Port of the graph half of ``dragonfly2_tpu/trainer/train.py``
-(``train_gat_ranker`` → ``_train_graph_model`` → ``_graph_train_step``).
-``device=`` takes the place of the JAX package's ``mesh=``; meshes,
-``train_graphsage``, ``train_hop_ranker`` and the MLP trainer come later.
+Port of ``dragonfly2_tpu/trainer/train.py``: ``train_mlp`` /
+``evaluate_mlp`` (the batch MLP trainer of the trainer service),
+``train_gat_ranker`` and ``train_hop_ranker`` on ``_train_graph_model``,
+and the checkpoints.  ``device=`` takes the place of the JAX package's
+``mesh=``: one card is one data-parallel shard, so the JAX trainers'
+rounding of the batch to a multiple of the mesh's data axis has no
+counterpart; ``train_graphsage`` and node-sharded tables come later.
 
 What is kept exactly:
 - the numpy train/validation split and the per-epoch batch order, so both
   packages train on the same batches in the same order;
+- the MLP's feature standardization (numpy, from the training rows) and
+  its "no full batches" refusal;
 - the optimizer's semantics: optax ``clip_by_global_norm(1.0)`` (scale by
   ``max_norm / norm`` only when the norm exceeds it — not torch's
   ``clip_grad_norm_``, which divides by norm + 1e-6), then ``adamw``
@@ -17,8 +22,14 @@ What is kept exactly:
 - the output-bias warm start at the training split's target mean, the
   Huber loss and the evaluation metrics.
 
-Dropout draws from the state's ``torch.Generator``, so its masks differ
-from JAX's; parity runs use dropout 0.
+Each trainer initializes its model from a ``torch.Generator`` seeded with
+``config.seed`` (other weights than flax's init for the same seed), then
+hands it to a loop that trains whatever parameters it holds
+(``_train_mlp_model``, ``_train_graph_model``), so a parity run can carry
+flax's parameters in.  Dropout draws from the state's
+``torch.Generator``, so its masks differ from JAX's; parity runs use
+dropout 0.  Checkpoints are ``torch.save`` files of the parameters and
+the step (the JAX package writes orbax directories).
 """
 
 from __future__ import annotations
@@ -33,8 +44,10 @@ import torch
 from torch import nn
 
 from ..models.gnn import GATRanker, GNNConfig, NeighborTable
-from ..models.mlp import warm_start_output_bias
+from ..models.hop import HopConfig, HopRanker, precompute_hop_features
+from ..models.mlp import MLPConfig, MLPRegressor, warm_start_output_bias
 from ..ops import _build
+from .ingest import EdgeBatches
 
 
 @dataclass
@@ -195,6 +208,128 @@ def _regression_metrics(pred: np.ndarray, target: np.ndarray) -> EvalMetrics:
     )
 
 
+# ---------------------------------------------------------------------------
+# MLP (the trainer service's bandwidth regressor)
+# ---------------------------------------------------------------------------
+
+
+def _mlp_train_step(
+    state: TrainState, feats: torch.Tensor, target: torch.Tensor,
+    mean: torch.Tensor, std: torch.Tensor,
+) -> Tuple[TrainState, torch.Tensor]:
+    """One step on raw features: standardize, forward with dropout from
+    the state's generator, Huber loss, gradients, the optimizer."""
+    feats = (feats - mean) / std
+    pred = state.model(feats, train=True, generator=state.generator)
+    loss = _huber(pred, target)
+    grads = torch.autograd.grad(loss, state.opt.params)
+    state.opt.update(list(grads))
+    state.step += 1
+    return state, loss.detach()
+
+
+def train_mlp(
+    train_data: EdgeBatches,
+    val_data: EdgeBatches,
+    *,
+    model_config: Optional[MLPConfig] = None,
+    config: Optional[TrainConfig] = None,
+    device="cuda",
+) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
+    """Train an ``MLPRegressor`` (initialized from ``config.seed``) on
+    ``train_data``'s batches; → (state, validation metrics, history)."""
+    cfg = config or TrainConfig()
+    model = MLPRegressor(
+        model_config or MLPConfig(), generator=torch.Generator().manual_seed(cfg.seed)
+    )
+    return _train_mlp_model(model, train_data, val_data, cfg, device)
+
+
+def _train_mlp_model(
+    model: MLPRegressor,
+    train_data: EdgeBatches,
+    val_data: EdgeBatches,
+    cfg: TrainConfig,
+    device,
+) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
+    """Train ``model`` from its current parameters.  History entries add
+    ``elapsed_s`` (seconds since the first step began, taken after the
+    step's loss reached the host) to the JAX trainer's keys."""
+    dev = _build.resolve_device(device)
+    if len(train_data) == 0:
+        # Silently running zero steps would export an untrained (random)
+        # model — fail loudly instead.
+        raise ValueError(
+            f"no full batches: {train_data.rows.shape[0]} rows < batch "
+            f"{train_data.batch_size}"
+        )
+    warm_start_output_bias(model, float(train_data.rows[:, -1].mean()))
+    in_dim = model.config.in_dim
+    train_feats = train_data.rows[:, 2 : 2 + in_dim]
+    feat_mean = np.asarray(train_feats.mean(axis=0), np.float32)
+    raw_std = train_feats.std(axis=0)
+    # Columns (near-)constant in training carry no signal — scale them by 1,
+    # not by a tiny std that would amplify any serve-time deviation into a
+    # distribution explosion (e.g. a single-content-length training corpus
+    # meeting a different length at scheduling time).
+    feat_std = np.asarray(np.where(raw_std < 1e-3, 1.0, raw_std), np.float32)
+    model.to(dev)
+    state = TrainState(
+        model=model,
+        opt=_make_optimizer(list(model.parameters()), cfg, max(len(train_data), 1)),
+        generator=torch.Generator(device=dev).manual_seed(cfg.seed + 1),
+        feat_mean=feat_mean,
+        feat_std=feat_std,
+    )
+    mean_t = torch.from_numpy(feat_mean).to(dev)
+    std_t = torch.from_numpy(feat_std).to(dev)
+
+    history: List[Dict[str, float]] = []
+    model.train()
+    t0 = time.perf_counter()
+    seen = 0
+    for epoch in range(cfg.epochs):
+        for feats, target, _, _ in train_data.epoch(epoch):
+            state, loss = _mlp_train_step(
+                state, torch.from_numpy(feats).to(dev), torch.from_numpy(target).to(dev),
+                mean_t, std_t,
+            )
+            seen += feats.shape[0]
+            if state.step % cfg.log_every == 0:
+                loss_v = float(loss)
+                elapsed = time.perf_counter() - t0
+                history.append(
+                    {
+                        "step": state.step,
+                        "epoch": epoch,
+                        "loss": loss_v,
+                        "records_per_sec": seen / elapsed,
+                        "elapsed_s": elapsed,
+                    }
+                )
+    metrics = evaluate_mlp(state, val_data)
+    return state, metrics, history
+
+
+@torch.no_grad()
+def evaluate_mlp(state: TrainState, val_data: EdgeBatches) -> EvalMetrics:
+    """Validation metrics of the state's model (eval mode) under the
+    standardization it trained with."""
+    model = state.model
+    dev = next(model.parameters()).device
+    mean_t = torch.from_numpy(state.feat_mean).to(dev)
+    std_t = torch.from_numpy(state.feat_std).to(dev)
+    was_training = model.training
+    model.eval()
+    preds, targets = [], []
+    for feats, target, _, _ in val_data.epoch(0):
+        x = (torch.from_numpy(feats).to(dev) - mean_t) / std_t
+        preds.append(model(x).float().cpu().numpy())
+        targets.append(target)
+    model.train(was_training)
+    return _regression_metrics(np.concatenate(preds), np.concatenate(targets))
+
+
 def _graph_loss_and_grads(
     state: TrainState, node_feats, table, src, dst, target, qef
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -263,6 +398,56 @@ def train_gat_ranker(
     )
 
 
+def train_hop_ranker(
+    node_feats: np.ndarray,
+    table: NeighborTable,
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    edge_target: np.ndarray,          # log1p bandwidth per download edge
+    query_edge_feats: Optional[np.ndarray] = None,
+    *,
+    model_config: Optional[HopConfig] = None,
+    config: Optional[TrainConfig] = None,
+    device="cuda",
+    batch_size: int = 65_536,
+    hop_feats=None,
+    node_sharding: str = "replicated",
+) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
+    """Train the flagship ``HopRanker`` (models/hop.py; initialized from
+    ``config.seed``): aggregation is precomputed once per snapshot, the
+    train step is dense matrix work on edge batches.  Pass ``hop_feats``
+    (numpy or a tensor) when the caller already precomputed them (the
+    scorer export needs the same array — compute once, use twice); else
+    they are computed once here, on ``device``.  Only
+    ``node_sharding="replicated"`` runs on one card."""
+    if node_sharding == "model":
+        raise ValueError(
+            "node_sharding='model' partitions the node tables over a device "
+            "mesh: it waits for the port's multi-device slice (ROADMAP queue 1 "
+            "item 9)"
+        )
+    if node_sharding != "replicated":
+        raise ValueError(f"unknown node_sharding {node_sharding!r}")
+    cfg = config or TrainConfig()
+    mcfg = model_config or HopConfig()
+    dev = _build.resolve_device(device)
+    if hop_feats is None:
+        hop_feats = precompute_hop_features(
+            torch.as_tensor(np.asarray(node_feats, np.float32)), table.to(dev), hops=mcfg.hops
+        )
+    model = HopRanker(
+        mcfg,
+        num_nodes=int(hop_feats.shape[0]),
+        in_dim=int(hop_feats.shape[1]),
+        query_edge_dim=0 if query_edge_feats is None else int(query_edge_feats.shape[1]),
+        generator=torch.Generator().manual_seed(cfg.seed),
+    )
+    return _train_graph_model(
+        model, hop_feats, table, edge_src, edge_dst, edge_target,
+        query_edge_feats, cfg, dev, batch_size,
+    )
+
+
 def _train_graph_model(
     model: nn.Module,
     node_feats: np.ndarray,
@@ -294,7 +479,7 @@ def _train_graph_model(
         opt=_make_optimizer(list(model.parameters()), cfg, steps_per_epoch),
         generator=torch.Generator(device=dev).manual_seed(cfg.seed + 1),
     )
-    nf = torch.as_tensor(np.asarray(node_feats, np.float32)).to(dev)
+    nf = torch.as_tensor(node_feats, dtype=torch.float32).to(dev)
     dev_table = table.to(dev)
     has_qef = query_edge_feats is not None
 
@@ -340,3 +525,32 @@ def _train_graph_model(
     metrics = _regression_metrics(pred, edge_target[val_idx])
     state.val_idx, state.val_pred = val_idx, pred
     return state, metrics, history
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: ``torch.save`` of the parameters and the step
+# ---------------------------------------------------------------------------
+
+
+def save_checkpoint(path: str, state: TrainState) -> None:
+    """Write the state's parameters (flax paths, ``/``-joined) and step
+    to the file ``path``."""
+    params = {
+        name.replace(".", "/"): p.detach().cpu()
+        for name, p in state.model.named_parameters()
+    }
+    torch.save({"params": params, "step": int(state.step)}, path)
+
+
+def restore_params(path: str) -> Dict:
+    """The parameters of a checkpoint as a flax-shaped nested dict of
+    numpy arrays (``models/gnn.load_flax_params`` takes it)."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    tree: Dict = {}
+    for name, value in data["params"].items():
+        *parts, leaf = name.split("/")
+        node = tree
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[leaf] = value.numpy()
+    return tree

@@ -85,6 +85,15 @@ print("OK")
         "dragonfly2_tpu_torch.lifecycle.daemon",
         "dragonfly2_tpu_torch.scheduler.model_loader",
         "dragonfly2_tpu_torch.sim.lifecycle",
+        "dragonfly2_tpu_torch.records.columnar",
+        "dragonfly2_tpu_torch.records.csv_compat",
+        "dragonfly2_tpu_torch.records.synthetic",
+        "dragonfly2_tpu_torch.trainer.ingest",
+        "dragonfly2_tpu_torch.trainer.service",
+        "dragonfly2_tpu_torch.models.hop",
+        "dragonfly2_tpu_torch.config",
+        "dragonfly2_tpu_torch.cli.trainer",
+        "dragonfly2_tpu_torch.bench.flagship",
         "chip_smoke",
     ],
 )
