@@ -10,11 +10,12 @@ Phases:
 1. Device and build: the card's name and power limit, the kernels built
    from ``dragonfly2_tpu_torch/csrc`` with nvcc for sm_90a (timed).
 2. Serving path: ``cli.scheduler.build`` with algorithm ``ml``, a
-   65,536-slot host store, the 1.5 ms batcher and a fused scorer made
-   from a seeded 32→64→64→1 scorer blob.  16,384 synthetic hosts
-   announce; 64 tasks are warmed with 256 downloads each (register, task
-   length, every piece from the first scheduled parent or the source,
-   finished); then 32 threads send 16 ``register_peer`` requests each,
+   65,536-slot host store, the 1.5 ms batcher, a fused scorer made
+   from a seeded 32→64→64→1 scorer blob and record storage under the out
+   directory.  16,384 synthetic hosts announce; 64 tasks are warmed with
+   256 downloads each (register, task length, every piece from the first
+   scheduled parent or the source, finished: one Download record each,
+   checked); then 32 threads send 16 ``register_peer`` requests each,
    every one into a task where its host has no peer yet, and one client
    sends 64 more (the uncontended per-layer breakdown).  The rule arm
    (K2) then scores the rule components of the same candidate sets.
@@ -141,6 +142,40 @@ launch counts are zeroed before each and must read 0 after.
     (no floor: the gradients are far below 1); the GAT's validation MAE
     below the train-mean predictor's.
     The kernels line's K3 launches are phase 6's plus this run's.
+12. The scheduler's record and probe half (``swarm``):
+    ``cli.scheduler.run(["--simulate", "500", "--device", "cuda"])`` with
+    ``DRAGONFLY_SCHEDULER_STORAGE_DIR`` under the out directory (exit 0
+    and the reference's line); then ``SwarmSimulator`` over 1,000
+    ``SyntheticCluster`` hosts (BASELINE configs[1]'s 1k peers) with one
+    seeded ``random.Random`` for scheduling and probe targets:
+    ``run_downloads(10000, tasks=64)`` (configs[0]'s 10k download
+    records), ``run_probe_rounds(8)``, ``snapshot_topology()`` into
+    ``Storage``; the host time of each, the DFC1 row counts and the probe
+    graph's edges and in-degree.  Then ``cli.trainer.run(["--train-once",
+    DIR, "--device", "cuda"])`` on those shards (exit 0, both models
+    registered; the round's seconds, each model's metrics), and
+    ``measure_parent_choice_quality`` (200 trials, seed 1234) for the rule
+    evaluator, the nt evaluator over the swarm's probe store, and an
+    ``MLEvaluator`` fed each registered model by a ``ModelSubscriber``:
+    the MLP and the GNN must each beat the rules.  No kernel launches.
+13. GraphSAGE (``sage``, configs[1]) on phase 12's probe graph:
+    ``to_edge_arrays()``, the cluster's host features in the store's id
+    order, ``build_neighbor_table`` with K 16, the target
+    ``log1p(rtt / 1e6)``; ``train_graphsage`` with ``GNNConfig()``
+    (hidden 128, out 64, 2 layers, embed 32, dropout 0.1, bf16) and the K3
+    gather, ``TrainConfig(epochs=30, learning_rate=3e-3,
+    warmup_steps=20)``, batch 4,096.  Launch counts are zeroed just before
+    and read just after.  Checks: K3 launches = 2 × steps; the loss falls
+    (the last 8 steps' mean below the first 8's); the validation MAE below
+    the train-mean predictor's; K3 against its plain version on the run's
+    own first backward input and plan (a tap), within 1e-5 × max |sum|;
+    one step with the K3 gather against the same step with the index
+    gather and with the transpose gather (loss within 1e-3 relative,
+    gradient abs-sum within 5e-2); K3 against its plain version at
+    [16,000, 44] and [16,000, 128].  Prints each gather's step p50 (host
+    clock, 20 steps each, in turns) and the fastest, K3's device time,
+    bound and ``index_add_``'s at the two shapes, and the idle share of 5
+    profiled steps.  The kernels line's K3 launches add this run's.
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -150,6 +185,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import random
@@ -209,6 +245,21 @@ ROLL_TASKS = 4
 ROLL_HOSTS_PER_TASK = 64
 ROLL_PER_ROUND = 16
 ROLL_ROUNDS = 12
+
+# Phases 12-13: the scheduler's record and probe half, GraphSAGE on its
+# probe graph (BASELINE configs[1]: 1k peers; configs[0]'s 10k download
+# records read as 10,000 downloads).
+SIM_CLI_DOWNLOADS = 500
+SWARM_HOSTS = 1000
+SWARM_DOWNLOADS = 10_000
+SWARM_TASKS = 64
+SWARM_PROBE_ROUNDS = 8
+SWARM_TRIALS = 200
+SAGE_NEIGHBORS = 16
+SAGE_BATCH = 4096
+SAGE_EPOCHS = 30
+SAGE_TIMED_STEPS = 20
+SAGE_PROFILE = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -287,7 +338,8 @@ def warm_tasks(service, cluster, hosts, *, n_tasks, hosts_per_task):
     """Warm ``n_tasks`` tasks with ``hosts_per_task`` downloads each: the
     download sequence of the reference swarm simulator (register → task
     length → every piece from the first scheduled parent or the source →
-    finished), without storage.  Returns the tasks' URLs."""
+    finished; the service writes each finished download's record).
+    Returns the tasks' URLs."""
     from dragonfly2_tpu_torch.records.synthetic import PIECE_SIZE
     from dragonfly2_tpu_torch.scheduler import ScheduleResultKind
 
@@ -492,9 +544,7 @@ def step_equivalence(torch, state, work, gather_cfg, dev, seed):
     first batch, with the K3 gather and with the index gather's own
     backward; dropout from one generator state in both."""
     from dragonfly2_tpu_torch.models.gnn import GATRanker
-    from dragonfly2_tpu_torch.trainer.train import (
-        TrainState, _graph_loss_and_grads, epoch_batches, split_edges,
-    )
+    from dragonfly2_tpu_torch.trainer.train import epoch_batches, split_edges
 
     _, train_idx = split_edges(GAT_EDGES, seed)
     idx = next(epoch_batches(train_idx, GAT_BATCH, seed, 0))
@@ -508,24 +558,10 @@ def step_equivalence(torch, state, work, gather_cfg, dev, seed):
         num_nodes=GAT_NODES, in_dim=work["node_feats"].shape[1],
     ).to(dev)
     plain.load_state_dict(state.model.state_dict())
-    gen_state = state.generator.get_state()
-    out = []
-    for model in (state.model, plain):
-        gen = torch.Generator(device=dev)
-        gen.set_state(gen_state)
-        loss, grads = _graph_loss_and_grads(
-            TrainState(model=model, opt=None, generator=gen), nf, table, src, dst, target, None
-        )
-        out.append((float(loss), [g.double() for g in grads]))
-    (l0, g0), (l1, g1) = out
-    abs0 = sum(float(g.abs().sum()) for g in g0)
-    abs1 = sum(float(g.abs().sum()) for g in g1)
-    diff = sum(float(((a - b) ** 2).sum()) for a, b in zip(g0, g1)) ** 0.5
-    norm = sum(float((a ** 2).sum()) for a in g0) ** 0.5
-    return {
-        "loss_k3": l0, "loss_index": l1, "loss_rel": abs(l0 - l1) / max(abs(l0), 1e-6),
-        "grad_abs_sum_rel": abs(abs0 - abs1) / max(abs0, 1e-6), "grad_l2_rel": diff / norm,
-    }
+    res = gather_equivalence(torch, state, {"k3": state.model, "index": plain},
+                             (nf, table, src, dst, target, None), dev)["index"]
+    return {"loss_k3": res["loss_k3"], "loss_index": res["loss"],
+            **{k: res[k] for k in ("loss_rel", "grad_abs_sum_rel", "grad_l2_rel")}}
 
 
 def k3_checks(torch, dev, plan, seed):
@@ -1320,6 +1356,335 @@ def rollout_serving_phase(dev, seed):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# The scheduler's record and probe half, then GraphSAGE on its probe graph
+# ---------------------------------------------------------------------------
+
+
+def simulate_cli(out_dir):
+    """``cli.scheduler.run(["--simulate", N, "--device", "cuda"])`` with the
+    record storage under ``out_dir``; → (rc, its last printed line, the
+    line the reference prints for N)."""
+    from dragonfly2_tpu_torch.cli import scheduler as scheduler_cli
+
+    records = os.path.join(out_dir, "scheduler_simulate")
+    shutil.rmtree(records, ignore_errors=True)
+    old = os.environ.get("DRAGONFLY_SCHEDULER_STORAGE_DIR")
+    os.environ["DRAGONFLY_SCHEDULER_STORAGE_DIR"] = records
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = scheduler_cli.run(["--simulate", str(SIM_CLI_DOWNLOADS), "--device", "cuda"])
+    finally:
+        if old is None:
+            os.environ.pop("DRAGONFLY_SCHEDULER_STORAGE_DIR")
+        else:
+            os.environ["DRAGONFLY_SCHEDULER_STORAGE_DIR"] = old
+    lines = buf.getvalue().strip().splitlines()
+    # The reference's --simulate: 32 hosts, 8 tasks seeded by 2 downloads
+    # each, one probe round in which every host probes 5 others (one
+    # snapshot record per host).
+    want = (f"scheduler: simulated {SIM_CLI_DOWNLOADS} downloads -> "
+            f"{SIM_CLI_DOWNLOADS + 16} download records, 32 topology records (32 snapshots)")
+    shutil.rmtree(records, ignore_errors=True)
+    return rc, (lines[-1] if lines else ""), want
+
+
+def dfc_rows(paths):
+    from dragonfly2_tpu_torch.records.columnar import ColumnarReader
+
+    return sum(len(ColumnarReader(p)) for p in paths)
+
+
+def swarm_phase(torch, dev, seed, out_dir):
+    """Phase 12: the scheduler's record and probe half — ``cli.scheduler
+    --simulate``, then a 1,000-host swarm writing Download records and
+    probes into record storage, the trainer binary on those shards, and
+    parent choice by four evaluators.  Returns (summary, simulator)."""
+    from dragonfly2_tpu_torch.cli import trainer as trainer_cli
+    from dragonfly2_tpu_torch.manager.registry import ModelRegistry
+    from dragonfly2_tpu_torch.records.storage import Storage
+    from dragonfly2_tpu_torch.scheduler import Evaluator, MLEvaluator, ModelSubscriber
+    from dragonfly2_tpu_torch.scheduler.evaluator import NetworkTopologyEvaluator
+    from dragonfly2_tpu_torch.sim import SwarmConfig, SwarmSimulator
+    from dragonfly2_tpu_torch.trainer.service import GNN_MODEL_NAME, MLP_MODEL_NAME
+
+    reset_kernel_counts()
+    rc, line, want_line = simulate_cli(out_dir)
+    check(rc == 0, f"scheduler --simulate exited {rc}")
+    check(line == want_line, f"scheduler --simulate printed {line!r}, not {want_line!r}")
+
+    records = os.path.join(out_dir, "swarm_records")
+    shutil.rmtree(records, ignore_errors=True)
+    storage = Storage(records)
+    sim = SwarmSimulator(storage, config=SwarmConfig(num_hosts=SWARM_HOSTS, seed=seed),
+                         rng=random.Random(seed))
+    t0 = time.perf_counter()
+    done = sim.run_downloads(SWARM_DOWNLOADS, tasks=SWARM_TASKS)
+    dl_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sim.run_probe_rounds(SWARM_PROBE_ROUNDS)
+    probe_s = time.perf_counter() - t1
+    snapshots = sim.snapshot_topology()
+    storage.flush()
+    dl_rows = dfc_rows(storage.download_columnar_paths())
+    topo_rows = dfc_rows(storage.network_topology_columnar_paths())
+    ids, src, dst, rtt = sim.topology.to_edge_arrays()
+    in_deg = np.bincount(dst, minlength=len(ids))
+
+    registry = ModelRegistry()
+    t2 = time.perf_counter()
+    rc = trainer_cli.run(["--train-once", records, "--device", "cuda"], registry=registry)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t2
+    models = {m.name: m for m in registry.list()}
+    shutil.rmtree(records, ignore_errors=True)
+    check(rc == 0, f"trainer --train-once on the swarm's shards exited {rc}")
+    check(sorted(models) == sorted([MLP_MODEL_NAME, GNN_MODEL_NAME]),
+          f"registered models: {sorted(models)}")
+
+    # Parent choice on ground-truth bandwidth: the rule evaluator, the nt
+    # evaluator over the swarm's probe store, and an ML evaluator fed each
+    # registered model by a subscription.
+    evaluators = {"rule": Evaluator(), "nt": NetworkTopologyEvaluator(sim.topology)}
+    for label, name in (("mlp", MLP_MODEL_NAME), ("gnn", GNN_MODEL_NAME)):
+        registry.activate(models[name].id)
+        ev = MLEvaluator()
+        ModelSubscriber(registry, ev, scheduler_id=models[name].scheduler_id,
+                        model_name=name).refresh()
+        check(ev.has_model, f"the {name} subscription installed no scorer")
+        evaluators[label] = ev
+    t3 = time.perf_counter()
+    quality = {label: sim.measure_parent_choice_quality(ev, n_trials=SWARM_TRIALS, seed=1234)
+               for label, ev in evaluators.items()}
+    quality_s = time.perf_counter() - t3
+    launches = kernel_counts()
+    summary = {
+        "simulate_cli_line": line, "hosts": SWARM_HOSTS, "downloads": done,
+        "tasks": SWARM_TASKS, "download_seconds": dl_s, "downloads_per_s": done / dl_s,
+        "probe_rounds": SWARM_PROBE_ROUNDS, "probe_seconds": probe_s,
+        "probe_round_seconds": probe_s / SWARM_PROBE_ROUNDS,
+        "download_records": storage.download_count, "download_rows": dl_rows,
+        "topology_records": storage.network_topology_count, "topology_snapshots": snapshots,
+        "topology_rows": topo_rows, "probe_graph": {
+            "nodes": len(ids), "edges": int(len(src)), "mean_in_degree": float(in_deg.mean()),
+            "max_in_degree": int(in_deg.max())},
+        "round_seconds": round_s, "rc": rc,
+        "models": {name: {"type": m.type, "version": m.version, "evaluation": m.evaluation}
+                   for name, m in models.items()},
+        "parent_choice_mb_s": quality, "parent_choice_trials": SWARM_TRIALS,
+        "parent_choice_seconds": quality_s, "kernel_launches": launches,
+    }
+    emit({"phase": "swarm", **summary})
+    check(done == SWARM_DOWNLOADS, f"{done} of {SWARM_DOWNLOADS} downloads simulated")
+    check(dl_rows > 0 and topo_rows > 0, "the swarm wrote no DFC1 rows")
+    check(quality["mlp"] > quality["rule"],
+          f"MLP evaluator {quality['mlp']} MB/s not above the rules' {quality['rule']}")
+    check(quality["gnn"] > quality["rule"],
+          f"GNN evaluator {quality['gnn']} MB/s not above the rules' {quality['rule']}")
+    check(not any(launches.values()), f"a kernel launched on the swarm path: {launches}")
+    return summary, sim
+
+
+def sage_workload(sim):
+    """configs[1]'s graph: the swarm's probe graph (``to_edge_arrays``), the
+    cluster's host features in the store's id order, K = 16, the target
+    ``log1p(rtt / 1e6)``."""
+    from dragonfly2_tpu_torch.models.gnn import build_neighbor_table
+
+    ids, src, dst, rtt = sim.topology.to_edge_arrays()
+    order = np.array([sim._host_index[h] for h in ids])
+    n = len(ids)
+    return {
+        "n": n, "node_feats": sim.cluster._host_feature_matrix()[order],
+        "table": build_neighbor_table(n, src, dst, rtt / 1e9, max_neighbors=SAGE_NEIGHBORS),
+        "src": src, "dst": dst, "target": np.log1p(rtt / 1e6).astype(np.float32),
+    }
+
+
+def sage_phase(torch, dev, seed, sim):
+    """Phase 13: GraphSAGE (configs[1]) on the swarm's probe graph with the
+    K3 gather, its checks, the three gathers' steps and K3's times at this
+    path's shapes.  Returns (summary, K3 launches, K3's error here)."""
+    from dragonfly2_tpu_torch.models.gnn import GNNConfig
+    from dragonfly2_tpu_torch.ops import segment
+    from dragonfly2_tpu_torch.ops.segment import _segment_sum_plain, make_neighbor_gather
+    from dragonfly2_tpu_torch.ops.transpose_gather import make_transpose_gather
+    from dragonfly2_tpu_torch.trainer import train as train_mod
+    from dragonfly2_tpu_torch.trainer.train import (
+        TrainConfig, _graph_train_step, _SAGEEdgeModel, epoch_batches, split_edges,
+    )
+
+    t0 = time.perf_counter()
+    work = sage_workload(sim)
+    n = work["n"]
+    gather = make_neighbor_gather(work["table"].indices, n, device=dev)
+    prep_s = time.perf_counter() - t0
+    mcfg = GNNConfig(gather_fn=gather)
+    tcfg = TrainConfig(epochs=SAGE_EPOCHS, learning_rate=3e-3, warmup_steps=20, log_every=1,
+                       seed=seed)
+    seen = {}
+
+    def keep_first_k3(fn):
+        def wrapped(values, plan, **kw):
+            seen.setdefault("k3", (values.detach().clone(), plan, kw))
+            return fn(values, plan, **kw)
+        return wrapped
+
+    reset_kernel_counts()
+    t1 = time.perf_counter()
+    with tapped(segment, "segment_sum_bucketed", keep_first_k3):
+        state, metrics, history = train_mod.train_graphsage(
+            work["node_feats"], work["table"], work["src"], work["dst"], work["target"],
+            model_config=mcfg, config=tcfg, device=dev, batch_size=SAGE_BATCH)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    launches = kernel_counts()
+    k3_launches = launches["segment_sum"]
+    steps = state.step
+    losses = [h["loss"] for h in history]
+    elapsed = [h["elapsed_s"] for h in history]
+    step_ms = [(b - a) * 1e3 for a, b in zip(elapsed[1:], elapsed[2:])]   # steps 3..
+    val_idx, train_idx = split_edges(len(work["target"]), seed)
+    mean_mae = mean_predictor_mae(work["target"], val_idx, train_idx)
+
+    # K3 against its plain version on the run's own first backward input;
+    # these launches come after the counts were read.
+    values, plan, k3_kw = seen["k3"]
+    got = segment.segment_sum_bucketed(values, plan, **k3_kw)
+    torch.cuda.synchronize()
+    want = _segment_sum_plain(values, plan, exact=k3_kw["exact"],
+                              presorted=k3_kw.get("presorted", False))
+    k3_err = float((got - want).abs().max())
+    k3_max = float(want.abs().max())
+
+    # One step from the trained state with each gather (the same generator
+    # state), then each gather's step time on the first batch.
+    idx = next(epoch_batches(train_idx, SAGE_BATCH, seed, 0))
+    args = (torch.from_numpy(work["node_feats"]).to(dev), work["table"].to(dev),
+            torch.from_numpy(work["src"][idx]).to(dev), torch.from_numpy(work["dst"][idx]).to(dev),
+            torch.from_numpy(work["target"][idx]).to(dev), None)
+    gathers = {"k3": gather, "index": None,
+               "transpose": make_transpose_gather(work["table"].indices, work["table"].mask, n,
+                                                  device=dev)}
+    models = {}
+    for name, g in gathers.items():
+        m = _SAGEEdgeModel(dataclasses.replace(mcfg, gather_fn=g), num_nodes=n,
+                           in_dim=work["node_feats"].shape[1]).to(dev)
+        m.load_state_dict(state.model.state_dict())
+        models[name] = m
+    equiv = gather_equivalence(torch, state, models, args, dev)
+    step_times = gather_step_times(torch, state, models, args, tcfg)
+    fastest = min(step_times, key=lambda k: step_times[k]["p50_ms"])
+    # K3 alone at this path's two shapes, against its plain version, with
+    # its device time, bound and index_add_'s time.
+    rng = np.random.default_rng(seed)
+    rows = n * SAGE_NEIGHBORS
+    flat_ids = gather.flat_indices
+    shapes = {}
+    for d in (44, 128):
+        vals = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(
+            torch.bfloat16).to(dev)
+        sgot = segment.segment_sum_bucketed(vals, plan, exact=False)
+        torch.cuda.synchronize()
+        swant = _segment_sum_plain(vals, plan, exact=False, presorted=False)
+        err = float((sgot - swant).abs().max())
+        scale = max(1.0, float(swant.abs().max()))
+        check(err <= K3_TOL * scale, f"K3 off its plain version by {err} at [{rows}, {d}]")
+        vals32 = vals.float()
+        bound_ms, bound_by = bound(*k3_cost(plan, d, 2))
+        shapes[d] = {
+            "rows": rows, "max_abs_err": err, "max_abs_want": scale,
+            "ms": device_ms(lambda: segment.segment_sum_bucketed(vals, plan, exact=False)),
+            "plain_ms": device_ms(lambda: _segment_sum_plain(vals, plan, exact=False,
+                                                             presorted=False), samples=5, reps=2),
+            "index_add_ms": device_ms(lambda: torch.zeros((n, d), device=dev).index_add_(
+                0, flat_ids, vals32), samples=10, reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        shapes[d]["share_of_bound"] = bound_ms / shapes[d]["ms"]
+    prof = profile_steps(torch, lambda: _graph_train_step(state, *args), steps=SAGE_PROFILE)
+    summary = {
+        "nodes": n, "probe_edges": int(len(work["src"])), "neighbors": SAGE_NEIGHBORS,
+        "prep_seconds": prep_s, "train_seconds": train_s, "steps": steps,
+        "k3_launches": k3_launches, "kernel_launches": launches, "losses_first_last": [
+            losses[:8], losses[-8:]], "metrics": metrics.to_dict(),
+        "mean_predictor_mae": mean_mae, "step_ms_p50_k3_run": float(np.median(step_ms)),
+        "k3_path": {"rows": int(values.shape[0]), "d": int(values.shape[1]),
+                    "dtype": str(values.dtype), "segments": plan.num_segments,
+                    "max_abs_err": k3_err, "max_abs_want": k3_max, "tol_relative": K3_TOL},
+        "step_equivalence": equiv, "gather_step_ms": step_times, "fastest_gather": fastest,
+        "k3": shapes, "profile": prof,
+    }
+    emit({"phase": "sage", **summary})
+    check(steps == SAGE_EPOCHS * (len(train_idx) // SAGE_BATCH), f"{steps} SAGE steps")
+    check(k3_launches == 2 * steps, f"K3 launches {k3_launches} != 2 x {steps} SAGE steps")
+    check(launches["fused_gather_mlp_score"] == 0 and launches["rule_weighted_sum"] == 0,
+          f"K1/K2 launched by the SAGE run: {launches}")
+    check(len(losses) == steps and all(np.isfinite(losses)), "a non-finite or missing loss")
+    check(float(np.mean(losses[-8:])) < float(np.mean(losses[:8])),
+          f"SAGE loss did not fall: {losses[:8]} -> {losses[-8:]}")
+    check(metrics.mae < mean_mae, f"SAGE val MAE {metrics.mae} not below the mean "
+          f"predictor's {mean_mae}")
+    check(bool(torch.isfinite(got).all()) and k3_max > 0, "K3 on the SAGE input: zero or non-finite")
+    check(k3_err <= K3_TOL * k3_max,
+          f"K3 off its plain version by {k3_err} on the SAGE run's input (max |sum| {k3_max})")
+    for name in ("index", "transpose"):
+        check(equiv[name]["loss_rel"] <= STEP_LOSS_TOL,
+              f"SAGE step loss with the {name} gather off the K3 step: {equiv}")
+        check(equiv[name]["grad_abs_sum_rel"] <= STEP_GRAD_TOL,
+              f"SAGE step gradients with the {name} gather off the K3 step: {equiv}")
+    return summary, k3_launches, max([k3_err] + [v["max_abs_err"] for v in shapes.values()])
+
+
+def gather_equivalence(torch, state, models, args, dev):
+    """Loss and gradients of one step on ``args`` with each of ``models``
+    (the same parameters, another gather each), dropout from ``state``'s
+    generator state in every one; each against the ``"k3"`` model's."""
+    from dragonfly2_tpu_torch.trainer.train import TrainState, _graph_loss_and_grads
+
+    gen_state = state.generator.get_state()
+    out = {}
+    for name, model in models.items():
+        gen = torch.Generator(device=dev)
+        gen.set_state(gen_state)
+        loss, grads = _graph_loss_and_grads(
+            TrainState(model=model, opt=None, generator=gen), *args)
+        out[name] = (float(loss), [g.double() for g in grads])
+    l0, g0 = out["k3"]
+    abs0 = sum(float(g.abs().sum()) for g in g0)
+    norm = sum(float((a ** 2).sum()) for a in g0) ** 0.5
+    res = {}
+    for name in sorted(models.keys() - {"k3"}):
+        l1, g1 = out[name]
+        abs1 = sum(float(g.abs().sum()) for g in g1)
+        diff = sum(float(((a - b) ** 2).sum()) for a, b in zip(g0, g1)) ** 0.5
+        res[name] = {"loss_k3": l0, "loss": l1, "loss_rel": abs(l0 - l1) / max(abs(l0), 1e-6),
+                     "grad_abs_sum_rel": abs(abs0 - abs1) / max(abs0, 1e-6),
+                     "grad_l2_rel": diff / norm}
+    return res
+
+
+def gather_step_times(torch, state, models, args, tcfg):
+    """Host ms of one train step (ended by its loss reaching the host) with
+    each gather, in turns: SAGE_TIMED_STEPS steps each, a fresh optimizer
+    per model so the trained state is left as it is."""
+    from dragonfly2_tpu_torch.trainer.train import TrainState, _graph_train_step, _make_optimizer
+
+    states = {name: TrainState(model=m, opt=_make_optimizer(list(m.parameters()), tcfg, 8),
+                               generator=torch.Generator(device=args[0].device).manual_seed(1))
+              for name, m in models.items()}
+    times = {name: [] for name in models}
+    for name, st in states.items():          # warm-up
+        float(_graph_train_step(st, *args)[1])
+    for _ in range(SAGE_TIMED_STEPS):
+        for name, st in states.items():
+            t0 = time.perf_counter()
+            float(_graph_train_step(st, *args)[1])
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: {"p50_ms": float(np.median(t)), "min_ms": float(np.min(t)),
+                   "steps": len(t)} for name, t in times.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1369,7 +1734,12 @@ def main(argv=None) -> int:
           "nvcc_seconds": _build.build_seconds})
 
     # -- 2. serving path ----------------------------------------------------
+    work_dir = args.out or os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work_dir, exist_ok=True)
     cfg = SchedulerConfig()
+    # The warm-up's finished downloads are written as Download records.
+    cfg.storage.dir = os.path.join(work_dir, "serving_records")
+    shutil.rmtree(cfg.storage.dir, ignore_errors=True)
     cfg.scheduling.algorithm = "ml"
     cfg.scheduling.eval_feature_cache_hosts = STORE_SLOTS
     cfg.scheduling.eval_batch_linger_ms = 1.5
@@ -1432,6 +1802,7 @@ def main(argv=None) -> int:
                     "fallbacks": batcher.fallbacks},
         "rule_degrades": ev.degrades, "launches": launches, "scorer_copies": copies,
         "k2_path_max_abs_err": k2_path_err,
+        "download_records": service.storage.download_count,
     })
 
     # -- 3. the path against the reference ----------------------------------
@@ -1448,6 +1819,10 @@ def main(argv=None) -> int:
     check(len(scored) >= 0.9 * n_req,
           f"only {len(scored)} of {n_req} requests scored >= 2 candidates")
     check(k2_path_err <= K2_TOL, f"K2 on the path off by {k2_path_err}")
+    check(service.storage.download_count == N_TASKS * HOSTS_PER_TASK,
+          f"{service.storage.download_count} Download records for "
+          f"{N_TASKS * HOSTS_PER_TASK} finished warm-up downloads")
+    shutil.rmtree(cfg.storage.dir, ignore_errors=True)
     ref = load_scorer(blob)
     score_err, inputs = verify_rankings(ev, scorer, ref, records)
     emit({"phase": "reference", "requests_checked": len(records),
@@ -1524,8 +1899,6 @@ def main(argv=None) -> int:
     k3_entry, training, work = train_phase(torch, dev, args.seed)
 
     # -- 7-9. the learned-scheduling loop -----------------------------------
-    work_dir = args.out or os.path.join(REPO, "build", "chip_smoke")
-    os.makedirs(work_dir, exist_ok=True)
     loop = {"stream": stream_phase(torch, dev, args.seed, work_dir),
             "lifecycle": lifecycle_phase(dev),
             "rollout_serving": rollout_serving_phase(dev, args.seed)}
@@ -1542,6 +1915,16 @@ def main(argv=None) -> int:
                      "ms_service_gat": loop["trainer_service"]["k3"]["ms"]})
     k3_entry["launches"] += service_k3
     k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"], service_k3_err)
+
+    # -- 12-13. the record and probe half, GraphSAGE on its probe graph -----
+    loop["swarm"], sim = swarm_phase(torch, dev, args.seed, work_dir)
+    loop["sage"], sage_k3, sage_k3_err = sage_phase(torch, dev, args.seed, sim)
+    del sim
+    k3_entry.update({"launches_sage": sage_k3, "max_abs_err_sage": sage_k3_err,
+                     "ms_sage_d44": loop["sage"]["k3"][44]["ms"],
+                     "ms_sage_d128": loop["sage"]["k3"][128]["ms"]})
+    k3_entry["launches"] += sage_k3
+    k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"], sage_k3_err)
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",

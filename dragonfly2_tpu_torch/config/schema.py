@@ -1,11 +1,22 @@
-"""Config dataclasses + YAML/env loading + validation: the trainer's.
+"""Config dataclasses + YAML/env loading + validation: the trainer's and
+the scheduler's.
 
 Port of the part of ``dragonfly2_tpu/config/schema.py`` that the trainer
-binary reads: ``ConfigError``, the sections ``TrainerConfigFile`` holds,
-``_from_dict``, ``_apply_env`` and ``load_config``, verbatim (same keys,
-defaults, validation and ``DRAGONFLY_TRAINER_*`` environment overrides),
-so the reference's trainer files load.  ``yaml`` is imported only when a
-path is given.  The other binaries' config files come with their slices.
+and scheduler binaries read: ``ConfigError``, the sections
+``TrainerConfigFile`` holds, ``_from_dict``, ``_apply_env`` and
+``load_config``, verbatim (same keys, defaults, validation and
+``DRAGONFLY_TRAINER_*`` / ``DRAGONFLY_SCHEDULER_*`` environment
+overrides), so the reference's trainer files load.  ``yaml`` is imported
+only when a path is given.  The other binaries' config files come with
+their slices.
+
+``SchedulerConfigFile`` holds only the sections and fields the port's
+``cli/scheduler`` reads (``scheduling``, ``network_topology``,
+``storage``, ``gc``), with the reference's names, defaults and
+validation; the reference's other scheduler keys (server, manager,
+security, tracing, the stall monitor, the rollout plane, sharding) come
+with the slices that read them (ROADMAP queue 1 items 10 and 12), and
+until then a file that sets one is refused as an unknown key.
 
 The port's ``--train-once`` round reads ``training.epochs``,
 ``training.learning_rate`` and ``training.warmup_steps``; every other key
@@ -169,6 +180,70 @@ class TrainerConfigFile:
         self.log.validate()
         self.tracing.validate()
         self.telemetry.validate()
+
+
+@dataclass
+class StorageConfig:
+    dir: str = "/var/lib/dragonfly/records"
+    buffer_size: int = 100
+    max_size: int = 100 << 20
+    max_backups: int = 10
+
+
+@dataclass
+class SchedulingSection:
+    """The ``scheduling`` fields ``cli/scheduler.build`` reads."""
+
+    algorithm: str = "default"        # default | nt | ml (evaluator.go:28-46)
+    candidate_parent_limit: int = 4
+    filter_parent_limit: int = 15
+    retry_limit: int = 5
+    retry_back_to_source_limit: int = 4
+    retry_interval_s: float = 0.5
+    # Serving engine (ml algorithm, DESIGN.md §14): bounded linger the
+    # cross-request micro-batcher waits to coalesce concurrent announce
+    # evaluations into one padded scorer call (0 = flush immediately),
+    # and the columnar host store's slot count.
+    eval_batch_linger_ms: float = 1.5
+    eval_feature_cache_hosts: int = 65536
+
+    def validate(self) -> None:
+        if self.algorithm not in ("default", "nt", "ml"):
+            raise ConfigError(f"scheduling.algorithm {self.algorithm!r} unknown")
+        if self.candidate_parent_limit > self.filter_parent_limit:
+            raise ConfigError("candidate_parent_limit > filter_parent_limit")
+        if self.candidate_parent_limit < 1:
+            raise ConfigError("candidate_parent_limit < 1")
+        if self.eval_batch_linger_ms < 0:
+            raise ConfigError("eval_batch_linger_ms < 0")
+        if self.eval_feature_cache_hosts < 1:
+            raise ConfigError("eval_feature_cache_hosts < 1")
+
+
+@dataclass
+class NetworkTopologySection:
+    enable: bool = True
+    probe_queue_length: int = 5
+    probe_count: int = 5
+    collect_interval_s: float = 2 * 3600.0
+
+
+@dataclass
+class GCSection:
+    host_ttl_s: float = 6 * 3600.0
+    task_ttl_s: float = 2 * 3600.0
+    peer_ttl_s: float = 24 * 3600.0
+
+
+@dataclass
+class SchedulerConfigFile:
+    scheduling: SchedulingSection = field(default_factory=SchedulingSection)
+    network_topology: NetworkTopologySection = field(default_factory=NetworkTopologySection)
+    storage: StorageConfig = field(default_factory=StorageConfig)
+    gc: GCSection = field(default_factory=GCSection)
+
+    def validate(self) -> None:
+        self.scheduling.validate()
 
 
 # ---------------------------------------------------------------------------

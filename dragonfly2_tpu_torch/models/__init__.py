@@ -1,12 +1,14 @@
-"""Models: the GAT and hop parent-peer rankers over the probe graph and
-the MLP bandwidth regressor."""
+"""Models: GraphSAGE, the GAT and hop parent-peer rankers over the probe
+graph, and the MLP bandwidth regressor."""
 
 from .gnn import (  # noqa: F401
     GATLayer,
     GATRanker,
     GNNConfig,
+    GraphSAGE,
     NeighborTable,
     NodeEmbedding,
+    SAGELayer,
     build_neighbor_table,
     load_flax_params,
     to_flax_params,

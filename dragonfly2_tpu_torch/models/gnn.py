@@ -1,10 +1,15 @@
-"""GAT over the probe graph: the parent-peer ranker (BASELINE configs[2]).
+"""GNNs over the probe graph: GraphSAGE and the GAT parent-peer ranker.
 
-Port of ``dragonfly2_tpu/models/gnn.py`` (the GAT half; ``SAGELayer`` and
-``GraphSAGE`` wait for their trainer).  Every node has exactly K
-neighbor slots (``build_neighbor_table``): the model sees dense [N, K]
-index, mask and edge-feature tensors, and aggregation is one gather and
-a masked softmax.
+Port of ``dragonfly2_tpu/models/gnn.py``:
+- ``GraphSAGE``  — mean-aggregator SAGE encoder (BASELINE configs[1]);
+- ``GATRanker``  — GAT encoder + edge-score head predicting per-edge
+  log-bandwidth for parent ranking (configs[2]).
+
+Every node has exactly K neighbor slots (``build_neighbor_table``): the
+model sees dense [N, K] index, mask and edge-feature tensors, and
+aggregation is one gather and a masked mean (SAGE) or softmax (GAT).
+Both layers take ``GNNConfig.gather_fn`` for the gather (the index
+gather otherwise).
 
 The modules mirror flax's: parameters are float32, compute is bfloat16
 at exactly the places flax casts (``Dense`` casts its input, kernel and
@@ -197,6 +202,104 @@ class NodeEmbedding(nn.Module):
         return torch.cat([node_feats, self.embedding.to(node_feats.dtype)], dim=-1)
 
 
+def _gather_neighbors(
+    h: torch.Tensor, table: NeighborTable, gather_fn: Optional[Callable]
+) -> torch.Tensor:
+    """[N, K, D] neighbor rows of ``h``: ``gather_fn(h)`` when given (built
+    from the same [N, K] indices; its shape is checked against the
+    table), else an index gather."""
+    N, K = table.indices.shape
+    if gather_fn is None:
+        return h.index_select(0, table.indices.reshape(-1)).reshape(N, K, -1)
+    h_n = gather_fn(h)
+    if tuple(h_n.shape[:2]) != tuple(table.indices.shape):
+        raise ValueError(
+            f"gather_fn output {tuple(h_n.shape[:2])} does not match the "
+            f"neighbor table {tuple(table.indices.shape)} — rebuild it "
+            f"from table.indices (make_neighbor_gather, "
+            f"make_transpose_gather) for THIS graph snapshot"
+        )
+    return h_n
+
+
+class SAGELayer(nn.Module):
+    """h' = act(W_self h ++ W_agg mean_k(h_nbr ++ e)) — one gather and
+    three ``Dense`` (flax's ``Dense_0`` self, ``Dense_1`` aggregate,
+    ``Dense_2`` out).  As flax computes it: the edge features are
+    concatenated to the neighbor rows before the mean, and the mask, the
+    denominator and the mean are all in the compute dtype."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        width: int,
+        edge_dim: int = 1,
+        dtype: torch.dtype = torch.bfloat16,
+        gather_fn: Optional[Callable] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.width = width
+        self.dtype = dtype
+        self.gather_fn = gather_fn
+        self.Dense_0 = Dense(in_dim, width, dtype, generator)              # self
+        self.Dense_1 = Dense(in_dim + edge_dim, width, dtype, generator)   # aggregate
+        self.Dense_2 = Dense(2 * width, width, dtype, generator)           # out
+
+    def forward(self, h: torch.Tensor, table: NeighborTable) -> torch.Tensor:
+        dt = self.dtype
+        h = h.to(dt)
+        nbr = _gather_neighbors(h, table, self.gather_fn)                  # [N, K, D]
+        nbr = torch.cat([nbr, table.edge_feats.to(dt)], dim=-1)           # [N, K, D+E]
+        m = table.mask.to(dt)[..., None]                                   # [N, K, 1]
+        denom = torch.clamp(m.sum(dim=1), min=1.0)                         # [N, 1]
+        agg = (nbr * m).sum(dim=1) / denom                                 # [N, D+E]
+        out = torch.cat([self.Dense_0(h), self.Dense_1(agg)], dim=-1)
+        return gelu(self.Dense_2(out))
+
+
+class GraphSAGE(nn.Module):
+    """Node features [N, D] + neighbor table → embeddings [N, out_dim]
+    (flax names: ``NodeEmbedding_0``, ``SAGELayer_0..``, ``Dense_0``).
+    Dropout applies after each layer when training."""
+
+    def __init__(
+        self,
+        config: Optional[GNNConfig] = None,
+        *,
+        num_nodes: int,
+        in_dim: int,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        cfg = config or GNNConfig()
+        self.config = cfg
+        self.NodeEmbedding_0 = NodeEmbedding(num_nodes, cfg.node_embed_dim, generator)
+        d = in_dim + max(cfg.node_embed_dim, 0)
+        for i in range(cfg.num_layers):
+            setattr(self, f"SAGELayer_{i}", SAGELayer(
+                d, cfg.hidden, cfg.edge_dim, cfg.dtype, cfg.gather_fn, generator,
+            ))
+            d = cfg.hidden
+        self.Dense_0 = Dense(d, cfg.out_dim, torch.float32, generator)
+
+    def forward(
+        self,
+        node_feats: torch.Tensor,
+        table: NeighborTable,
+        *,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        cfg = self.config
+        h = self.NodeEmbedding_0(node_feats)
+        for i in range(cfg.num_layers):
+            h = getattr(self, f"SAGELayer_{i}")(h, table)
+            if train and cfg.dropout > 0:
+                h = dropout(h, cfg.dropout, generator)
+        return self.Dense_0(h)
+
+
 class GATLayer(nn.Module):
     """Multi-head attention over the K neighbor slots (masked softmax in
     f32).  The raw neighbor rows are gathered ONCE and k/v projected
@@ -230,17 +333,7 @@ class GATLayer(nn.Module):
         q = self.Dense_0(h)
         N, K = table.indices.shape
         q = q.reshape(N, H, W)
-        if self.gather_fn is not None:
-            h_n = self.gather_fn(h)                             # [N, K, D]
-            if tuple(h_n.shape[:2]) != tuple(table.indices.shape):
-                raise ValueError(
-                    f"gather_fn output {tuple(h_n.shape[:2])} does not match the "
-                    f"neighbor table {tuple(table.indices.shape)} — rebuild it "
-                    f"with make_neighbor_gather(table.indices, ...) for "
-                    f"THIS graph snapshot"
-                )
-        else:
-            h_n = h.index_select(0, table.indices.reshape(-1)).reshape(N, K, -1)
+        h_n = _gather_neighbors(h, table, self.gather_fn)      # [N, K, D]
         k_n = self.Dense_1(h_n).reshape(N, K, H, W)
         v_n = self.Dense_2(h_n).reshape(N, K, H, W)
         e_bias = self.Dense_3(table.edge_feats.to(dt))           # [N, K, H]
@@ -350,9 +443,12 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
 def load_flax_params(model: nn.Module, params: Dict) -> nn.Module:
     """Copy a flax param tree (nested dicts of arrays, e.g. after
     ``jax.tree_util.tree_map(np.asarray, params)``) into ``model``, a
-    ``GATRanker`` or an ``MLPRegressor``.
+    ``GATRanker``, a ``GraphSAGE`` (or the trainer's edge model around
+    one) or an ``MLPRegressor``.
 
-    Flax paths map one for one onto ``state_dict`` keys.  GATRanker:
+    Flax paths map one for one onto ``state_dict`` keys.  GraphSAGE:
+    ``NodeEmbedding_0/embedding``; ``SAGELayer_i/Dense_0..2/{kernel,bias}``
+    (self, aggregate, out); ``Dense_0/{kernel,bias}``.  GATRanker:
     ``NodeEmbedding_0/embedding``; ``GATLayer_i/Dense_0..4/{kernel,bias}``
     (q, k, v, edge bias, output); ``Dense_0..3/{kernel,bias}``
     (embedding projection, then the head).  MLPRegressor:

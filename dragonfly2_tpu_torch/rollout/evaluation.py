@@ -2,7 +2,8 @@
 score both arms' rankings.
 
 Port of ``dragonfly2_tpu/rollout/evaluation.py``, numpy verbatim; the
-columnar shard loader (``load_replay_rows``) waits for record storage.
+columnar shard loader (``load_replay_rows``) is not ported yet (ROADMAP
+queue 1 item 10).
 
 The shadow replay log (rollout/shadow.py) records, per sampled announce,
 every candidate edge with both arms' scores and rank positions.  The

@@ -3,7 +3,7 @@ model, off the announce hot path.
 
 Port of ``dragonfly2_tpu/rollout/shadow.py``, numpy verbatim.  The
 replay log lives in memory (``replay_rows``); the reference's on-disk
-columnar log waits for record storage.
+columnar log is not ported yet (ROADMAP queue 1 item 10).
 
 The serving path already paid for everything a candidate evaluation
 needs: ``MLEvaluator._featurize_batch`` built the feature matrix out of

@@ -1,9 +1,11 @@
-"""Scheduler control plane (reference: scheduler/), serving half.
+"""Scheduler control plane (reference: scheduler/).
 
 In-memory cluster state (hosts/tasks/peers with FSMs and a per-task peer
-DAG), the columnar host store, the parent-selection engine with the rule
-and ML evaluators, the scorer micro-batcher the ML evaluator uses, and
-the model subscription that installs registry scorers on it.
+DAG), the columnar host store, the parent-selection engine with the rule,
+network-topology and ML evaluators, the scorer micro-batcher the ML
+evaluator uses, the model subscription that installs registry scorers on
+it, the network-topology probe store, and the training-record production
+path.
 """
 
 from .resource import (  # noqa: F401
@@ -19,5 +21,6 @@ from .evaluator import CanaryRoute, Evaluator, MLEvaluator, new_evaluator  # noq
 from .featcache import HostFeatureCache  # noqa: F401
 from .microbatch import ScorerBatcher, ScorerUnavailable  # noqa: F401
 from .model_loader import ModelSubscriber  # noqa: F401
+from .networktopology import NetworkTopology, Probe, ProbeAgent, TopologyConfig  # noqa: F401
 from .scheduling import ScheduleResult, ScheduleResultKind, Scheduling, SchedulingConfig  # noqa: F401
 from .service import RegisterResult, SchedulerService  # noqa: F401

@@ -1,4 +1,4 @@
-"""Parent-peer evaluators: rule-based and ML.
+"""Parent-peer evaluators: rule-based, network-topology, and ML.
 
 Reference parity (scheduler/scheduling/evaluator/):
 - algorithm dispatch by name default/nt/ml/plugin (evaluator.go:28-46,
@@ -7,9 +7,10 @@ Reference parity (scheduler/scheduling/evaluator/):
 - base scoring: 6 weighted features summing to 1.0 — finished-piece 0.2,
   upload-success 0.2, free-upload 0.15, host-type 0.15, IDC 0.15,
   location 0.15 (evaluator_base.go:28-45, evaluate :71-84).
-- nt scoring (evaluator_network_topology.go) waits for the probe store;
-  until then ``nt`` ranks with the base rules, as the reference package
-  does when no topology is configured.
+- nt scoring: adds probe-RTT weight 0.12 and lowers host-type/IDC/location
+  to 0.11 each; RTT is normalized against the 1 s ping timeout
+  (evaluator_network_topology.go:30-56, :215-224).  Without a probe store
+  ``nt`` ranks with the base rules, as in the reference.
 - bad-node test: needs ≥2 piece-cost samples; <30 samples → last cost >
   20× mean of the rest; ≥30 → last cost > mean + 3σ (evaluator.go:92-129).
 
@@ -64,6 +65,7 @@ from .resource import (
 
 if TYPE_CHECKING:
     from .microbatch import ScorerBatcher
+    from .networktopology import NetworkTopology
 
 logger = logging.getLogger(__name__)
 
@@ -79,6 +81,8 @@ MAX_ELEMENT_LEN = 5
 # ≥30 cost samples ⇒ treat as normal distribution (evaluator.go normalDistributionLen).
 NORMAL_DISTRIBUTION_LEN = 30
 MIN_AVAILABLE_COST_LEN = 2
+
+PING_TIMEOUT_NS = 1_000_000_000  # 1 s (evaluator_network_topology.go defaultPingTimeout)
 
 _BAD_STATES = (
     PEER_FAILED,
@@ -434,6 +438,57 @@ class Evaluator:
             verdict = np.where(big, last > mean + 3 * std, verdict)
         bad[np.asarray(rows, dtype=np.int64)] = verdict
         return bad
+
+
+class NetworkTopologyEvaluator(Evaluator):
+    """Adds probe-RTT affinity (evaluator_network_topology.go)."""
+
+    ALGORITHM = NETWORK_TOPOLOGY_ALGORITHM
+
+    def __init__(self, networktopology: "NetworkTopology") -> None:
+        self._nt = networktopology
+
+    def _rtt_score(self, parent_host_id: str, child_host_id: str) -> float:
+        rtt_ns = self._nt.average_rtt(parent_host_id, child_host_id)
+        if rtt_ns is None:
+            return MIN_SCORE
+        return (PING_TIMEOUT_NS - rtt_ns) / PING_TIMEOUT_NS
+
+    def evaluate(self, parent: Peer, child: Peer, total_piece_count: int) -> float:
+        return (
+            0.2 * piece_score(parent, child, total_piece_count)
+            + 0.2 * upload_success_score(parent)
+            + 0.15 * free_upload_score(parent)
+            + 0.11 * host_type_score(parent)
+            + 0.11 * idc_affinity_score(parent.host.stats.network.idc, child.host.stats.network.idc)
+            + 0.11
+            * location_affinity_score(
+                parent.host.stats.network.location, child.host.stats.network.location
+            )
+            + 0.12 * self._rtt_score(parent.host.id, child.host.id)
+        )
+
+    def evaluate_all(  # dflint: hotpath
+        self, parents: Sequence[Peer], child: Peer, total_piece_count: int
+    ) -> np.ndarray:
+        ps, us, fs, hts, idcs, locs = self._component_arrays(
+            parents, child, total_piece_count
+        )
+        child_id = child.host.id
+        rtts = np.fromiter(
+            (self._rtt_score(p.host.id, child_id) for p in parents),
+            np.float64,
+            count=len(parents),
+        )
+        return (
+            0.2 * ps
+            + 0.2 * us
+            + 0.15 * fs
+            + 0.11 * hts
+            + 0.11 * idcs
+            + 0.11 * locs
+            + 0.12 * rtts
+        )
 
 
 class EdgeScorer(Protocol):
@@ -814,11 +869,14 @@ class MLEvaluator(Evaluator):
 def new_evaluator(
     algorithm: str = DEFAULT_ALGORITHM,
     *,
+    networktopology: Optional["NetworkTopology"] = None,
     scorer: Optional[EdgeScorer] = None,
     feature_cache: Optional[HostFeatureCache] = None,
     batcher: Optional["ScorerBatcher"] = None,
 ) -> Evaluator:
     """Algorithm dispatch (evaluator.go:76-90)."""
+    if algorithm == NETWORK_TOPOLOGY_ALGORITHM and networktopology is not None:
+        return NetworkTopologyEvaluator(networktopology)
     if algorithm == ML_ALGORITHM:
         return MLEvaluator(scorer, feature_cache=feature_cache, batcher=batcher)
     # The rule evaluator gets the columnar host store too (DESIGN.md

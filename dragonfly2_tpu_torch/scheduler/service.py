@@ -1,4 +1,4 @@
-"""Scheduler service layer: peer lifecycle handling.
+"""Scheduler service layer: peer lifecycle handling + training-record birth.
 
 Transport-neutral port of the reference's gRPC handler logic
 (scheduler/service/service_v1.go, service_v2.go).  The daemon (or the
@@ -10,11 +10,19 @@ demuxes stream messages:
   register event by size scope, schedule.
 - ``report_piece_finished`` — service_v2.go:1157: piece cost bookkeeping
   on the child peer (parent-attributed — the training signal).
-- ``report_peer_finished``  — service_v1.go:1284 handlePeerSuccess: FSM
-  success and the parents' upload slots released.  Writing the Download
-  record waits for the record storage.
+- ``report_peer_finished``  — service_v1.go:1284 handlePeerSuccess →
+  :1418 createDownloadRecord: FSM success + **Download record written to
+  storage** (the row the trainer trains on; v1 is the only record-writing
+  path in the reference too).
 - ``report_peer_failed``   — FSM failure + reschedule bookkeeping.
 - ``leave_peer`` / ``leave_host`` — teardown.
+- ``sync_probes_start`` / ``sync_probes_finished`` — the probe store's
+  SyncProbes exchange (service_v2.go:721-866).
+
+The cold-task seed trigger, the push hub and the shard guard are not
+part of this package yet (ROADMAP queue 1 item 10): their arguments keep
+their places and take only None, and the paths that would call them
+(seed warm-up, server push, ownership and admission checks) are absent.
 """
 
 from __future__ import annotations
@@ -23,12 +31,15 @@ import logging
 import threading
 import time
 from dataclasses import dataclass
-from typing import Optional, Set
+from typing import List, Optional, Set
 
+from ..records import schema
+from ..records.storage import Storage
 from ..utils import idgen
 from ..utils.fsm import FSM, InvalidEventError
 from ..utils.types import TINY_FILE_SIZE, Priority, SizeScope
 from . import metrics
+from .networktopology import NetworkTopology, Probe
 from .resource import Host, Peer, Piece, Resource, Task
 from .scheduling import ScheduleResult, ScheduleResultKind, Scheduling
 
@@ -66,19 +77,17 @@ class SchedulerService:
         self,
         resource: Resource,
         scheduling: Scheduling,
-        storage=None,
-        networktopology=None,
+        storage: Optional[Storage] = None,
+        networktopology: Optional[NetworkTopology] = None,
         *,
         seed_peer_trigger=None,
         hub=None,
         shard_guard=None,
     ) -> None:
-        # Record storage, the probe store, the cold-task seed trigger, the
-        # push hub and the shard guard are not part of this package yet:
-        # the arguments keep their places and take only None.
+        # The cold-task seed trigger, the push hub and the shard guard are
+        # not part of this package yet: the arguments keep their places and
+        # take only None.
         for name, value in (
-            ("storage", storage),
-            ("networktopology", networktopology),
             ("seed_peer_trigger", seed_peer_trigger),
             ("hub", hub),
             ("shard_guard", shard_guard),
@@ -87,6 +96,8 @@ class SchedulerService:
                 raise NotImplementedError(f"SchedulerService({name}=...) is not ported")
         self.resource = resource
         self.scheduling = scheduling
+        self.storage = storage
+        self.networktopology = networktopology
         self._mu = threading.Lock()
         self._gauges_refreshed_at = float("-inf")
         # Columnar host store (DESIGN.md §18): when the evaluator carries
@@ -319,22 +330,40 @@ class SchedulerService:
         return result
 
     def report_peer_finished(self, peer: Peer) -> None:
-        """handlePeerSuccess (service_v1.go:1284)."""
+        """handlePeerSuccess (:1284) + createDownloadRecord (:1418-1629)."""
         metrics.PEER_RESULT_TOTAL.inc(result="succeeded")
         _try_event(peer.fsm, "DownloadSucceeded")
         peer.cost_ns = int((time.time() - peer.created_at) * 1e9)
-        _try_event(peer.task.fsm, "DownloadSucceeded")
+        task = peer.task
+        _try_event(task.fsm, "DownloadSucceeded")
+        # The record must capture parent attribution BEFORE the DAG edges
+        # are dropped (createDownloadRecord at service_v1.go:1418 runs with
+        # the graph intact; the FSM callback releases slots afterwards).
+        record = (
+            self._build_download_record(peer) if self.storage is not None else None
+        )
         # Reference peer.go:280-292 (PeerEventDownloadSucceeded callback):
         # a finished child detaches from its parents, RELEASING their
         # upload slots — without this, every completed download holds a
         # slot forever and the seed saturates at concurrent_upload_limit.
         peer.task.delete_peer_in_edges(peer.id)
+        if self.storage is not None:
+            self.storage.create_download(record)
+            metrics.DOWNLOAD_RECORDS_TOTAL.inc()
 
     def report_peer_failed(self, peer: Peer) -> None:
         metrics.PEER_RESULT_TOTAL.inc(result="failed")
         _try_event(peer.fsm, "DownloadFailed")
+        record = (
+            self._build_download_record(peer, state="Failed")
+            if self.storage is not None
+            else None
+        )
         # peer.go:293-305 (PeerEventDownloadFailed callback).
         peer.task.delete_peer_in_edges(peer.id)
+        if self.storage is not None:
+            self.storage.create_download(record)
+            metrics.DOWNLOAD_RECORDS_TOTAL.inc()
 
     def leave_peer(self, peer: Peer) -> None:
         _try_event(peer.fsm, "Leave")
@@ -344,9 +373,55 @@ class SchedulerService:
 
     def leave_host(self, host: Host) -> None:
         host.leave_peers()
+        if self.networktopology is not None:
+            self.networktopology.delete_host(host.id)
         # A departed host frees its feature-cache slot immediately instead
         # of aging out of the LRU (featcache invalidation rule, DESIGN §14).
         cache = getattr(self.scheduling.evaluator, "feature_cache", None)
         if cache is not None:
             cache.invalidate(host.id)
         self._refresh_gauges()
+
+    # -- probes (service_v2.go:721-866 SyncProbes) ---------------------------
+
+    def sync_probes_start(self, host: Host) -> List[Host]:
+        if self.networktopology is None:
+            return []
+        metrics.PROBE_SYNC_TOTAL.inc(phase="start")
+        return self.networktopology.find_probed_hosts(host.id)
+
+    def sync_probes_finished(
+        self, host: Host, results: List[tuple]
+    ) -> None:
+        """results: [(dest_host_id, rtt_ns)]"""
+        if self.networktopology is None:
+            return
+        metrics.PROBE_SYNC_TOTAL.inc(phase="finished")
+        for dest_id, rtt_ns in results:
+            self.networktopology.store(host.id, dest_id)
+            self.networktopology.enqueue_probe(
+                host.id, dest_id, Probe(host_id=dest_id, rtt_ns=int(rtt_ns))
+            )
+
+    # -- record construction (service_v1.go:1418-1629) -----------------------
+
+    def _build_download_record(
+        self, peer: Peer, state: Optional[str] = None
+    ) -> schema.Download:
+        parents = [
+            parent.to_parent_record(peer)
+            for parent in peer.task.load_parents(peer.id)
+        ][: schema.MAX_PARENTS_PER_DOWNLOAD]
+        return schema.Download(
+            id=peer.id,
+            tag=peer.tag,
+            application=peer.application,
+            state=state or peer.fsm.current,
+            cost=peer.cost_ns,
+            finished_piece_count=peer.finished_piece_count(),
+            task=peer.task.to_record(),
+            host=peer.host.to_record(),
+            parents=parents,
+            created_at=int(peer.created_at * 1e9),
+            updated_at=int(peer.updated_at * 1e9),
+        )

@@ -1,3 +1,11 @@
-"""In-process swarm fixtures for the scheduler stack."""
+"""In-process swarm simulation: the real scheduler service, probe store
+and record storage driven against the SyntheticCluster's ground-truth
+bandwidth and RTT model, and the lifecycle drill."""
 
-from .swarm import build_announce_swarm, host_from_latent  # noqa: F401
+from .swarm import (  # noqa: F401
+    SwarmConfig,
+    SwarmSimulator,
+    build_announce_swarm,
+    host_from_latent,
+)
+from .lifecycle import LifecycleDrillConfig, run_lifecycle_drill  # noqa: F401

@@ -2,6 +2,15 @@
 streaming MLP trainer (``streaming.py``), the scorer artifacts
 (``export.py``) and the trainer service (``service.py``)."""
 
+from .ingest import EdgeBatches, load_download_dataset, split_columns  # noqa: F401
+from .train import (  # noqa: F401
+    EvalMetrics,
+    TrainConfig,
+    train_gat_ranker,
+    train_graphsage,
+    train_mlp,
+)
+
 from .export import (  # noqa: F401
     GNNScorer,
     MLPScorer,

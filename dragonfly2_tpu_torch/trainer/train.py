@@ -2,11 +2,12 @@
 
 Port of ``dragonfly2_tpu/trainer/train.py``: ``train_mlp`` /
 ``evaluate_mlp`` (the batch MLP trainer of the trainer service),
-``train_gat_ranker`` and ``train_hop_ranker`` on ``_train_graph_model``,
-and the checkpoints.  ``device=`` takes the place of the JAX package's
-``mesh=``: one card is one data-parallel shard, so the JAX trainers'
-rounding of the batch to a multiple of the mesh's data axis has no
-counterpart; ``train_graphsage`` and node-sharded tables come later.
+``train_graphsage``, ``train_gat_ranker`` and ``train_hop_ranker`` on
+``_train_graph_model``, and the checkpoints.  ``device=`` takes the place
+of the JAX package's ``mesh=``: one card is one data-parallel shard, so
+the JAX trainers' rounding of the batch to a multiple of the mesh's data
+axis has no counterpart; node-sharded tables wait for the multi-device
+slice (ROADMAP queue 1 item 9).
 
 What is kept exactly:
 - the numpy train/validation split and the per-epoch batch order, so both
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.gnn import GATRanker, GNNConfig, NeighborTable
+from ..models.gnn import Dense, GATRanker, GNNConfig, GraphSAGE, NeighborTable, gelu
 from ..models.hop import HopConfig, HopRanker, precompute_hop_features
 from ..models.mlp import MLPConfig, MLPRegressor, warm_start_output_bias
 from ..ops import _build
@@ -365,6 +366,89 @@ def epoch_batches(train_idx: np.ndarray, batch: int, seed: int, epoch: int):
     ep_order = np.random.default_rng(seed + epoch).permutation(train_idx)
     for start in range(0, len(ep_order) - batch + 1, batch):
         yield ep_order[start : start + batch]
+
+
+# ---------------------------------------------------------------------------
+# GraphSAGE (configs[1]): self-supervised RTT regression over the probe graph
+# ---------------------------------------------------------------------------
+
+
+class _SAGEEdgeModel(nn.Module):
+    """The GraphSAGE encoder (``GraphSAGE_0``) and an edge head on
+    [s, d, s * d] of the two endpoints' embeddings (``Dense_0``, gelu,
+    ``Dense_1``): flax's inline model in the JAX ``train_graphsage``.
+    ``qef`` is taken for ``_train_graph_model``'s call and must be None."""
+
+    def __init__(
+        self,
+        config: GNNConfig,
+        *,
+        num_nodes: int,
+        in_dim: int,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.config = config
+        self.GraphSAGE_0 = GraphSAGE(config, num_nodes=num_nodes, in_dim=in_dim,
+                                     generator=generator)
+        self.Dense_0 = Dense(3 * config.out_dim, config.hidden, config.dtype, generator)
+        self.Dense_1 = Dense(config.hidden, 1, torch.float32, generator)
+
+    def forward(
+        self,
+        node_feats: torch.Tensor,
+        table: NeighborTable,
+        src: torch.Tensor,
+        dst: torch.Tensor,
+        qef: Optional[torch.Tensor] = None,
+        *,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        if qef is not None:
+            raise ValueError("the GraphSAGE edge model takes no query edge features")
+        emb = self.GraphSAGE_0(node_feats, table, train=train, generator=generator)
+        s = emb.index_select(0, src)
+        d = emb.index_select(0, dst)
+        x = torch.cat([s, d, s * d], dim=-1).to(self.config.dtype)
+        x = gelu(self.Dense_0(x))
+        return self.Dense_1(x)[..., 0]
+
+
+def train_graphsage(
+    node_feats: np.ndarray,
+    table: NeighborTable,
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    edge_target: np.ndarray,       # e.g. normalized RTT per probe edge
+    *,
+    model_config: Optional[GNNConfig] = None,
+    config: Optional[TrainConfig] = None,
+    device="cuda",
+    batch_size: int = 4096,
+) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
+    """Encoder pretraining: predict per-edge RTT from endpoint embeddings
+    (a ``_SAGEEdgeModel`` initialized from ``config.seed``); → (state,
+    validation metrics, history).
+
+    The probe graph's signal (EMA RTT per edge) supervises the encoder; the
+    learned embeddings are the node representation the GAT ranker and the
+    evaluator-facing scorer build on.  With ``model_config.gather_fn`` set
+    (``ops.segment.make_neighbor_gather`` or
+    ``ops.transpose_gather.make_transpose_gather`` over ``table.indices``)
+    the SAGE layers gather through it."""
+    cfg = config or TrainConfig()
+    mcfg = model_config or GNNConfig()
+    model = _SAGEEdgeModel(
+        mcfg,
+        num_nodes=int(node_feats.shape[0]),
+        in_dim=int(node_feats.shape[1]),
+        generator=torch.Generator().manual_seed(cfg.seed),
+    )
+    return _train_graph_model(
+        model, node_feats, table, edge_src, edge_dst, edge_target, None,
+        cfg, device, batch_size,
+    )
 
 
 def train_gat_ranker(

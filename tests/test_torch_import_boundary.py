@@ -94,6 +94,12 @@ print("OK")
         "dragonfly2_tpu_torch.config",
         "dragonfly2_tpu_torch.cli.trainer",
         "dragonfly2_tpu_torch.bench.flagship",
+        "dragonfly2_tpu_torch.scheduler.networktopology",
+        "dragonfly2_tpu_torch.scheduler.evaluator",
+        "dragonfly2_tpu_torch.records.storage",
+        "dragonfly2_tpu_torch.sim",
+        "dragonfly2_tpu_torch.models.gnn",
+        "dragonfly2_tpu_torch.ops.transpose_gather",
         "chip_smoke",
     ],
 )
