@@ -89,9 +89,11 @@ the steps' wall time (``training_profile`` line).
    Checks ``ok`` and the rollback; prints the three stage times.
 9. Rollout serving (``rollout_serving``): the drill's plane on a fresh
    ``MemoryBackend`` feeding a port scheduler (``build`` with algorithm
-   ``ml``, no blob, on the card) through a ``ModelSubscriber``: each
+   ``ml``, no blob, on the card, record storage under the out directory)
+   through a ``ModelSubscriber``: each
    round is ``daemon.step()``, ``subscriber.refresh()`` and 16
-   ``register_peer`` calls, until v1 is ACTIVE.  Checks: a shadow engine
+   ``register_peer`` calls, until v1 is ACTIVE.  Checks: one Download
+   record per finished warm-up download (deleted after), a shadow engine
    attached in every SHADOW round, a canary route in every CANARY
    round, v1 served at the end, and every ML-scored announce's scores
    equal, bit for bit, to the registry artifact's numpy scorer on the
@@ -171,7 +173,8 @@ launch counts are zeroed before each and must read 0 after.
     own first backward input and plan (a tap), within 1e-5 × max |sum|;
     one step with the K3 gather against the same step with the index
     gather and with the transpose gather (loss within 1e-3 relative,
-    gradient abs-sum within 5e-2); K3 against its plain version at
+    gradient abs-sum within 5e-2, gradient L2 difference within 1e-2 of
+    the K3 step's gradient norm); K3 against its plain version at
     [16,000, 44] and [16,000, 128].  Prints each gather's step p50 (host
     clock, 20 steps each, in turns) and the fastest, K3's device time,
     bound and ``index_add_``'s at the two shapes, and the idle share of 5
@@ -223,6 +226,7 @@ GAT_EPOCHS = 2
 K3_TOL = 1e-5             # K3 vs plain, scaled by max(1, max |sum|)
 STEP_LOSS_TOL = 1e-3      # K3 gather step vs index gather step: loss (relative)
 STEP_GRAD_TOL = 5e-2      # ... and gradient abs-sum (relative)
+STEP_GRAD_L2_TOL = 1e-2   # SAGE steps: ||g - g_k3|| / ||g_k3|| over all leaves
 EXPORT_TOL = 3e-2         # exported scorer vs the model's predictions (absolute)
 # The streaming phase (BASELINE configs[4] at full width; 1B records cut to 1M).
 STREAM_ROWS = 1_048_576
@@ -1266,9 +1270,11 @@ def register_round(service, hosts, urls, *, hosts_per_task, first, n):
         service.register_peer(host=hosts[hi], url=urls[task_i], peer_id=f"roll-{q}")
 
 
-def rollout_serving_phase(dev, seed):
+def rollout_serving_phase(dev, seed, out_dir):
     """Phase 9: the lifecycle plane walks v1 to ACTIVE while a port
-    scheduler, subscribed to its registry, serves announces."""
+    scheduler, subscribed to its registry, serves announces.  The warm-up's
+    finished downloads are written as Download records under ``out_dir``
+    (one each, checked), then deleted."""
     from dragonfly2_tpu_torch.cli.scheduler import SchedulerConfig, build
     from dragonfly2_tpu_torch.manager.state import MemoryBackend
     from dragonfly2_tpu_torch.records.synthetic import SyntheticCluster
@@ -1283,6 +1289,8 @@ def rollout_serving_phase(dev, seed):
     world = _World(dcfg)
     registry, _, daemon = _build_plane(dcfg, MemoryBackend(), world, {"invert": False}, dev)
     cfg = SchedulerConfig()
+    cfg.storage.dir = os.path.join(out_dir, "rollout_records")
+    shutil.rmtree(cfg.storage.dir, ignore_errors=True)
     cfg.scheduling.algorithm = "ml"
     cfg.scheduling.retry_interval_s = 0.0
     service = build(cfg, device=dev, rng=random.Random(seed))
@@ -1294,6 +1302,7 @@ def rollout_serving_phase(dev, seed):
         service.announce_host(h)
     urls = warm_tasks(service, cluster, hosts, n_tasks=ROLL_TASKS,
                       hosts_per_task=ROLL_HOSTS_PER_TASK)
+    warm_records = service.storage.download_count
     sub = ModelSubscriber(registry, ev, scheduler_id=dcfg.scheduler_id,
                           model_name=dcfg.model_name, rollout_client=daemon.client,
                           shadow_sample_rate=1.0)
@@ -1338,8 +1347,12 @@ def rollout_serving_phase(dev, seed):
     summary = {"seconds": wall, "rounds": rounds, "ml_scored_announces": len(scored),
                "served_rows": int(sum(len(s) for _, s in scored)),
                "scores_equal_registry_artifact": exact, "degrades": ev.degrades,
-               "kernel_launches": launches}
+               "warm_download_records": warm_records, "kernel_launches": launches}
     emit({"phase": "rollout_serving", **summary})
+    shutil.rmtree(cfg.storage.dir, ignore_errors=True)
+    check(warm_records == ROLL_TASKS * ROLL_HOSTS_PER_TASK,
+          f"{warm_records} Download records for "
+          f"{ROLL_TASKS * ROLL_HOSTS_PER_TASK} finished warm-up downloads")
     phases = [x["candidate"] for x in rounds]
     check("shadow" in phases and "canary" in phases, f"rollout phases seen: {phases}")
     check(all(x["shadow_attached"] and x["canary_percent"] is None
@@ -1633,6 +1646,8 @@ def sage_phase(torch, dev, seed, sim):
               f"SAGE step loss with the {name} gather off the K3 step: {equiv}")
         check(equiv[name]["grad_abs_sum_rel"] <= STEP_GRAD_TOL,
               f"SAGE step gradients with the {name} gather off the K3 step: {equiv}")
+        check(equiv[name]["grad_l2_rel"] <= STEP_GRAD_L2_TOL,
+              f"SAGE step gradients with the {name} gather off the K3 step (L2): {equiv}")
     return summary, k3_launches, max([k3_err] + [v["max_abs_err"] for v in shapes.values()])
 
 
@@ -1901,7 +1916,7 @@ def main(argv=None) -> int:
     # -- 7-9. the learned-scheduling loop -----------------------------------
     loop = {"stream": stream_phase(torch, dev, args.seed, work_dir),
             "lifecycle": lifecycle_phase(dev),
-            "rollout_serving": rollout_serving_phase(dev, args.seed)}
+            "rollout_serving": rollout_serving_phase(dev, args.seed, work_dir)}
 
     # -- 10-11. the flagship and the trainer service ------------------------
     loop["hop"] = hop_phase(torch, dev, args.seed, work, training["metrics"])

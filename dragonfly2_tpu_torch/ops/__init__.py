@@ -6,7 +6,9 @@
 - ``segment`` — the segment sum by destination (``csrc/segment_sum.cu``)
   and the neighbor gather whose backward it is (the GAT trainer).
 - ``transpose_gather`` — the neighbor gather whose backward gathers over
-  the transpose graph (plain PyTorch operations, no kernel).
+  the transpose graph (plain PyTorch operations, no kernel).  Not
+  exported: no model uses it, and on the card it lost to the index
+  gather at GraphSAGE's shapes; import it from its module.
 - ``aggregate`` — plain PyTorch aggregation ops, the numerics oracles.
 
 The kernels are CUDA C++, built at first use by ``_build``; each has its
@@ -24,7 +26,3 @@ from .fused_score import (  # noqa: F401
     split_first_layer,
 )
 from .segment import make_neighbor_gather, segment_sum  # noqa: F401
-from .transpose_gather import (  # noqa: F401
-    build_transpose_table,
-    make_transpose_gather,
-)

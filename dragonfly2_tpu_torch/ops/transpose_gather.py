@@ -23,7 +23,10 @@ slot as a fake out-edge.
 In the JAX package this is an XLA custom VJP, not a Pallas kernel; here
 it is a ``torch.autograd.Function`` of plain PyTorch operations.  It
 plugs into ``GNNConfig(gather_fn=...)`` beside ``ops.segment``'s
-``make_neighbor_gather`` (K3 backward).
+``make_neighbor_gather`` (K3 backward).  No model selects it and the
+``ops`` package does not export it: on the card it lost to the index
+gather at GraphSAGE's shapes (PERF.md), and it stays as the reference's
+op that the parity tests and ``chip_smoke.py``'s gather comparison hold.
 """
 
 from __future__ import annotations

@@ -143,6 +143,7 @@ def _services(tmp_path, blob):
                                       use_pallas=False)
     )
     cfg = SchedulerConfig()
+    cfg.storage.dir = str(tmp_path / "port-records")
     cfg.scheduling.algorithm = "ml"
     cfg.scheduling.retry_interval_s = 0.0
     svc = build(cfg, device="cpu", scorer_blob=blob, rng=random.Random())
