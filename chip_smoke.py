@@ -179,6 +179,41 @@ launch counts are zeroed before each and must read 0 after.
     clock, 20 steps each, in turns) and the fastest, K3's device time,
     bound and ``index_add_``'s at the two shapes, and the idle share of 5
     profiled steps.  The kernels line's K3 launches add this run's.
+14. The online graph trainer (``online_graph``, BASELINE configs[4] as the
+    north star writes it) at full width: 100,000 nodes, K 16,
+    ``HopConfig(hidden=1024)``, batch 131,072, 8 steps a dispatch,
+    ``topo_window`` 1,600,000, through ``bench/online_graph.run``.  Run A
+    (``--wire``, 16 dispatches, 16.8 M records): a producer thread sends
+    ``generate_feature_rows`` blocks and per-epoch probe sweeps as DFC1
+    chunks through ``TrainerService.receive_shard_bytes`` into
+    ``WireIngestAdapter``; snapshot 0 is built from the first wire sweep,
+    and the driver refreshes after dispatches 4, 8 and 12 with a stale and
+    a fresh validation MAE around each.  Checks: finite losses, the last 4
+    dispatches' mean below the first 4's; rows trained = rows sent = rows
+    off the wire, none left over or dropped; 3 refreshes (snapshot_idx 4
+    with the wire bootstrap, which waits for the first sweep and the first
+    download rows); at the last refresh (96 steps in), on the post-drift
+    validation edges, the fresh snapshot's MAE not above the stale one's
+    (every refresh's pair is printed: after 32 steps a refresh still costs
+    MAE, PERF.md §6 PR 7); no kernel launched.  Then one block is dispatched 3 times from one saved
+    state with the embedding's sorted backward (the hashes must agree) and
+    3 times with ``index_select``'s (reported), and 2 dispatches are
+    profiled.  Runs B and C (direct feed, 8 dispatches, a refresh after 4):
+    B straight; C checkpoints after dispatch 6 and stops; a third trainer
+    resumes C (dispatch 6, snapshot 1) and runs to 8: its ``state_hash``
+    must equal B's.  Prints records/s through the service, dispatch ms
+    from CUDA events, refresh seconds (table build, precompute), stale and
+    fresh MAE, the adapter's counts, peak memory and the idle share.
+15. Federated FedAvg (``federated``, configs[3]): 8 ``SyntheticCluster``
+    shards of 1,000 hosts (each its own seed: non-IID), 10,000 rows each
+    plus 2,000 held out; ``FederatedConfig()`` (5 rounds, 3 local epochs,
+    batch 1,024) and ``MLPConfig()`` on the card.  Checks: the held-out MAE
+    falls across rounds and ends below the pooled-mean predictor's; the
+    last round's aggregate equals the reference's numpy weighted mean of
+    the 8 local models (float32, in shard order) within 1e-6; ``publish`` → ``load_scorer`` scores within 1e-5 ×
+    max(1, |score|) of a float32 twin of the global model and 3e-2 × max(1,
+    |score|) of the bf16 model; no kernel launched.  Prints seconds per
+    round, MAE per round and records/s.
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -264,6 +299,24 @@ SAGE_BATCH = 4096
 SAGE_EPOCHS = 30
 SAGE_TIMED_STEPS = 20
 SAGE_PROFILE = 5
+# The online graph trainer (configs[4]) and federated FedAvg (configs[3]).
+OG_NODES = 100_000
+OG_HIDDEN = 1024
+OG_BATCH = 131_072
+OG_SUPER = 8              # the wire soak's dispatch: 8 steps
+OG_DISPATCHES = 16        # run A: 16.8 M records, refreshes after 4, 8, 12
+OG_REFRESH = 4
+OG_WARMUP = 50
+OG_RESUME_TOTAL = 8       # runs B and C
+OG_KILL_AT = 6            # past the refresh at 4
+OG_PROFILE = 2
+OG_DET_RUNS = 3           # same-state dispatches per determinism probe
+FED_SHARDS = 8
+FED_HOSTS = 1000
+FED_ROWS = 10_000
+FED_HELD = 2_000
+FED_F32_TOL = 1e-5        # published scorer vs a float32 twin, scaled by max(1, |score|)
+FED_MEAN_TOL = 1e-6       # the round's aggregate vs a numpy weighted mean
 
 
 class SmokeFailure(RuntimeError):
@@ -1700,6 +1753,276 @@ def gather_step_times(torch, state, models, args, tcfg):
                    "steps": len(t)} for name, t in times.items()}
 
 
+# ---------------------------------------------------------------------------
+# The online graph trainer (configs[4]) and federated FedAvg (configs[3])
+# ---------------------------------------------------------------------------
+
+
+def _train_state_copy(trainer):
+    """Everything a dispatch reads and writes of an online trainer's state."""
+    st = trainer.state
+    return ([p.detach().clone() for p in st.opt.params], [m.clone() for m in st.opt.mu],
+            [v.clone() for v in st.opt.nu], st.opt.count, st.step, st.generator.get_state())
+
+
+def _train_state_restore(torch, trainer, saved):
+    st = trainer.state
+    params, mu, nu, count, step, gen = saved
+    with torch.no_grad():
+        for dst, src in zip(st.opt.params + st.opt.mu + st.opt.nu, params + mu + nu):
+            dst.copy_(src)
+    st.opt.count, st.step = count, step
+    st.generator.set_state(gen)
+
+
+def same_state_dispatches(torch, trainer, staged, deterministic):
+    """``OG_DET_RUNS`` dispatches of one block, each from the same saved
+    state, with the embedding's deterministic backward on or off: the
+    state hash after each and its device ms.  The state is restored after."""
+    from dragonfly2_tpu_torch.trainer.online_graph import state_hash
+
+    embed = trainer.state.model.HopEncoder_0.Embed_0
+    saved = _train_state_copy(trainer)
+    hashes, ms = [], []
+    embed.deterministic = deterministic
+    try:
+        for _ in range(OG_DET_RUNS):
+            _train_state_restore(torch, trainer, saved)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer._train_dispatch(*staged)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            hashes.append(state_hash(trainer.state))
+    finally:
+        embed.deterministic = True
+        _train_state_restore(torch, trainer, saved)
+    return {"identical": len(set(hashes)) == 1, "hashes": [h[:16] for h in hashes], "ms": ms}
+
+
+def online_graph_phase(torch, dev, seed, out_dir):
+    """Phase 14: the online graph trainer (configs[4]) at full width — run
+    A through the trainer service's online sink, runs B and C for a
+    resume across a refresh, a same-state determinism probe, a profile.
+    Returns its summary."""
+    from dragonfly2_tpu_torch.bench import online_graph as bench
+
+    rows_per_dispatch = OG_BATCH * OG_SUPER
+    root = os.path.join(out_dir, "online_graph")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # The service stages every chunk it receives: ~2.4 GB for run A.
+    need = 1.5 * OG_DISPATCHES * rows_per_dispatch * 35 * 4
+    stage_parent = root
+    if os.path.isdir("/dev/shm") and shutil.disk_usage("/dev/shm").free > need:
+        stage_parent = "/dev/shm"
+    common = ["--nodes", str(OG_NODES), "--hidden", str(OG_HIDDEN), "--batch", str(OG_BATCH),
+              "--super", str(OG_SUPER), "--refresh-every", str(OG_REFRESH),
+              "--warmup-steps", str(OG_WARMUP), "--device", "cuda"]
+
+    def log(msg):
+        print(msg, file=sys.stderr, flush=True)
+
+    # -- run A: through the wire ------------------------------------------
+    keep = []
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    a = bench.run(bench.parse_args(common + [
+        "--wire", "--records", str(OG_DISPATCHES * rows_per_dispatch),
+        "--ckpt-dir", os.path.join(root, "a"), "--stage-dir", stage_parent]), log=log, keep=keep)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernel_counts()
+    trainer = keep.pop()
+    losses = np.asarray(a["losses"])
+    refreshes = a["refreshes"]
+    summary = {
+        "nodes": OG_NODES, "hidden": OG_HIDDEN, "batch": OG_BATCH, "super_steps": OG_SUPER,
+        "stage_dir": stage_parent,
+        "wire": {k: v for k, v in a.items()
+                 if k not in ("losses", "dispatch_ms", "dispatch_host_ms")},
+        "losses": losses.tolist(), "dispatch_ms": a["dispatch_ms"],
+        "dispatch_host_ms": a["dispatch_host_ms"],
+        "dispatch_ms_p50": float(np.median(a["dispatch_ms"])),
+        "refresh_mae": [{k: r[k] for k in ("dispatch", "stale_mae", "fresh_mae")}
+                        for r in refreshes],
+        "device_records_per_s": rows_per_dispatch / (float(np.median(a["dispatch_ms"])) / 1e3),
+        "records_per_s_service": a["records_per_s_service"],
+        "peak_memory_gib": peak / 2**30, "kernel_launches": launches,
+    }
+    emit({"phase": "online_graph_wire", **summary})
+    check(bool(np.isfinite(losses).all()) and len(losses) == OG_DISPATCHES,
+          f"online graph: {len(losses)} dispatch losses, finite: {np.isfinite(losses).all()}")
+    check(losses[-4:].mean() < losses[:4].mean(),
+          f"online graph loss did not fall: {losses[:4].mean()} -> {losses[-4:].mean()}")
+    sent = OG_DISPATCHES * rows_per_dispatch
+    check(a["records_seen"] == a["rows_sent"] == a["rows_off_the_wire"] == sent
+          and a["leftover_rows"] == 0 and a["overflow_edges"] == 0,
+          f"online graph rows: sent {a['rows_sent']}, off the wire {a['rows_off_the_wire']}, "
+          f"trained {a['records_seen']}, left {a['leftover_rows']}, "
+          f"dropped {a['overflow_edges']} (want {sent})")
+    check(len(refreshes) == OG_DISPATCHES // OG_REFRESH - 1
+          and a["snapshots"] == len(refreshes) + 1,
+          f"online graph: {len(refreshes)} refreshes, snapshot_idx {a['snapshots']}")
+    # On the post-drift edges the fresh snapshot beats the stale one once
+    # the model uses the features a refresh changes: at the last refresh
+    # (96 steps in).  Earlier refreshes are printed, not held: after 32
+    # steps the fresh snapshot costs 1-6 % of MAE in every run measured.
+    last = refreshes[-1]
+    check(last["fresh_mae"] <= last["stale_mae"],
+          f"online graph: the last refresh's fresh snapshot scored worse than the stale "
+          f"one: {last}")
+    check(not any(launches.values()), f"a kernel launched on the online graph path: {launches}")
+
+    # -- the same block twice from one state; a profile of two dispatches -
+    world = bench._World(OG_NODES, OG_BATCH, OG_SUPER)
+    block = world.download_block(0)
+    staged = trainer._stage(tuple(b.reshape(OG_SUPER, OG_BATCH) for b in block))
+    determinism = {"deterministic": same_state_dispatches(torch, trainer, staged, True),
+                   "index_select": same_state_dispatches(torch, trainer, staged, False)}
+    profile = profile_steps(torch, lambda: trainer._train_dispatch(*staged), steps=OG_PROFILE)
+    del trainer, staged, keep
+    emit({"phase": "online_graph_determinism", **determinism})
+    emit({"phase": "online_graph_profile", **profile})
+    check(determinism["deterministic"]["identical"],
+          f"the deterministic dispatch differs from itself: {determinism['deterministic']}")
+
+    # -- runs B and C: a resume across the refresh at dispatch 4 ----------
+    resume = common + ["--records", str(OG_RESUME_TOTAL * rows_per_dispatch),
+                       "--ckpt-every", "1000000", "--eval-every", str(OG_REFRESH)]
+    reset_kernel_counts()
+    b = bench.run(bench.parse_args(resume + ["--ckpt-dir", os.path.join(root, "b")]), log=log)
+    c = bench.run(bench.parse_args(resume + ["--ckpt-dir", os.path.join(root, "c"),
+                                             "--kill-after-dispatch", str(OG_KILL_AT)]), log=log)
+    r = bench.run(bench.parse_args(resume + ["--ckpt-dir", os.path.join(root, "c"),
+                                             "--resume"]), log=log)
+    resume_launches = kernel_counts()
+    summary.update({
+        "determinism": determinism, "profile": profile,
+        "resume": {"b": {k: b[k] for k in ("dispatches", "snapshots", "state_hash", "losses",
+                                           "refreshes", "dispatch_ms", "train_s")},
+                   "c_killed_at": c["killed_at"], "c_snapshots": c["snapshots"],
+                   "resumed_at": r["resumed_at"], "resumed_dispatches": r["dispatches"],
+                   "resumed_hash": r["state_hash"]},
+    })
+    emit({"phase": "online_graph_resume", **summary["resume"]})
+    check(b["dispatches"] == OG_RESUME_TOTAL and b["snapshots"] == 1,
+          f"run B: {b['dispatches']} dispatches, snapshot {b['snapshots']}")
+    check(c["killed_at"] == OG_KILL_AT and r["resumed_at"]["dispatch"] == OG_KILL_AT
+          and r["resumed_at"]["snapshot"] == 1 and r["dispatch"] == OG_RESUME_TOTAL,
+          f"run C: killed at {c['killed_at']}, resumed at {r['resumed_at']}, "
+          f"ended at {r['dispatch']}")
+    check(r["state_hash"] == b["state_hash"],
+          f"resumed state {r['state_hash'][:16]} != straight run {b['state_hash'][:16]}")
+    check(all(np.isfinite(b["losses"])), "run B: a non-finite loss")
+    check(not any(resume_launches.values()),
+          f"a kernel launched on the online graph path: {resume_launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return summary
+
+
+def federated_phase(torch, dev, seed):
+    """Phase 15: federated FedAvg (configs[3]) over 8 scheduler-cluster
+    shards on the card.  Returns its summary."""
+    from dragonfly2_tpu_torch.manager.registry import ModelRegistry
+    from dragonfly2_tpu_torch.models.mlp import MLPConfig, MLPRegressor
+    from dragonfly2_tpu_torch.records.features import DOWNLOAD_FEATURE_DIM, mask_post_hoc
+    from dragonfly2_tpu_torch.records.synthetic import SyntheticCluster
+    from dragonfly2_tpu_torch.trainer import federated
+    from dragonfly2_tpu_torch.trainer.export import load_scorer
+
+    t0 = time.perf_counter()
+    shards, held = [], []
+    for c in range(FED_SHARDS):
+        rows = SyntheticCluster(num_hosts=FED_HOSTS, seed=1000 * seed + 100 + c) \
+            .generate_feature_rows(FED_ROWS + FED_HELD, seed=c)
+        shards.append(federated.ClusterShard(f"cluster-{c}", rows[:FED_ROWS]))
+        held.append(rows[FED_ROWS:])
+    held = np.concatenate(held)
+    prep_s = time.perf_counter() - t0
+    cfg = federated.FederatedConfig(seed=seed)
+    trainer = federated.FederatedTrainer(shards, config=cfg, device=dev)
+    round_s, last = [], {}
+
+    def timed_round(fn):
+        def wrapped():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t1)
+        return wrapped
+
+    def keep_mean(fn):
+        def wrapped(trees, weights):
+            out = fn(trees, weights)
+            last.update(trees=trees, weights=list(weights), out=out)
+            return out
+        return wrapped
+
+    reset_kernel_counts()
+    with tapped(federated, "_tree_weighted_mean", keep_mean), \
+            tapped(trainer, "run_round", timed_round):
+        metrics = trainer.run(held)
+    launches = kernel_counts()
+    maes = [h["mae"] for h in trainer.history]
+    pooled = np.concatenate([s.rows[:, -1] for s in shards])
+    mean_mae = float(np.mean(np.abs(held[:, -1] - pooled.mean())))
+    b = min(cfg.batch_size, FED_ROWS)
+    rows_per_round = FED_SHARDS * cfg.local_epochs * (FED_ROWS // b) * b
+
+    # The round's aggregate against the reference's numpy weighted mean of
+    # the 8 local models (float32, x * (w / total) summed in shard order).
+    total = float(sum(last["weights"]))
+    mean_err = 0.0
+    for k, got in last["out"].items():
+        want = None
+        for t, wi in zip(last["trees"], last["weights"]):
+            part = t[k].cpu().numpy() * (wi / total)
+            want = part if want is None else np.add(want, part)
+        mean_err = max(mean_err, float(np.max(np.abs(got.cpu().numpy() - want))))
+
+    # publish → registry → load_scorer, against a float32 twin of the
+    # global model (the scorer's own arithmetic) and the bf16 model.
+    registry = ModelRegistry()
+    model = trainer.publish(registry)
+    scorer = load_scorer(registry.load_artifact(model))
+    feats = held[:, 2:2 + DOWNLOAD_FEATURE_DIM]
+    scores = scorer.score(feats)
+    pred_bf16 = trainer.predict(held)
+    twin = MLPRegressor(dataclasses.replace(MLPConfig(), dtype=torch.float32)).to(dev)
+    twin.load_state_dict(trainer.model.state_dict())
+    x = torch.from_numpy(((mask_post_hoc(feats) - trainer.feat_mean) / trainer.feat_std)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        pred_f32 = twin(x).cpu().numpy()
+    f32_scaled = float(np.max(np.abs(scores - pred_f32) / np.maximum(1.0, np.abs(pred_f32))))
+    bf16_scaled = float(np.max(np.abs(scores - pred_bf16) / np.maximum(1.0, np.abs(pred_bf16))))
+    summary = {
+        "shards": FED_SHARDS, "hosts_per_cluster": FED_HOSTS, "rows_per_shard": FED_ROWS,
+        "held_rows": int(len(held)), "rounds": cfg.rounds, "local_epochs": cfg.local_epochs,
+        "batch": cfg.batch_size, "prep_seconds": prep_s, "round_seconds": round_s,
+        "records_per_s": rows_per_round / float(np.median(round_s)),
+        "mae_per_round": maes, "final": metrics.to_dict(), "mean_predictor_mae": mean_mae,
+        "aggregate_max_abs_err": mean_err, "aggregate_tol": FED_MEAN_TOL,
+        "export_f32_max_scaled_err": f32_scaled, "export_f32_tol_scaled": FED_F32_TOL,
+        "export_bf16_max_scaled_err": bf16_scaled, "export_tol_scaled": EXPORT_TOL,
+        "registered_version": model.version, "kernel_launches": launches,
+    }
+    emit({"phase": "federated", **summary})
+    check(len(maes) == cfg.rounds and all(np.isfinite(maes)), f"federated MAEs {maes}")
+    check(maes[-1] < maes[0] and maes[-1] < mean_mae,
+          f"federated MAE {maes} did not fall below the mean predictor's {mean_mae}")
+    check(mean_err <= FED_MEAN_TOL, f"federated aggregate off numpy's mean by {mean_err}")
+    check(f32_scaled <= FED_F32_TOL, f"published scorer off the float32 model by {f32_scaled}")
+    check(bf16_scaled <= EXPORT_TOL, f"published scorer off the bf16 model by {bf16_scaled}")
+    check(not any(launches.values()), f"a kernel launched on the federated path: {launches}")
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1940,6 +2263,10 @@ def main(argv=None) -> int:
                      "ms_sage_d128": loop["sage"]["k3"][128]["ms"]})
     k3_entry["launches"] += sage_k3
     k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"], sage_k3_err)
+
+    # -- 14-15. the online graph trainer and federated FedAvg ---------------
+    loop["online_graph"] = online_graph_phase(torch, dev, args.seed, work_dir)
+    loop["federated"] = federated_phase(torch, dev, args.seed)
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",

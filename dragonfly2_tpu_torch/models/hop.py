@@ -106,10 +106,35 @@ def _hop_parts(
     return torch.cat(parts, dim=-1)
 
 
+class _RowGather(torch.autograd.Function):
+    """``table.index_select(0, ids)`` whose backward adds the rows of a
+    repeated id in a fixed order.  ``index_select``'s own backward is an
+    ``index_add_``, which on the card adds them with atomics in whatever
+    order the threads land, so two runs of one step from one state may
+    differ in the last bits.  ``index_put_(accumulate=True)`` sorts the
+    ids and sums each id's run in sorted order."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.rows,) + tuple(grad.shape[1:]))
+        out.index_put_((ids.long(),), grad, accumulate=True)
+        return out, None
+
+
 class Embed(nn.Module):
     """flax ``nn.Embed`` with ``param_dtype=float32``: a [num, features]
     table, initialized as flax's default ``variance_scaling(1.0,
-    "fan_in", "normal", out_axis=0)`` (normal, std 1 / sqrt(features))."""
+    "fan_in", "normal", out_axis=0)`` (normal, std 1 / sqrt(features)).
+    With ``deterministic`` set, the gather's backward is ``_RowGather``'s
+    (bit-reproducible on the card); the online trainer sets it, the batch
+    trainers keep ``index_select``'s."""
 
     def __init__(
         self, num_embeddings: int, features: int, generator: Optional[torch.Generator] = None
@@ -118,8 +143,11 @@ class Embed(nn.Module):
         table = torch.empty(num_embeddings, features)
         nn.init.normal_(table, std=math.sqrt(1.0 / features), generator=generator)
         self.embedding = nn.Parameter(table)
+        self.deterministic = False
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.deterministic:
+            return _RowGather.apply(self.embedding, ids)
         return self.embedding.index_select(0, ids)
 
 

@@ -2,9 +2,9 @@
 training_total / training_failure_total, extended with the training
 loop's observables).
 
-Port of the batch trainer's four series of
-``dragonfly2_tpu/trainer/metrics.py``, on the port's ``utils/metrics``
-registry; the online graph trainer's series come with that trainer.
+Port of ``dragonfly2_tpu/trainer/metrics.py`` on the port's
+``utils/metrics`` registry: the batch trainer's four series and the
+online graph trainer's node-id lifecycle series.
 """
 
 from __future__ import annotations
@@ -23,4 +23,18 @@ TRAINING_DURATION = _reg.histogram(
 )
 MODELS_PUBLISHED = _reg.counter(
     "trainer_models_published_total", "Models pushed to the registry", ["model"]
+)
+# Online node-id lifecycle (trainer/online_graph.py WireIngestAdapter —
+# the scheduler host-GC analog, reference scheduler/config/config.go:176-197).
+ONLINE_NODES_EVICTED = _reg.counter(
+    "trainer_online_nodes_evicted_total",
+    "Dense node ids reclaimed by TTL eviction in the online ingest adapter",
+)
+ONLINE_NODES_RECYCLED = _reg.counter(
+    "trainer_online_nodes_recycled_total",
+    "Embedding/optimizer rows reset after node-id recycling",
+)
+ONLINE_OVERFLOW_EDGES = _reg.counter(
+    "trainer_online_overflow_edges_total",
+    "Edges dropped because the online node table was full",
 )

@@ -353,6 +353,15 @@ def _graph_train_step(
     return state, loss
 
 
+def _is_node_table_path(name: str) -> bool:
+    """True for leaves that live in per-node tables: the learnable
+    embedding (``HopEncoder_0.Embed_0.embedding``, ``/`` or ``.`` joined)
+    and, through their parameter's name, its two AdamW moments.  The one
+    definition: the online trainer's id-recycling row reset and any
+    node-sharded layout must agree on which leaves are node tables."""
+    return "embedding" in name.replace("/", ".").split(".")
+
+
 def split_edges(n_edges: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
     """(val_idx, train_idx): the JAX trainer's 10 % validation split."""
     rng = np.random.default_rng(seed)

@@ -100,6 +100,9 @@ print("OK")
         "dragonfly2_tpu_torch.sim",
         "dragonfly2_tpu_torch.models.gnn",
         "dragonfly2_tpu_torch.ops.transpose_gather",
+        "dragonfly2_tpu_torch.trainer.online_graph",
+        "dragonfly2_tpu_torch.trainer.federated",
+        "dragonfly2_tpu_torch.bench.online_graph",
         "chip_smoke",
     ],
 )
