@@ -1775,16 +1775,19 @@ def _train_state_restore(torch, trainer, saved):
     st.generator.set_state(gen)
 
 
-def same_state_dispatches(torch, trainer, staged, deterministic):
+def same_state_dispatches(torch, trainer, staged, atomic):
     """``OG_DET_RUNS`` dispatches of one block, each from the same saved
-    state, with the embedding's deterministic backward on or off: the
-    state hash after each and its device ms.  The state is restored after."""
+    state: the state hash after each and its device ms.  With ``atomic``
+    the embedding's gather is ``index_select`` (whose backward adds a
+    repeated id's rows with atomics) in place of ``Embed``'s sorted
+    backward.  The state and the gather are restored after."""
     from dragonfly2_tpu_torch.trainer.online_graph import state_hash
 
     embed = trainer.state.model.HopEncoder_0.Embed_0
     saved = _train_state_copy(trainer)
     hashes, ms = [], []
-    embed.deterministic = deterministic
+    if atomic:
+        embed.forward = lambda ids: embed.embedding.index_select(0, ids)
     try:
         for _ in range(OG_DET_RUNS):
             _train_state_restore(torch, trainer, saved)
@@ -1798,7 +1801,7 @@ def same_state_dispatches(torch, trainer, staged, deterministic):
             ms.append(start.elapsed_time(end))
             hashes.append(state_hash(trainer.state))
     finally:
-        embed.deterministic = True
+        embed.__dict__.pop("forward", None)
         _train_state_restore(torch, trainer, saved)
     return {"identical": len(set(hashes)) == 1, "hashes": [h[:16] for h in hashes], "ms": ms}
 
@@ -1814,14 +1817,10 @@ def online_graph_phase(torch, dev, seed, out_dir):
     root = os.path.join(out_dir, "online_graph")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    # The service stages every chunk it receives: ~2.4 GB for run A.
-    need = 1.5 * OG_DISPATCHES * rows_per_dispatch * 35 * 4
-    stage_parent = root
-    if os.path.isdir("/dev/shm") and shutil.disk_usage("/dev/shm").free > need:
-        stage_parent = "/dev/shm"
-    common = ["--nodes", str(OG_NODES), "--hidden", str(OG_HIDDEN), "--batch", str(OG_BATCH),
-              "--super", str(OG_SUPER), "--refresh-every", str(OG_REFRESH),
-              "--warmup-steps", str(OG_WARMUP), "--device", "cuda"]
+    common = ["--seed", str(seed), "--nodes", str(OG_NODES), "--hidden", str(OG_HIDDEN),
+              "--batch", str(OG_BATCH), "--super", str(OG_SUPER),
+              "--refresh-every", str(OG_REFRESH), "--warmup-steps", str(OG_WARMUP),
+              "--device", "cuda"]
 
     def log(msg):
         print(msg, file=sys.stderr, flush=True)
@@ -1832,7 +1831,7 @@ def online_graph_phase(torch, dev, seed, out_dir):
     torch.cuda.reset_peak_memory_stats()
     a = bench.run(bench.parse_args(common + [
         "--wire", "--records", str(OG_DISPATCHES * rows_per_dispatch),
-        "--ckpt-dir", os.path.join(root, "a"), "--stage-dir", stage_parent]), log=log, keep=keep)
+        "--ckpt-dir", os.path.join(root, "a")]), log=log, keep=keep)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = kernel_counts()
@@ -1841,13 +1840,13 @@ def online_graph_phase(torch, dev, seed, out_dir):
     refreshes = a["refreshes"]
     summary = {
         "nodes": OG_NODES, "hidden": OG_HIDDEN, "batch": OG_BATCH, "super_steps": OG_SUPER,
-        "stage_dir": stage_parent,
         "wire": {k: v for k, v in a.items()
                  if k not in ("losses", "dispatch_ms", "dispatch_host_ms")},
         "losses": losses.tolist(), "dispatch_ms": a["dispatch_ms"],
         "dispatch_host_ms": a["dispatch_host_ms"],
         "dispatch_ms_p50": float(np.median(a["dispatch_ms"])),
-        "refresh_mae": [{k: r[k] for k in ("dispatch", "stale_mae", "fresh_mae")}
+        "refresh_mae": [{k: r[k] for k in ("dispatch", "stale_mae", "fresh_mae", "hop_rms",
+                                           "hop_column_rms_moved_max")}
                         for r in refreshes],
         "device_records_per_s": rows_per_dispatch / (float(np.median(a["dispatch_ms"])) / 1e3),
         "records_per_s_service": a["records_per_s_service"],
@@ -1867,10 +1866,12 @@ def online_graph_phase(torch, dev, seed, out_dir):
     check(len(refreshes) == OG_DISPATCHES // OG_REFRESH - 1
           and a["snapshots"] == len(refreshes) + 1,
           f"online graph: {len(refreshes)} refreshes, snapshot_idx {a['snapshots']}")
-    # On the post-drift edges the fresh snapshot beats the stale one once
-    # the model uses the features a refresh changes: at the last refresh
-    # (96 steps in).  Earlier refreshes are printed, not held: after 32
-    # steps the fresh snapshot costs 1-6 % of MAE in every run measured.
+    # On the post-drift edges the fresh snapshot is held to beat the stale
+    # one at the last refresh (96 steps in).  Earlier refreshes are
+    # printed, not held: the JAX package's trainer, in this world at
+    # hidden 1,024 on the CPU, scores 1.1 % worse right after the first
+    # swap, and the port moves as it does at every refresh
+    # (tests/test_torch_online_drift.py).
     last = refreshes[-1]
     check(last["fresh_mae"] <= last["stale_mae"],
           f"online graph: the last refresh's fresh snapshot scored worse than the stale "
@@ -1878,17 +1879,17 @@ def online_graph_phase(torch, dev, seed, out_dir):
     check(not any(launches.values()), f"a kernel launched on the online graph path: {launches}")
 
     # -- the same block twice from one state; a profile of two dispatches -
-    world = bench._World(OG_NODES, OG_BATCH, OG_SUPER)
+    world = bench._World(OG_NODES, OG_BATCH, OG_SUPER, seed)
     block = world.download_block(0)
     staged = trainer._stage(tuple(b.reshape(OG_SUPER, OG_BATCH) for b in block))
-    determinism = {"deterministic": same_state_dispatches(torch, trainer, staged, True),
-                   "index_select": same_state_dispatches(torch, trainer, staged, False)}
+    determinism = {"sorted": same_state_dispatches(torch, trainer, staged, False),
+                   "index_select": same_state_dispatches(torch, trainer, staged, True)}
     profile = profile_steps(torch, lambda: trainer._train_dispatch(*staged), steps=OG_PROFILE)
     del trainer, staged, keep
     emit({"phase": "online_graph_determinism", **determinism})
     emit({"phase": "online_graph_profile", **profile})
-    check(determinism["deterministic"]["identical"],
-          f"the deterministic dispatch differs from itself: {determinism['deterministic']}")
+    check(determinism["sorted"]["identical"],
+          f"one dispatch from one state differs from itself: {determinism['sorted']}")
 
     # -- runs B and C: a resume across the refresh at dispatch 4 ----------
     resume = common + ["--records", str(OG_RESUME_TOTAL * rows_per_dispatch),

@@ -74,25 +74,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--super", dest="super_steps", type=int, default=SUPER)
     ap.add_argument("--warmup-steps", type=int, default=100)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the world's seed (0 replays tools/soak_online_1b.py's world)")
     ap.add_argument("--wire", action="store_true",
                     help="feed both streams as DFC1 chunks through TrainerService")
     ap.add_argument("--block-rows", type=int, default=1_000_000,
                     help="download rows per wire chunk (--wire)")
-    ap.add_argument("--stage-dir", default=None,
-                    help="parent of the service's staging directory (--wire)")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
 
 class _World:
-    """The drifting synthetic cluster and its position-seeded streams."""
+    """The drifting synthetic cluster and its position-seeded streams.
+    Every stream's seed is ``base + position``, offset by a million per
+    unit of ``seed``."""
 
-    def __init__(self, nodes: int, batch: int, super_steps: int) -> None:
+    def __init__(self, nodes: int, batch: int, super_steps: int, seed: int = 0) -> None:
         from ..records.synthetic import SyntheticCluster
 
         self.nodes, self.batch, self.super_steps = nodes, batch, super_steps
+        self.seed = seed
         self.n_probe = nodes * 16  # one probe sweep per epoch ≈ table capacity
-        self.cluster = SyntheticCluster(num_hosts=nodes, seed=0)
+        self.cluster = SyntheticCluster(num_hosts=nodes, seed=seed)
+
+    def key(self, base: int, position: int) -> int:
+        return base + position + 1_000_000 * self.seed
 
     def drift_to(self, epoch: int) -> None:
         """Replay epochs 1..epoch of load drift (seeded per epoch — a
@@ -101,11 +107,11 @@ class _World:
             self.drift(e)
 
     def drift(self, epoch: int) -> None:
-        self.cluster.drift(np.random.default_rng(77_000 + epoch))
+        self.cluster.drift(np.random.default_rng(self.key(77_000, epoch)))
 
     def probe_sweep(self, epoch: int):
         """Topology records for this epoch's world (prober → probed)."""
-        rng = np.random.default_rng(88_000 + epoch)
+        rng = np.random.default_rng(self.key(88_000, epoch))
         src = rng.integers(0, self.nodes, self.n_probe)
         dst = rng.integers(0, self.nodes, self.n_probe)
         keep = src != dst
@@ -116,14 +122,14 @@ class _World:
     def download_block(self, d: int):
         """Download records for dispatch d, against dispatch d's world."""
         n = self.super_steps * self.batch
-        rng = np.random.default_rng(10_000 + d)
+        rng = np.random.default_rng(self.key(10_000, d))
         es = rng.integers(0, self.nodes, n).astype(np.int32)
         ed = (es + rng.integers(1, self.nodes, n).astype(np.int32)) % self.nodes
         y = np.log1p(self.cluster._bandwidth_vec(es, ed, rng=rng)).astype(np.float32)
         return es, ed, y
 
     def val_set(self, epoch: int):
-        rng = np.random.default_rng(999_000 + epoch)
+        rng = np.random.default_rng(self.key(999_000, epoch))
         es = rng.integers(0, self.nodes, 2 * self.batch).astype(np.int32)
         ed = (es + rng.integers(1, self.nodes, 2 * self.batch).astype(np.int32)) % self.nodes
         y = np.log1p(self.cluster._bandwidth_vec(es, ed, rng=rng)).astype(np.float32)
@@ -202,20 +208,32 @@ def _trainer(args, dev, *, node_feats, topo, **cfg_kw):
     ), n_dispatch
 
 
+def _column_rms(hop_feats):
+    return hop_feats.float().pow(2).mean(dim=0).sqrt()
+
+
 def _refresh(trainer, val, epoch, d, before=None):
-    """Stale eval, refresh, fresh eval → the refresh's record."""
+    """Stale eval, refresh, fresh eval → the refresh's record, with the
+    hop features' scale before and after: their RMS, and the largest
+    factor by which one column's RMS moved."""
     t0 = time.perf_counter()
     stale = trainer.eval_mae(*val)
+    old = _column_rms(trainer.hop_feats)
     if before is not None:
         before()
     digest = trainer.refresh_snapshot()
     fresh = trainer.eval_mae(*val)
     table_s, precompute_s = trainer.snapshot_seconds
+    new = _column_rms(trainer.hop_feats)
+    both = (old > 0) & (new > 0)
+    moved = float(((new[both] / old[both]).log().abs().max()).exp()) if bool(both.any()) else 1.0
     return {
         "dispatch": d, "epoch": epoch, "stale_mae": stale, "fresh_mae": fresh,
         "refresh_s": time.perf_counter() - t0, "table_s": table_s,
         "precompute_s": precompute_s, "val_edges": int(len(val[0])),
         "hop_digest": digest[:12] if digest else None,
+        "hop_rms": [float(old.pow(2).mean().sqrt()), float(new.pow(2).mean().sqrt())],
+        "hop_column_rms_moved_max": moved,
     }
 
 
@@ -262,7 +280,7 @@ def _run_direct(args, dev, torch, log) -> dict:
 
     t_wall0 = time.perf_counter()
     R = args.refresh_every
-    world = _World(args.nodes, args.batch, args.super_steps)
+    world = _World(args.nodes, args.batch, args.super_steps, args.seed)
     t0 = time.perf_counter()
     trainer, n_dispatch_total = _trainer(
         args, dev, node_feats=world.cluster._host_feature_matrix(), topo=world.probe_sweep(0),
@@ -286,7 +304,7 @@ def _run_direct(args, dev, torch, log) -> dict:
     # The producer runs AHEAD of the train loop (queue backpressure ≠
     # lockstep), so it generates against its OWN world replica, drifted at
     # its own generation position.
-    producer_world = _World(args.nodes, args.batch, args.super_steps)
+    producer_world = _World(args.nodes, args.batch, args.super_steps, args.seed)
     stop = threading.Event()
 
     def producer() -> None:
@@ -366,7 +384,6 @@ def _run_wire(args, dev, torch, log) -> dict:
     """Both streams as DFC1 chunks through the trainer service."""
     from ..records.columnar import ColumnarHeader, _encode_header
     from ..records.features import DOWNLOAD_COLUMNS, HOST_FEATURE_DIM, TOPO_COLUMNS
-    from ..records.synthetic import SyntheticCluster
     from ..trainer.service import TrainerService
 
     t_wall0 = time.perf_counter()
@@ -380,7 +397,10 @@ def _run_wire(args, dev, torch, log) -> dict:
     total_rows = n_dispatch * rows_per_dispatch
     n_epochs = (n_dispatch + R - 1) // R + 1
     adapter = trainer.make_wire_adapter()
-    stage = tempfile.mkdtemp(prefix="online-wire-", dir=args.stage_dir)
+    # The service stages every chunk it receives (~2.5 GB for 16.8 M
+    # rows) beside the checkpoint.
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    stage = tempfile.mkdtemp(prefix="wire-stage-", dir=args.ckpt_dir)
     service = TrainerService(data_dir=stage, online_sink=adapter, device=dev)
     session = service.open_train_stream(ip="10.9.9.9", hostname="online-graph",
                                         scheduler_id="bench")
@@ -392,7 +412,8 @@ def _run_wire(args, dev, torch, log) -> dict:
     failure = []
 
     def producer() -> None:
-        cluster = SyntheticCluster(num_hosts=args.nodes, seed=0)
+        pworld = _World(args.nodes, args.batch, args.super_steps, args.seed)
+        cluster = pworld.cluster
         buckets = cluster._bucket_table()
         header = _encode_header(ColumnarHeader(columns=DOWNLOAD_COLUMNS))
         seqs: dict = {}
@@ -404,7 +425,7 @@ def _run_wire(args, dev, torch, log) -> dict:
             sent["bytes"] += len(payload)
 
         def probe_shard(epoch):
-            rng = np.random.default_rng(88_000 + epoch)
+            rng = np.random.default_rng(pworld.key(88_000, epoch))
             n = args.nodes * 16
             src = rng.integers(0, args.nodes, n)
             dst = rng.integers(0, args.nodes, n)
@@ -427,7 +448,7 @@ def _run_wire(args, dev, torch, log) -> dict:
                     while not refreshed[epoch - 1].wait(0.1):
                         if stop.is_set():
                             return
-                    cluster.drift(np.random.default_rng(77_000 + epoch))
+                    pworld.drift(epoch)
                 post("networktopology", f"topo-{epoch}", probe_shard(epoch))
                 topo_posted[epoch].set()
                 end = min((epoch + 1) * rows_per_epoch, total_rows)
@@ -435,7 +456,7 @@ def _run_wire(args, dev, torch, log) -> dict:
                     if stop.is_set():
                         return
                     n = min(args.block_rows, end - offset)
-                    rows = cluster.generate_feature_rows(n, seed=10_000 + g)
+                    rows = cluster.generate_feature_rows(n, seed=pworld.key(10_000, g))
                     g += 1
                     name = f"dl-{epoch}"
                     post("download", name, (header if seqs.get(name, 0) == 0 else b"")
@@ -447,11 +468,12 @@ def _run_wire(args, dev, torch, log) -> dict:
             failure.append(exc)
             trainer.end_of_stream()
 
-    world = _World(args.nodes, args.batch, args.super_steps)
+    world = _World(args.nodes, args.batch, args.super_steps, args.seed)
 
     def val_set(epoch):
         """Epoch's validation edges, mapped through the adapter's ids."""
-        rows = world.cluster.generate_feature_rows(2 * args.batch, seed=999_000 + epoch)
+        rows = world.cluster.generate_feature_rows(2 * args.batch,
+                                                   seed=world.key(999_000, epoch))
         ids = adapter.map_known(np.concatenate([rows[:, 0], rows[:, 1]]))
         src, dst = ids[: len(rows)], ids[len(rows):]
         ok = (src >= 0) & (dst >= 0)

@@ -132,9 +132,8 @@ class Embed(nn.Module):
     """flax ``nn.Embed`` with ``param_dtype=float32``: a [num, features]
     table, initialized as flax's default ``variance_scaling(1.0,
     "fan_in", "normal", out_axis=0)`` (normal, std 1 / sqrt(features)).
-    With ``deterministic`` set, the gather's backward is ``_RowGather``'s
-    (bit-reproducible on the card); the online trainer sets it, the batch
-    trainers keep ``index_select``'s."""
+    The gather's backward is ``_RowGather``'s, so a step is
+    bit-reproducible on the card."""
 
     def __init__(
         self, num_embeddings: int, features: int, generator: Optional[torch.Generator] = None
@@ -143,12 +142,9 @@ class Embed(nn.Module):
         table = torch.empty(num_embeddings, features)
         nn.init.normal_(table, std=math.sqrt(1.0 / features), generator=generator)
         self.embedding = nn.Parameter(table)
-        self.deterministic = False
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        if self.deterministic:
-            return _RowGather.apply(self.embedding, ids)
-        return self.embedding.index_select(0, ids)
+        return _RowGather.apply(self.embedding, ids)
 
 
 class HopEncoder(nn.Module):

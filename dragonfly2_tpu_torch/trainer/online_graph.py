@@ -25,8 +25,8 @@ What the port changes:
   staging buffer, and its mean loss stays on the device
   (``last_loss``);
 - the embedding's backward adds repeated ids in a fixed order
-  (``models/hop.Embed.deterministic``), so a resumed run is bit-identical
-  on the card, as the reference's is on the TPU;
+  (``models/hop._RowGather``), so a resumed run is bit-identical on the
+  card, as the reference's is on the TPU;
 - the wire adapter runs its Python path only: ``native_ingest=True``
   raises (the C++ engine is ROADMAP item 14); ``mesh`` and
   ``node_sharding="model"`` raise (multi-device is item 9);
@@ -502,8 +502,6 @@ class OnlineGraphTrainer:
             config.model, num_nodes=config.num_nodes, in_dim=hop_dim,
             generator=torch.Generator().manual_seed(config.train.seed),
         )
-        if config.model.node_embed_dim > 0:
-            model.HopEncoder_0.Embed_0.deterministic = True
         model.to(self.device)
         self.state = TrainState(
             model=model,

@@ -572,17 +572,15 @@ def test_resume_without_checkpoint_returns_false(tmp_path):
 
 
 def test_deterministic_embedding_gather_has_index_selects_gradient():
-    """``Embed.deterministic`` changes the order of the backward's sums,
-    not their value."""
+    """``Embed``'s sorted backward changes the order of ``index_select``'s
+    sums, not their value."""
     from dragonfly2_tpu_torch.models.hop import Embed
 
     emb = Embed(50, 4, torch.Generator().manual_seed(0))
     ids = torch.from_numpy(np.random.default_rng(0).integers(0, 50, 400))
     g = torch.randn(400, 4, generator=torch.Generator().manual_seed(1))
-    grads = []
-    for det in (False, True):
-        emb.deterministic = det
-        grads.append(torch.autograd.grad((emb(ids) * g).sum(), emb.embedding)[0])
+    grads = [torch.autograd.grad((out * g).sum(), emb.embedding)[0]
+             for out in (emb.embedding.index_select(0, ids), emb(ids))]
     assert torch.allclose(grads[0], grads[1], atol=1e-5, rtol=0)
     assert grads[0].abs().sum() > 0
 
