@@ -214,6 +214,34 @@ launch counts are zeroed before each and must read 0 after.
     max(1, |score|) of a float32 twin of the global model and 3e-2 × max(1,
     |score|) of the bf16 model; no kernel launched.  Prints seconds per
     round, MAE per round and records/s.
+16. The deployment over real sockets (``wire_loop``), through
+    ``bench/wire_loop.run`` at the swarm phase's size (configs[1]'s 1,000
+    ``SyntheticCluster`` hosts, 8 probe rounds; the downloads cut from
+    10,000 to 4,000 for the phase's time): a ``ManagerRESTServer``, the
+    trainer's serve composition on the card (``cli.trainer.serve``, the
+    GAT branch, ``RemoteRegistry`` to the manager), the scheduler's
+    (``cli.scheduler.serve``: ``ml``, the probe store, the seed-made
+    32→64→64→1 blob, the manager link with a 1 s model poll, the trainer
+    link every 60 s) and a rule-ranking scheduler, each on an ephemeral
+    port.  1,000 hosts announce, 128 seeding and 4,000 concurrent
+    downloads go through one ``RemoteScheduler`` per host from 16 client
+    threads, then 256 from one client; 8 probe rounds through
+    ``sync_probes_start`` / ``sync_probes_finished``; the probe graph is
+    snapshotted into the scheduler's records; the Announcer's next round
+    uploads the shards and the trainer trains the MLP and the GAT, which
+    register in the manager; 200 parent-choice trials run on the seed-made
+    K1 scorer, then the MLP is activated over REST and, once the
+    subscription has installed it, 200 more, and 200 on the rule
+    scheduler.  Launch counts are zeroed just before and read just after.
+    Checks: K1 launches > 0 and equal to the batcher's fused flushes
+    before the swap, none after; K1 against its plain version on 64 of
+    the path's flushes; rows staged = rows written (downloads and
+    topology); both models registered; K3 launches = GAT steps, K3
+    against its plain version on the GAT run's own first input; the
+    installed MLP's MB/s above the rules'; every trial answered with
+    parents.  Then each binary boots once as a child process (``python -m
+    dragonfly2_tpu_torch.cli.{scheduler,trainer} --device cuda``), answers
+    one request and exits 0 on SIGINT.
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -317,6 +345,11 @@ FED_ROWS = 10_000
 FED_HELD = 2_000
 FED_F32_TOL = 1e-5        # published scorer vs a float32 twin, scaled by max(1, |score|)
 FED_MEAN_TOL = 1e-6       # the round's aggregate vs a numpy weighted mean
+WIRE_DOWNLOADS = 4000     # the swarm's 10,000 cut for the phase's time
+WIRE_CLIENTS = 16
+WIRE_SEQUENTIAL = 256
+WIRE_TRAIN_INTERVAL = 150.0  # past the downloads and probes (~120 s on the card)
+WIRE_K1_FLUSHES = 64      # flushes whose inputs K1 is held to its plain version on
 
 
 class SmokeFailure(RuntimeError):
@@ -2024,6 +2057,173 @@ def federated_phase(torch, dev, seed):
     return summary
 
 
+def wire_loop_phase(torch, dev, seed, out_dir):
+    """Phase 16: the deployment over real sockets (``bench/wire_loop``),
+    then each binary's boot in serve mode.  Returns (summary, K1's
+    launches and flush inputs, K3's launches and tapped input)."""
+    from dragonfly2_tpu_torch.bench import wire_loop
+    from dragonfly2_tpu_torch.ops import fused_score, segment
+    from dragonfly2_tpu_torch.ops.segment import _segment_sum_plain
+    from dragonfly2_tpu_torch.trainer import train as train_mod
+
+    seen = {"flushes": [], "gat_steps": []}
+
+    def keep_flushes(fn):
+        def wrapped(self, features, *, src_buckets=None, dst_buckets=None):
+            out = fn(self, features, src_buckets=src_buckets, dst_buckets=dst_buckets)
+            if len(seen["flushes"]) < WIRE_K1_FLUSHES:
+                seen["scorer"] = self
+                seen["flushes"].append((np.array(features, np.float32, copy=True),
+                                        np.array(src_buckets, copy=True),
+                                        np.array(dst_buckets, copy=True)))
+            return out
+        return wrapped
+
+    def keep_first_k3(fn):
+        def wrapped(values, plan, **kw):
+            seen.setdefault("k3", (values.detach().clone(), plan, kw))
+            return fn(values, plan, **kw)
+        return wrapped
+
+    def keep_steps(fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            seen["gat_steps"].append(out[0].step * kw["model_config"].num_layers)
+            return out
+        return wrapped
+
+    def keep_gather(fn):
+        def wrapped(*a, **kw):
+            gather = fn(*a, **kw)
+            seen.setdefault("gather", gather)
+            return gather
+        return wrapped
+
+    work = os.path.join(out_dir, "wire_loop")
+    shutil.rmtree(work, ignore_errors=True)
+    args = wire_loop.parse_args([
+        "--hosts", str(SWARM_HOSTS), "--downloads", str(WIRE_DOWNLOADS),
+        "--tasks", str(SWARM_TASKS), "--probe-rounds", str(SWARM_PROBE_ROUNDS),
+        "--clients", str(WIRE_CLIENTS), "--sequential", str(WIRE_SEQUENTIAL),
+        "--trials", str(SWARM_TRIALS), "--train-interval", str(WIRE_TRAIN_INTERVAL),
+        "--seed", str(seed), "--out", work, "--device", "cuda",
+    ])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with tapped(fused_score.FusedMLPScorer, "score", keep_flushes), \
+            tapped(segment, "segment_sum_bucketed", keep_first_k3), \
+            tapped(segment, "make_neighbor_gather", keep_gather), \
+            tapped(train_mod, "train_gat_ranker", keep_steps):
+        summary = wire_loop.run(args, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    shutil.rmtree(work, ignore_errors=True)
+
+    # K1 against its plain version on the path's own flushes (the slot
+    # matrix as the run left it); these launches come after the counts.
+    scorer = seen["scorer"]
+    mat = scorer._sync_mirror()
+    mlp = scorer.mlp
+    k1_err = 0.0
+    k1_in = []
+    for edge, src, dst in seen["flushes"]:
+        s = torch.from_numpy(src.astype(np.int32)).to(dev)
+        d = torch.from_numpy(dst.astype(np.int32)).to(dev)
+        e = torch.from_numpy(edge).to(dev)
+        got = fused_score.fused_gather_mlp_score(mat, s, d, e, mlp)
+        want = fused_score._fused_score_plain(mat, s, d, e, mlp.w0c, mlp.w0p, mlp.w0e,
+                                              mlp.b0, mlp.layers())
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "K1 non-finite on a wire flush")
+        k1_err = max(k1_err, float((got - want).abs().max())
+                     / max(1.0, float(want.abs().max())))
+        k1_in.append((s, d, e))
+    # Timed at 128 rows (the pad most flushes take), from the path's rows.
+    s128, d128, e128 = (torch.cat([x[i] for x in k1_in])[:128] for i in range(3))
+    d1, d2 = mlp.w0c.shape[1], mlp.w1.shape[1]
+    k1_ms = device_ms(lambda: fused_score.fused_gather_mlp_score(mat, s128, d128, e128, mlp))
+    k1_plain_ms = device_ms(lambda: fused_score._fused_score_plain(
+        mat, s128, d128, e128, mlp.w0c, mlp.w0p, mlp.w0e, mlp.b0, mlp.layers()))
+    k1_bound_ms, _ = bound(*k1_cost(int(s128.numel()), d1, d2, mlp.k1_blob.numel()))
+
+    # K3 against its plain version on the GAT run's own first input.
+    values, plan, k3_kw = seen["k3"]
+    got = segment.segment_sum_bucketed(values, plan, **k3_kw)
+    torch.cuda.synchronize()
+    want = _segment_sum_plain(values, plan, exact=k3_kw["exact"],
+                              presorted=k3_kw.get("presorted", False))
+    k3_err = float((got - want).abs().max())
+    k3_max = float(want.abs().max())
+    k3_ms = device_ms(lambda: segment.segment_sum_bucketed(values, plan, **k3_kw))
+    k3_plain_ms = device_ms(lambda: _segment_sum_plain(
+        values, plan, exact=k3_kw["exact"], presorted=k3_kw.get("presorted", False)))
+    k3_bound_ms, _ = bound(*k3_cost(plan, values.shape[1], values.element_size()))
+    vals32 = values.float()
+    k3_lib_ms = device_ms(lambda: torch.zeros((plan.num_segments, values.shape[1]),
+                                              device=dev).index_add_(
+        0, seen["gather"].flat_indices, vals32), samples=10, reps=5)
+
+    boots = {kind: wire_loop.boot_binary(kind, "cuda", os.path.join(out_dir, f"boot_{kind}"))
+             for kind in ("scheduler", "trainer")}
+    for kind in boots:
+        shutil.rmtree(os.path.join(out_dir, f"boot_{kind}"), ignore_errors=True)
+
+    dl, tr, pc, k1 = (summary[k] for k in ("downloads", "train_round", "parent_choice", "k1"))
+    out = {
+        **summary,
+        "wall_seconds": wall_s, "kernel_launches": launches, "gat_steps": seen["gat_steps"],
+        "k1": {**k1, "max_err_scaled": k1_err, "tol_scaled": K1_TOL,
+               "flushes_checked": len(seen["flushes"]), "ms_128": k1_ms,
+               "plain_ms_128": k1_plain_ms, "bound_ms_128": k1_bound_ms},
+        "k3": {"rows": int(values.shape[0]), "d": int(values.shape[1]),
+               "segments": plan.num_segments, "max_abs_err": k3_err, "max_abs_want": k3_max,
+               "tol_relative": K3_TOL, "ms": k3_ms, "plain_ms": k3_plain_ms,
+               "bound_ms": k3_bound_ms, "index_add_ms": k3_lib_ms},
+        "boots": {kind: {k: b[k] for k in ("rc", "url", "response", "seconds_to_url",
+                                           "seconds_to_exit")}
+                  for kind, b in boots.items()},
+    }
+    emit({"phase": "wire_loop", **out})
+    check(dl["downloads"] >= WIRE_DOWNLOADS and summary["hosts"] == SWARM_HOSTS,
+          f"{dl['downloads']} downloads of {summary['hosts']} hosts")
+    check(launches["fused_gather_mlp_score"] > 0, "K1 never launched on the wire path")
+    check(k1["launches"] == k1["fused_flushes"] == launches["fused_gather_mlp_score"],
+          f"K1 launches {k1['launches']} / {launches['fused_gather_mlp_score']} != the "
+          f"batcher's fused flushes {k1['fused_flushes']} before the swap")
+    check(k1["launches_after_swap"] == 0, "K1 launched after the swap to the trained MLP")
+    check(k1["batcher_fallbacks"] == 0 and k1["rule_degrades"] == 0,
+          f"batcher fallbacks {k1['batcher_fallbacks']}, degrades {k1['rule_degrades']}")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on wire flushes")
+    check(tr["error"] is None, f"the trainer's round failed: {tr['error']}")
+    check(tr["rows_staged"] == tr["rows_written"] and tr["rows_written"]["topology"] > 0,
+          f"rows staged {tr['rows_staged']} != rows written {tr['rows_written']}")
+    for name, m in tr["metrics"].items():
+        check(m["mae"] < tr["mean_predictor_mae"], f"{name} validation MAE {m['mae']} not "
+              f"below the mean predictor's {tr['mean_predictor_mae']}")
+    check(seen["gat_steps"] and launches["segment_sum"] == sum(seen["gat_steps"]),
+          f"K3 launches {launches['segment_sum']} != GAT steps {seen['gat_steps']}")
+    check(bool(torch.isfinite(got).all()) and (want != 0).any().item(),
+          "K3 on the wire GAT input: non-finite or all zero")
+    check(k3_err <= K3_TOL * k3_max, f"K3 off its plain version by {k3_err} on the wire "
+          f"GAT input (max |sum| {k3_max})")
+    check(pc["installed_scorer"] == "MLPScorer", f"installed {pc['installed_scorer']}")
+    for arm in ("k1_seed_scorer", "installed", "rule"):
+        check(pc[arm]["trials_with_parents"] == pc[arm]["trials"],
+              f"{arm}: {pc[arm]['trials_with_parents']} of {pc[arm]['trials']} trials "
+              "answered with parents")
+    check(pc["installed"]["mb_s"] > pc["rule"]["mb_s"],
+          f"the installed MLP's {pc['installed']['mb_s']} MB/s not above the rules' "
+          f"{pc['rule']['mb_s']}")
+    for kind, b in boots.items():
+        check(b["rc"] == 0, f"{kind} serve mode exited {b['rc']} on SIGINT: {b['stderr']}")
+    check(boots["scheduler"]["response"].get("protocol", {}).get("negotiated") == 2,
+          f"scheduler boot answer {boots['scheduler']['response']}")
+    check(str(boots["trainer"]["response"].get("session", "")).startswith("sess-"),
+          f"trainer boot answer {boots['trainer']['response']}")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2268,15 +2468,28 @@ def main(argv=None) -> int:
     # -- 14-15. the online graph trainer and federated FedAvg ---------------
     loop["online_graph"] = online_graph_phase(torch, dev, args.seed, work_dir)
     loop["federated"] = federated_phase(torch, dev, args.seed)
+
+    # -- 16. the deployment over real sockets --------------------------------
+    loop["wire_loop"], wire_launches = wire_loop_phase(torch, dev, args.seed, work_dir)
+    wire = loop["wire_loop"]
+    k3_entry.update({"launches_wire_gat": wire_launches["segment_sum"],
+                     "max_abs_err_wire_gat": wire["k3"]["max_abs_err"],
+                     "ms_wire_gat": wire["k3"]["ms"], "bound_ms_wire_gat": wire["k3"]["bound_ms"]})
+    k3_entry["launches"] += wire_launches["segment_sum"]
+    k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"], wire["k3"]["max_abs_err"])
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:114",
-         "launches": launches["fused_gather_mlp_score"],
-         "max_abs_err": max(k1_err.values()), "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "launches": launches["fused_gather_mlp_score"]
+         + wire_launches["fused_gather_mlp_score"],
+         "launches_serving": launches["fused_gather_mlp_score"],
+         "launches_wire": wire_launches["fused_gather_mlp_score"],
+         "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
+         "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "share_of_bound": k1_bound / k1_ms, "ms_128": k1_times[128][0],
-         "bound_ms_128": k1_times[128][2][0]},
+         "bound_ms_128": k1_times[128][2][0], "ms_wire_128": wire["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

@@ -10,24 +10,28 @@ graph rankers' training, the learned-scheduling loop and the trainer
 service —
 
 - ``utils``     — types, hostinfo, FSM, DAG, digest, idgen, metrics,
-                  logging, the debug endpoint, SLO declarations.
+                  logging, the debug endpoint, SLO declarations, typed
+                  errors, fault injection, the GC runner.
 - ``records``   — record schemas, featurization, DFC1 columnar files, the
                   reference-CSV codec, the synthetic cluster.
 - ``scheduler`` — resources, columnar host store, evaluators, scorer
                   micro-batcher, scheduling engine, service, model
-                  subscription.
+                  subscription, the Announcer, topology sync.
 - ``models``    — the GAT and hop rankers, the MLP regressor.
 - ``trainer``   — batch MLP and graph training, the streaming trainer,
                   the scorer artifacts, the trainer service.
-- ``manager``, ``rollout``, ``lifecycle`` — the model registry, the
-                  rollout plane, the lifecycle daemon.
+- ``manager``, ``rollout``, ``lifecycle`` — the model registry, scheduler
+                  membership and the REST surface, the rollout plane,
+                  the lifecycle daemon.
+- ``rpc``       — the HTTP transports: scheduler, trainer, registry and
+                  cluster clients and servers, retries, the hash ring.
 - ``ops``       — the fused slot-row gather + MLP scoring kernel, the
                   rule weighted-sum kernel and the segment sum, CUDA C++
                   under ``csrc/``.
 - ``sim``       — announce-swarm fixtures, the lifecycle drill.
-- ``config``    — the trainer's config file.
-- ``cli``       — the scheduler composition root (``build``) and the
-                  trainer binary (``--train-once``).
+- ``config``    — the trainer's and the scheduler's config files.
+- ``cli``       — the scheduler and trainer binaries: serve mode
+                  (``serve``), ``--simulate`` and ``--train-once``.
 - ``bench``     — timing helpers and the card's measurement scripts.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.

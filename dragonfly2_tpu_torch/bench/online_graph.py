@@ -25,7 +25,9 @@ probe shards in hash-bucket space; snapshot 0 is built from the first
 wire-fed sweep, and validation edges map through the adapter's ids.  The
 producer waits for the driver's refresh of epoch e before it sends epoch
 e + 1's sweep, so each refresh sees exactly its own epoch's topology.
-The HTTP transport (ROADMAP item 12) is not part of this path.
+The path stays in process: the chunks enter ``TrainerService`` directly,
+not through its HTTP server (``rpc/trainer_transport.py``, which the
+trainer binary's serve mode runs; ``bench/wire_loop.py`` drives it).
 
 Kill/resume (direct feed): ``--kill-after-dispatch`` checkpoints and
 stops (the command exits 137); ``--resume`` restores params, moments,

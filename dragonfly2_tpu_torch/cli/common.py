@@ -1,7 +1,8 @@
 """Shared CLI plumbing (reference: cmd/dependency/dependency.go:59-120).
 
 Port of ``base_parser``, ``init_logging`` and ``init_debug`` of
-``dragonfly2_tpu/cli/common.py``.  The reference's tracing and telemetry
+``dragonfly2_tpu/cli/common.py``, and ``wait_for_signal``, the serve
+modes' wait.  The reference's tracing and telemetry
 flags (``--trace-file``, ``--otlp``, ``--trace-log``,
 ``--metric-journal``) are not offered, so argparse refuses them: the span
 exporters, the flight recorder and the metric journal wait for the
@@ -12,6 +13,8 @@ port's telemetry slice (ROADMAP queue 1 item 10), and so does the
 from __future__ import annotations
 
 import argparse
+import signal
+import threading
 
 from .. import __version__
 from ..utils import dflog
@@ -57,3 +60,27 @@ def init_logging(args, service: str) -> None:
         console=args.console or not args.log_dir,
         service=service,
     )
+
+
+def wait_for_signal() -> int:
+    """Block until SIGINT or SIGTERM; → the signal's number.  The serve
+    modes' wait (the reference waits for KeyboardInterrupt only; a
+    supervisor's SIGTERM stops the port's binaries as cleanly).  Call
+    from the main thread."""
+    got = []
+    done = threading.Event()
+
+    def on_signal(signum, frame):
+        got.append(signum)
+        done.set()
+
+    previous = {
+        s: signal.signal(s, on_signal) for s in (signal.SIGINT, signal.SIGTERM)
+    }
+    try:
+        while not done.wait(1.0):
+            pass
+    finally:
+        for s, handler in previous.items():
+            signal.signal(s, handler)
+    return got[0]

@@ -1,15 +1,20 @@
 """trainer service binary (reference: cmd/trainer + trainer/trainer.go).
 
-Port of ``dragonfly2_tpu/cli/trainer.py``'s ``--train-once`` mode: ingest
-DIR's columnar shards (``download*.dfc``, ``networktopology*.dfc``), run
+Port of ``dragonfly2_tpu/cli/trainer.py``.  ``--train-once DIR`` ingests
+DIR's columnar shards (``download*.dfc``, ``networktopology*.dfc``), runs
 one training round synchronously on ``--device`` (``cuda`` unless asked
-for ``cpu``), register the models and print what the reference prints.
+for ``cpu``), registers the models and prints what the reference prints.
 
-Serve mode (HTTP and gRPC ingest, a remote manager, the lifecycle daemon
-behind ``RolloutRESTClient``) waits for the port's rpc slice: without
-``--train-once`` the binary exits 2 and says so.
+Without it the binary serves (``serve``): an HTTP ingest server
+(``TrainerHTTPServer``) over ``TrainerService(data_dir=cfg.data_dir)``
+on ``--device``, registering models through ``RemoteRegistry`` with
+``--manager URL`` (or ``manager_addr``) and in an in-process
+``ModelRegistry`` otherwise, until SIGINT or SIGTERM; then it stops the
+server and exits 0.  A ``grpc://`` manager, ``server.grpc_port >= 0``
+and ``lifecycle.enable`` with a manager exit 2 naming ROADMAP queue 1
+item 12b (the gRPC half and the lifecycle daemon in serve mode).
 
-    python -m dragonfly2_tpu_torch.cli.trainer --train-once DIR [--device cpu]
+    python -m dragonfly2_tpu_torch.cli.trainer [--train-once DIR] [--manager URL] [--device cpu]
 """
 
 from __future__ import annotations
@@ -17,18 +22,14 @@ from __future__ import annotations
 import glob
 import os
 import sys
+from dataclasses import dataclass
+from typing import Optional
 
-from ..config import TrainerConfigFile, load_config
+from ..config import ConfigError, TrainerConfigFile, load_config
 from ..manager.registry import ModelRegistry
 from ..trainer.service import TrainerService
 from ..trainer.train import TrainConfig
-from .common import base_parser, init_debug, init_logging
-
-SERVE_MODE_MISSING = (
-    "trainer: serve mode (HTTP/gRPC ingest, remote manager, lifecycle daemon) "
-    "waits for the port's rpc slice (ROADMAP queue 1 item 12); "
-    "run one round with --train-once DIR"
-)
+from .common import base_parser, init_debug, init_logging, wait_for_signal
 
 
 def train_config(cfg: TrainerConfigFile) -> TrainConfig:
@@ -40,6 +41,94 @@ def train_config(cfg: TrainerConfigFile) -> TrainConfig:
     )
 
 
+def model_registry(manager_addr: Optional[str], token: Optional[str], registry=None):
+    """Where models register: ``RemoteRegistry`` for a REST manager,
+    else ``registry`` (a fresh ``ModelRegistry`` by default)."""
+    if manager_addr and manager_addr.startswith("grpc://"):
+        raise ConfigError(
+            "a grpc:// manager needs the gRPC registry client, "
+            "which is not ported yet (ROADMAP queue 1 item 12b)"
+        )
+    if manager_addr:
+        from ..rpc import RemoteRegistry
+
+        return RemoteRegistry(manager_addr, token=token)
+    return registry if registry is not None else ModelRegistry()
+
+
+@dataclass
+class TrainerServing:
+    """What ``serve`` started."""
+
+    service: TrainerService
+    http_server: object
+
+    @property
+    def url(self) -> str:
+        return self.http_server.url
+
+    def stop(self) -> None:
+        self.http_server.stop()
+
+
+def serve(
+    cfg: Optional[TrainerConfigFile] = None,
+    *,
+    device="cuda",
+    manager: Optional[str] = None,
+    manager_token: Optional[str] = None,
+    registry=None,
+    gnn_model: str = "hop",
+) -> TrainerServing:
+    """The binary's serve mode (reference cli/trainer.py:98-176) as a
+    composition: ``TrainerHTTPServer`` on ``server.host:server.port`` (0
+    binds an ephemeral port) over ``TrainerService(data_dir=cfg.data_dir)``
+    training on ``device``.  Models register through ``RemoteRegistry``
+    when ``manager`` or ``cfg.manager_addr`` names one, else in
+    ``registry`` (a fresh ``ModelRegistry`` by default).  ``gnn_model``
+    is the service's graph branch (``"hop"`` as in the reference binary,
+    or ``"gat"``, whose gather's backward is K3).  Raises ``ConfigError``
+    for what is not ported."""
+    cfg = cfg or TrainerConfigFile()
+    cfg.validate()
+    manager_addr = manager or cfg.manager_addr
+    registry = model_registry(manager_addr, manager_token, registry)
+    if cfg.server.grpc_port >= 0:
+        raise ConfigError(
+            "server.grpc_port >= 0 asks for the gRPC Train stream, "
+            "which is not ported yet (ROADMAP queue 1 item 12b)"
+        )
+    if cfg.lifecycle.enable and manager_addr:
+        raise ConfigError(
+            "lifecycle.enable with a manager starts the lifecycle "
+            "daemon, which is not ported to serve mode yet (ROADMAP queue 1 "
+            "item 12b)"
+        )
+    from ..rpc import TrainerHTTPServer
+
+    service = TrainerService(
+        registry,
+        data_dir=cfg.data_dir,
+        train_config=train_config(cfg),
+        gnn_model=gnn_model,
+        device=device,
+    )
+    http_server = TrainerHTTPServer(service, host=cfg.server.host, port=cfg.server.port)
+    http_server.serve()
+    if cfg.lifecycle.enable:
+        print(
+            "trainer: lifecycle.enable set but no REST manager attached; "
+            "lifecycle daemon not started",
+            flush=True,
+        )
+    print(
+        f"trainer: ingest on {http_server.url}, staging in {cfg.data_dir} "
+        "(ctrl-c to stop)",
+        flush=True,
+    )
+    return TrainerServing(service=service, http_server=http_server)
+
+
 def run(argv=None, *, registry=None) -> int:
     """The binary's body; → exit code.  ``registry`` replaces the
     in-process ``ModelRegistry`` the round registers into (callers that
@@ -48,17 +137,33 @@ def run(argv=None, *, registry=None) -> int:
     p.add_argument("--train-once", default=None, metavar="DIR",
                    help="ingest DIR's columnar shards, train one round, exit")
     p.add_argument("--scheduler-id", default="scheduler-local")
+    p.add_argument("--manager", default=None, metavar="URL",
+                   help="remote manager REST URL (models publish there)")
+    p.add_argument("--manager-token", default=None, help="bearer token for the manager")
     p.add_argument("--device", default="cuda",
-                   help="torch device the round trains on (cuda or cpu)")
+                   help="torch device the trainer trains on (cuda or cpu)")
     args = p.parse_args(argv)
     init_logging(args, "trainer")
     debug = init_debug(args)
     try:
-        cfg = load_config(TrainerConfigFile, args.config)
-        if not args.train_once:
-            print(SERVE_MODE_MISSING, file=sys.stderr)
+        try:
+            cfg = load_config(TrainerConfigFile, args.config)
+            if args.train_once:
+                registry = model_registry(
+                    args.manager or cfg.manager_addr, args.manager_token, registry
+                )
+            else:
+                serving = serve(
+                    cfg, device=args.device, manager=args.manager,
+                    manager_token=args.manager_token, registry=registry,
+                )
+        except ConfigError as exc:
+            print(f"trainer: {exc}", file=sys.stderr)
             return 2
-        registry = registry if registry is not None else ModelRegistry()
+        if not args.train_once:
+            wait_for_signal()
+            serving.stop()
+            return 0
         service = TrainerService(
             registry,
             # --train-once reads local shards (no staging).

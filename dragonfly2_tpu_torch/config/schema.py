@@ -11,18 +11,20 @@ only when a path is given.  The other binaries' config files come with
 their slices.
 
 ``SchedulerConfigFile`` holds only the sections and fields the port's
-``cli/scheduler`` reads (``scheduling``, ``network_topology``,
-``storage``, ``gc``), with the reference's names, defaults and
-validation; the reference's other scheduler keys (server, manager,
-security, tracing, the stall monitor, the rollout plane, sharding) come
-with the slices that read them (ROADMAP queue 1 items 10 and 12), and
-until then a file that sets one is refused as an unknown key.
+``cli/scheduler`` reads (``server``, ``scheduling``,
+``network_topology``, ``storage``, ``trainer``, ``gc``, the manager
+link and the topology sync cadence), with the reference's names,
+defaults and validation.  The reference's other scheduler keys come
+with the slices that read them, and until then a file that sets one is
+refused as an unknown key; for the keys in ``NOT_PORTED`` the message
+names the ROADMAP queue 1 item that brings their reader.
 
-The port's ``--train-once`` round reads ``training.epochs``,
-``training.learning_rate`` and ``training.warmup_steps``; every other key
-parses and is ignored (ROADMAP queue 1 items 10 and 12 list what reads
-them in the reference).  ``telemetry.slos`` is not validated: the SLO
-engine waits for the telemetry slice.
+The trainer binary reads ``training.epochs``, ``training.learning_rate``,
+``training.warmup_steps``, ``server``, ``data_dir``, ``manager_addr`` and
+``lifecycle.enable``; every other key parses and is ignored (ROADMAP
+queue 1 items 10 and 12b list what reads them in the reference).
+``telemetry.slos`` is not validated: the SLO engine waits for the
+telemetry slice.
 """
 
 from __future__ import annotations
@@ -130,8 +132,8 @@ class TrainingSection:
 
 @dataclass
 class LifecycleSection:
-    """The lifecycle daemon's settings (serve mode); parsed, not read by
-    ``--train-once`` (ROADMAP item 12)."""
+    """The lifecycle daemon's settings (serve mode); parsed, not read
+    (the daemon in serve mode is ROADMAP item 12b)."""
 
     enable: bool = False
     model_name: str = "parent-bandwidth-mlp"
@@ -206,6 +208,15 @@ class SchedulingSection:
     # and the columnar host store's slot count.
     eval_batch_linger_ms: float = 1.5
     eval_feature_cache_hosts: int = 65536
+    # Model subscription (DESIGN.md §15): registry poll cadence with
+    # seeded anti-herd jitter.
+    model_poll_interval_s: float = 300.0
+    model_poll_jitter: float = 0.1
+    # Regional model keys (DESIGN.md §29): this scheduler's idc/region.
+    # Set, the model subscriber polls the per-region specialization
+    # ``<model>@<idc>`` first and falls back to the global model; empty
+    # keeps the reference's fleet-wide single-key behaviour.
+    idc: str = ""
 
     def validate(self) -> None:
         if self.algorithm not in ("default", "nt", "ml"):
@@ -218,6 +229,8 @@ class SchedulingSection:
             raise ConfigError("eval_batch_linger_ms < 0")
         if self.eval_feature_cache_hosts < 1:
             raise ConfigError("eval_feature_cache_hosts < 1")
+        if not (0.0 <= self.model_poll_jitter < 0.5):
+            raise ConfigError("model_poll_jitter must be in [0, 0.5)")
 
 
 @dataclass
@@ -229,21 +242,63 @@ class NetworkTopologySection:
 
 
 @dataclass
+class TrainerLinkSection:
+    enable: bool = False
+    addr: str = ""
+    interval_s: float = 7 * 24 * 3600.0  # constants.go:198
+
+
+@dataclass
 class GCSection:
     host_ttl_s: float = 6 * 3600.0
     task_ttl_s: float = 2 * 3600.0
     peer_ttl_s: float = 24 * 3600.0
+    interval_s: float = 60.0
 
 
 @dataclass
 class SchedulerConfigFile:
+    server: ServerConfig = field(default_factory=ServerConfig)
     scheduling: SchedulingSection = field(default_factory=SchedulingSection)
     network_topology: NetworkTopologySection = field(default_factory=NetworkTopologySection)
     storage: StorageConfig = field(default_factory=StorageConfig)
+    trainer: TrainerLinkSection = field(default_factory=TrainerLinkSection)
     gc: GCSection = field(default_factory=GCSection)
+    manager_addr: str = ""
+    # Bearer credential (PAT or session token) for the manager's RBAC'd
+    # registration routes; empty on open managers.
+    manager_token: str = ""
+    cluster_id: str = "default"
+    # Cross-replica probe-graph sync cadence (push own edges, pull the
+    # other schedulers' via the manager — the Redis-sharing analog).
+    topology_sync_interval_s: float = 30.0
 
     def validate(self) -> None:
+        self.server.validate()
         self.scheduling.validate()
+
+
+# Keys of the reference's config files whose readers are not ported yet,
+# by the config class that would hold them: a file that sets one is
+# refused, and the message names the item that brings the reader.
+NOT_PORTED = {
+    "SchedulerConfigFile": {
+        "security": "14 (the security plane)",
+        "dynconfig_refresh_s": "14 (dynconfig)",
+        "metrics": "14 (the diagnostics server)",
+        "tracing": "10 (tracing)",
+        "telemetry": "10 (telemetry)",
+    },
+    "SchedulingSection": {
+        "shard_max_inflight": "14 (the shard guard)",
+        "shard_p99_budget_ms": "14 (the shard guard)",
+        "qos_autopilot": "10 (the QoS plane)",
+        "stall_max_idle_s": "12b (the gRPC push stream)",
+        "stall_sweep_interval_s": "12b (the gRPC push stream)",
+        "shadow_sample_rate": "12b (the rollout reporter)",
+        "rollout_report_interval_s": "12b (the rollout reporter)",
+    },
+}
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +314,12 @@ def _from_dict(cls: Type[T], data: dict) -> T:
     resolved = typing.get_type_hints(cls)
     for name, value in (data or {}).items():
         if name not in hints:
+            item = NOT_PORTED.get(cls.__name__, {}).get(name)
+            if item is not None:
+                raise ConfigError(
+                    f"{cls.__name__}: key {name!r} is not ported yet "
+                    f"(ROADMAP queue 1 item {item})"
+                )
             raise ConfigError(f"{cls.__name__}: unknown key {name!r}")
         ftype = resolved[name]
         if dataclasses.is_dataclass(ftype) and isinstance(value, dict):

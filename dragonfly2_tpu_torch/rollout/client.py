@@ -14,7 +14,7 @@ surface:
   zero-human entry into the promotion plane (lifecycle/daemon.py).
 
 ``LocalRolloutClient`` wraps an in-process ``RolloutController``.  The
-REST client waits for the rpc slice.
+REST client (``RolloutRESTClient``) is ROADMAP queue 1 item 12b.
 """
 
 from __future__ import annotations

@@ -4,10 +4,11 @@ In-memory cluster state (hosts/tasks/peers with FSMs and a per-task peer
 DAG), the columnar host store, the parent-selection engine with the rule,
 network-topology and ML evaluators, the scorer micro-batcher the ML
 evaluator uses, the model subscription that installs registry scorers on
-it, the network-topology probe store, and the training-record production
-path.
+it, the network-topology probe store, the training-record production path, and
+the Announcer that uploads those records to the trainer.
 """
 
+from .announcer import Announcer  # noqa: F401
 from .resource import (  # noqa: F401
     Host,
     HostManager,

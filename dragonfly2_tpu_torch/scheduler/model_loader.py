@@ -16,8 +16,9 @@ refresh-under-load).  ``refresh`` itself is serialized by a lock so two
 overlapping polls cannot interleave version bookkeeping.
 
 Port of ``dragonfly2_tpu/scheduler/model_loader.py`` over the port's
-in-process ``ModelRegistry`` and ``LocalRolloutClient``; the remote
-registry clients wait for the rpc slice.  The installed scorers are what
+``ModelRegistry`` (in process) or ``rpc.RemoteRegistry`` (the manager's
+REST surface) and ``LocalRolloutClient``; the REST rollout client is
+ROADMAP queue 1 item 12b.  The installed scorers are what
 ``load_scorer`` returns (the numpy ``MLPScorer`` for the streaming
 trainer's standardized artifacts), as in the reference.
 

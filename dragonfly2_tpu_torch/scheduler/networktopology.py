@@ -232,8 +232,8 @@ class NetworkTopology:
     # replica.  Here durability is a JSON state file per scheduler
     # (save/load below) and sharing rides the manager: each scheduler
     # pushes its edge summaries and pulls the other replicas' (the JAX
-    # package's scheduler/topology_sync.py, which this package takes with
-    # its rpc slice), merged newest-wins into the live store.
+    # package's scheduler/topology_sync.py, ported as this package's),
+    # merged newest-wins into the live store.
 
     def export_state(self) -> dict:
         """Full-fidelity state (probe queues + counts) for save/load."""

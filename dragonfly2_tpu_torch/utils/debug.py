@@ -7,11 +7,6 @@ Python analog over loopback HTTP:
   GET /debug/stats    — gc counters, thread/fd counts, rss
   GET /debug/profile?seconds=N — cProfile the process for N seconds,
                                  returns pstats text sorted by cumtime
-
-Port of ``dragonfly2_tpu/utils/debug.py``.  The JAX package serves it on
-its RPC layer's ``ThreadedHTTPService`` (with a fault seam and optional
-TLS); until the port's rpc slice, ``DebugServer`` owns a plain
-``ThreadingHTTPServer`` and its serve thread on loopback.
 """
 
 from __future__ import annotations
@@ -21,9 +16,11 @@ import io
 import sys
 import threading
 import traceback
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional, Tuple
+from http.server import BaseHTTPRequestHandler
+from typing import Tuple
 from urllib.parse import parse_qsl, urlsplit
+
+from ..rpc._server import ThreadedHTTPService
 
 
 def thread_stacks() -> str:
@@ -131,24 +128,15 @@ class DebugServer:
                 else:
                     self._text(404, "not found\n")
 
-        Handler.timeout = 60
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
-        self.address: Tuple[str, int] = self._httpd.server_address
-        self._thread: Optional[threading.Thread] = None
+        self._svc = ThreadedHTTPService(Handler, host, port, "debug")
+        self.address: Tuple[int, int] = self._svc.address
 
     @property
     def url(self) -> str:
-        host, port = self.address[:2]
-        return f"http://{host}:{port}"
+        return self._svc.url
 
     def serve(self) -> None:
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name="debug-http", daemon=True
-        )
-        self._thread.start()
+        self._svc.serve()
 
     def stop(self) -> None:
-        self._httpd.shutdown()
-        self._httpd.server_close()
-        if self._thread is not None:
-            self._thread.join(timeout=5)
+        self._svc.stop()

@@ -1,0 +1,286 @@
+"""Deterministic fault injection at the P2P control/data-plane seams.
+
+The reference proves failure handling with e2e drills (test/e2e/), not
+policy text.  This module is the layer those drills stand on: every
+network-ish seam in the stack — the RPC transports
+(rpc/scheduler_client, rpc/grpc_transport, rpc/_server), the piece
+plane (rpc/piece_transport, daemon/upload), the manager StateBackend
+(manager/state), the source clients (source/client) and the trainer's
+dispatch loop — calls ``fire(site)`` on its hot path.  With no injector
+installed that is one global read and a ``None`` compare; with one
+installed, the scenario decides per call site and call index whether to
+inject a fault.
+
+Fault kinds:
+
+- ``drop``      raise ``FaultInjected`` (a ``ConnectionError`` — the
+                transports' retry class — so drops exercise the real
+                retry/breaker/fallback machinery);
+- ``delay``     sleep ``delay_s`` (stall, not failure: surfaces timeout
+                and deadline bugs);
+- ``dferror``   raise the typed ``utils.dferrors`` error for ``code``
+                (the wire's retryable/terminal taxonomy);
+- ``truncate``  cut a bytes payload to ``keep_bytes`` (torn body — the
+                silent-corruption probe; seams that move bodies pass
+                them through ``fire(site, payload=...)``);
+- ``crash``     SIGKILL the CURRENT process (the drills' kill switch:
+                a child process installs a scenario from the
+                ``DF_FAULTINJECT`` env var and dies at a deterministic
+                call index, no racy external kill timing).
+
+Determinism contract: NO wall-clock randomness.  A spec triggers on
+explicit per-site call indices (``at``), a modulus (``every``), or a
+probability — and the probability coin is ``sha256(seed:spec:site:index)``,
+so the same scenario seed replays the exact same fault sequence, call
+for call.  ``FaultInjector.history`` records every injection for replay
+assertions (tests/test_chaos.py proves same-seed ⇒ same-history).
+"""
+
+from __future__ import annotations
+
+import fnmatch
+import hashlib
+import json
+import os
+import signal
+import threading
+import time
+from dataclasses import asdict, dataclass
+from typing import Dict, List, Optional, Tuple
+
+ENV_VAR = "DF_FAULTINJECT"
+
+KINDS = ("drop", "delay", "dferror", "truncate", "crash")
+
+
+class FaultInjected(ConnectionError):
+    """An injected 'drop': the call never reached the other side."""
+
+
+@dataclass(frozen=True)
+class FaultSpec:
+    """One rule of a scenario: WHERE (site glob), WHAT (kind) and WHEN
+    (explicit indices / modulus / deterministic probability)."""
+
+    site: str                     # fnmatch glob over dotted site names
+    kind: str                     # drop | delay | dferror | truncate | crash
+    at: Tuple[int, ...] = ()      # explicit 0-based per-site call indices
+    every: int = 0                # fire when site index % every == 0
+    probability: float = 0.0      # seeded per-(site, index) coin
+    delay_s: float = 0.0          # delay kind
+    code: int = 14                # dferror kind (dferrors.Code; 14=UNAVAILABLE)
+    keep_bytes: int = 0           # truncate kind: bytes kept
+    max_fires: int = 0            # 0 = unlimited
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown fault kind {self.kind!r}")
+
+    def to_dict(self) -> dict:
+        d = asdict(self)
+        d["at"] = list(self.at)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FaultSpec":
+        d = dict(d)
+        d["at"] = tuple(d.get("at", ()))
+        return cls(**d)
+
+
+@dataclass
+class Injection:
+    """One fired fault — the replay-comparable history record."""
+
+    site: str
+    index: int    # per-site call index
+    kind: str
+    spec: int     # which rule fired
+
+    def key(self) -> Tuple[str, int, str, int]:
+        return (self.site, self.index, self.kind, self.spec)
+
+
+class FaultInjector:
+    """Scenario executor: per-site call counters + seeded decisions.
+
+    Thread-safe; the decision for call N of a site depends only on
+    (seed, rule order, site name, N), never on timing or interleaving —
+    concurrent workers each see the deterministic fault for the index
+    they drew.
+    """
+
+    def __init__(
+        self,
+        specs: List[FaultSpec],
+        *,
+        seed: int = 0,
+        sleep=time.sleep,
+        kill=None,
+    ) -> None:
+        self.specs = list(specs)
+        self.seed = int(seed)
+        self._sleep = sleep
+        # Injectable for tests that assert crash scheduling without dying.
+        self._kill = kill or (lambda: os.kill(os.getpid(), signal.SIGKILL))
+        self._mu = threading.Lock()
+        self._counts: Dict[str, int] = {}
+        self._fires: Dict[int, int] = {}
+        self.history: List[Injection] = []
+
+    # -- deterministic coin --------------------------------------------------
+
+    def _coin(self, spec_idx: int, site: str, index: int) -> float:
+        h = hashlib.sha256(
+            f"{self.seed}:{spec_idx}:{site}:{index}".encode()
+        ).digest()
+        return int.from_bytes(h[:8], "big") / 2.0**64
+
+    def _triggers(
+        self, spec: FaultSpec, spec_idx: int, site: str, index: int
+    ) -> bool:
+        if not fnmatch.fnmatchcase(site, spec.site):
+            return False
+        if spec.at:
+            return index in spec.at
+        if spec.every:
+            return index % spec.every == 0
+        if spec.probability > 0.0:
+            return self._coin(spec_idx, site, index) < spec.probability
+        return False
+
+    # -- the seam API --------------------------------------------------------
+
+    def fire(self, site: str, payload=None):
+        """Evaluate every rule for this call of ``site``.  Returns the
+        (possibly truncated) payload; raises for drop/dferror; sleeps
+        for delay; SIGKILLs for crash.  Multiple rules may stack on one
+        call (e.g. delay THEN drop) — raising kinds end evaluation."""
+        with self._mu:
+            index = self._counts.get(site, 0)
+            self._counts[site] = index + 1
+        for spec_idx, spec in enumerate(self.specs):
+            if not self._triggers(spec, spec_idx, site, index):
+                continue
+            with self._mu:
+                fired = self._fires.get(spec_idx, 0)
+                if spec.max_fires and fired >= spec.max_fires:
+                    continue
+                self._fires[spec_idx] = fired + 1
+                self.history.append(Injection(site, index, spec.kind, spec_idx))
+            if spec.kind == "delay":
+                self._sleep(spec.delay_s)
+            elif spec.kind == "drop":
+                raise FaultInjected(f"injected drop at {site}#{index}")
+            elif spec.kind == "dferror":
+                from .dferrors import Code, DfError, UnavailableError
+
+                code = Code(spec.code)
+                if code is Code.UNAVAILABLE:
+                    raise UnavailableError(f"injected at {site}#{index}")
+                raise DfError(f"injected at {site}#{index}", code=code)
+            elif spec.kind == "truncate":
+                if isinstance(payload, (bytes, bytearray, memoryview)):
+                    payload = bytes(payload)[: spec.keep_bytes]
+            elif spec.kind == "crash":
+                self._kill()
+        return payload
+
+    def call_count(self, site: str) -> int:
+        with self._mu:
+            return self._counts.get(site, 0)
+
+    def history_keys(self) -> List[Tuple[str, int, str, int]]:
+        with self._mu:
+            return [inj.key() for inj in self.history]
+
+
+# ---------------------------------------------------------------------------
+# Process-global installation (the seams' fast path)
+# ---------------------------------------------------------------------------
+
+_active: Optional[FaultInjector] = None
+
+
+def install(injector: FaultInjector) -> FaultInjector:
+    global _active
+    _active = injector
+    return injector
+
+
+def uninstall() -> None:
+    global _active
+    _active = None
+
+
+def active() -> Optional[FaultInjector]:
+    return _active
+
+
+def fire(site: str, payload=None):
+    """The seam hook: a no-op passthrough unless an injector is installed."""
+    inj = _active
+    if inj is None:
+        return payload
+    return inj.fire(site, payload)
+
+
+def truncates(site: str) -> bool:
+    """True when the installed scenario carries a TRUNCATE rule that
+    could match ``site``.  Zero-copy serve paths consult this: a torn-body
+    fault needs a byte payload to cut, so its presence forces the
+    buffered path (drop/delay/dferror/crash faults work on either)."""
+    inj = _active
+    if inj is None:
+        return False
+    return any(
+        spec.kind == "truncate" and fnmatch.fnmatchcase(site, spec.site)
+        for spec in inj.specs
+    )
+
+
+def targets(*sites: str) -> bool:
+    """True when the installed scenario carries ANY rule that could match
+    one of ``sites``.  The native fetch dispatch consults this: the
+    in-engine loop cannot fire Python seams per piece, so a scenario
+    aimed at the piece plane (``piece.fetch``, ``piece.fetch.body``,
+    ``daemon.stream.tee``, ...) forces the byte-identical Python arm,
+    keeping every chaos drill's faults biting (DESIGN.md §28)."""
+    inj = _active
+    if inj is None:
+        return False
+    return any(
+        fnmatch.fnmatchcase(site, spec.site)
+        for spec in inj.specs
+        for site in sites
+    )
+
+
+class installed:
+    """``with installed(injector): ...`` — scoped installation for tests."""
+
+    def __init__(self, injector: FaultInjector) -> None:
+        self.injector = injector
+
+    def __enter__(self) -> FaultInjector:
+        return install(self.injector)
+
+    def __exit__(self, *exc) -> None:
+        uninstall()
+
+
+def install_from_env(env=None) -> Optional[FaultInjector]:
+    """Install the scenario carried in ``DF_FAULTINJECT`` (JSON:
+    ``{"seed": N, "faults": [FaultSpec dicts]}``).  Called by every CLI
+    binary at boot so subprocess drills inject — and SIGKILL — at
+    deterministic call indices with no external kill timing."""
+    spec = (env if env is not None else os.environ).get(ENV_VAR)
+    if not spec:
+        return None
+    data = json.loads(spec)
+    return install(
+        FaultInjector(
+            [FaultSpec.from_dict(d) for d in data.get("faults", [])],
+            seed=int(data.get("seed", 0)),
+        )
+    )

@@ -103,6 +103,12 @@ print("OK")
         "dragonfly2_tpu_torch.trainer.online_graph",
         "dragonfly2_tpu_torch.trainer.federated",
         "dragonfly2_tpu_torch.bench.online_graph",
+        "dragonfly2_tpu_torch.rpc",
+        "dragonfly2_tpu_torch.rpc.cluster_client",
+        "dragonfly2_tpu_torch.manager.rest",
+        "dragonfly2_tpu_torch.scheduler.announcer",
+        "dragonfly2_tpu_torch.scheduler.topology_sync",
+        "dragonfly2_tpu_torch.bench.wire_loop",
         "chip_smoke",
     ],
 )
