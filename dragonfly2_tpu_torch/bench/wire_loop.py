@@ -55,6 +55,7 @@ Prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -315,7 +316,15 @@ def _wire_breakdown(swarm: Swarm, stats, seconds: float) -> dict:
     round trips by method, the server's own time by method, and the
     service's share of the server's time and of the round trips."""
     register = swarm.latency["register_peer"]
+    # A handler counts its request after writing the answer, so the last
+    # ones may still be counting when their clients return.
+    want = {m: len(v) for m, v in swarm.latency.items()}
+    deadline = time.monotonic() + 5.0
     server = stats.snapshot()
+    while time.monotonic() < deadline and any(
+            server.get(m, {}).get("requests", 0) < n for m, n in want.items()):
+        time.sleep(0.005)
+        server = stats.snapshot()
     client_s = sum(sum(v) for v in swarm.latency.values())
     req_s = sum(m["request_s"] for m in server.values())
     svc_s = sum(m["service_s"] for m in server.values())
@@ -360,7 +369,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     out = args.out or tempfile.mkdtemp(prefix="wire_loop_")
     for sub in ("records", "rule_records", "staged"):
         shutil.rmtree(os.path.join(out, sub), ignore_errors=True)
-    started = []
+    stack = contextlib.ExitStack()  # stops every server started, in reverse
     summary = {"device": str(dev), "hosts": args.hosts, "clients": args.clients}
     try:
         # -- 1. the manager, the trainer, the two schedulers ----------------
@@ -376,14 +385,14 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         registry.create_model = timed_create
         manager = ManagerRESTServer(registry, ClusterManager())
         manager.serve()
-        started.append(manager)
+        stack.callback(manager.stop)
 
         tcfg = TrainerConfigFile()
         tcfg.server.host, tcfg.server.port = "127.0.0.1", 0
         tcfg.data_dir = os.path.join(out, "staged")
         tcfg.training.epochs = args.epochs
         trainer = trainer_cli.serve(tcfg, device=dev, manager=manager.url, gnn_model="gat")
-        started.append(trainer)
+        stack.callback(trainer.stop)
         first_byte = {}  # session → host time of its first uploaded chunk
         receive = trainer.service.receive_shard_bytes
 
@@ -408,7 +417,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         t_boot = time.perf_counter()
         sched = scheduler_cli.serve(scfg, device=dev, scorer_blob=seeded_k1_blob(args.seed),
                                     rng=random.Random(args.seed))
-        started.append(sched)
+        stack.callback(sched.stop)
         ev = sched.service.scheduling.evaluator
         k1_scorer = ev._scorer
         rounds = []  # the Announcer's rounds: start, end, run key
@@ -429,7 +438,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         rcfg.scheduling.retry_interval_s = 0.0
         rcfg.network_topology.enable = False
         rule = scheduler_cli.serve(rcfg, device=dev, rng=random.Random(args.seed))
-        started.append(rule)
+        stack.callback(rule.stop)
 
         # -- 2. downloads and probes over the wire ---------------------------
         swarm = Swarm(args.hosts, args.seed)
@@ -535,8 +544,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
                         "k1": summary["k1"]}))
         return summary
     finally:
-        for srv in reversed(started):
-            srv.stop()
+        stack.close()
         if not args.out:
             shutil.rmtree(out, ignore_errors=True)
 

@@ -194,6 +194,12 @@ def test_concurrent_registrations_no_500(tmp_path, cluster):
         assert not errors, errors
         assert len(results) == 16
         assert all(r.schedule is not None and r.schedule.parents for r in results.values())
+        # The server counts a request after writing its answer: the last
+        # handler thread may still be finishing when its client returns.
+        deadline = time.monotonic() + TIMEOUT
+        while (server.stats.snapshot()["register_peer"]["requests"] < 17
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         assert server.stats.snapshot()["register_peer"]["requests"] == 17
     finally:
         server.stop()
