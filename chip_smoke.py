@@ -242,6 +242,29 @@ launch counts are zeroed before each and must read 0 after.
     parents.  Then each binary boots once as a child process (``python -m
     dragonfly2_tpu_torch.cli.{scheduler,trainer} --device cuda``), answers
     one request and exits 0 on SIGINT.
+17. The self-driving lifecycle over the same sockets (``wire_lifecycle``),
+    through ``bench/wire_loop.run`` with ``--lifecycle`` at the same size:
+    the trainer's serve composition runs the lifecycle daemon
+    (``LifecycleSection`` defaults but its 2 s cycle; the streaming MLP
+    at ``MLPConfig()`` widths on the card) for the scheduler's id, the
+    manager serves a ``RolloutController`` (the reference's guardrails
+    but the drift ceiling, which is off), and the ``ml`` scheduler
+    shadow-scores every announce into ``shadow_replay.dfc`` and reports
+    every 5 s; the Announcer runs every 45 s.  After the seed scorer's
+    200 parent-choice trials, downloads run until a daemon candidate is
+    ACTIVE and installed; then 200 trials on the installed model and 200
+    on the rules.  Launch counts are zeroed just before and read just
+    after.  Checks: the candidate's rollout row read over REST goes
+    SHADOW, CANARY, ACTIVE, after the seed scorer's parent choice, with 0
+    ``:activate`` calls; every subscriber commit while SHADOW has the
+    shadow engine and no canary route, every one while CANARY both at 10
+    %; the installed version is the promoted daemon version and served
+    scores after the install equal the registry artifact's; rows fed to
+    the daemon equal the download rows uploaded; shadow rows on disk
+    equal those logged and read back; the daemon's parameters on the
+    card; K1 launches > 0 and equal to the fused flushes before the
+    install, none after; K1 against its plain version on 64 of the
+    phase's flushes; no K3 launch; every trial answered with parents.
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -350,6 +373,12 @@ WIRE_CLIENTS = 16
 WIRE_SEQUENTIAL = 256
 WIRE_TRAIN_INTERVAL = 150.0  # past the downloads and probes (~120 s on the card)
 WIRE_K1_FLUSHES = 64      # flushes whose inputs K1 is held to its plain version on
+LC_TRAIN_INTERVAL = 45.0  # the Announcer's interval in the lifecycle phase (7 days cut):
+                          # its first round lands after the seed scorer's parent choice
+LC_DAEMON_INTERVAL = 2.0  # the lifecycle daemon's cycle (30 s cut)
+LC_REPORT_INTERVAL = 5.0  # the rollout reporter's cycle (60 s cut)
+LC_DOWNLOAD_CAP = 20_000  # downloads the phase may take before the walk ends
+LC_TIMEOUT = 360.0        # seconds the walk may take
 
 
 class SmokeFailure(RuntimeError):
@@ -2057,6 +2086,56 @@ def federated_phase(torch, dev, seed):
     return summary
 
 
+def keep_k1_flushes(seen):
+    """A tap for ``FusedMLPScorer.score`` that keeps the scorer and the
+    inputs of its first ``WIRE_K1_FLUSHES`` flushes in ``seen``."""
+    def keep(fn):
+        def wrapped(self, features, *, src_buckets=None, dst_buckets=None):
+            out = fn(self, features, src_buckets=src_buckets, dst_buckets=dst_buckets)
+            if len(seen["flushes"]) < WIRE_K1_FLUSHES:
+                seen["scorer"] = self
+                seen["flushes"].append((np.array(features, np.float32, copy=True),
+                                        np.array(src_buckets, copy=True),
+                                        np.array(dst_buckets, copy=True)))
+            return out
+        return wrapped
+    return keep
+
+
+def k1_on_flushes(torch, dev, seen):
+    """K1 against its plain version on a wire path's own flushes (the slot
+    matrix as the run left it; these launches come after the counts), and
+    K1's, the plain version's and the bound's ms at 128 rows (the pad most
+    flushes take) of the path's rows → (max err scaled, ms, plain ms,
+    bound ms)."""
+    from dragonfly2_tpu_torch.ops import fused_score
+
+    scorer = seen["scorer"]
+    mat = scorer._sync_mirror()
+    mlp = scorer.mlp
+    k1_err = 0.0
+    k1_in = []
+    for edge, src, dst in seen["flushes"]:
+        s = torch.from_numpy(src.astype(np.int32)).to(dev)
+        d = torch.from_numpy(dst.astype(np.int32)).to(dev)
+        e = torch.from_numpy(edge).to(dev)
+        got = fused_score.fused_gather_mlp_score(mat, s, d, e, mlp)
+        want = fused_score._fused_score_plain(mat, s, d, e, mlp.w0c, mlp.w0p, mlp.w0e,
+                                              mlp.b0, mlp.layers())
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "K1 non-finite on a wire flush")
+        k1_err = max(k1_err, float((got - want).abs().max())
+                     / max(1.0, float(want.abs().max())))
+        k1_in.append((s, d, e))
+    s128, d128, e128 = (torch.cat([x[i] for x in k1_in])[:128] for i in range(3))
+    d1, d2 = mlp.w0c.shape[1], mlp.w1.shape[1]
+    k1_ms = device_ms(lambda: fused_score.fused_gather_mlp_score(mat, s128, d128, e128, mlp))
+    k1_plain_ms = device_ms(lambda: fused_score._fused_score_plain(
+        mat, s128, d128, e128, mlp.w0c, mlp.w0p, mlp.w0e, mlp.b0, mlp.layers()))
+    k1_bound_ms, _ = bound(*k1_cost(int(s128.numel()), d1, d2, mlp.k1_blob.numel()))
+    return k1_err, k1_ms, k1_plain_ms, k1_bound_ms
+
+
 def wire_loop_phase(torch, dev, seed, out_dir):
     """Phase 16: the deployment over real sockets (``bench/wire_loop``),
     then each binary's boot in serve mode.  Returns (summary, K1's
@@ -2067,17 +2146,6 @@ def wire_loop_phase(torch, dev, seed, out_dir):
     from dragonfly2_tpu_torch.trainer import train as train_mod
 
     seen = {"flushes": [], "gat_steps": []}
-
-    def keep_flushes(fn):
-        def wrapped(self, features, *, src_buckets=None, dst_buckets=None):
-            out = fn(self, features, src_buckets=src_buckets, dst_buckets=dst_buckets)
-            if len(seen["flushes"]) < WIRE_K1_FLUSHES:
-                seen["scorer"] = self
-                seen["flushes"].append((np.array(features, np.float32, copy=True),
-                                        np.array(src_buckets, copy=True),
-                                        np.array(dst_buckets, copy=True)))
-            return out
-        return wrapped
 
     def keep_first_k3(fn):
         def wrapped(values, plan, **kw):
@@ -2110,7 +2178,7 @@ def wire_loop_phase(torch, dev, seed, out_dir):
     ])
     reset_kernel_counts()
     t0 = time.perf_counter()
-    with tapped(fused_score.FusedMLPScorer, "score", keep_flushes), \
+    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)), \
             tapped(segment, "segment_sum_bucketed", keep_first_k3), \
             tapped(segment, "make_neighbor_gather", keep_gather), \
             tapped(train_mod, "train_gat_ranker", keep_steps):
@@ -2120,32 +2188,7 @@ def wire_loop_phase(torch, dev, seed, out_dir):
     launches = kernel_counts()
     shutil.rmtree(work, ignore_errors=True)
 
-    # K1 against its plain version on the path's own flushes (the slot
-    # matrix as the run left it); these launches come after the counts.
-    scorer = seen["scorer"]
-    mat = scorer._sync_mirror()
-    mlp = scorer.mlp
-    k1_err = 0.0
-    k1_in = []
-    for edge, src, dst in seen["flushes"]:
-        s = torch.from_numpy(src.astype(np.int32)).to(dev)
-        d = torch.from_numpy(dst.astype(np.int32)).to(dev)
-        e = torch.from_numpy(edge).to(dev)
-        got = fused_score.fused_gather_mlp_score(mat, s, d, e, mlp)
-        want = fused_score._fused_score_plain(mat, s, d, e, mlp.w0c, mlp.w0p, mlp.w0e,
-                                              mlp.b0, mlp.layers())
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), "K1 non-finite on a wire flush")
-        k1_err = max(k1_err, float((got - want).abs().max())
-                     / max(1.0, float(want.abs().max())))
-        k1_in.append((s, d, e))
-    # Timed at 128 rows (the pad most flushes take), from the path's rows.
-    s128, d128, e128 = (torch.cat([x[i] for x in k1_in])[:128] for i in range(3))
-    d1, d2 = mlp.w0c.shape[1], mlp.w1.shape[1]
-    k1_ms = device_ms(lambda: fused_score.fused_gather_mlp_score(mat, s128, d128, e128, mlp))
-    k1_plain_ms = device_ms(lambda: fused_score._fused_score_plain(
-        mat, s128, d128, e128, mlp.w0c, mlp.w0p, mlp.w0e, mlp.b0, mlp.layers()))
-    k1_bound_ms, _ = bound(*k1_cost(int(s128.numel()), d1, d2, mlp.k1_blob.numel()))
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
 
     # K3 against its plain version on the GAT run's own first input.
     values, plan, k3_kw = seen["k3"]
@@ -2221,6 +2264,93 @@ def wire_loop_phase(torch, dev, seed, out_dir):
           f"scheduler boot answer {boots['scheduler']['response']}")
     check(str(boots["trainer"]["response"].get("session", "")).startswith("sess-"),
           f"trainer boot answer {boots['trainer']['response']}")
+    return out, launches
+
+
+def wire_lifecycle_phase(torch, dev, seed, out_dir):
+    """Phase 17: the self-driving lifecycle over real sockets
+    (``bench/wire_loop --lifecycle``).  Returns (summary, launches)."""
+    from dragonfly2_tpu_torch.bench import wire_loop
+    from dragonfly2_tpu_torch.ops import fused_score
+
+    seen = {"flushes": []}
+    work = os.path.join(out_dir, "wire_lifecycle")
+    shutil.rmtree(work, ignore_errors=True)
+    args = wire_loop.parse_args([
+        "--lifecycle", "--hosts", str(SWARM_HOSTS), "--downloads", str(LC_DOWNLOAD_CAP),
+        "--tasks", str(SWARM_TASKS), "--clients", str(WIRE_CLIENTS),
+        "--trials", str(SWARM_TRIALS), "--train-interval", str(LC_TRAIN_INTERVAL),
+        "--lifecycle-interval", str(LC_DAEMON_INTERVAL),
+        "--report-interval", str(LC_REPORT_INTERVAL),
+        # Off: over the wire every host's upload counters start at 0 when
+        # the scheduler boots and grow with each piece served, so their
+        # PSI against the trained snapshot measures elapsed time (PERF.md
+        # §4).  Floors, regret and inversion keep their defaults.
+        "--max-psi", "inf",
+        "--timeout", str(LC_TIMEOUT), "--seed", str(seed), "--out", work, "--device", "cuda",
+    ])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+        summary = wire_loop.run(args, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    shutil.rmtree(work, ignore_errors=True)
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+
+    walk, install, rows, k1, pc = (summary[k] for k in (
+        "walk", "install", "rows", "k1", "parent_choice"))
+    out = {**summary, "wall_seconds": wall_s, "kernel_launches": launches,
+           "k1": {**k1, "max_err_scaled": k1_err, "tol_scaled": K1_TOL,
+                  "flushes_checked": len(seen["flushes"]), "ms_128": k1_ms,
+                  "plain_ms_128": k1_plain_ms, "bound_ms_128": k1_bound_ms}}
+    emit({"phase": "wire_lifecycle", **out})
+    version = walk["version"]
+    check(walk["sampled_phases"] == ["shadow", "canary", "active"],
+          f"v{version}'s rollout row read over REST: {walk['sampled_phases']}")
+    mine = [d["decision"] for d in walk["decisions"] if d["version"] == version]
+    check(mine[-1] == "promote" and "advance" in mine and "rollback" not in mine,
+          f"the controller's decisions for v{version}: {mine}")
+    check(walk["activate_posts"] == 0, f"{walk['activate_posts']} :activate calls")
+    check(walk["loop_start_to_shadow_s"] > 0,
+          "the candidate entered SHADOW before the seed scorer's parent choice ended")
+    commits = [c for c in walk["commits"] if c["version"] == version]
+    check({c["phase"] for c in commits} == {"shadow", "canary"},
+          f"the subscriber's commits for v{version}: {commits}")
+    check(all(c["shadow"] and c["canary_percent"] is None
+              for c in commits if c["phase"] == "shadow"),
+          "a SHADOW commit without a shadow engine (or with a canary route)")
+    check(all(c["shadow"] and c["canary_percent"] == 10
+              for c in commits if c["phase"] == "canary"),
+          "a CANARY commit without the shadow engine and a 10 % canary route")
+    check(install["installed_version"] == install["active_version"] == version
+          and install["installed_scorer"] == "MLPScorer" and install["active_is_daemons"],
+          f"installed {install}")
+    check(install["flushes_checked"] > 0 and install["scores_equal_registry_artifact"],
+          "served scores after the install differ from the registry artifact's")
+    check(rows["fed_to_daemon"] + rows["dropped_by_daemon"] == rows["staged_download_rows"] > 0,
+          f"rows fed to the daemon {rows['fed_to_daemon']} (+{rows['dropped_by_daemon']} "
+          f"dropped) != download rows uploaded {rows['staged_download_rows']}")
+    check(rows["shadow_rows_on_disk"] == rows["shadow_rows_logged"]
+          == rows["shadow_rows_read_back"] > 0
+          and 0 < max(rows["reporter_reads"]) <= rows["shadow_rows_on_disk"],
+          f"shadow log rows: {rows}")
+    check(summary["daemon"]["device"].startswith("cuda") and summary["daemon"]["steps"] > 0,
+          f"the daemon's trainer: {summary['daemon']}")
+    check(launches["fused_gather_mlp_score"] == k1["launches"] == k1["fused_flushes"] > 0,
+          f"K1 launches {launches['fused_gather_mlp_score']} / {k1['launches']} != the "
+          f"fused flushes before the install {k1['fused_flushes']}")
+    check(k1["launches_after_swap"] == k1["fused_flushes_after_swap"] == 0,
+          "K1 launched after the install")
+    check(k1["batcher_fallbacks"] == 0 and k1["rule_degrades"] == 0,
+          f"batcher fallbacks {k1['batcher_fallbacks']}, degrades {k1['rule_degrades']}")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on wire flushes")
+    check(launches["segment_sum"] == 0, "K3 launched: the batch round has no topology rows")
+    for arm in ("k1_seed_scorer", "installed", "rule"):
+        check(pc[arm]["trials_with_parents"] == pc[arm]["trials"],
+              f"{arm}: {pc[arm]['trials_with_parents']} of {pc[arm]['trials']} trials "
+              "answered with parents")
     return out, launches
 
 
@@ -2472,6 +2602,9 @@ def main(argv=None) -> int:
     # -- 16. the deployment over real sockets --------------------------------
     loop["wire_loop"], wire_launches = wire_loop_phase(torch, dev, args.seed, work_dir)
     wire = loop["wire_loop"]
+    # -- 17. the self-driving lifecycle over real sockets --------------------
+    loop["wire_lifecycle"], lc_launches = wire_lifecycle_phase(torch, dev, args.seed, work_dir)
+    lc = loop["wire_lifecycle"]
     k3_entry.update({"launches_wire_gat": wire_launches["segment_sum"],
                      "max_abs_err_wire_gat": wire["k3"]["max_abs_err"],
                      "ms_wire_gat": wire["k3"]["ms"], "bound_ms_wire_gat": wire["k3"]["bound_ms"]})
@@ -2482,14 +2615,17 @@ def main(argv=None) -> int:
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:114",
          "launches": launches["fused_gather_mlp_score"]
-         + wire_launches["fused_gather_mlp_score"],
+         + wire_launches["fused_gather_mlp_score"] + lc_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
+         "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
+         "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "share_of_bound": k1_bound / k1_ms, "ms_128": k1_times[128][0],
-         "bound_ms_128": k1_times[128][2][0], "ms_wire_128": wire["k1"]["ms_128"]},
+         "bound_ms_128": k1_times[128][2][0], "ms_wire_128": wire["k1"]["ms_128"],
+         "ms_wire_lifecycle_128": lc["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

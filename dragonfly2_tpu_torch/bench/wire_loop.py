@@ -42,6 +42,25 @@ the trainer link, and a second, rule-ranking scheduler (algorithm
    over REST and the subscription has installed it, and on the rule
    scheduler.
 
+With ``--lifecycle`` the same deployment closes its loop with no human
+step (DESIGN.md §29): the trainer serves the lifecycle daemon
+(``lifecycle.enable``, ``--lifecycle-interval``) for the scheduler's id,
+which ``run`` fixes before either boots by choosing the scheduler's
+port; the manager serves a ``RolloutController`` (the reference's
+guardrails, the drift ceiling ``--max-psi``); the scheduler shadow-scores
+every announce into ``storage.dir/shadow_replay.dfc`` and reports every
+``--report-interval``.  Steps 2-3 are replaced: after the seed-made
+scorer's parent choice, downloads run until a candidate the daemon
+registered has walked SHADOW → CANARY → ACTIVE (nobody calls
+``:activate``) and the subscription has installed it; then the reporter,
+the Announcer and the daemon stop, and parent choice runs on the
+installed model and on the rules.  The summary's ``walk`` holds the
+controller's decisions, the rollout row as ``GET /api/v1/rollouts:get``
+showed it every 50 ms, the subscriber's commits and the transition
+times; ``rows`` the rows uploaded, fed to the daemon, and logged, on disk
+and read by the reporter; ``k1`` K1's launches and the fused flushes
+before and after the install.
+
 ``boot_binary`` starts ``python -m dragonfly2_tpu_torch.cli.{scheduler,
 trainer}`` in serve mode as a child process, waits for its URL, sends one
 request and stops it with SIGINT (exit 0 expected).
@@ -49,7 +68,7 @@ request and stops it with SIGINT (exit 0 expected).
 Runs on ``--device`` (``cuda`` by default; with no card it exits 2).
 Prints one JSON line.
 
-    python -m dragonfly2_tpu_torch.bench.wire_loop [--downloads 4000] [--device cuda]
+    python -m dragonfly2_tpu_torch.bench.wire_loop [--downloads 4000] [--lifecycle] [--device cuda]
 """
 
 from __future__ import annotations
@@ -58,15 +77,18 @@ import argparse
 import contextlib
 import json
 import os
+import queue
 import random
-import select
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.parse
 import urllib.request
 
 import numpy as np
@@ -96,6 +118,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds any one wait of the run may take")
     ap.add_argument("--device", default="cuda")
+    lc = ap.add_argument_group(
+        "lifecycle", "--lifecycle: the trainer runs the lifecycle daemon, the manager "
+        "a RolloutController, and the downloads run until a candidate of the daemon "
+        "is ACTIVE and installed (--downloads and --timeout cap them)")
+    lc.add_argument("--lifecycle", action="store_true")
+    lc.add_argument("--lifecycle-interval", type=float, default=2.0,
+                    help="the daemon's cycle (lifecycle.interval_s)")
+    lc.add_argument("--report-interval", type=float, default=5.0,
+                    help="scheduling.rollout_report_interval_s")
+    lc.add_argument("--max-psi", type=float, default=0.25,
+                    help="the controller's drift ceiling (inf: off); its other "
+                         "guardrails keep the reference's defaults")
     return ap.parse_args(argv)
 
 
@@ -151,6 +185,7 @@ class Swarm:
         self._clients = {}
         self._mu = threading.Lock()
         self.latency = {}  # method → client round trips (s)
+        self.started = {}  # method → host times the calls started
 
     def client(self, url: str, i: int):
         from ..rpc import RemoteScheduler
@@ -167,7 +202,13 @@ class Swarm:
         dt = time.perf_counter() - t0
         with self._mu:
             self.latency.setdefault(method, []).append(dt)
+            self.started.setdefault(method, []).append(t0)
         return out
+
+    def clear_latency(self) -> None:
+        with self._mu:
+            self.latency.clear()
+            self.started.clear()
 
     def download(self, url: str, child: int, task_url: str, pieces: int, key) -> object:
         """One download of ``task_url`` by host ``child`` (``sim/swarm.py``'s
@@ -252,6 +293,29 @@ class Swarm:
         _pool(clients, list(range(len(draws))), one)
         return {"downloads": len(draws), "seconds": time.perf_counter() - t0,
                 "schedule_kinds": kinds}
+
+    def run_until(self, url: str, plan, done, *, clients: int, salt: int = 1) -> dict:
+        """The plan's downloads from ``clients`` threads, in order, until
+        ``done()`` holds (checked between downloads) or the plan runs out."""
+        urls, pieces, _, draws = plan
+        next_q = iter(range(len(draws)))
+        mu = threading.Lock()
+        count = [0]
+
+        def worker(_t: int) -> None:
+            while not done():
+                with mu:
+                    q = next(next_q, None)
+                if q is None:
+                    return
+                child, t = draws[q]
+                self.download(url, child, urls[t], pieces[t], (self.seed, salt, q))
+                with mu:
+                    count[0] += 1
+
+        t0 = time.perf_counter()
+        _pool(clients, list(range(clients)), worker)
+        return {"downloads": count[0], "seconds": time.perf_counter() - t0}
 
     def run_probe_rounds(self, url: str, rounds: int, *, clients: int) -> float:
         """``rounds`` probe rounds: every host asks for targets, pings them
@@ -349,6 +413,149 @@ def _wait(cond, timeout: float, what: str, poll: float = 0.005) -> float:
     return time.perf_counter() - t0
 
 
+def _free_port(host: str) -> int:
+    """A port the OS reports free now.  The scheduler binds it, so its id
+    (``sched-<hostname>-<port>``) is known before either binary boots and
+    the trainer's lifecycle daemon can register models under it."""
+    with socket.socket() as sock:
+        sock.bind((host, 0))
+        return sock.getsockname()[1]
+
+
+class _Walk:
+    """What ``run`` reads of the lifecycle walk: the controller's
+    begins and decisions (host times), the manager's POST paths, the
+    subscriber's rollout commits and installs, the rollout row as
+    ``GET /api/v1/rollouts:get`` shows it (sampled every ``poll`` s), and
+    the reporter's cycles.  Installed by wrapping those objects' methods
+    in this process."""
+
+    def __init__(self, manager, controller, sub, reporter, scheduler_id: str,
+                 name: str, poll: float = 0.05) -> None:
+        self.mu = threading.Lock()
+        self.begins, self.decisions, self.posts = [], [], []
+        self.commits, self.installs, self.samples, self.reports = [], [], [], []
+        self.shadows = {}  # id → every shadow engine the subscriber attached
+        ev = sub.evaluator
+
+        def stamp(into, **row):
+            with self.mu:
+                into.append({"t": time.perf_counter(), **row})
+
+        begin, report = controller.begin, controller.report
+
+        def watched_begin(model_id, **kw):
+            r = begin(model_id, **kw)
+            stamp(self.begins, model_id=r.model_id, version=r.version)
+            return r
+
+        def watched_report(scheduler_id, name, payload):
+            out = report(scheduler_id, name, payload)
+            row = controller.get(scheduler_id, name)
+            stamp(self.decisions, model_id=row.model_id, version=row.version,
+                  decision=out.get("decision"), phase=out.get("phase"),
+                  reason=out.get("reason", ""), joined_edges=payload.get("joined_edges"),
+                  psi_max=payload.get("psi_max"), regret_at_k=payload.get("regret_at_k"),
+                  inversion_rate=payload.get("inversion_rate"))
+            return out
+
+        controller.begin, controller.report = watched_begin, watched_report
+        handler = manager._svc._httpd.RequestHandlerClass
+        do_post = handler.do_POST
+
+        def watched_post(h):
+            stamp(self.posts, path=urllib.parse.urlsplit(h.path).path)
+            return do_post(h)
+
+        handler.do_POST = watched_post
+        commit_candidate = sub._commit_candidate_locked
+        commit_active = sub._commit_active_locked
+
+        def watched_candidate(candidate):
+            commit_candidate(candidate)
+            info = candidate[1] if candidate is not None else None
+            if ev.shadow is not None:
+                self.shadows[id(ev.shadow)] = ev.shadow
+            stamp(self.commits, phase=info.phase if info else None,
+                  version=info.model.version if info else None,
+                  shadow=ev.shadow is not None,
+                  canary_percent=ev.canary.percent if ev.canary is not None else None)
+
+        def watched_active(active):
+            changed = commit_active(active)
+            if changed:
+                stamp(self.installs, version=sub._loaded_version,
+                      scorer=type(ev._scorer).__name__)
+            return changed
+
+        sub._commit_candidate_locked = watched_candidate
+        sub._commit_active_locked = watched_active
+        run_once = reporter.run_once
+
+        def watched_run_once():
+            out = run_once()
+            if out is not None:
+                stamp(self.reports, shadow_rows=out["report"]["shadow_rows"],
+                      joined_edges=out["report"]["joined_edges"],
+                      decision=out["decision"].get("decision"))
+            return out
+
+        reporter.run_once = watched_run_once
+        self._stop = threading.Event()
+        url = manager.url + "/api/v1/rollouts:get?" + urllib.parse.urlencode(
+            {"scheduler_id": scheduler_id, "name": name})
+
+        def sample() -> None:
+            while not self._stop.wait(poll):
+                try:
+                    with urllib.request.urlopen(url, timeout=10) as resp:
+                        row = json.loads(resp.read())
+                    stamp(self.samples, phase=row["phase"], version=row["version"])
+                except urllib.error.HTTPError as exc:
+                    # 404: no rollout row yet.
+                    stamp(self.samples, phase=None if exc.code == 404 else f"http {exc.code}",
+                          version=None)
+                except OSError as exc:
+                    stamp(self.samples, phase=f"unreachable: {exc}", version=None)
+
+        self._sampler = threading.Thread(target=sample, name="rollout-sampler", daemon=True)
+        self._sampler.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._sampler.join(timeout=30)
+
+    def promoted(self):
+        """(model id, version) of the first candidate the controller
+        promoted, or None."""
+        with self.mu:
+            d = next((d for d in self.decisions if d["decision"] == "promote"), None)
+            return (d["model_id"], d["version"]) if d else None
+
+    def at(self, model_id: str, decision: str):
+        """Host time of the controller's first ``decision`` for
+        ``model_id`` (``begin``: → SHADOW, ``advance``: SHADOW → CANARY,
+        ``promote``: → ACTIVE)."""
+        with self.mu:
+            rows = self.begins if decision == "begin" else [
+                d for d in self.decisions if d["decision"] == decision]
+            return next((d["t"] for d in rows if d["model_id"] == model_id), None)
+
+
+def _segment(swarm: Swarm, t0, t1) -> dict:
+    """``register_peer`` round trips that started in [t0, t1): announces/s,
+    p50 / p99."""
+    if t0 is None or t1 is None or t1 <= t0:
+        return {"calls": 0}
+    with swarm._mu:
+        pairs = list(zip(swarm.started.get("register_peer", []),
+                         swarm.latency.get("register_peer", [])))
+    dts = [dt for s, dt in pairs if t0 <= s < t1]
+    if not dts:
+        return {"calls": 0, "seconds": t1 - t0}
+    return {**_ms(dts), "seconds": t1 - t0, "announces_per_s": len(dts) / (t1 - t0)}
+
+
 def run(args: argparse.Namespace, *, log=print) -> dict:
     """One wire loop (see the module docstring) → its summary."""
     import torch
@@ -361,6 +568,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     from ..manager.rest import ManagerRESTServer
     from ..ops import fused_score
     from ..records.columnar import ColumnarReader, concat_readers
+    from ..rollout import RolloutController, RolloutGuardrails
     from ..rpc import RemoteRegistry
     from ..trainer.service import GNN_MODEL_NAME, MLP_MODEL_NAME
     from ..trainer.train import split_edges
@@ -370,7 +578,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     for sub in ("records", "rule_records", "staged"):
         shutil.rmtree(os.path.join(out, sub), ignore_errors=True)
     stack = contextlib.ExitStack()  # stops every server started, in reverse
-    summary = {"device": str(dev), "hosts": args.hosts, "clients": args.clients}
+    summary = {"device": str(dev), "hosts": args.hosts, "clients": args.clients,
+               "lifecycle": args.lifecycle}
     try:
         # -- 1. the manager, the trainer, the two schedulers ----------------
         registry = ModelRegistry()
@@ -383,15 +592,25 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             return m
 
         registry.create_model = timed_create
-        manager = ManagerRESTServer(registry, ClusterManager())
+        # With --lifecycle the manager serves the rollout plane under the
+        # reference's guardrail defaults but the drift ceiling.
+        controller = RolloutController(
+            registry, guardrails=RolloutGuardrails(max_psi=args.max_psi),
+        ) if args.lifecycle else None
+        manager = ManagerRESTServer(registry, ClusterManager(), rollout=controller)
         manager.serve()
         stack.callback(manager.stop)
 
+        sched_port = _free_port("127.0.0.1") if args.lifecycle else 0
+        scheduler_id = f"sched-{socket.gethostname()}-{sched_port}"
         tcfg = TrainerConfigFile()
         tcfg.server.host, tcfg.server.port = "127.0.0.1", 0
         tcfg.data_dir = os.path.join(out, "staged")
         tcfg.training.epochs = args.epochs
-        trainer = trainer_cli.serve(tcfg, device=dev, manager=manager.url, gnn_model="gat")
+        tcfg.lifecycle.enable = args.lifecycle
+        tcfg.lifecycle.interval_s = args.lifecycle_interval
+        trainer = trainer_cli.serve(tcfg, device=dev, manager=manager.url, gnn_model="gat",
+                                    scheduler_id=scheduler_id)
         stack.callback(trainer.stop)
         first_byte = {}  # session → host time of its first uploaded chunk
         receive = trainer.service.receive_shard_bytes
@@ -403,13 +622,16 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         trainer.service.receive_shard_bytes = timed_receive
 
         scfg = SchedulerConfigFile()
-        scfg.server.host, scfg.server.port = "127.0.0.1", 0
+        scfg.server.host, scfg.server.port = "127.0.0.1", sched_port
         scfg.storage.dir = os.path.join(out, "records")
         scfg.scheduling.algorithm = "ml"
         # As the reference simulator runs: a cold task's first registration
         # goes back to source without sleeping out the retry loop.
         scfg.scheduling.retry_interval_s = 0.0
         scfg.scheduling.model_poll_interval_s = args.model_poll
+        # Every announce is shadow-scored (the binary's default: 10 %).
+        scfg.scheduling.shadow_sample_rate = 1.0
+        scfg.scheduling.rollout_report_interval_s = args.report_interval
         scfg.network_topology.enable = True
         scfg.manager_addr = manager.url
         scfg.trainer.enable, scfg.trainer.addr = True, trainer.url
@@ -418,6 +640,9 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         sched = scheduler_cli.serve(scfg, device=dev, scorer_blob=seeded_k1_blob(args.seed),
                                     rng=random.Random(args.seed))
         stack.callback(sched.stop)
+        if args.lifecycle and sched.scheduler_id != scheduler_id:
+            raise RuntimeError(f"the scheduler serves as {sched.scheduler_id}, the daemon "
+                               f"registers for {scheduler_id}")
         ev = sched.service.scheduling.evaluator
         k1_scorer = ev._scorer
         rounds = []  # the Announcer's rounds: start, end, run key
@@ -425,10 +650,13 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         storage = sched.service.storage
 
         def timed_announce():
-            t0 = time.perf_counter()
-            key = announce()
-            rounds.append({"start": t0, "end": time.perf_counter(), "key": key})
-            return key
+            r = {"start": time.perf_counter(), "key": None}
+            rounds.append(r)
+            try:
+                r["key"] = announce()
+            finally:
+                r["end"] = time.perf_counter()
+            return r["key"]
 
         sched.announcer.announce_to_trainer = timed_announce
 
@@ -440,16 +668,24 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         rule = scheduler_cli.serve(rcfg, device=dev, rng=random.Random(args.seed))
         stack.callback(rule.stop)
 
-        # -- 2. downloads and probes over the wire ---------------------------
         swarm = Swarm(args.hosts, args.seed)
         plan = swarm.plan(args.downloads, tasks=args.tasks)
         fused_score.reset_launch_counts()
         batcher = ev.batcher
         calls0 = batcher.scorer_calls
+        if args.lifecycle:
+            summary.update(_lifecycle(
+                args, swarm, plan, sched=sched, trainer=trainer, manager=manager,
+                controller=controller, registry=registry, registered=registered,
+                first_byte=first_byte, rounds=rounds, rule=rule, scheduler_id=scheduler_id,
+                name=MLP_MODEL_NAME, t_boot=t_boot, log=log))
+            return summary
+
+        # -- 2. downloads and probes over the wire ---------------------------
         announce_s = swarm.announce_all(sched.url, clients=args.clients)
         seed_s = swarm.seed_tasks(sched.url, plan)
         sched.rpc_server.stats.reset()
-        swarm.latency.clear()
+        swarm.clear_latency()
         dl = swarm.run_downloads(sched.url, plan, clients=args.clients)
         summary["downloads"] = {
             **dl, **_wire_breakdown(swarm, sched.rpc_server.stats, dl["seconds"]),
@@ -457,13 +693,13 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             "seed_seconds": seed_s,
         }
         sched.rpc_server.stats.reset()
-        swarm.latency.clear()
+        swarm.clear_latency()
         seq_plan = swarm.plan(args.sequential, tasks=args.tasks, salt=2)
         seq = swarm.run_downloads(sched.url, seq_plan, clients=1, salt=3)
         summary["downloads"]["sequential"] = {
             **seq, **_wire_breakdown(swarm, sched.rpc_server.stats, seq["seconds"])}
         log(json.dumps({"wire_loop": "downloads", **summary["downloads"]}))
-        swarm.latency.clear()
+        swarm.clear_latency()
         # The manager's view of the fleet while the Announcer ticks its
         # keepalive (it stops with the Announcer, below).
         summary["registered_schedulers"] = [
@@ -481,10 +717,12 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         log(json.dumps({"wire_loop": "probes", **summary["probes"]}))
 
         # -- 3. the Announcer's round after the snapshot ---------------------
-        _wait(lambda: any(r["start"] >= t_snap for r in rounds), args.timeout,
+        _wait(lambda: any(r["start"] >= t_snap and "end" in r for r in rounds), args.timeout,
               "the Announcer's round after the probe snapshot")
         sched.announcer.stop()
         measured = next(r for r in rounds if r["start"] >= t_snap)
+        if measured["key"] is None:
+            raise RuntimeError("the Announcer's round after the probe snapshot failed")
         # Nothing has written a record since the snapshot's flush.
         written = (sum(len(ColumnarReader(p)) for p in storage.download_columnar_paths()),
                    sum(len(ColumnarReader(p)) for p in storage.network_topology_columnar_paths()))
@@ -501,7 +739,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             "rounds_before_snapshot": [
                 {"seconds": r["end"] - r["start"],
                  "rows_staged": trainer.service.runs[r["key"]].download_rows}
-                for r in rounds if r["start"] < t_snap],
+                for r in rounds if r["start"] < t_snap and r["key"] is not None],
             "seconds_after_boot": measured["start"] - t_boot,
             "error": run_rec.error,
             "rows_written": {"download": written[0], "topology": written[1]},
@@ -549,20 +787,233 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             shutil.rmtree(out, ignore_errors=True)
 
 
+def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller, registry,
+               registered, first_byte, rounds, rule, scheduler_id, name, t_boot, log) -> dict:
+    """``run`` with ``--lifecycle`` after the boot: the seed-made K1
+    scorer's parent choice, then downloads until a candidate of the daemon
+    has walked SHADOW → CANARY → ACTIVE and the subscription has installed
+    it (candidates the controller rolls back before that are reported);
+    then the reporter, the Announcer and the daemon stop, and parent
+    choice runs on the installed model and on the rules."""
+    from ..lifecycle import GLOBAL_KEY
+    from ..manager.registry import ModelState
+    from ..ops import fused_score
+    from ..records.columnar import ColumnarReader
+    from ..trainer.export import load_scorer
+
+    ev = sched.service.scheduling.evaluator
+    sub, reporter, daemon = sched.model_subscriber, sched.rollout_reporter, trainer.lifecycle_daemon
+    k1_scorer = ev._scorer
+    k1 = {"fused_flushes": 0, "after_install": 0}
+    k1_score = k1_scorer.score
+
+    def counted_k1(*a, **kw):
+        k1["after_install" if walk.installs else "fused_flushes"] += 1
+        return k1_score(*a, **kw)
+
+    k1_scorer.score = counted_k1
+    walk = _Walk(manager, controller, sub, reporter, scheduler_id, name)
+    # The daemon's side of the first upload: rows fed, epochs and their
+    # training steps (host times).
+    epochs, feeds = [], []
+    gtrainer = daemon._trainers[GLOBAL_KEY]
+    run_epoch, train_run, feed = daemon.run_epoch, gtrainer.run, daemon.feed_download_rows
+
+    def timed_feed(rows):
+        feeds.append(time.perf_counter())
+        return feed(rows)
+
+    def timed_run(**kw):
+        t0 = time.perf_counter()
+        steps = train_run(**kw)
+        epochs.append({"train_start": t0, "train_s": time.perf_counter() - t0, "steps": steps})
+        return steps
+
+    def timed_epoch(key, **kw):
+        t0 = time.perf_counter()
+        out = run_epoch(key, **kw)
+        if epochs and epochs[-1]["train_start"] >= t0:
+            epochs[-1].update(start=t0, seconds=time.perf_counter() - t0,
+                              model_id=out["model_id"] if out else None)
+        return out
+
+    daemon.feed_download_rows, gtrainer.run, daemon.run_epoch = timed_feed, timed_run, timed_epoch
+    try:
+        announce_s = swarm.announce_all(sched.url, clients=args.clients)
+        seed_s = swarm.seed_tasks(sched.url, plan)
+        pre = swarm.parent_choice(sched.url, "k1-seed", args.trials, clients=args.clients)
+        swarm.clear_latency()
+        sched.rpc_server.stats.reset()
+
+        def installed() -> bool:
+            promoted = walk.promoted()
+            if promoted is None:
+                return False
+            m = registry.get(promoted[0])
+            return m.state is ModelState.ACTIVE and sub._loaded_version == promoted[1]
+
+        deadline = time.perf_counter() + args.timeout
+        t_loop = time.perf_counter()
+        dl = swarm.run_until(sched.url, plan, lambda: installed()
+                             or time.perf_counter() > deadline, clients=args.clients)
+        t_end = time.perf_counter()
+        walked = installed()
+        launches_at_install = fused_score.LAUNCHES["fused_gather_mlp_score"]
+        # Stop what would start or judge a second candidate: the reporter,
+        # the Announcer (after its round in flight) and the daemon.
+        reporter.stop()
+        sched.announcer.stop()
+        _wait(lambda: all("end" in r for r in rounds), args.timeout, "the Announcer's round")
+        daemon.stop()
+        for th in (reporter._thread, daemon._thread):
+            th.join(timeout=args.timeout)
+        walk.stop()
+        if not walked:
+            raise RuntimeError(
+                f"no candidate of the daemon reached ACTIVE and installed within "
+                f"{dl['downloads']} downloads / {args.timeout:.0f} s: candidates "
+                f"{[b['version'] for b in walk.begins]}, decisions "
+                f"{[(d['version'], d['decision'], d['reason']) for d in walk.decisions]}")
+        model_id, version = walk.promoted()
+        t_reg = registered[model_id]
+        t_shadow = walk.at(model_id, "begin")
+        t_canary, t_active = walk.at(model_id, "advance"), walk.at(model_id, "promote")
+        t_installed = next(i["t"] for i in walk.installs if i["version"] == version)
+        first_upload = min(first_byte.values())
+
+        # Parent choice on the installed model: its flushes are recorded
+        # and held to the registry artifact's numpy scorer.
+        scorer = ev._scorer
+        flushes = []
+        installed_score = scorer.score
+
+        def recorded(features, **kw):
+            out = installed_score(features, **kw)
+            if len(flushes) < 256:
+                flushes.append((np.array(features, np.float32, copy=True), np.array(out)))
+            return out
+
+        scorer.score = recorded
+        post = swarm.parent_choice(sched.url, "installed", args.trials, clients=args.clients)
+        rule_q = swarm.parent_choice(rule.url, "rule", args.trials, clients=args.clients)
+        active = registry.active_model(scheduler_id, name)
+        ref = load_scorer(registry.load_artifact(active))
+        equal = bool(flushes) and all(np.array_equal(ref.score(f), o) for f, o in flushes)
+
+        # Rows: the staged download shards (each the whole file as last
+        # uploaded) against what reached the daemon; shadow rows on disk
+        # against what the shadow engines logged and the reporter read.
+        staged = sum(len(ColumnarReader(os.path.join(d, f)))
+                     for d, _, files in os.walk(trainer.service.data_dir)
+                     for f in files if f.startswith("download_"))
+        log_path = sub.shadow_log_path
+        on_disk = len(ColumnarReader(log_path)) if os.path.exists(log_path) else 0
+        shadows = list(walk.shadows.values())
+        daemon_ids = [b["model_id"] for b in walk.begins]
+        mlps = registry.list(scheduler_id=scheduler_id, name=name)
+        phases = [x["phase"] for x in walk.samples if x["version"] == version]
+        result = {
+            "downloads": {**dl, "announce_host_seconds": announce_s,
+                          "seed_downloads": len(plan[2]), "seed_seconds": seed_s,
+                          "before_first_upload": _segment(swarm, t_loop, first_upload),
+                          "first_upload_to_shadow": _segment(swarm, first_upload, t_shadow),
+                          "shadow": _segment(swarm, t_shadow, t_canary),
+                          "canary": _segment(swarm, t_canary, t_active),
+                          "after_active": _segment(swarm, t_active, t_end)},
+            "walk": {
+                "scheduler_id": scheduler_id, "model_id": model_id, "version": version,
+                "candidates_before": [b["version"] for b in walk.begins
+                                      if b["t"] < t_shadow],
+                "sampled_phases": [p for i, p in enumerate(phases)
+                                   if i == 0 or p != phases[i - 1]],
+                "samples": len(walk.samples),
+                "sample_errors": sum(isinstance(x["phase"], str) and x["phase"] not in (
+                    "shadow", "canary", "active", "rolled_back") for x in walk.samples),
+                "decisions": [{k: v for k, v in d.items() if k != "t"}
+                              for d in walk.decisions],
+                "commits": [{k: c[k] for k in ("phase", "version", "shadow", "canary_percent")}
+                            for c in walk.commits if c["phase"] in ("shadow", "canary")],
+                "activate_posts": sum(p["path"].endswith(":activate") for p in walk.posts),
+                "rollout_posts": sum(p["path"].endswith(":rollout") for p in walk.posts),
+                "report_posts": sum(p["path"] == "/api/v1/rollouts:report"
+                                    for p in walk.posts),
+                "loop_start_after_boot_s": t_loop - t_boot,
+                "first_upload_after_boot_s": first_upload - t_boot,
+                "loop_start_to_shadow_s": t_shadow - t_loop,
+                "first_byte_to_first_registered_s": (
+                    registered[walk.begins[0]["model_id"]] - first_upload),
+                "first_byte_to_registered_s": t_reg - first_upload,
+                "registered_to_shadow_s": t_shadow - t_reg,
+                "daemon_epochs": [
+                    {"after_first_byte_s": e["start"] - first_upload, "seconds": e["seconds"],
+                     "train_s": e["train_s"], "steps": e["steps"],
+                     "registered": e["model_id"] is not None}
+                    for e in epochs if "start" in e],
+                "first_feed_after_first_byte_s": (feeds[0] - first_upload if feeds else None),
+                "shadow_to_canary_s": t_canary - t_shadow,
+                "canary_to_active_s": t_active - t_canary,
+                "active_to_installed_s": t_installed - t_active,
+            },
+            "install": {"installed_version": sub._loaded_version,
+                        "installed_scorer": type(ev._scorer).__name__,
+                        "active_version": active.version, "active_id": active.id,
+                        "active_is_daemons": active.id in daemon_ids,
+                        "flushes_checked": len(flushes),
+                        "scores_equal_registry_artifact": equal},
+            "registrations": {
+                "daemon": [{"version": b["version"], "model_id": b["model_id"]}
+                           for b in walk.begins],
+                "batch_round": [m.version for m in mlps if m.id not in daemon_ids],
+                "announcer_rounds": [
+                    {"after_boot_s": r["start"] - t_boot, "seconds": r["end"] - r["start"],
+                     "rows_staged": (trainer.service.runs[r["key"]].download_rows
+                                     if r["key"] else None)}
+                    for r in rounds],
+            },
+            "rows": {"staged_download_rows": staged,
+                     "fed_to_daemon": daemon.records_seen(GLOBAL_KEY),
+                     "dropped_by_daemon": daemon.records_dropped(GLOBAL_KEY),
+                     "shadow_rows_on_disk": on_disk,
+                     "shadow_rows_logged": sum(sh.logged_rows for sh in shadows),
+                     "shadow_rows_read_back": sum(
+                         sh.replay_rows().shape[0] for sh in shadows[:1]),
+                     "reporter_reads": [r["shadow_rows"] for r in walk.reports]},
+            "daemon": {"device": str(next(gtrainer.model.parameters()).device),
+                       "steps": gtrainer.step, "records_seen": gtrainer.records_seen},
+            "shadow_stats": [sh.stats() for sh in shadows],
+            "parent_choice": {"k1_seed_scorer": pre, "installed": post, "rule": rule_q,
+                              "installed_scorer": type(scorer).__name__},
+            "k1": {"launches": launches_at_install, "fused_flushes": k1["fused_flushes"],
+                   "launches_after_swap": fused_score.LAUNCHES["fused_gather_mlp_score"]
+                   - launches_at_install,
+                   "fused_flushes_after_swap": k1["after_install"],
+                   "batcher_fallbacks": ev.batcher.fallbacks, "rule_degrades": ev.degrades},
+        }
+        log(json.dumps({"wire_loop": "lifecycle", **{k: result[k] for k in (
+            "walk", "install", "registrations", "rows", "daemon")}}))
+        return result
+    finally:
+        walk.stop()
+        k1_scorer.__dict__.pop("score", None)
+
+
 # ---------------------------------------------------------------------------
 # The binaries in serve mode, as child processes
 # ---------------------------------------------------------------------------
 
 
-def boot_binary(kind: str, device: str, workdir: str, *, timeout: float = 120.0) -> dict:
+def boot_binary(kind: str, device: str, workdir: str, *, timeout: float = 120.0,
+                argv=(), env=None) -> dict:
     """``python -m dragonfly2_tpu_torch.cli.<kind> --device <device>`` in
     serve mode (``kind`` is ``scheduler`` or ``trainer``), on an ephemeral
-    port with its state under ``workdir``: wait for the line with its URL,
-    send one request (``POST /rpc/announce_host`` or ``POST /train/open``),
-    send SIGINT and wait for the exit.  → {"url", "response", "rc",
+    port with its state under ``workdir``, with ``argv`` appended and
+    ``env`` over the environment: wait for the line with its URL, send one
+    request (``POST /rpc/announce_host`` or ``POST /train/open``), send
+    SIGINT and wait for the exit.  → {"url", "response", "rc",
     "seconds_to_url", "seconds_to_exit", "stdout", "stderr"}; the process
     is killed if it outlives ``timeout``."""
     os.makedirs(workdir, exist_ok=True)
+    extra_env = env
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [PACKAGE_PARENT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
@@ -584,25 +1035,45 @@ def boot_binary(kind: str, device: str, workdir: str, *, timeout: float = 120.0)
         body = {"ip": "127.0.0.1", "hostname": "boot-check", "scheduler_id": "boot-check"}
     else:
         raise ValueError(f"kind {kind!r} not in ('scheduler', 'trainer')")
+    env.update(extra_env or {})
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", f"dragonfly2_tpu_torch.cli.{kind}", "--device", device],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=workdir,
-    )
+    err_path = os.path.join(workdir, f"{kind}.stderr")
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"dragonfly2_tpu_torch.cli.{kind}", "--device", device,
+             *argv],
+            stdout=subprocess.PIPE, stderr=err_file, text=True, env=env, cwd=workdir,
+        )
+    # A thread drains stdout line by line: the binary may print several
+    # lines at once, which a select on the pipe would not see once read
+    # into the reader's buffer.
+    lines: "queue.Queue" = queue.Queue()
+    stdout = []
+
+    def pump() -> None:
+        for line in proc.stdout:
+            lines.put(line.rstrip("\n"))
+        lines.put(None)
+
+    reader = threading.Thread(target=pump, name=f"{kind}-stdout", daemon=True)
+    reader.start()
+
+    def stderr_tail() -> str:
+        with open(err_path) as f:
+            return f.read()[-2000:]
+
     out = {"rc": None, "url": None, "response": None}
-    lines = []
     try:
         deadline = t0 + timeout
         while out["url"] is None:
-            left = deadline - time.perf_counter()
-            ready, _, _ = select.select([proc.stdout], [], [], max(left, 0.0))
-            if not ready:
-                raise TimeoutError(f"{kind}: no URL line within {timeout:.0f} s")
-            line = proc.stdout.readline()
-            if not line:
+            try:
+                line = lines.get(timeout=max(deadline - time.perf_counter(), 0.0))
+            except queue.Empty:
+                raise TimeoutError(f"{kind}: no URL line within {timeout:.0f} s") from None
+            if line is None:
                 raise RuntimeError(f"{kind} exited before serving (rc {proc.wait()}): "
-                                   f"{proc.stderr.read()[-2000:]}")
-            lines.append(line.rstrip("\n"))
+                                   f"{stderr_tail()}")
+            stdout.append(line)
             if line.startswith(marker):
                 out["url"] = line[len(marker):].split()[0].rstrip(",")
         out["seconds_to_url"] = time.perf_counter() - t0
@@ -613,16 +1084,19 @@ def boot_binary(kind: str, device: str, workdir: str, *, timeout: float = 120.0)
             out["response"] = json.loads(resp.read())
         t1 = time.perf_counter()
         proc.send_signal(signal.SIGINT)
-        rest, err = proc.communicate(timeout=max(deadline - time.perf_counter(), 1.0))
+        proc.wait(timeout=max(deadline - time.perf_counter(), 1.0))
         out["rc"] = proc.returncode
         out["seconds_to_exit"] = time.perf_counter() - t1
-        out["stdout"] = lines + rest.splitlines()
-        out["stderr"] = err[-2000:]
+        reader.join(timeout=10)
+        while (line := lines.get_nowait() if not lines.empty() else None) is not None:
+            stdout.append(line)
+        out["stdout"] = stdout
+        out["stderr"] = stderr_tail()
         return out
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
+            proc.wait()
 
 
 def main(argv=None) -> int:

@@ -13,9 +13,13 @@ handle (``.url``, ``.stop()``): ``SchedulerHTTPServer`` over ``build``,
 the GC runner, the probe graph reloaded from and saved to
 ``storage.dir/topology_state.json``, and with ``manager_addr`` the
 registration (``RemoteClusterClient``), ``TopologySync`` and, for
-``ml``, a ``ModelSubscriber`` over ``RemoteRegistry``; with
-``trainer.enable`` and ``trainer.addr``, the ``Announcer`` uploads the
-record shards every ``trainer.interval_s``.  Two things the reference
+``ml``, a ``ModelSubscriber`` over ``RemoteRegistry`` and
+``RolloutRESTClient`` that shadow-scores ``scheduling.shadow_sample_rate``
+of the announces into ``storage.dir/shadow_replay.dfc``, with a
+``RolloutReporter`` reporting every
+``scheduling.rollout_report_interval_s``; with ``trainer.enable`` and
+``trainer.addr``, the ``Announcer`` uploads the record shards every
+``trainer.interval_s``.  Two things the reference
 starts with a manager are not started here: the remote job worker and
 dynconfig (ROADMAP queue 1 item 14); serve mode says so at boot.
 
@@ -24,7 +28,7 @@ synthetic swarm into the configured record storage and prints the
 reference's line of record counts.  Without it the binary serves until
 SIGINT or SIGTERM, then stops what it started in the reference's order
 and exits 0.  A gRPC port (``server.grpc_port >= 0``) or a ``grpc://``
-trainer address exits 2 naming ROADMAP queue 1 item 12b; a config key
+trainer address exits 2 naming ROADMAP queue 1 item 12c; a config key
 whose reader is not ported exits 2 naming its item.  The seed-peer
 trigger waits for ROADMAP queue 1 item 10.
 
@@ -153,6 +157,7 @@ class SchedulerServing:
     cluster_link: object = None
     topology_sync: object = None
     model_subscriber: object = None
+    rollout_reporter: object = None
     announcer: object = None
 
     @property
@@ -165,6 +170,8 @@ class SchedulerServing:
             self.announcer.stop()
         if self.cluster_link is not None:
             self.cluster_link.stop()
+        if self.rollout_reporter is not None:
+            self.rollout_reporter.stop()
         if self.model_subscriber is not None:
             self.model_subscriber.stop()
         if self.topology_sync is not None:
@@ -195,13 +202,13 @@ def serve(
     if cfg.server.grpc_port >= 0:
         raise ConfigError(
             "server.grpc_port >= 0 asks for the gRPC transport, "
-            "which is not ported yet (ROADMAP queue 1 item 12b)"
+            "which is not ported yet (ROADMAP queue 1 item 12c)"
         )
     trainer_link = cfg.trainer.enable and cfg.trainer.addr
     if trainer_link and cfg.trainer.addr.startswith("grpc://"):
         raise ConfigError(
             "a grpc:// trainer.addr needs the gRPC transport, "
-            "which is not ported yet (ROADMAP queue 1 item 12b)"
+            "which is not ported yet (ROADMAP queue 1 item 12c)"
         )
     from ..rpc import RemoteTrainer, SchedulerHTTPServer
     from ..rpc.ratelimit import maybe_bucket
@@ -290,13 +297,18 @@ def serve(
                 state_path=topology_state_path,
             )
             serving.topology_sync.serve()
-        # The ml evaluator polls the manager registry for the active
-        # version (seeded ±jitter so a fleet never herds the registry).
-        # The rollout client, shadow scoring and the rollout reporter are
-        # ROADMAP queue 1 item 12b.
+        # Model rollout plane (DESIGN.md §15): the ml evaluator polls the
+        # manager registry for the active AND candidate versions (seeded
+        # ±jitter so a fleet never herds the registry), shadow-scores a
+        # sampled announce slice into a replay log, and reports joined
+        # outcome quality back to the rollout controller.
         if cfg.scheduling.algorithm == "ml":
+            from ..rollout import RolloutReporter, RolloutRESTClient
             from ..scheduler import ModelSubscriber
 
+            # The shadow log opens in storage.dir when a candidate
+            # attaches, maybe before record storage's first flush.
+            os.makedirs(cfg.storage.dir, exist_ok=True)
             serving.model_subscriber = ModelSubscriber(
                 RemoteRegistry(manager_endpoints, token=token),
                 service.scheduling.evaluator,
@@ -304,8 +316,17 @@ def serve(
                 idc=cfg.scheduling.idc or None,
                 refresh_interval=cfg.scheduling.model_poll_interval_s,
                 jitter=cfg.scheduling.model_poll_jitter,
+                rollout_client=RolloutRESTClient(manager_endpoints, token=token),
+                shadow_sample_rate=cfg.scheduling.shadow_sample_rate,
+                shadow_log_path=os.path.join(cfg.storage.dir, "shadow_replay.dfc"),
             )
             serving.model_subscriber.serve()
+            serving.rollout_reporter = RolloutReporter(
+                serving.model_subscriber, service.storage,
+                RolloutRESTClient(manager_endpoints, token=token),
+                interval_s=cfg.scheduling.rollout_report_interval_s,
+            )
+            serving.rollout_reporter.serve()
     # Periodic dataset upload to the trainer (announcer.go:127-142 train
     # ticker, default 7d) — the link that feeds the learning loop.
     if trainer_link:

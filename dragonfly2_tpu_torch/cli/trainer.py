@@ -10,11 +10,15 @@ Without it the binary serves (``serve``): an HTTP ingest server
 on ``--device``, registering models through ``RemoteRegistry`` with
 ``--manager URL`` (or ``manager_addr``) and in an in-process
 ``ModelRegistry`` otherwise, until SIGINT or SIGTERM; then it stops the
-server and exits 0.  A ``grpc://`` manager, ``server.grpc_port >= 0``
-and ``lifecycle.enable`` with a manager exit 2 naming ROADMAP queue 1
-item 12b (the gRPC half and the lifecycle daemon in serve mode).
+server and exits 0.  With ``lifecycle.enable`` and a REST manager, every
+ingested download row also streams into a ``LifecycleDaemon`` (its
+``StreamingTrainer`` on ``--device``) that registers candidates as
+``--scheduler-id``'s models and begins their rollout through
+``RolloutRESTClient``.  A ``grpc://`` manager and ``server.grpc_port >=
+0`` exit 2 naming ROADMAP queue 1 item 12c (the gRPC half).
 
-    python -m dragonfly2_tpu_torch.cli.trainer [--train-once DIR] [--manager URL] [--device cpu]
+    python -m dragonfly2_tpu_torch.cli.trainer [--train-once DIR] [--manager URL] \
+        [--scheduler-id ID] [--device cpu]
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ def model_registry(manager_addr: Optional[str], token: Optional[str], registry=N
     if manager_addr and manager_addr.startswith("grpc://"):
         raise ConfigError(
             "a grpc:// manager needs the gRPC registry client, "
-            "which is not ported yet (ROADMAP queue 1 item 12b)"
+            "which is not ported yet (ROADMAP queue 1 item 12c)"
         )
     if manager_addr:
         from ..rpc import RemoteRegistry
@@ -62,12 +66,15 @@ class TrainerServing:
 
     service: TrainerService
     http_server: object
+    lifecycle_daemon: object = None
 
     @property
     def url(self) -> str:
         return self.http_server.url
 
     def stop(self) -> None:
+        if self.lifecycle_daemon is not None:
+            self.lifecycle_daemon.stop()
         self.http_server.stop()
 
 
@@ -79,15 +86,19 @@ def serve(
     manager_token: Optional[str] = None,
     registry=None,
     gnn_model: str = "hop",
+    scheduler_id: str = "scheduler-local",
 ) -> TrainerServing:
     """The binary's serve mode (reference cli/trainer.py:98-176) as a
     composition: ``TrainerHTTPServer`` on ``server.host:server.port`` (0
     binds an ephemeral port) over ``TrainerService(data_dir=cfg.data_dir)``
     training on ``device``.  Models register through ``RemoteRegistry``
     when ``manager`` or ``cfg.manager_addr`` names one, else in
-    ``registry`` (a fresh ``ModelRegistry`` by default).  ``gnn_model``
-    is the service's graph branch (``"hop"`` as in the reference binary,
-    or ``"gat"``, whose gather's backward is K3).  Raises ``ConfigError``
+    ``registry`` (a fresh ``ModelRegistry`` by default).  With
+    ``lifecycle.enable`` and a REST manager, a ``LifecycleDaemon`` for
+    ``scheduler_id`` (the binary's ``--scheduler-id``) is the service's
+    online sink and serves on its own thread.  ``gnn_model`` is the
+    service's graph branch (``"hop"`` as in the reference binary, or
+    ``"gat"``, whose gather's backward is K3).  Raises ``ConfigError``
     for what is not ported."""
     cfg = cfg or TrainerConfigFile()
     cfg.validate()
@@ -96,13 +107,7 @@ def serve(
     if cfg.server.grpc_port >= 0:
         raise ConfigError(
             "server.grpc_port >= 0 asks for the gRPC Train stream, "
-            "which is not ported yet (ROADMAP queue 1 item 12b)"
-        )
-    if cfg.lifecycle.enable and manager_addr:
-        raise ConfigError(
-            "lifecycle.enable with a manager starts the lifecycle "
-            "daemon, which is not ported to serve mode yet (ROADMAP queue 1 "
-            "item 12b)"
+            "which is not ported yet (ROADMAP queue 1 item 12c)"
         )
     from ..rpc import TrainerHTTPServer
 
@@ -115,7 +120,46 @@ def serve(
     )
     http_server = TrainerHTTPServer(service, host=cfg.server.host, port=cfg.server.port)
     http_server.serve()
-    if cfg.lifecycle.enable:
+    serving = TrainerServing(service=service, http_server=http_server)
+    # Self-driving lifecycle plane (DESIGN.md §29): with a REST manager
+    # attached, every ingested record also streams into the continuous
+    # train→export→rollout loop — candidates register and walk
+    # SHADOW→CANARY→ACTIVE with zero human steps (schedulers' rollout
+    # reporters supply the evaluation evidence).
+    if cfg.lifecycle.enable and manager_addr:
+        from ..lifecycle import LifecycleConfig, LifecycleDaemon
+        from ..rollout.client import RolloutRESTClient
+
+        lc = cfg.lifecycle
+        # No StateBackend here (that is the manager's): lifecycle
+        # watermarks/lineage live in the daemon's in-memory store, so the
+        # epoch cadence holds for the life of this process; the
+        # manager-side rollout rows stay durable either way.
+        serving.lifecycle_daemon = LifecycleDaemon(
+            registry,
+            RolloutRESTClient(manager_addr, token=manager_token),
+            config=LifecycleConfig(
+                scheduler_id=scheduler_id,
+                model_name=lc.model_name,
+                regions=tuple(lc.regions),
+                epoch_records=lc.epoch_records,
+                max_steps_per_epoch=lc.max_steps_per_epoch,
+                min_joined=lc.min_joined,
+                arbitration_margin=lc.arbitration_margin,
+                canary_percent=lc.canary_percent,
+                interval_s=lc.interval_s,
+                trainer_batch_size=lc.trainer_batch_size,
+            ),
+            device=device,
+        )
+        service.online_sink = serving.lifecycle_daemon
+        serving.lifecycle_daemon.serve()
+        print(
+            f"trainer: lifecycle daemon on (epoch every {lc.epoch_records} "
+            f"records, regions={list(lc.regions) or ['global only']})",
+            flush=True,
+        )
+    elif cfg.lifecycle.enable:
         print(
             "trainer: lifecycle.enable set but no REST manager attached; "
             "lifecycle daemon not started",
@@ -126,7 +170,7 @@ def serve(
         "(ctrl-c to stop)",
         flush=True,
     )
-    return TrainerServing(service=service, http_server=http_server)
+    return serving
 
 
 def run(argv=None, *, registry=None) -> int:
@@ -156,6 +200,7 @@ def run(argv=None, *, registry=None) -> int:
                 serving = serve(
                     cfg, device=args.device, manager=args.manager,
                     manager_token=args.manager_token, registry=registry,
+                    scheduler_id=args.scheduler_id,
                 )
         except ConfigError as exc:
             print(f"trainer: {exc}", file=sys.stderr)

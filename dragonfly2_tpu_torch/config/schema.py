@@ -21,8 +21,8 @@ names the ROADMAP queue 1 item that brings their reader.
 
 The trainer binary reads ``training.epochs``, ``training.learning_rate``,
 ``training.warmup_steps``, ``server``, ``data_dir``, ``manager_addr`` and
-``lifecycle.enable``; every other key parses and is ignored (ROADMAP
-queue 1 items 10 and 12b list what reads them in the reference).
+the ``lifecycle`` section; every other key parses and is ignored
+(ROADMAP queue 1 item 10 lists what reads them in the reference).
 ``telemetry.slos`` is not validated: the SLO engine waits for the
 telemetry slice.
 """
@@ -132,8 +132,8 @@ class TrainingSection:
 
 @dataclass
 class LifecycleSection:
-    """The lifecycle daemon's settings (serve mode); parsed, not read
-    (the daemon in serve mode is ROADMAP item 12b)."""
+    """The lifecycle daemon's settings: with ``enable`` and a REST
+    manager, the trainer's serve mode runs the daemon with them."""
 
     enable: bool = False
     model_name: str = "parent-bandwidth-mlp"
@@ -208,10 +208,13 @@ class SchedulingSection:
     # and the columnar host store's slot count.
     eval_batch_linger_ms: float = 1.5
     eval_feature_cache_hosts: int = 65536
-    # Model subscription (DESIGN.md §15): registry poll cadence with
-    # seeded anti-herd jitter.
+    # Rollout plane (DESIGN.md §15): registry poll cadence with seeded
+    # anti-herd jitter, the shadow-scoring sample fraction, and the
+    # evaluate→report cycle interval.
     model_poll_interval_s: float = 300.0
     model_poll_jitter: float = 0.1
+    shadow_sample_rate: float = 0.1
+    rollout_report_interval_s: float = 60.0
     # Regional model keys (DESIGN.md §29): this scheduler's idc/region.
     # Set, the model subscriber polls the per-region specialization
     # ``<model>@<idc>`` first and falls back to the global model; empty
@@ -229,6 +232,8 @@ class SchedulingSection:
             raise ConfigError("eval_batch_linger_ms < 0")
         if self.eval_feature_cache_hosts < 1:
             raise ConfigError("eval_feature_cache_hosts < 1")
+        if not (0.0 <= self.shadow_sample_rate <= 1.0):
+            raise ConfigError("shadow_sample_rate must be in [0, 1]")
         if not (0.0 <= self.model_poll_jitter < 0.5):
             raise ConfigError("model_poll_jitter must be in [0, 0.5)")
 
@@ -293,10 +298,8 @@ NOT_PORTED = {
         "shard_max_inflight": "14 (the shard guard)",
         "shard_p99_budget_ms": "14 (the shard guard)",
         "qos_autopilot": "10 (the QoS plane)",
-        "stall_max_idle_s": "12b (the gRPC push stream)",
-        "stall_sweep_interval_s": "12b (the gRPC push stream)",
-        "shadow_sample_rate": "12b (the rollout reporter)",
-        "rollout_report_interval_s": "12b (the rollout reporter)",
+        "stall_max_idle_s": "12c (the gRPC push stream)",
+        "stall_sweep_interval_s": "12c (the gRPC push stream)",
     },
 }
 

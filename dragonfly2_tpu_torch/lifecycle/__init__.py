@@ -7,7 +7,7 @@ from .arbiter import (
     plan_epoch,
     regional_model_name,
 )
-from .daemon import LifecycleConfig, LifecycleDaemon
+from .daemon import LifecycleConfig, LifecycleDaemon, file_replay_source
 from .state import LifecycleStore
 
 __all__ = [
@@ -16,6 +16,7 @@ __all__ = [
     "LifecycleDaemon",
     "LifecycleStore",
     "arbitrate_candidates",
+    "file_replay_source",
     "plan_epoch",
     "regional_model_name",
 ]

@@ -1,10 +1,9 @@
 """Self-driving model lifecycle plane (DESIGN.md §29).
 
 Port of ``dragonfly2_tpu/lifecycle/daemon.py``.  The daemon's trainers
-are the port's ``StreamingTrainer`` on ``device``.  Left for later
-slices: the ``lifecycle/epoch`` and ``lifecycle/promote`` spans, the
-``lifecycle.register``/``lifecycle.report`` fault seams and the
-columnar ``file_replay_source``.
+are the port's ``StreamingTrainer`` on ``device``.  The
+``lifecycle/epoch`` and ``lifecycle/promote`` spans wait for the port's
+tracing (ROADMAP queue 1 item 10).
 
 The LifecycleDaemon closes the loop the reference left as TODOs
 (trainGNN/trainMLP): it streams live download records into per-key
@@ -37,7 +36,9 @@ CLI wiring, which has no StateBackend of its own.
 
 Every decision is computed in lifecycle/arbiter.py pure functions; the
 daemon only samples the world (record counters, replay logs) and carries
-the verdicts out.
+the verdicts out.  The ``lifecycle.register``/``lifecycle.report`` fault
+seams (utils/faultinject.py) let the chaos drills cut the train→serve
+plane at its two network edges.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import faultinject
 from . import metrics
 from .arbiter import GLOBAL_KEY, arbitrate_candidates, plan_epoch, regional_model_name
 from .state import LifecycleStore
@@ -241,6 +243,7 @@ class LifecycleDaemon:
         if self.export_transform is not None:
             scorer = self.export_transform(scorer, key, epoch)
         try:
+            faultinject.fire("lifecycle.register")
             model = self.registry.create_model(
                 name=name,
                 type=cfg.model_type,
@@ -383,6 +386,7 @@ class LifecycleDaemon:
         for key in to_report:
             name = self.model_name_for(key)
             try:
+                faultinject.fire("lifecycle.report")
                 decision = self.client.report(
                     cfg.scheduler_id, name, reports[key]
                 )
@@ -452,3 +456,22 @@ class LifecycleDaemon:
 
     def stop(self) -> None:
         self._stop.set()
+
+
+def file_replay_source(
+    shadow_paths: Dict[str, List[str]], download_paths: List[str]
+) -> ReplaySource:
+    """Deployment read side: per-key DFC1 shadow replay shards joined
+    against the record store's download shards (the same loaders the
+    RolloutReporter uses)."""
+    from ..rollout.evaluation import load_replay_rows
+
+    def source(key: str):
+        paths = shadow_paths.get(key)
+        if not paths:
+            return None
+        shadow_rows = load_replay_rows(paths)
+        download_rows = load_replay_rows(download_paths)
+        return shadow_rows, download_rows
+
+    return source

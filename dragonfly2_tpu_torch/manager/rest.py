@@ -14,19 +14,26 @@ status codes:
   GET    /api/v1/models:get?id=
   POST   /api/v1/models/<id>:activate            single-active activation
   POST   /api/v1/models/<id>:deactivate
+  POST   /api/v1/models/<id>:rollout             begin evidence-gated rollout
+  POST   /api/v1/models/<id>:delete              guarded delete (rollout rows first)
+  GET    /api/v1/rollouts                        rollout state machines
+  GET    /api/v1/rollouts:get?scheduler_id=&name=
+  POST   /api/v1/rollouts:report                 scheduler evaluation report
   GET    /api/v1/schedulers                      active scheduler instances
   POST   /api/v1/schedulers                      register a scheduler instance
   POST   /api/v1/schedulers/<id>:keepalive       liveness tick → {known}
   GET    /api/v1/topology?exclude=<id>           the other replicas' probe edges
   POST   /api/v1/topology                        push this scheduler's edges
 
-Every other route of the reference (users, personal access tokens,
-OAuth, jobs, the CRUD resources and cluster dynconfig, buckets, certs,
-replication, rollouts, the console, metrics and debug pages) answers 404
-here, as the reference's do when their backing object is ``None``; the
-constructor takes none of those objects (ROADMAP queue 1 items 12b and
-14).  With no token verifier and no user store, the reference authorizes
-every request; so does this port, which has neither.
+The rollout routes need a ``RolloutController`` (``rollout=``); without
+one they answer 404, as the reference's do, and ``:candidate`` reports
+``canary_percent`` 0.  Every other route of the reference (users,
+personal access tokens, OAuth, jobs, the CRUD resources and cluster
+dynconfig, buckets, certs, replication, the console, metrics and debug
+pages) answers 404 here, as the reference's do when their backing object
+is ``None``; the constructor takes none of those objects (ROADMAP queue 1
+item 14).  With no token verifier and no user store, the reference
+authorizes every request; so does this port, which has neither.
 """
 
 from __future__ import annotations
@@ -66,9 +73,13 @@ class ManagerRESTServer:
         host: str = "127.0.0.1",
         port: int = 0,
         rate_limit=None,
+        rollout=None,
     ):
         self.registry = registry
         self.clusters = clusters
+        # Rollout controller (rollout/controller.py): serves the
+        # candidate poll + evaluation-report routes; None → 404s.
+        self.rollout = rollout
         # Token-bucket middleware (manager/middlewares rate limiter): one
         # bucket bounds the whole REST surface; None = off.
         self.rate_limit = rate_limit
@@ -168,20 +179,45 @@ class ManagerRESTServer:
                         self._json(200, _model_to_json(m))
                 elif path == "/api/v1/models:candidate":
                     # The scheduler's rollout poll: the version under
-                    # evaluation (SHADOW/CANARY) + its routing percent
-                    # (0 with no rollout controller attached, as in the
-                    # reference).
+                    # evaluation (SHADOW/CANARY) + its routing percent.
                     m = server.registry.candidate_model(
                         q.get("scheduler_id", ""), q.get("name", "")
                     )
                     if m is None:
                         self._json(404, {"error": "no candidate model"})
                     else:
+                        rollout = (
+                            server.rollout.get(m.scheduler_id, m.name)
+                            if server.rollout is not None
+                            else None
+                        )
                         self._json(200, {
                             "model": _model_to_json(m),
                             "phase": m.state.value,
-                            "canary_percent": 0,
+                            "canary_percent": (
+                                rollout.canary_percent if rollout else 0
+                            ),
                         })
+                elif path == "/api/v1/rollouts":
+                    if server.rollout is None:
+                        self._json(404, {"error": "rollout controller not configured"})
+                    else:
+                        self._json(200, [
+                            server.rollout.to_json(r)
+                            for r in server.rollout.list()
+                        ])
+                elif path == "/api/v1/rollouts:get":
+                    r = (
+                        server.rollout.get(
+                            q.get("scheduler_id", ""), q.get("name", "")
+                        )
+                        if server.rollout is not None
+                        else None
+                    )
+                    if r is None:
+                        self._json(404, {"error": "no such rollout"})
+                    else:
+                        self._json(200, server.rollout.to_json(r))
                 elif path == "/api/v1/schedulers":
                     self._json(
                         200,
@@ -292,6 +328,24 @@ class ManagerRESTServer:
                     except (KeyError, ValueError) as exc:
                         self._json(400, {"error": str(exc)})
                     return
+                if path == "/api/v1/rollouts:report":
+                    # One evaluation report from a scheduler → the
+                    # controller's decision (rollout/controller.py).
+                    if server.rollout is None:
+                        self._json(404, {"error": "rollout controller not configured"})
+                        return
+                    try:
+                        req = self._body()
+                        decision = server.rollout.report(
+                            req["scheduler_id"], req["name"],
+                            dict(req.get("report") or {}),
+                        )
+                        self._json(200, decision)
+                    except KeyError as exc:
+                        self._json(404, {"error": str(exc)})
+                    except (ValueError, TypeError) as exc:
+                        self._json(400, {"error": str(exc)})
+                    return
                 if path.startswith("/api/v1/models/") and ":" in path:
                     model_id, _, action = path[len("/api/v1/models/") :].rpartition(":")
                     try:
@@ -299,6 +353,46 @@ class ManagerRESTServer:
                             m = server.registry.activate(model_id)
                         elif action == "deactivate":
                             m = server.registry.deactivate(model_id)
+                        elif action == "rollout":
+                            # Begin the evidence-gated rollout for this
+                            # version (CANDIDATE → SHADOW).
+                            if server.rollout is None:
+                                self._json(
+                                    404,
+                                    {"error": "rollout controller not configured"},
+                                )
+                                return
+                            req = self._body()
+                            r = server.rollout.begin(
+                                model_id,
+                                canary_percent=req.get("canary_percent"),
+                            )
+                            self._json(200, server.rollout.to_json(r))
+                            return
+                        elif action == "delete":
+                            # Model deletes flow through the rollout
+                            # controller's guarded cleanup (foreign key
+                            # models→rollouts): rollout rows must not
+                            # outlive the model row they reference.  An ad
+                            # hoc controller covers managers without a
+                            # rollout plane configured (no rows to strand,
+                            # same guarded path).
+                            controller = server.rollout
+                            if controller is None:
+                                from ..rollout.controller import (
+                                    RolloutController,
+                                )
+
+                                controller = RolloutController(server.registry)
+                            if server.registry.get(model_id) is None:
+                                self._json(
+                                    404,
+                                    {"error": f"model {model_id} not found"},
+                                )
+                                return
+                            controller.delete_model(model_id)
+                            self._json(200, {"deleted": model_id})
+                            return
                         else:
                             self._json(404, {"error": f"unknown action {action}"})
                             return

@@ -7,11 +7,11 @@ joins those counterfactual rankings against realized Download outcomes
 (evaluation.py), and a manager-side controller walks each candidate
 through CANDIDATE→SHADOW→CANARY→ACTIVE behind guardrails, rolling back
 to the last-good version on regression (controller.py).  The scheduler
-side polls through client.py; canary serving itself lives on the
-evaluator (scheduler/evaluator.py + scheduler/microbatch.py).
+side reports through client.py/reporter.py; canary serving itself lives
+on the evaluator (scheduler/evaluator.py + scheduler/microbatch.py).
 """
 
-from .client import CandidateInfo, LocalRolloutClient  # noqa: F401
+from .client import CandidateInfo, LocalRolloutClient, RolloutRESTClient  # noqa: F401
 from .controller import (  # noqa: F401
     Rollout,
     RolloutController,
@@ -21,8 +21,10 @@ from .controller import (  # noqa: F401
 from .evaluation import (  # noqa: F401
     evaluate_shadow,
     join_outcomes,
+    load_replay_rows,
     pairwise_inversion_rate,
     population_stability_index,
     regret_at_k,
 )
+from .reporter import RolloutReporter  # noqa: F401
 from .shadow import SHADOW_COLUMNS, ShadowScorer  # noqa: F401

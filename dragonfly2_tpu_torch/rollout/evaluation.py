@@ -1,9 +1,9 @@
 """Replay evaluation: join shadow decisions with realized outcomes and
 score both arms' rankings.
 
-Port of ``dragonfly2_tpu/rollout/evaluation.py``, numpy verbatim; the
-columnar shard loader (``load_replay_rows``) is not ported yet (ROADMAP
-queue 1 item 10).
+Port of ``dragonfly2_tpu/rollout/evaluation.py``, numpy verbatim, with
+the columnar shard loader (``load_replay_rows``) the reporter and the
+lifecycle daemon's ``file_replay_source`` read through.
 
 The shadow replay log (rollout/shadow.py) records, per sampled announce,
 every candidate edge with both arms' scores and rank positions.  The
@@ -31,7 +31,7 @@ its ``psi_max`` into the report the rollout controller judges.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -39,6 +39,23 @@ from ..records.features import NUM_HASH_BUCKETS
 from .shadow import SHADOW_COLUMNS
 
 _COL = {name: i for i, name in enumerate(SHADOW_COLUMNS)}
+
+
+def load_replay_rows(paths: Sequence[str]) -> np.ndarray:
+    """Concatenate shadow replay shards (ColumnarReader over each)."""
+    import os
+
+    from ..records.columnar import ColumnarReader
+
+    arrays = [
+        ColumnarReader(p).to_array()
+        for p in paths
+        if os.path.exists(p) and os.path.getsize(p) > 0
+    ]
+    arrays = [a for a in arrays if a.shape[0] > 0]
+    if not arrays:
+        return np.zeros((0, len(SHADOW_COLUMNS)), dtype=np.float32)
+    return np.concatenate(arrays, axis=0)
 
 
 def _pair_keys(src: np.ndarray, dst: np.ndarray) -> np.ndarray:

@@ -1,9 +1,10 @@
 """Shadow scoring: re-rank a sampled slice of announces with a candidate
 model, off the announce hot path.
 
-Port of ``dragonfly2_tpu/rollout/shadow.py``, numpy verbatim.  The
-replay log lives in memory (``replay_rows``); the reference's on-disk
-columnar log is not ported yet (ROADMAP queue 1 item 10).
+Port of ``dragonfly2_tpu/rollout/shadow.py``, numpy verbatim.  With
+``log_path`` the replay log is a DFC1 file over ``SHADOW_COLUMNS``
+(a resume starts ``announce_seq`` past every logged row); without it
+the log lives in memory.
 
 The serving path already paid for everything a candidate evaluation
 needs: ``MLEvaluator._featurize_batch`` built the feature matrix out of
@@ -27,11 +28,11 @@ Hot-path contract:
   another thread.
 
 The worker scores the candidate on the same rows, computes both
-rankings, appends one row per candidate edge to the **replay log** (a
-bounded in-memory list of float32 row blocks), and folds the feature
-rows into per-feature drift histograms against the training-snapshot
-bin stats stamped into the candidate blob by trainer/export.py
-(``psi()`` reads them out).
+rankings, appends one row per candidate edge to a columnar **replay
+log** (records/columnar.py — the same fixed-width format the trainer
+ingests), and folds the feature rows into per-feature drift histograms
+against the training-snapshot bin stats stamped into the candidate blob
+by trainer/export.py (``psi()`` reads them out).
 """
 
 from __future__ import annotations
@@ -111,6 +112,7 @@ class ShadowScorer:
         candidate_version: int,
         active_version: int = 0,
         sample_rate: float = 0.1,
+        log_path: Optional[str] = None,
         max_queue: int = 256,
         max_memory_rows: int = 200_000,
         batch_linger_s: float = 0.02,
@@ -119,6 +121,7 @@ class ShadowScorer:
         self.candidate_version = int(candidate_version)
         self.active_version = int(active_version)
         self.sample_rate = float(sample_rate)
+        self.log_path = log_path
         self.max_queue = int(max_queue)
         self._max_memory_rows = int(max_memory_rows)
         # How long the worker lets samples pile up after the first one
@@ -148,9 +151,26 @@ class ShadowScorer:
         self.errors = 0
         self.logged_rows = 0
         self._sampled_out_pushed = 0  # prometheus high-water (stats())
-        # The replay log: in-memory row blocks, oldest dropped past
-        # ``max_memory_rows``.
+        # In-memory replay rows when no log_path (tests, embedded runs).
         self._rows: List[np.ndarray] = []
+        self._writer = None
+        if log_path is not None:
+            import os
+
+            from ..records.columnar import ColumnarReader, ColumnarWriter
+
+            if os.path.exists(log_path) and os.path.getsize(log_path) > 0:
+                # Resuming onto an existing log (scheduler restart,
+                # shadow re-attach): start the offer counter past every
+                # logged announce_seq so replay groups stay unique.
+                # (Read BEFORE the writer opens — its header write is
+                # buffered until the first flush.)
+                existing = ColumnarReader(log_path)
+                if len(existing):
+                    start = int(existing.to_array()[:, 0].max()) + 1
+                    self._seq = itertools.count(start)
+                    self.offered = start
+            self._writer = ColumnarWriter(log_path, SHADOW_COLUMNS)
         # Drift accounting against the candidate's training snapshot
         # (trainer/export.py stamps bin edges + expected fractions).
         edges = getattr(candidate, "train_bin_edges", None)
@@ -366,6 +386,10 @@ class ShadowScorer:
             self._bin_counts += fresh
 
     def _log_rows(self, rows: np.ndarray) -> None:
+        if self._writer is not None:
+            self._writer.append(rows)
+            self._writer.flush()
+            return
         with self._cv:
             self._rows.append(rows)
             # Bounded memory: drop the OLDEST rows past the cap.
@@ -376,7 +400,12 @@ class ShadowScorer:
     # -- read side (reporter / tests) ----------------------------------------
 
     def replay_rows(self) -> np.ndarray:
-        """Every logged row as one array (readable after ``close`` too)."""
+        """Every logged row as one array (memory mode) or the log file's
+        contents (disk mode — readable after ``close`` too)."""
+        if self.log_path is not None:
+            from ..records.columnar import ColumnarReader
+
+            return ColumnarReader(self.log_path).to_array()
         with self._cv:
             rows = list(self._rows)
         if not rows:
@@ -441,3 +470,6 @@ class ShadowScorer:
             self._stopped = True
             self._cv.notify_all()
         self._thread.join(timeout=10.0)
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None

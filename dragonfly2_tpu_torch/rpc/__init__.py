@@ -17,7 +17,7 @@ Port of the HTTP half of ``dragonfly2_tpu/rpc/``, stdlib only:
 - ``resolver``  — the shared multi-endpoint manager address book.
 
 The gRPC bindings of the same adapters (``SchedulerGRPCServer`` and the
-rest of the reference's ``grpc_transport``) are ROADMAP queue 1 item 12b;
+rest of the reference's ``grpc_transport``) are ROADMAP queue 1 item 12c;
 their names resolve lazily here, as in the reference, and raise until
 then.  The piece data plane and the daemon control API come with the
 peer daemon (item 14).
@@ -41,6 +41,6 @@ def __getattr__(name: str):
     if name in _GRPC_EXPORTS:
         raise NotImplementedError(
             f"{__name__}.{name}: the gRPC half of the transport is not "
-            "ported yet (ROADMAP queue 1 item 12b)"
+            "ported yet (ROADMAP queue 1 item 12c)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

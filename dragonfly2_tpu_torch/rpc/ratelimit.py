@@ -5,7 +5,7 @@ Port of ``TokenBucket`` and ``maybe_bucket`` from
 ``dragonfly2_tpu/rpc/ratelimit.py``, verbatim: the HTTP wire servers
 check the bucket (429).  The reference's ``RateLimitInterceptor`` plugs
 the same bucket into gRPC servers and imports ``grpc`` at module level;
-it comes with the gRPC half (ROADMAP queue 1 item 12b).
+it comes with the gRPC half (ROADMAP queue 1 item 12c).
 """
 
 from __future__ import annotations

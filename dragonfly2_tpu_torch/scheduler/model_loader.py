@@ -17,8 +17,9 @@ overlapping polls cannot interleave version bookkeeping.
 
 Port of ``dragonfly2_tpu/scheduler/model_loader.py`` over the port's
 ``ModelRegistry`` (in process) or ``rpc.RemoteRegistry`` (the manager's
-REST surface) and ``LocalRolloutClient``; the REST rollout client is
-ROADMAP queue 1 item 12b.  The installed scorers are what
+REST surface), with ``LocalRolloutClient`` or ``RolloutRESTClient`` and
+the shadow replay log on disk (``shadow_log_path``) or in memory.  The
+gRPC registry is ROADMAP queue 1 item 12c.  The installed scorers are what
 ``load_scorer`` returns (the numpy ``MLPScorer`` for the streaming
 trainer's standardized artifacts), as in the reference.
 
@@ -59,14 +60,15 @@ from __future__ import annotations
 import logging
 import random
 import threading
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Optional, Union
 
 from ..manager.registry import ModelRegistry
 from . import metrics
 from .evaluator import CanaryRoute, MLEvaluator
 
-if TYPE_CHECKING:  # wiring-time rollout arm (no runtime import cycle)
-    from ..rollout.client import LocalRolloutClient
+if TYPE_CHECKING:  # wiring-time registry/rollout arms (no runtime import cycle)
+    from ..rollout.client import LocalRolloutClient, RolloutRESTClient
+    from ..rpc.registry_client import RemoteRegistry
 
 logger = logging.getLogger(__name__)
 
@@ -74,7 +76,7 @@ logger = logging.getLogger(__name__)
 class ModelSubscriber:
     def __init__(
         self,
-        registry: ModelRegistry,
+        registry: "Union[ModelRegistry, RemoteRegistry]",
         evaluator: MLEvaluator,
         *,
         scheduler_id: str,
@@ -82,8 +84,9 @@ class ModelSubscriber:
         idc: Optional[str] = None,
         refresh_interval: float = 300.0,
         jitter: float = 0.1,
-        rollout_client: "Optional[LocalRolloutClient]" = None,
+        rollout_client: "Optional[Union[LocalRolloutClient, RolloutRESTClient]]" = None,
         shadow_sample_rate: float = 0.1,
+        shadow_log_path: Optional[str] = None,
     ) -> None:
         from ..lifecycle.arbiter import regional_model_name
 
@@ -102,6 +105,7 @@ class ModelSubscriber:
         self.jitter = max(0.0, float(jitter))
         self.rollout_client = rollout_client
         self.shadow_sample_rate = shadow_sample_rate
+        self.shadow_log_path = shadow_log_path
         self._loaded_version: Optional[int] = None
         self._loaded_key: Optional[str] = None
         self._candidate_version: Optional[int] = None
@@ -295,6 +299,7 @@ class ModelSubscriber:
                 candidate_version=info.model.version,
                 active_version=self._loaded_version or 0,
                 sample_rate=self.shadow_sample_rate,
+                log_path=self.shadow_log_path,
             )
             self._candidate_scorer = scorer
             self._candidate_version = info.model.version

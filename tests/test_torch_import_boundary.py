@@ -109,6 +109,8 @@ print("OK")
         "dragonfly2_tpu_torch.scheduler.announcer",
         "dragonfly2_tpu_torch.scheduler.topology_sync",
         "dragonfly2_tpu_torch.bench.wire_loop",
+        "dragonfly2_tpu_torch.rollout.client",
+        "dragonfly2_tpu_torch.rollout.reporter",
         "chip_smoke",
     ],
 )

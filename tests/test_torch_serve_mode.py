@@ -4,8 +4,9 @@
   --device cpu``) boots in a child process, prints its URL, answers one
   request and exits 0 on SIGINT (``bench/wire_loop.boot_binary``).
 - Each option whose reader is not ported exits 2 and names its ROADMAP
-  item: a ``grpc://`` address, a gRPC port, ``lifecycle.enable`` with a
-  manager, a sharded scheduler config.
+  item: a ``grpc://`` address, a gRPC port, a sharded scheduler config.
+- The trainer binary with ``lifecycle.enable`` and a REST manager boots
+  the lifecycle daemon and prints the reference's line for it.
 - ``bench/wire_loop.run`` at a small size: the manager, both serve
   compositions and a rule scheduler in one process, every arrow a
   socket.
@@ -21,6 +22,9 @@ import pytest
 from dragonfly2_tpu_torch.bench import wire_loop
 from dragonfly2_tpu_torch.cli import scheduler as scheduler_cli
 from dragonfly2_tpu_torch.cli import trainer as trainer_cli
+from dragonfly2_tpu_torch.manager import ClusterManager, ModelRegistry
+from dragonfly2_tpu_torch.manager.rest import ManagerRESTServer
+from dragonfly2_tpu_torch.rollout import RolloutController
 from dragonfly2_tpu_torch.trainer.service import GNN_MODEL_NAME, MLP_MODEL_NAME
 
 
@@ -38,15 +42,34 @@ def test_serve_mode_boots_answers_and_exits_0_on_sigint(tmp_path, kind):
                    for line in out["stdout"])
 
 
+def test_trainer_binary_serves_the_lifecycle_daemon_with_a_manager(tmp_path):
+    """``lifecycle.enable`` with a REST manager: the binary boots the daemon
+    (the reference's line, before the URL line), serves, exits 0."""
+    registry = ModelRegistry()
+    srv = ManagerRESTServer(registry, ClusterManager(), rollout=RolloutController(registry))
+    srv.serve()
+    try:
+        out = wire_loop.boot_binary(
+            "trainer", "cpu", str(tmp_path), timeout=120,
+            argv=["--manager", srv.url, "--scheduler-id", "sched-lifecycle"],
+            env={"DRAGONFLY_TRAINER_LIFECYCLE_ENABLE": "true"})
+    finally:
+        srv.stop()
+    assert out["rc"] == 0, out["stderr"]
+    assert out["response"] == {"session": "sess-1"}
+    line = "trainer: lifecycle daemon on (epoch every 1024 records, regions=['global only'])"
+    assert line in out["stdout"]
+    assert out["stdout"].index(line) < next(
+        i for i, x in enumerate(out["stdout"]) if x.startswith("trainer: ingest on "))
+
+
 @pytest.mark.parametrize("kind,argv,env,item", [
-    ("trainer", ["--manager", "grpc://manager:65003"], {}, "item 12b"),
-    ("trainer", [], {"DRAGONFLY_TRAINER_SERVER_GRPC_PORT": "0"}, "item 12b"),
-    ("trainer", ["--manager", "http://127.0.0.1:9"],
-     {"DRAGONFLY_TRAINER_LIFECYCLE_ENABLE": "true"}, "item 12b"),
-    ("trainer", ["--train-once", ".", "--manager", "grpc://manager:65003"], {}, "item 12b"),
-    ("scheduler", [], {"DRAGONFLY_SCHEDULER_SERVER_GRPC_PORT": "0"}, "item 12b"),
+    ("trainer", ["--manager", "grpc://manager:65003"], {}, "item 12c"),
+    ("trainer", [], {"DRAGONFLY_TRAINER_SERVER_GRPC_PORT": "0"}, "item 12c"),
+    ("trainer", ["--train-once", ".", "--manager", "grpc://manager:65003"], {}, "item 12c"),
+    ("scheduler", [], {"DRAGONFLY_SCHEDULER_SERVER_GRPC_PORT": "0"}, "item 12c"),
     ("scheduler", [], {"DRAGONFLY_SCHEDULER_TRAINER_ENABLE": "true",
-                       "DRAGONFLY_SCHEDULER_TRAINER_ADDR": "grpc://trainer:9090"}, "item 12b"),
+                       "DRAGONFLY_SCHEDULER_TRAINER_ADDR": "grpc://trainer:9090"}, "item 12c"),
     ("scheduler", ["--config", "sharded.yaml"], {}, "item 14"),
     ("scheduler", ["--config", "secured.yaml"], {}, "item 14"),
 ])

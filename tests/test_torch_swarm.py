@@ -131,7 +131,7 @@ def test_simulate_prints_the_reference_line_and_serve_mode_exits_2(tmp_path, mon
     # Serve mode with a gRPC port asks for the gRPC half: exit 2, naming it.
     monkeypatch.setenv("DRAGONFLY_SCHEDULER_SERVER_GRPC_PORT", "0")
     assert cli.run(["--device", "cpu"]) == 2
-    assert "item 12b" in capsys.readouterr().err
+    assert "item 12c" in capsys.readouterr().err
 
 
 def test_simulate_reloads_a_saved_probe_graph(tmp_path, monkeypatch, capsys):

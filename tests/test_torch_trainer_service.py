@@ -280,7 +280,7 @@ def test_cli_serve_mode_and_missing_shards_exit_nonzero(tmp_path, capsys, monkey
     # Serve mode with a gRPC port asks for the gRPC half: exit 2, naming it.
     monkeypatch.setenv("DRAGONFLY_TRAINER_SERVER_GRPC_PORT", "0")
     assert tcli.run(["--device", "cpu"]) == 2
-    assert "item 12b" in capsys.readouterr().err
+    assert "item 12c" in capsys.readouterr().err
     assert tcli.run(["--train-once", str(tmp_path), "--device", "cpu"]) == 1
     assert "no download*.dfc shards" in capsys.readouterr().err
 
