@@ -45,9 +45,10 @@ the trainer link, and a second, rule-ranking scheduler (algorithm
 With ``--lifecycle`` the same deployment closes its loop with no human
 step (DESIGN.md §29): the trainer serves the lifecycle daemon
 (``lifecycle.enable``, ``--lifecycle-interval``) for the scheduler's id,
-which ``run`` fixes before either boots by choosing the scheduler's
+which ``run`` fixes before either boots by reserving the scheduler's
 port; the manager serves a ``RolloutController`` (the reference's
-guardrails, the drift ceiling ``--max-psi``); the scheduler shadow-scores
+guardrails but the drift ceiling, which is off: PERF.md §4); the
+scheduler shadow-scores
 every announce into ``storage.dir/shadow_replay.dfc`` and reports every
 ``--report-interval``.  Steps 2-3 are replaced: after the seed-made
 scorer's parent choice, downloads run until a candidate the daemon
@@ -56,10 +57,10 @@ registered has walked SHADOW → CANARY → ACTIVE (nobody calls
 the Announcer and the daemon stop, and parent choice runs on the
 installed model and on the rules.  The summary's ``walk`` holds the
 controller's decisions, the rollout row as ``GET /api/v1/rollouts:get``
-showed it every 50 ms, the subscriber's commits and the transition
-times; ``rows`` the rows uploaded, fed to the daemon, and logged, on disk
-and read by the reporter; ``k1`` K1's launches and the fused flushes
-before and after the install.
+showed it every 50 ms, what the subscriber attached for the promoted
+version and the transition times; ``rows`` the rows uploaded, fed to the
+daemon, and logged, on disk and read by the reporter; ``k1`` K1's
+launches and the fused flushes before and after the install.
 
 ``boot_binary`` starts ``python -m dragonfly2_tpu_torch.cli.{scheduler,
 trainer}`` in serve mode as a child process, waits for its URL, sends one
@@ -127,9 +128,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the daemon's cycle (lifecycle.interval_s)")
     lc.add_argument("--report-interval", type=float, default=5.0,
                     help="scheduling.rollout_report_interval_s")
-    lc.add_argument("--max-psi", type=float, default=0.25,
-                    help="the controller's drift ceiling (inf: off); its other "
-                         "guardrails keep the reference's defaults")
     return ap.parse_args(argv)
 
 
@@ -413,53 +411,62 @@ def _wait(cond, timeout: float, what: str, poll: float = 0.005) -> float:
     return time.perf_counter() - t0
 
 
-def _free_port(host: str) -> int:
-    """A port the OS reports free now.  The scheduler binds it, so its id
+def _reserve_port(host: str) -> socket.socket:
+    """A socket bound to a free port of ``host`` with ``SO_REUSEADDR``,
+    not listening.  The scheduler binds the same port (its server sets
+    ``SO_REUSEADDR`` too) before the caller closes this one, so its id
     (``sched-<hostname>-<port>``) is known before either binary boots and
-    the trainer's lifecycle daemon can register models under it."""
-    with socket.socket() as sock:
-        sock.bind((host, 0))
-        return sock.getsockname()[1]
+    the trainer's lifecycle daemon can register models under it; while
+    this socket is open no other bind to port 0 is given the port."""
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind((host, 0))
+    return sock
+
+
+def _host_time(wall: float) -> float:
+    """A ``time.time()`` stamp (the registry's ``created_at``, the
+    controller's ``started_at``) on the ``perf_counter`` clock the run
+    times with."""
+    return wall - time.time() + time.perf_counter()
 
 
 class _Walk:
-    """What ``run`` reads of the lifecycle walk: the controller's
-    begins and decisions (host times), the manager's POST paths, the
-    subscriber's rollout commits and installs, the rollout row as
-    ``GET /api/v1/rollouts:get`` shows it (sampled every ``poll`` s), and
-    the reporter's cycles.  Installed by wrapping those objects' methods
-    in this process."""
+    """What ``run`` reads of the lifecycle walk.  A sampler thread reads
+    public state every ``poll`` s and keeps a row each time it changes:
+    the evaluator's shadow engine and canary route, the subscriber's
+    installed version and the daemon's trainer steps; every
+    ``rest_every`` ticks it also reads the rollout row as ``GET
+    /api/v1/rollouts:get`` shows it.  Two seams are wrapped, for what no
+    object keeps: the controller's ``report`` (its decisions) and the
+    manager's POST handler (the paths called)."""
 
-    def __init__(self, manager, controller, sub, reporter, scheduler_id: str,
-                 name: str, poll: float = 0.05) -> None:
+    def __init__(self, manager, controller, sub, trainer, scheduler_id: str, name: str,
+                 poll: float = 0.01, rest_every: int = 5) -> None:
         self.mu = threading.Lock()
-        self.begins, self.decisions, self.posts = [], [], []
-        self.commits, self.installs, self.samples, self.reports = [], [], [], []
-        self.shadows = {}  # id → every shadow engine the subscriber attached
+        self.decisions, self.posts = [], []
+        self.local, self.samples = [], []
+        self.shadows = {}  # id → every shadow engine the evaluator held
         ev = sub.evaluator
 
         def stamp(into, **row):
             with self.mu:
                 into.append({"t": time.perf_counter(), **row})
 
-        begin, report = controller.begin, controller.report
-
-        def watched_begin(model_id, **kw):
-            r = begin(model_id, **kw)
-            stamp(self.begins, model_id=r.model_id, version=r.version)
-            return r
+        report = controller.report
 
         def watched_report(scheduler_id, name, payload):
             out = report(scheduler_id, name, payload)
             row = controller.get(scheduler_id, name)
             stamp(self.decisions, model_id=row.model_id, version=row.version,
                   decision=out.get("decision"), phase=out.get("phase"),
-                  reason=out.get("reason", ""), joined_edges=payload.get("joined_edges"),
-                  psi_max=payload.get("psi_max"), regret_at_k=payload.get("regret_at_k"),
+                  reason=out.get("reason", ""), shadow_rows=payload.get("shadow_rows"),
+                  joined_edges=payload.get("joined_edges"), psi_max=payload.get("psi_max"),
+                  regret_at_k=payload.get("regret_at_k"),
                   inversion_rate=payload.get("inversion_rate"))
             return out
 
-        controller.begin, controller.report = watched_begin, watched_report
+        controller.report = watched_report
         handler = manager._svc._httpd.RequestHandlerClass
         do_post = handler.do_POST
 
@@ -468,60 +475,52 @@ class _Walk:
             return do_post(h)
 
         handler.do_POST = watched_post
-        commit_candidate = sub._commit_candidate_locked
-        commit_active = sub._commit_active_locked
-
-        def watched_candidate(candidate):
-            commit_candidate(candidate)
-            info = candidate[1] if candidate is not None else None
-            if ev.shadow is not None:
-                self.shadows[id(ev.shadow)] = ev.shadow
-            stamp(self.commits, phase=info.phase if info else None,
-                  version=info.model.version if info else None,
-                  shadow=ev.shadow is not None,
-                  canary_percent=ev.canary.percent if ev.canary is not None else None)
-
-        def watched_active(active):
-            changed = commit_active(active)
-            if changed:
-                stamp(self.installs, version=sub._loaded_version,
-                      scorer=type(ev._scorer).__name__)
-            return changed
-
-        sub._commit_candidate_locked = watched_candidate
-        sub._commit_active_locked = watched_active
-        run_once = reporter.run_once
-
-        def watched_run_once():
-            out = run_once()
-            if out is not None:
-                stamp(self.reports, shadow_rows=out["report"]["shadow_rows"],
-                      joined_edges=out["report"]["joined_edges"],
-                      decision=out["decision"].get("decision"))
-            return out
-
-        reporter.run_once = watched_run_once
         self._stop = threading.Event()
         url = manager.url + "/api/v1/rollouts:get?" + urllib.parse.urlencode(
             {"scheduler_id": scheduler_id, "name": name})
 
+        def local_state() -> tuple:
+            shadow, canary = ev.shadow, ev.canary
+            if shadow is not None:
+                self.shadows.setdefault(id(shadow), shadow)
+            return (shadow.candidate_version if shadow is not None else None,
+                    canary.version if canary is not None else None,
+                    canary.percent if canary is not None else None,
+                    sub._loaded_version, trainer.step)
+
+        def rollout_row() -> dict:
+            try:
+                with urllib.request.urlopen(url, timeout=10) as resp:
+                    row = json.loads(resp.read())
+                return {"phase": row["phase"], "version": row["version"],
+                        "started_at": row["started_at"]}
+            except urllib.error.HTTPError as exc:
+                # 404: no rollout row yet.
+                return {"phase": None if exc.code == 404 else f"http {exc.code}",
+                        "version": None}
+            except OSError as exc:
+                return {"phase": f"unreachable: {exc}", "version": None}
+
         def sample() -> None:
-            while not self._stop.wait(poll):
-                try:
-                    with urllib.request.urlopen(url, timeout=10) as resp:
-                        row = json.loads(resp.read())
-                    stamp(self.samples, phase=row["phase"], version=row["version"])
-                except urllib.error.HTTPError as exc:
-                    # 404: no rollout row yet.
-                    stamp(self.samples, phase=None if exc.code == 404 else f"http {exc.code}",
-                          version=None)
-                except OSError as exc:
-                    stamp(self.samples, phase=f"unreachable: {exc}", version=None)
+            last, tick = None, 0
+            while True:
+                stopping = self._stop.wait(poll)
+                state = local_state()
+                if state != last:
+                    stamp(self.local, **dict(zip(
+                        ("shadow", "canary", "canary_percent", "installed", "steps"), state)))
+                    last = state
+                if tick % rest_every == 0 or stopping:
+                    stamp(self.samples, **rollout_row())
+                tick += 1
+                if stopping:
+                    return
 
         self._sampler = threading.Thread(target=sample, name="rollout-sampler", daemon=True)
         self._sampler.start()
 
     def stop(self) -> None:
+        """Stops the sampler after one last reading."""
         self._stop.set()
         self._sampler.join(timeout=30)
 
@@ -534,12 +533,37 @@ class _Walk:
 
     def at(self, model_id: str, decision: str):
         """Host time of the controller's first ``decision`` for
-        ``model_id`` (``begin``: → SHADOW, ``advance``: SHADOW → CANARY,
-        ``promote``: → ACTIVE)."""
+        ``model_id`` (``advance``: SHADOW → CANARY, ``promote``: → ACTIVE)."""
         with self.mu:
-            rows = self.begins if decision == "begin" else [
-                d for d in self.decisions if d["decision"] == decision]
-            return next((d["t"] for d in rows if d["model_id"] == model_id), None)
+            return next((d["t"] for d in self.decisions
+                         if d["model_id"] == model_id and d["decision"] == decision), None)
+
+    def began(self, version: int):
+        """Host time the controller began ``version``'s rollout (its
+        row's ``started_at``), or None if no sample showed the row."""
+        with self.mu:
+            wall = next((x["started_at"] for x in self.samples if x["version"] == version),
+                        None)
+        return _host_time(wall) if wall is not None else None
+
+    def installed_at(self, version: int):
+        """Host time of the first reading with ``version`` installed."""
+        with self.mu:
+            return next((x["t"] for x in self.local if x["installed"] == version), None)
+
+    def steps_at(self, t: float) -> int:
+        """The daemon's trainer steps as last read before ``t``."""
+        with self.mu:
+            return max((x["steps"] for x in self.local if x["t"] <= t), default=0)
+
+    def serving(self, version: int) -> list:
+        """What the evaluator held for ``version``, in order: a row each
+        time the shadow engine or the canary route changed."""
+        with self.mu:
+            rows = [{"shadow": x["shadow"] == version,
+                     "canary_percent": x["canary_percent"] if x["canary"] == version else None}
+                    for x in self.local if version in (x["shadow"], x["canary"])]
+        return [r for i, r in enumerate(rows) if i == 0 or r != rows[i - 1]]
 
 
 def _segment(swarm: Swarm, t0, t1) -> dict:
@@ -583,25 +607,20 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     try:
         # -- 1. the manager, the trainer, the two schedulers ----------------
         registry = ModelRegistry()
-        registered = {}  # model id → host time of its registration
-        create_model = registry.create_model
-
-        def timed_create(**kw):
-            m = create_model(**kw)
-            registered[m.id] = time.perf_counter()
-            return m
-
-        registry.create_model = timed_create
         # With --lifecycle the manager serves the rollout plane under the
-        # reference's guardrail defaults but the drift ceiling.
+        # reference's guardrail defaults but the drift ceiling, which is
+        # off: over the wire it measures elapsed time (PERF.md §4).
         controller = RolloutController(
-            registry, guardrails=RolloutGuardrails(max_psi=args.max_psi),
+            registry, guardrails=RolloutGuardrails(max_psi=float("inf")),
         ) if args.lifecycle else None
         manager = ManagerRESTServer(registry, ClusterManager(), rollout=controller)
         manager.serve()
         stack.callback(manager.stop)
 
-        sched_port = _free_port("127.0.0.1") if args.lifecycle else 0
+        reserved = _reserve_port("127.0.0.1") if args.lifecycle else None
+        if reserved is not None:
+            stack.callback(reserved.close)
+        sched_port = reserved.getsockname()[1] if reserved is not None else 0
         scheduler_id = f"sched-{socket.gethostname()}-{sched_port}"
         tcfg = TrainerConfigFile()
         tcfg.server.host, tcfg.server.port = "127.0.0.1", 0
@@ -640,6 +659,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         sched = scheduler_cli.serve(scfg, device=dev, scorer_blob=seeded_k1_blob(args.seed),
                                     rng=random.Random(args.seed))
         stack.callback(sched.stop)
+        if reserved is not None:
+            reserved.close()
         if args.lifecycle and sched.scheduler_id != scheduler_id:
             raise RuntimeError(f"the scheduler serves as {sched.scheduler_id}, the daemon "
                                f"registers for {scheduler_id}")
@@ -676,8 +697,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         if args.lifecycle:
             summary.update(_lifecycle(
                 args, swarm, plan, sched=sched, trainer=trainer, manager=manager,
-                controller=controller, registry=registry, registered=registered,
-                first_byte=first_byte, rounds=rounds, rule=rule, scheduler_id=scheduler_id,
+                controller=controller, registry=registry, first_byte=first_byte, rounds=rounds, rule=rule, scheduler_id=scheduler_id,
                 name=MLP_MODEL_NAME, t_boot=t_boot, log=log))
             return summary
 
@@ -747,7 +767,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
                             "topology": run_rec.topology_rows},
             "models": sorted(run_models),
             "first_byte_to_registered_s": (
-                max(registered[m.id] for m in run_models.values()) - first
+                max(_host_time(m.created_at) for m in run_models.values()) - first
                 if run_models else None),
             "round_seconds": measured["end"] - measured["start"],
             "metrics": {k: m.to_dict() for k, m in run_rec.metrics.items()},
@@ -788,7 +808,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
 
 
 def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller, registry,
-               registered, first_byte, rounds, rule, scheduler_id, name, t_boot, log) -> dict:
+               first_byte, rounds, rule, scheduler_id, name, t_boot, log) -> dict:
     """``run`` with ``--lifecycle`` after the boot: the seed-made K1
     scorer's parent choice, then downloads until a candidate of the daemon
     has walked SHADOW → CANARY → ACTIVE and the subscription has installed
@@ -803,41 +823,17 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
 
     ev = sched.service.scheduling.evaluator
     sub, reporter, daemon = sched.model_subscriber, sched.rollout_reporter, trainer.lifecycle_daemon
+    gtrainer = daemon._trainers[GLOBAL_KEY]
     k1_scorer = ev._scorer
-    k1 = {"fused_flushes": 0, "after_install": 0}
+    k1_calls = [0]  # fused flushes: the K1 scorer's calls
     k1_score = k1_scorer.score
 
     def counted_k1(*a, **kw):
-        k1["after_install" if walk.installs else "fused_flushes"] += 1
+        k1_calls[0] += 1
         return k1_score(*a, **kw)
 
     k1_scorer.score = counted_k1
-    walk = _Walk(manager, controller, sub, reporter, scheduler_id, name)
-    # The daemon's side of the first upload: rows fed, epochs and their
-    # training steps (host times).
-    epochs, feeds = [], []
-    gtrainer = daemon._trainers[GLOBAL_KEY]
-    run_epoch, train_run, feed = daemon.run_epoch, gtrainer.run, daemon.feed_download_rows
-
-    def timed_feed(rows):
-        feeds.append(time.perf_counter())
-        return feed(rows)
-
-    def timed_run(**kw):
-        t0 = time.perf_counter()
-        steps = train_run(**kw)
-        epochs.append({"train_start": t0, "train_s": time.perf_counter() - t0, "steps": steps})
-        return steps
-
-    def timed_epoch(key, **kw):
-        t0 = time.perf_counter()
-        out = run_epoch(key, **kw)
-        if epochs and epochs[-1]["train_start"] >= t0:
-            epochs[-1].update(start=t0, seconds=time.perf_counter() - t0,
-                              model_id=out["model_id"] if out else None)
-        return out
-
-    daemon.feed_download_rows, gtrainer.run, daemon.run_epoch = timed_feed, timed_run, timed_epoch
+    walk = _Walk(manager, controller, sub, gtrainer, scheduler_id, name)
     try:
         announce_s = swarm.announce_all(sched.url, clients=args.clients)
         seed_s = swarm.seed_tasks(sched.url, plan)
@@ -859,6 +855,7 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
         t_end = time.perf_counter()
         walked = installed()
         launches_at_install = fused_score.LAUNCHES["fused_gather_mlp_score"]
+        flushes_at_install = k1_calls[0]
         # Stop what would start or judge a second candidate: the reporter,
         # the Announcer (after its round in flight) and the daemon.
         reporter.stop()
@@ -868,18 +865,26 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
         for th in (reporter._thread, daemon._thread):
             th.join(timeout=args.timeout)
         walk.stop()
+        # The daemon's candidates, from its lineage; their registration
+        # times from the registry.
+        daemon_models = [(e["version"], e["model_id"])
+                         for e in daemon.store.row(GLOBAL_KEY)["history"]
+                         if e["event"] == "registered"]
         if not walked:
             raise RuntimeError(
                 f"no candidate of the daemon reached ACTIVE and installed within "
                 f"{dl['downloads']} downloads / {args.timeout:.0f} s: candidates "
-                f"{[b['version'] for b in walk.begins]}, decisions "
+                f"{[v for v, _ in daemon_models]}, decisions "
                 f"{[(d['version'], d['decision'], d['reason']) for d in walk.decisions]}")
         model_id, version = walk.promoted()
+        registered = {mid: _host_time(registry.get(mid).created_at) for _, mid in daemon_models}
         t_reg = registered[model_id]
-        t_shadow = walk.at(model_id, "begin")
+        t_shadow = walk.began(version)
         t_canary, t_active = walk.at(model_id, "advance"), walk.at(model_id, "promote")
-        t_installed = next(i["t"] for i in walk.installs if i["version"] == version)
+        t_installed = walk.installed_at(version)
         first_upload = min(first_byte.values())
+        with walk.mu:
+            first_step = next((x["t"] for x in walk.local if x["steps"] > 0), None)
 
         # Parent choice on the installed model: its flushes are recorded
         # and held to the registry artifact's numpy scorer.
@@ -909,7 +914,7 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
         log_path = sub.shadow_log_path
         on_disk = len(ColumnarReader(log_path)) if os.path.exists(log_path) else 0
         shadows = list(walk.shadows.values())
-        daemon_ids = [b["model_id"] for b in walk.begins]
+        daemon_ids = [mid for _, mid in daemon_models]
         mlps = registry.list(scheduler_id=scheduler_id, name=name)
         phases = [x["phase"] for x in walk.samples if x["version"] == version]
         result = {
@@ -922,8 +927,7 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
                           "after_active": _segment(swarm, t_active, t_end)},
             "walk": {
                 "scheduler_id": scheduler_id, "model_id": model_id, "version": version,
-                "candidates_before": [b["version"] for b in walk.begins
-                                      if b["t"] < t_shadow],
+                "candidates_before": [v for v, _ in daemon_models if v < version],
                 "sampled_phases": [p for i, p in enumerate(phases)
                                    if i == 0 or p != phases[i - 1]],
                 "samples": len(walk.samples),
@@ -931,8 +935,7 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
                     "shadow", "canary", "active", "rolled_back") for x in walk.samples),
                 "decisions": [{k: v for k, v in d.items() if k != "t"}
                               for d in walk.decisions],
-                "commits": [{k: c[k] for k in ("phase", "version", "shadow", "canary_percent")}
-                            for c in walk.commits if c["phase"] in ("shadow", "canary")],
+                "serving": walk.serving(version),
                 "activate_posts": sum(p["path"].endswith(":activate") for p in walk.posts),
                 "rollout_posts": sum(p["path"].endswith(":rollout") for p in walk.posts),
                 "report_posts": sum(p["path"] == "/api/v1/rollouts:report"
@@ -940,16 +943,11 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
                 "loop_start_after_boot_s": t_loop - t_boot,
                 "first_upload_after_boot_s": first_upload - t_boot,
                 "loop_start_to_shadow_s": t_shadow - t_loop,
-                "first_byte_to_first_registered_s": (
-                    registered[walk.begins[0]["model_id"]] - first_upload),
+                "first_byte_to_first_step_s": (first_step - first_upload
+                                               if first_step is not None else None),
+                "first_byte_to_first_registered_s": registered[daemon_ids[0]] - first_upload,
                 "first_byte_to_registered_s": t_reg - first_upload,
                 "registered_to_shadow_s": t_shadow - t_reg,
-                "daemon_epochs": [
-                    {"after_first_byte_s": e["start"] - first_upload, "seconds": e["seconds"],
-                     "train_s": e["train_s"], "steps": e["steps"],
-                     "registered": e["model_id"] is not None}
-                    for e in epochs if "start" in e],
-                "first_feed_after_first_byte_s": (feeds[0] - first_upload if feeds else None),
                 "shadow_to_canary_s": t_canary - t_shadow,
                 "canary_to_active_s": t_active - t_canary,
                 "active_to_installed_s": t_installed - t_active,
@@ -961,8 +959,10 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
                         "flushes_checked": len(flushes),
                         "scores_equal_registry_artifact": equal},
             "registrations": {
-                "daemon": [{"version": b["version"], "model_id": b["model_id"]}
-                           for b in walk.begins],
+                "daemon": [{"version": v, "model_id": mid,
+                            "after_first_byte_s": registered[mid] - first_upload,
+                            "steps_before": walk.steps_at(registered[mid])}
+                           for v, mid in daemon_models],
                 "batch_round": [m.version for m in mlps if m.id not in daemon_ids],
                 "announcer_rounds": [
                     {"after_boot_s": r["start"] - t_boot, "seconds": r["end"] - r["start"],
@@ -977,16 +977,16 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
                      "shadow_rows_logged": sum(sh.logged_rows for sh in shadows),
                      "shadow_rows_read_back": sum(
                          sh.replay_rows().shape[0] for sh in shadows[:1]),
-                     "reporter_reads": [r["shadow_rows"] for r in walk.reports]},
+                     "reporter_reads": [d["shadow_rows"] for d in walk.decisions]},
             "daemon": {"device": str(next(gtrainer.model.parameters()).device),
                        "steps": gtrainer.step, "records_seen": gtrainer.records_seen},
             "shadow_stats": [sh.stats() for sh in shadows],
             "parent_choice": {"k1_seed_scorer": pre, "installed": post, "rule": rule_q,
                               "installed_scorer": type(scorer).__name__},
-            "k1": {"launches": launches_at_install, "fused_flushes": k1["fused_flushes"],
+            "k1": {"launches": launches_at_install, "fused_flushes": flushes_at_install,
                    "launches_after_swap": fused_score.LAUNCHES["fused_gather_mlp_score"]
                    - launches_at_install,
-                   "fused_flushes_after_swap": k1["after_install"],
+                   "fused_flushes_after_swap": k1_calls[0] - flushes_at_install,
                    "batcher_fallbacks": ev.batcher.fallbacks, "rule_degrades": ev.degrades},
         }
         log(json.dumps({"wire_loop": "lifecycle", **{k: result[k] for k in (
