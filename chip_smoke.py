@@ -265,6 +265,27 @@ launch counts are zeroed before each and must read 0 after.
     card; K1 launches > 0 and equal to the fused flushes before the
     install, none after; K1 against its plain version on 64 of the
     phase's flushes; no K3 launch; every trial answered with parents.
+18. Multi-device training on ``torch.distributed`` (``multidevice``), at
+    the flagship's width on phase 6's workload (100,000 nodes, K 16,
+    1,310,720 download edges, batch 131,072, ``HopConfig(hidden=1024)``,
+    ``GNNConfig()``).  (a) NCCL, world 1, in this process (a ``FileStore``
+    in the out directory, no port), a (1 x 1) mesh:
+    ``precompute_hop_features_sharded`` against ``precompute_hop_features``
+    within 1e-5 x max(1, |x|); ``train_hop_ranker(mesh=,
+    node_sharding="model")`` for phase 10's 18 steps, its losses within
+    1e-3 relative of phase 10's and its validation MAE within 5e-3, and
+    the same run replicated on the mesh; ``train_gat_ranker(mesh=)`` with
+    the K3 gather for 18 steps: K3 launches = steps x layers, K3 against
+    its plain version on the run's first backward input within 1e-5 x
+    max |sum|, losses within 1e-3 of phase 6's.  The collective wrappers'
+    counts equal what the steps imply (no shortcut at world 1).  Step ms
+    p50 with and without the mesh, and peak memory.  (b) four gloo ranks
+    spawned on the one card (NCCL refuses two ranks on one device), a
+    (2 data x 2 model) mesh: the halo precompute against the replicated
+    one within 1e-5 x max(1, |x|); 6 node-sharded flagship steps against
+    6 replicated ones, losses within 1e-3 relative; the plan's H against
+    S and the halo bytes per hop against a full all-gather's.  The phase
+    must end within 150 s.
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -379,6 +400,12 @@ LC_DAEMON_INTERVAL = 2.0  # the lifecycle daemon's cycle (30 s cut)
 LC_REPORT_INTERVAL = 5.0  # the rollout reporter's cycle (60 s cut)
 LC_DOWNLOAD_CAP = 20_000  # downloads the phase may take before the walk ends
 LC_TIMEOUT = 360.0        # seconds the walk may take
+MD_RANKS = 4              # phase 18(b): gloo ranks on the one card
+MD_STEPS_B = 6            # ... flagship steps per mode
+MD_PRE_TOL = 1e-5         # sharded vs replicated precompute, scaled by max(1, |x|)
+MD_LOSS_RTOL = 1e-3       # node-sharded vs replicated losses (relative)
+MD_MAE_TOL = 5e-3         # node-sharded vs replicated validation MAE
+MD_SECONDS = 150.0        # the phase's time limit
 
 
 class SmokeFailure(RuntimeError):
@@ -915,7 +942,7 @@ def train_phase(torch, dev, seed):
              "share_of_bound": mean("bound_ms") / mean("ms"),
              "ms_d44": per_shape[44]["ms"], "ms_d128": per_shape[128]["ms"]}
     summary = {"steps": steps, "step_ms_p50": step_p50, "k3": per_shape,
-               "metrics": metrics.to_dict(), "step_equivalence": equiv}
+               "metrics": metrics.to_dict(), "step_equivalence": equiv, "losses": losses}
     # Three more steps on the first batch, profiled.
     _, train_idx = split_edges(GAT_EDGES, seed)
     idx = next(epoch_batches(train_idx, GAT_BATCH, seed, 0))
@@ -937,6 +964,12 @@ def train_phase(torch, dev, seed):
 def mean_predictor_mae(target, val_idx, train_idx):
     """Validation MAE of predicting the training split's mean target."""
     return float(np.mean(np.abs(target[val_idx] - target[train_idx].mean())))
+
+
+def step_p50_of(history):
+    """Median ms between steps 3.. of a history (elapsed after each step)."""
+    elapsed = [h["elapsed_s"] for h in history]
+    return float(np.median([(b - a) * 1e3 for a, b in zip(elapsed[1:], elapsed[2:])]))
 
 
 def hop_phase(torch, dev, seed, work, gat_metrics):
@@ -1027,6 +1060,8 @@ def hop_phase(torch, dev, seed, work, gat_metrics):
         "mfu": mfu(flops, event_ms), "mfu_p50": mfu(flops, step_p50),
         "peak_memory_gib": peak / 2**30, "kernel_launches": launches,
         "kernel_launches_18_steps": launches_18,
+        "losses_18": [h["loss"] for h in history_18],
+        "step_ms_p50_18": step_p50_of(history_18),
         "export_max_scaled_err": export_scaled, "export_tol_scaled": EXPORT_TOL,
     }
     emit({"phase": "hop", **summary})
@@ -2346,6 +2381,242 @@ def wire_lifecycle_phase(torch, dev, seed, out_dir):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Multi-device training on torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def _md_hop_runs(torch, mesh, work, n_edges, epochs, seed):
+    """train_hop_ranker at the flagship's width on ``mesh``, replicated and
+    node-sharded; each run's losses, validation MAE, step ms p50, peak
+    memory and collectives."""
+    from dragonfly2_tpu_torch.models.hop import HopConfig
+    from dragonfly2_tpu_torch.parallel import mesh as pm
+    from dragonfly2_tpu_torch.trainer.train import TrainConfig, train_hop_ranker
+
+    runs = {}
+    for mode in ("replicated", "model"):
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        pm.reset_collective_counts()
+        t0 = time.perf_counter()
+        state, metrics, history = train_hop_ranker(
+            work["node_feats"], work["table"], work["src"][:n_edges], work["dst"][:n_edges],
+            work["target"][:n_edges], model_config=HopConfig(hidden=HOP_HIDDEN),
+            config=TrainConfig(epochs=epochs, warmup_steps=2, log_every=1, seed=seed),
+            batch_size=GAT_BATCH, mesh=mesh, node_sharding=mode,
+        )
+        torch.cuda.synchronize(mesh.device)
+        runs[mode] = {
+            "seconds": time.perf_counter() - t0, "steps": state.step,
+            "losses": [h["loss"] for h in history], "mae": metrics.mae,
+            "step_ms_p50": step_p50_of(history),
+            "peak_memory_gib": torch.cuda.max_memory_allocated(mesh.device) / 2**30,
+            "collectives": dict(pm.COLLECTIVES),
+        }
+    return runs
+
+
+def _multidevice_rank(rank, dev, work, seed):
+    """Phase 18(b), one of four ranks on one card in a gloo group: the
+    halo precompute against the replicated one, then MD_STEPS_B flagship
+    steps replicated and node-sharded on a (2 data x 2 model) mesh."""
+    import torch
+
+    from dragonfly2_tpu_torch.models.hop import precompute_hop_features
+    from dragonfly2_tpu_torch.parallel import mesh as pm
+    from dragonfly2_tpu_torch.parallel.graph_sharding import (
+        NodeShard, build_halo_plan, precompute_hop_features_sharded,
+    )
+
+    mesh = pm.create_mesh(pm.MeshSpec(data=2, model=2), device=dev, backend="gloo")
+    table, nf = work["table"], work["node_feats"]
+    t0 = time.perf_counter()
+    plan = build_halo_plan(table, mesh, axis=pm.MODEL_AXIS)
+    plan_s = time.perf_counter() - t0
+    got = precompute_hop_features_sharded(mesh, nf, table, plan, hops=2, axis=pm.MODEL_AXIS)
+    want = NodeShard(mesh, pm.MODEL_AXIS, GAT_NODES).block(
+        precompute_hop_features(torch.from_numpy(nf).to(dev), table.to(dev), hops=2))
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    del got, want
+    n, S, H, D = plan.n_shards, plan.shard_size, plan.halo, nf.shape[1]
+    # One model group's traffic per hop: every rank sends n x H rows of D
+    # float32 (the halo all-to-all); a full all-gather brings every rank
+    # the n - 1 other blocks.
+    halo = {"shards": n, "S": S, "H": H, "D": D, "plan_seconds": plan_s,
+            "halo_bytes_per_hop": n * n * H * D * 4,
+            "all_gather_bytes_per_hop": n * (n - 1) * S * D * 4}
+    # MD_STEPS_B steps: the train split holds MD_STEPS_B full batches.
+    n_edges = -(-MD_STEPS_B * GAT_BATCH * 10 // 9)
+    runs = _md_hop_runs(torch, mesh, work, n_edges, 1, seed)
+    return {"coord": {a: mesh.coord(a) for a in (pm.DATA_AXIS, pm.MODEL_AXIS)},
+            "precompute_err": err, "precompute_scale": scale, "halo": halo, "runs": runs}
+
+
+def multidevice_phase(torch, dev, seed, out_dir, work, gat, hop):
+    """Phase 18: the mesh path at the flagship's width.  (a) NCCL, world 1,
+    in this process; (b) four gloo ranks on the one card.  Returns (its
+    summary, its K3 launches, K3's error on the path's input)."""
+    import torch.distributed as dist
+
+    from dragonfly2_tpu_torch.models.gnn import GNNConfig
+    from dragonfly2_tpu_torch.models.hop import Embed, HopConfig, precompute_hop_features
+    from dragonfly2_tpu_torch.ops import segment
+    from dragonfly2_tpu_torch.ops.segment import _segment_sum_plain, make_neighbor_gather
+    from dragonfly2_tpu_torch.parallel import mesh as pm
+    from dragonfly2_tpu_torch.parallel.dryrun import run_ranks
+    from dragonfly2_tpu_torch.parallel.graph_sharding import (
+        build_halo_plan, precompute_hop_features_sharded,
+    )
+    from dragonfly2_tpu_torch.trainer import train as train_mod
+    from dragonfly2_tpu_torch.trainer.train import TrainConfig
+
+    t_phase = time.perf_counter()
+    store_dir = os.path.join(out_dir, "multidevice_store")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    os.makedirs(store_dir)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "a"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = pm.create_mesh(pm.MeshSpec(data=1, model=1), device=dev)
+        table, nf = work["table"], work["node_feats"]
+        mcfg = HopConfig(hidden=HOP_HIDDEN)
+        # A node-sharded embedding is drawn whole on the host generator
+        # and the rank keeps its block: the draw's host cost.
+        t0 = time.perf_counter()
+        drawn = Embed(GAT_NODES, mcfg.node_embed_dim, torch.Generator().manual_seed(seed))
+        embed_draw = {"ms": (time.perf_counter() - t0) * 1e3,
+                      "bytes": drawn.embedding.numel() * drawn.embedding.element_size()}
+        del drawn
+        plan = build_halo_plan(table, mesh, axis=pm.MODEL_AXIS)
+        got = precompute_hop_features_sharded(mesh, nf, table, plan, hops=mcfg.hops,
+                                              axis=pm.MODEL_AXIS)
+        want = precompute_hop_features(torch.from_numpy(nf).to(dev), table.to(dev),
+                                       hops=mcfg.hops)
+        pre_err = float((got - want).abs().max())
+        pre_scale = max(1.0, float(want.abs().max()))
+        del got, want
+
+        # The flagship, node-sharded, phase 10's 18 steps.
+        hop_runs = _md_hop_runs(torch, mesh, work, GAT_EDGES, GAT_EPOCHS, seed)
+        hop_run = hop_runs["model"]
+
+        # The GAT data-parallel with the K3 gather: K3 is its backward on
+        # this rank's slice.  A tap keeps the run's first K3 input.
+        seen = {}
+
+        def keep_first_k3(fn):
+            def wrapped(values, plan, **kw):
+                seen.setdefault("k3", (values.detach().clone(), plan, kw))
+                return fn(values, plan, **kw)
+            return wrapped
+
+        gather = make_neighbor_gather(table.indices, GAT_NODES, device=dev)
+        gcfg = GNNConfig(gather_fn=gather)
+        reset_kernel_counts()
+        pm.reset_collective_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with tapped(segment, "segment_sum_bucketed", keep_first_k3):
+            gstate, gmetrics, ghistory = train_mod.train_gat_ranker(
+                nf, table, work["src"], work["dst"], work["target"], model_config=gcfg,
+                config=TrainConfig(epochs=GAT_EPOCHS, warmup_steps=2, log_every=1, seed=seed),
+                batch_size=GAT_BATCH, mesh=mesh,
+            )
+            torch.cuda.synchronize()
+        gat_s = time.perf_counter() - t0
+        gat_launches = kernel_counts()
+        gat_collectives = dict(pm.COLLECTIVES)
+        gat_peak = torch.cuda.max_memory_allocated() / 2**30
+        values, k3_plan, k3_kw = seen["k3"]
+        k3_got = segment.segment_sum_bucketed(values, k3_plan, **k3_kw)
+        torch.cuda.synchronize()
+        k3_want = _segment_sum_plain(values, k3_plan, exact=k3_kw["exact"],
+                                     presorted=k3_kw.get("presorted", False))
+        k3_err = float((k3_got - k3_want).abs().max())
+        k3_max = float(k3_want.abs().max())
+        del values, k3_got, k3_want
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    a_s = time.perf_counter() - t_phase
+
+    # (b) four ranks on the one card: NCCL refuses two ranks on one device.
+    t1 = time.perf_counter()
+    ranks = run_ranks(_multidevice_rank, MD_RANKS, device="cuda:0", backend="gloo",
+                      args=(work, seed))
+    b_s = time.perf_counter() - t1
+
+    gat_losses = [h["loss"] for h in ghistory]
+    steps18 = len(hop["losses_18"])
+    summary = {
+        "seconds": time.perf_counter() - t_phase, "a_seconds": a_s, "b_seconds": b_s,
+        "a": {
+            "precompute_max_abs_err": pre_err, "precompute_scale": pre_scale,
+            "embed_whole_draw": embed_draw, "hop": hop_run, "hop_replicated_on_mesh": hop_runs["replicated"],
+            "hop_step_ms_p50_without_mesh": hop["step_ms_p50_18"],
+            "hop_loss_max_rel_vs_phase10": max(
+                abs(a - b) / abs(b) for a, b in zip(hop_run["losses"], hop["losses_18"])),
+            "hop_mae_phase10": hop["metrics_after_18_steps"]["mae"],
+            "gat": {"seconds": gat_s, "steps": gstate.step, "losses": gat_losses,
+                    "mae": gmetrics.mae, "step_ms_p50": step_p50_of(ghistory),
+                    "peak_memory_gib": gat_peak, "collectives": gat_collectives,
+                    "kernel_launches": gat_launches, "k3_max_abs_err": k3_err,
+                    "k3_max_abs_want": k3_max},
+            "gat_step_ms_p50_without_mesh": gat["step_ms_p50"],
+            "gat_loss_max_rel_vs_phase6": max(
+                abs(a - b) / abs(b) for a, b in zip(gat_losses, gat["losses"])),
+        },
+        "b": ranks,
+    }
+    emit({"phase": "multidevice", **summary})
+
+    # (a) checks.
+    check(pre_err <= MD_PRE_TOL * pre_scale,
+          f"sharded precompute off the replicated one by {pre_err} (scale {pre_scale})")
+    check(hop_run["steps"] == steps18 and len(hop_run["losses"]) == steps18,
+          f"{hop_run['steps']} node-sharded flagship steps, phase 10 took {steps18}")
+    check(summary["a"]["hop_loss_max_rel_vs_phase10"] <= MD_LOSS_RTOL,
+          f"node-sharded flagship losses off phase 10's: {summary['a']['hop_loss_max_rel_vs_phase10']}")
+    check(abs(hop_run["mae"] - summary["a"]["hop_mae_phase10"]) <= MD_MAE_TOL,
+          f"node-sharded flagship MAE {hop_run['mae']} vs phase 10's "
+          f"{summary['a']['hop_mae_phase10']}")
+    # No shortcut at world 1: per step the lookup, the replicated
+    # gradients, the embedding's gradient and the clip's norm; the
+    # validation lookup; one halo all-to-all per hop.
+    want_hop = {**{k: 0 for k in pm.COLLECTIVES}, "all_reduce": 4 * steps18 + 1,
+                "all_to_all": mcfg.hops}
+    check(hop_run["collectives"] == want_hop,
+          f"node-sharded flagship collectives {hop_run['collectives']} != {want_hop}")
+    want_repl = {**{k: 0 for k in pm.COLLECTIVES}, "all_reduce": steps18}
+    check(hop_runs["replicated"]["collectives"] == want_repl,
+          f"replicated flagship collectives {hop_runs['replicated']['collectives']} != {want_repl}")
+    layers = gcfg.num_layers
+    check(gstate.step == steps18, f"{gstate.step} mesh GAT steps")
+    check(gat_launches["segment_sum"] == gstate.step * layers,
+          f"K3 launches {gat_launches['segment_sum']} != {gstate.step} steps x {layers} layers")
+    check(gat_collectives == want_repl,
+          f"mesh GAT collectives {gat_collectives} != {want_repl}")
+    check(k3_max > 0 and k3_err <= K3_TOL * k3_max,
+          f"K3 off its plain version by {k3_err} on the mesh GAT's input (max |sum| {k3_max})")
+    check(summary["a"]["gat_loss_max_rel_vs_phase6"] <= STEP_LOSS_TOL,
+          f"mesh GAT losses off phase 6's: {summary['a']['gat_loss_max_rel_vs_phase6']}")
+    # (b) checks.
+    for r in ranks:
+        check(r["precompute_err"] <= MD_PRE_TOL * r["precompute_scale"],
+              f"rank {r['coord']}: halo precompute off by {r['precompute_err']}")
+        rep, mp = r["runs"]["replicated"], r["runs"]["model"]
+        check(rep["steps"] == mp["steps"] == MD_STEPS_B,
+              f"rank {r['coord']}: {rep['steps']} / {mp['steps']} steps")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(mp["losses"], rep["losses"]))
+        check(rel <= MD_LOSS_RTOL, f"rank {r['coord']}: node-sharded losses off by {rel}")
+        check(mp["losses"] == ranks[0]["runs"]["model"]["losses"],
+              f"rank {r['coord']}: losses differ across ranks")
+    check(summary["seconds"] <= MD_SECONDS, f"phase 18 took {summary['seconds']} s")
+    return summary, gat_launches["segment_sum"], k3_err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2566,7 +2837,6 @@ def main(argv=None) -> int:
 
     # -- 10-11. the flagship and the trainer service ------------------------
     loop["hop"] = hop_phase(torch, dev, args.seed, work, training["metrics"])
-    del work
     loop["trainer_service"] = trainer_service_phase(torch, dev, args.seed, work_dir)
     service_k3 = loop["trainer_service"]["gat_kernel_launches"]["segment_sum"]
     service_k3_err = loop["trainer_service"]["k3"]["max_abs_err"]
@@ -2602,6 +2872,15 @@ def main(argv=None) -> int:
                      "ms_wire_gat": wire["k3"]["ms"], "bound_ms_wire_gat": wire["k3"]["bound_ms"]})
     k3_entry["launches"] += wire_launches["segment_sum"]
     k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"], wire["k3"]["max_abs_err"])
+
+    # -- 18. multi-device training on torch.distributed ---------------------
+    loop["multidevice"], md_k3, md_k3_err = multidevice_phase(
+        torch, dev, args.seed, work_dir, work, training, loop["hop"])
+    del work
+    k3_entry.update({"launches_multidevice_gat": md_k3,
+                     "max_abs_err_multidevice_gat": md_k3_err})
+    k3_entry["launches"] += md_k3
+    k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"], md_k3_err)
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",

@@ -139,8 +139,34 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+@dataclass(frozen=True)
+class BatchRowsDraw:
+    """Dropout's draw on one rank of a data-parallel step: ``generator``
+    draws the mask of the whole global batch (``parts`` data ranks of
+    ``rows`` rows each, in data-coordinate order) and the rank keeps the
+    rows of its data coordinate ``index``.  So every data rank gets its
+    own masks, and together they are a one-device run's mask of the global
+    batch.  An input of several stacked batches (the hop encoder's source
+    rows over its destination rows) is drawn as that many global
+    batches.  Every rank draws the same amount, so the generators stay
+    equal across the mesh."""
+
+    generator: torch.Generator
+    parts: int
+    index: int
+    rows: int
+
+    def rand(self, shape, device) -> torch.Tensor:
+        stacked, rem = divmod(shape[0], self.rows)
+        if rem:
+            raise ValueError(f"{shape[0]} rows are not a stack of {self.rows}-row batches")
+        full = torch.rand((stacked, self.parts, self.rows, *shape[1:]),
+                          generator=self.generator, device=device)
+        return full[:, self.index].reshape(shape)
+
+
 def dropout(
-    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator | BatchRowsDraw]
 ) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
     values by 1 / (1 - rate) in ``x``'s dtype."""
@@ -149,7 +175,10 @@ def dropout(
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    draw = torch.rand(x.shape, generator=generator, device=x.device)
+    if isinstance(generator, BatchRowsDraw):
+        draw = generator.rand(x.shape, x.device)
+    else:
+        draw = torch.rand(x.shape, generator=generator, device=x.device)
     return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -453,7 +482,9 @@ def load_flax_params(model: nn.Module, params: Dict) -> nn.Module:
     (q, k, v, edge bias, output); ``Dense_0..3/{kernel,bias}``
     (embedding projection, then the head).  MLPRegressor:
     ``Dense_0..n/{kernel,bias}``.  Kernels are ``[in, out]`` on both
-    sides.  A missing, extra or misshapen leaf raises."""
+    sides.  A missing, extra or misshapen leaf raises.  A node-sharded
+    model (``HopRanker.shard_nodes``) takes its block of each whole node
+    table (an ``embedding`` leaf)."""
     flat = _flatten(params)
     state = dict(model.named_parameters())
     want = {k.replace(".", "/") for k in state}
@@ -462,9 +493,13 @@ def load_flax_params(model: nn.Module, params: Dict) -> nn.Module:
             f"flax params do not match the model: missing {sorted(want - set(flat))}, "
             f"unexpected {sorted(set(flat) - want)}"
         )
+    shard = getattr(model, "node_shard", None)
     with torch.no_grad():
         for path, value in flat.items():
             p = state[path.replace("/", ".")]
+            if (shard is not None and path.split("/")[-1] == "embedding"
+                    and value.shape[0] == shard.num_nodes):
+                value = shard.block(value)
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"{path}: flax shape {value.shape} != {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(value, np.float32)))

@@ -175,11 +175,16 @@ class HopEncoder(nn.Module):
         *,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        emb: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        """``emb``: the embedding rows of ``ids`` when the caller looked
+        them up (a node-sharded table), else ``Embed_0(ids)``."""
         cfg = self.cfg
         x = rows.to(cfg.dtype)
         if cfg.node_embed_dim > 0:
-            x = torch.cat([x, self.Embed_0(ids).to(cfg.dtype)], dim=-1)
+            if emb is None:
+                emb = self.Embed_0(ids)
+            x = torch.cat([x, emb.to(cfg.dtype)], dim=-1)
         x = gelu(self.Dense_0(x))
         if train and cfg.dropout > 0:
             x = dropout(x, cfg.dropout, generator)
@@ -209,23 +214,59 @@ class HopRanker(nn.Module):
         cfg = config or HopConfig()
         self.config = cfg
         self.num_nodes = num_nodes
+        # Set by shard_nodes: this rank's block of the node tables.
+        self.node_shard = None
         self.HopEncoder_0 = HopEncoder(cfg, num_nodes=num_nodes, in_dim=in_dim, generator=generator)
         self.Dense_0 = Dense(3 * cfg.out_dim + query_edge_dim, cfg.hidden, cfg.dtype, generator)
         self.Dense_1 = Dense(cfg.hidden, cfg.hidden // 2, cfg.dtype, generator)
         self.Dense_2 = Dense(cfg.hidden // 2, 1, torch.float32, generator)
 
+    def shard_nodes(self, shard) -> "HopRanker":
+        """Keep only this rank's block of the node tables
+        (``parallel.graph_sharding.NodeShard``): the embedding drops to its
+        ``[rows, embed]`` block, the hop features passed in are the
+        block, and every endpoint lookup goes through ``shard.lookup``.
+        The whole table was drawn first, so a sharded model holds exactly
+        the unsharded model's rows."""
+        if shard.num_nodes != self.num_nodes:
+            raise ValueError(f"shard of {shard.num_nodes} nodes, model built for {self.num_nodes}")
+        if self.node_shard is not None:
+            raise ValueError("the model's node tables are sharded already")
+        if self.config.node_embed_dim > 0:
+            embed = self.HopEncoder_0.Embed_0
+            embed.embedding = nn.Parameter(shard.block(embed.embedding.detach()).clone())
+        self.node_shard = shard
+        return self
+
     def _check(self, hop_feats: torch.Tensor) -> None:
-        if hop_feats.shape[0] != self.num_nodes:
+        rows = self.num_nodes if self.node_shard is None else self.node_shard.rows
+        if hop_feats.shape[0] != rows:
             raise ValueError(
-                f"{hop_feats.shape[0]} hop-feature rows, model built for {self.num_nodes} nodes"
+                f"{hop_feats.shape[0]} hop-feature rows, model built for {rows} nodes"
             )
+
+    def _encode(self, hop_feats, ids, *, train=False, generator=None) -> torch.Tensor:
+        """The encoder on nodes ``ids``: an index gather of their hop rows
+        and embeddings, or on a node-sharded model one lookup of both."""
+        if self.node_shard is None:
+            return self.HopEncoder_0(hop_feats.index_select(0, ids), ids,
+                                     train=train, generator=generator)
+        if self.config.node_embed_dim > 0:
+            rows, emb = self.node_shard.lookup(
+                ids, hop_feats, self.HopEncoder_0.Embed_0.embedding)
+        else:
+            (rows,), emb = self.node_shard.lookup(ids, hop_feats), None
+        return self.HopEncoder_0(rows, ids, train=train, generator=generator, emb=emb)
 
     def embeddings(self, hop_feats: torch.Tensor, table: NeighborTable = None) -> torch.Tensor:
         """[N, out_dim] f32 node embeddings of every node (the export
-        path, ``trainer/export.export_gnn_scorer``); eval mode."""
+        path, ``trainer/export.export_gnn_scorer``); eval mode.  On a
+        node-sharded model every rank of the axis calls it."""
         self._check(hop_feats)
         ids = torch.arange(self.num_nodes, device=hop_feats.device)
-        return self.HopEncoder_0(hop_feats, ids)
+        if self.node_shard is None:
+            return self.HopEncoder_0(hop_feats, ids)
+        return self._encode(hop_feats, ids)
 
     def forward(
         self,
@@ -246,9 +287,7 @@ class HopRanker(nn.Module):
         # Both endpoints through the encoder in one pass: its layers act
         # row by row, so this equals two calls.
         ids = torch.cat([src, dst])
-        both = self.HopEncoder_0(
-            hop_feats.index_select(0, ids), ids, train=train, generator=generator
-        )
+        both = self._encode(hop_feats, ids, train=train, generator=generator)
         s, d = both[: src.shape[0]], both[src.shape[0]:]
         parts = [s, d, s * d]
         if query_edge_feats is not None:

@@ -7,15 +7,17 @@ already wrote fixed-width float32 rows (records/columnar.py); ingest is:
     np.memmap shards → permuted index stream → [B, W] slices
 
 No parsing and no copies beyond the batch slice; every batch has the
-same shape.  The trainer moves each batch to its device.  Multi-host
-ingest (each process opening only its own shards, ``shard_for_process``)
-takes the process index and count explicitly: one card is one process.
+same shape.  The trainer moves each batch to its device.  Multi-process
+ingest (``multihost=True``: each process opens only its own shards,
+``shard_for_process``) reads the rank and world size of the initialized
+process group: a process is one device here, one host in the JAX
+package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -76,11 +78,18 @@ def split_columns(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
 
 def shard_for_process(
     paths: Sequence[str],
-    process_index: int = 0,
-    process_count: int = 1,
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
 ) -> List[str]:
-    """Round-robin shard assignment: each process opens only its files."""
-    return [p for i, p in enumerate(sorted(paths)) if i % process_count == process_index]
+    """Round-robin shard assignment: each process opens only its files.
+    The index and count default to the initialized process group's rank
+    and world size (0 and 1 without one)."""
+    import torch.distributed as dist
+
+    up = dist.is_available() and dist.is_initialized()
+    pi = (dist.get_rank() if up else 0) if process_index is None else process_index
+    pc = (dist.get_world_size() if up else 1) if process_count is None else process_count
+    return [p for i, p in enumerate(sorted(paths)) if i % pc == pi]
 
 
 def load_download_dataset(
@@ -89,10 +98,12 @@ def load_download_dataset(
     batch_size: int = 8192,
     val_fraction: float = 0.1,
     seed: int = 0,
+    multihost: bool = False,
 ) -> Tuple[EdgeBatches, EdgeBatches]:
     """Open shards → (train, val) batch streams with a stable split.
-    (The JAX package's ``multihost=True`` — open only this process's
-    shards — waits for the port's multi-device slice.)"""
+    ``multihost=True`` opens only this process's shards."""
+    if multihost:
+        paths = shard_for_process(paths)
     rows = concat_readers(list(paths))
     rng = np.random.default_rng(seed)
     order = rng.permutation(rows.shape[0])

@@ -28,8 +28,25 @@ What the port changes:
   (``models/hop._RowGather``), so a resumed run is bit-identical on the
   card, as the reference's is on the TPU;
 - the wire adapter runs its Python path only: ``native_ingest=True``
-  raises (the C++ engine is ROADMAP item 14); ``mesh`` and
-  ``node_sharding="model"`` raise (multi-device is item 9);
+  raises (the C++ engine is ROADMAP item 14);
+- on a mesh (``parallel.mesh.create_mesh``; one process per device, every
+  rank constructing the trainer and calling ``run``, ``eval_mae``,
+  ``refresh_snapshot``, ``apply_pending_recycles``, ``checkpoint``,
+  ``resume`` and ``state_hash`` together) rank 0 is the one feeder, as the
+  JAX trainer is fed in one process: it owns ingest (the queues, the
+  topology window, the wire adapter) and the refresh decision, and before
+  each dispatch it broadcasts the ``[super_steps, batch]`` block and the
+  recycled ids, and on every snapshot build the window and the node
+  features.  Each rank trains on its data coordinate's batch columns.
+  With ``node_sharding="model"`` the snapshot precompute runs node-sharded
+  (one halo all-to-all per hop) and the hop table, the embedding and its
+  moments live as node blocks over the model axis; with ``"replicated"``
+  each rank holds them whole (the reference's ``replicated`` and
+  ``batch_sharding`` placements have no counterpart: a rank slices its
+  columns and holds whole copies).  The checkpoint is the same one file, the
+  node tables gathered whole and written by rank 0; ``resume`` has each
+  rank read it and keep its block, so a mesh checkpoint resumes on one
+  device and the reverse;
 - no ``trainer.dispatch`` fault seam and no ``trainer/dispatch`` span
   (item 10);
 - the checkpoint is one ``torch.save`` file: params, AdamW moments and
@@ -62,12 +79,17 @@ import torch
 from ..models.gnn import NeighborTable, build_neighbor_table
 from ..models.hop import HopConfig, HopRanker, hop_feature_dim, precompute_hop_features
 from ..ops import _build
+from ..parallel import mesh as pm
+from ..parallel.graph_sharding import NodeShard, build_halo_plan, precompute_hop_features_sharded
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from .train import (
     TrainConfig,
     TrainState,
+    _data_slice,
     _graph_train_step,
     _is_node_table_path,
     _make_optimizer,
+    _MeshSync,
 )
 
 logger = logging.getLogger(__name__)
@@ -90,13 +112,28 @@ def _leaves(state: TrainState):
     return sorted(rows, key=lambda r: r[0])
 
 
+def _whole_leaves(state: TrainState):
+    """``_leaves`` with every node-sharded table gathered whole over its
+    axis (a collective: every rank of the mesh calls it)."""
+    shard = state.model.node_shard
+    if shard is None:
+        return _leaves(state)
+    out = []
+    for name, p, mu, nu in _leaves(state):
+        if _is_node_table_path(name):
+            p, mu, nu = (shard.gather(t.detach()) for t in (p, mu, nu))
+        out.append((name, p, mu, nu))
+    return out
+
+
 def state_hash(state: TrainState) -> str:
     """sha256 over the parameters, then the AdamW first and second
     moments, then the update count and step — THE byte-identity
     fingerprint the resume checks compare (one definition, so
-    'identical' always means the same thing)."""
+    'identical' always means the same thing).  Node tables count whole:
+    on a node-sharded mesh every rank calls it and gets the one hash."""
     h = hashlib.sha256()
-    leaves = _leaves(state)
+    leaves = _whole_leaves(state)
     for col in (1, 2, 3):
         for row in leaves:
             h.update(row[col].detach().cpu().numpy().tobytes())
@@ -214,19 +251,30 @@ class WireIngestAdapter:
                 with self.trainer._recycle_lock:
                     if self.trainer._pending_recycle:
                         continue
-                return {
-                    "adapter_id_table": self._id_table.copy(),
-                    "adapter_bucket_of": self._bucket_of.copy(),
-                    "adapter_last_seen": self._last_seen.copy(),
-                    "adapter_free": np.concatenate(
-                        [np.asarray(self._free, np.int64), [-1]]
-                    ),
-                    "adapter_next_id": int(self._next_id),
-                    "adapter_feat_sum": self._feat_sum.copy(),
-                    "adapter_feat_cnt": self._feat_cnt.copy(),
-                    "adapter_overflow_edges": int(self._py_overflow),
-                    "adapter_evicted_nodes": int(self._py_evicted),
-                }
+                return self._mapping_state()
+
+    def snapshot_with_pending(self):
+        """(mapping, the recycled ids queued up to it), taken together:
+        the mesh checkpoint resets those rows on every rank before it
+        saves, so the saved mapping never outruns its resets."""
+        with self._mu:
+            return self._mapping_state(), self.trainer._take_pending()
+
+    def _mapping_state(self) -> dict:
+        """The id mapping (callers hold ``_mu``)."""
+        return {
+            "adapter_id_table": self._id_table.copy(),
+            "adapter_bucket_of": self._bucket_of.copy(),
+            "adapter_last_seen": self._last_seen.copy(),
+            "adapter_free": np.concatenate(
+                [np.asarray(self._free, np.int64), [-1]]
+            ),
+            "adapter_next_id": int(self._next_id),
+            "adapter_feat_sum": self._feat_sum.copy(),
+            "adapter_feat_cnt": self._feat_cnt.copy(),
+            "adapter_overflow_edges": int(self._py_overflow),
+            "adapter_evicted_nodes": int(self._py_evicted),
+        }
 
     def _evict_expired(self, now: float) -> int:
         """Reclaim dense ids whose hosts fell silent for ``node_ttl``
@@ -417,10 +465,11 @@ class OnlineGraphConfig:
     # The C++ wire-ingest engine is not ported (ROADMAP item 14): True
     # raises instead of falling back.
     native_ingest: bool = False
-    # Multi-device (a (data, model) mesh, node tables sharded over the
-    # model axis) waits for ROADMAP item 9: anything but None /
-    # "replicated" raises.
-    mesh: object = None
+    # A (data, model) mesh from parallel.mesh.create_mesh (None = one
+    # device): batches split over the data axis; node_sharding="model"
+    # partitions the hop table, the embedding (+ its moments) and the
+    # snapshot precompute by node over the model axis.
+    mesh: Optional[Mesh] = None
     node_sharding: str = "replicated"
 
 
@@ -441,20 +490,37 @@ class OnlineGraphTrainer:
         device="cuda",
     ) -> None:
         """``node_feats`` + the initial probe edges bootstrap snapshot 0 —
-        an online trainer still needs one graph to start ranking on."""
+        an online trainer still needs one graph to start ranking on.  On
+        a mesh every rank constructs it (on the mesh's device)."""
         if config.node_sharding not in ("replicated", "model"):
             raise ValueError(f"unknown node_sharding {config.node_sharding!r}")
-        if config.node_sharding == "model" or config.mesh is not None:
-            raise ValueError(
-                "a mesh and node_sharding='model' partition the node tables over "
-                "devices: they wait for the port's multi-device slice (ROADMAP "
-                "queue 1 item 9)"
-            )
+        mesh = config.mesh
+        if config.node_sharding == "model" and mesh is None:
+            raise ValueError('node_sharding="model" needs a mesh')
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise ValueError(
+                    f"mesh must come from parallel.mesh.create_mesh, not "
+                    f"{type(mesh).__name__}"
+                )
+            if config.node_sharding == "model" and config.num_nodes % mesh.shape[MODEL_AXIS]:
+                raise ValueError(
+                    f"num_nodes {config.num_nodes} not divisible by the "
+                    f"model axis {mesh.shape[MODEL_AXIS]}"
+                )
+            if config.batch_size % mesh.shape[DATA_AXIS]:
+                raise ValueError(
+                    f"batch_size {config.batch_size} not divisible by the "
+                    f"data axis {mesh.shape[DATA_AXIS]}"
+                )
         if config.native_ingest:
             raise NotImplementedError(_NATIVE_REFUSAL)
         self.config = config
         self.checkpoint_dir = checkpoint_dir
-        self.device = _build.resolve_device(device)
+        self.mesh = mesh
+        self.device = _build.resolve_device(device) if mesh is None else mesh.device
+        # Rank 0 feeds a mesh; one device feeds itself.
+        self._feeder = mesh is None or mesh.rank == 0
 
         self._topo_lock = threading.Lock()
         self._topo_parts: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
@@ -502,6 +568,8 @@ class OnlineGraphTrainer:
             config.model, num_nodes=config.num_nodes, in_dim=hop_dim,
             generator=torch.Generator().manual_seed(config.train.seed),
         )
+        if config.node_sharding == "model":
+            model.shard_nodes(NodeShard(mesh, MODEL_AXIS, config.num_nodes))
         model.to(self.device)
         self.state = TrainState(
             model=model,
@@ -513,6 +581,12 @@ class OnlineGraphTrainer:
                 config.train.seed + 1
             ),
         )
+        if mesh is not None:
+            sharded = [config.node_sharding == "model" and _is_node_table_path(name)
+                       for name, _ in model.named_parameters()]
+            self.state.opt.sync = _MeshSync(mesh, sharded)
+        # This rank's columns of a dispatch block.
+        self._mine = _data_slice(mesh, config.batch_size)
 
     # -- ingest: downloads stream -------------------------------------------
 
@@ -634,6 +708,11 @@ class OnlineGraphTrainer:
             self.node_feats = np.asarray(
                 self.node_feature_source(), np.float32
             )
+        if self.mesh is not None:
+            # Rank 0's window and node features on every rank.
+            nf, *window = pm.broadcast_arrays(
+                self.mesh, [self.node_feats, *self._window], 4)
+            self.node_feats, self._window = nf.copy(), tuple(a.copy() for a in window)
         src, dst, rtt = self._window
         t0 = time.perf_counter()
         table = build_neighbor_table(
@@ -643,10 +722,19 @@ class OnlineGraphTrainer:
         self.table = table.to(self.device)
         self._sync()
         t1 = time.perf_counter()
-        self.hop_feats = precompute_hop_features(
-            torch.from_numpy(self.node_feats), self.table,
-            hops=self.config.model.hops,
-        )
+        if self.config.node_sharding == "model":
+            # The precompute itself runs node-sharded (halo exchange per
+            # hop): no rank materializes the [N, F] hop table whole.
+            plan = build_halo_plan(table, self.mesh, axis=MODEL_AXIS)
+            self.hop_feats = precompute_hop_features_sharded(
+                self.mesh, self.node_feats, table, plan,
+                hops=self.config.model.hops, axis=MODEL_AXIS,
+            )
+        else:
+            self.hop_feats = precompute_hop_features(
+                torch.from_numpy(self.node_feats), self.table,
+                hops=self.config.model.hops,
+            )
         self._sync()
         self.snapshot_seconds = (t1 - t0, time.perf_counter() - t1)
 
@@ -655,11 +743,16 @@ class OnlineGraphTrainer:
         Returns the new hop-table digest, or None if no topology arrived
         since the last swap (keep serving the old graph rather than pay
         a rebuild for an identical one).  The optimizer, params, LR
-        position and dropout generator are untouched."""
+        position and dropout generator are untouched.  On a mesh rank 0
+        decides, and the window it drained is the one every rank builds."""
         with self._topo_lock:
             fed = self._fed_since_swap
         window = self._drain_window()
-        if fed == 0 or len(window[0]) == 0:
+        go = fed > 0 and len(window[0]) > 0
+        if self.mesh is not None:
+            (flag,) = pm.broadcast_arrays(self.mesh, [np.asarray([go], np.int32)], 1)
+            go = bool(flag[0])
+        if not go:
             logger.info("snapshot refresh skipped: no new topology")
             return None
         t0 = time.perf_counter()
@@ -683,10 +776,13 @@ class OnlineGraphTrainer:
             self._build_snapshot()
 
     def snapshot_digest(self) -> str:
+        """sha256 of the whole hop table (gathered on a node-sharded mesh,
+        where every rank calls it)."""
         self._ensure_snapshot()
-        return hashlib.sha256(
-            self.hop_feats.cpu().numpy().tobytes()
-        ).hexdigest()
+        hop = self.hop_feats
+        if self.state.model.node_shard is not None:
+            hop = self.state.model.node_shard.gather(hop)
+        return hashlib.sha256(hop.cpu().numpy().tobytes()).hexdigest()
 
     # -- node-id lifecycle ---------------------------------------------------
 
@@ -699,16 +795,32 @@ class OnlineGraphTrainer:
             with self._recycle_lock:
                 self._pending_recycle.append(ids)
 
+    def _take_pending(self) -> np.ndarray:
+        """The queued recycled ids (distinct, sorted), the queue emptied."""
+        with self._recycle_lock:
+            if not self._pending_recycle:
+                return np.zeros(0, np.int32)
+            ids = np.unique(np.concatenate(self._pending_recycle))
+            self._pending_recycle = []
+        return ids.astype(np.int32)
+
+    def _share_ids(self, ids: np.ndarray) -> np.ndarray:
+        """Rank 0's ids on every rank of a mesh."""
+        if self.mesh is None:
+            return ids
+        return pm.broadcast_arrays(self.mesh, [ids], 1)[0]
+
     def apply_pending_recycles(self) -> int:
         """Zero the learnable embedding rows AND their AdamW moments for
         every id queued by ``request_recycle`` — a recycled id is a NEW
         host and must not inherit its predecessor's learned state.
-        Returns the number of distinct rows reset."""
-        with self._recycle_lock:
-            if not self._pending_recycle:
-                return 0
-            ids = np.unique(np.concatenate(self._pending_recycle))
-            self._pending_recycle = []
+        Returns the number of distinct rows reset.  On a mesh, rank 0's
+        queue, reset on every rank."""
+        return self._reset_rows(self._share_ids(self._take_pending()))
+
+    def _reset_rows(self, ids: np.ndarray) -> int:
+        if len(ids) == 0:
+            return 0
         mask = np.zeros(self.config.num_nodes, bool)
         mask[ids] = True
         self._recycle_rows(torch.from_numpy(mask).to(self.device))
@@ -722,8 +834,13 @@ class OnlineGraphTrainer:
     def _recycle_rows(self, mask: torch.Tensor) -> None:
         """[N]-mask row reset of every node-table leaf (parameter and
         moments alike) — the one path predicate
-        ``train._is_node_table_path``."""
-        n = self.config.num_nodes
+        ``train._is_node_table_path``; a node-sharded leaf takes its
+        block of the mask."""
+        shard = self.state.model.node_shard
+        if shard is not None:
+            mask, n = shard.block(mask), shard.rows
+        else:
+            n = self.config.num_nodes
         for name, p, mu, nu in _leaves(self.state):
             if _is_node_table_path(name) and p.ndim >= 1 and p.shape[0] == n:
                 for leaf in (p, mu, nu):
@@ -733,10 +850,19 @@ class OnlineGraphTrainer:
 
     def _stage(self, block) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """A dispatch block (es, ed int32; y float32; [super_steps, batch])
-        → device tensors, packed into one host buffer of 32-bit words and
-        moved in one copy.  On the card the buffer is pinned and the copy
-        does not wait; two buffers take turns, and a buffer is rewritten
-        only once its last copy is done."""
+        → device tensors."""
+        return self._unpack(self._stage_packed(block))
+
+    @staticmethod
+    def _unpack(dev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return dev[0].long(), dev[1].long(), dev[2].view(torch.float32)
+
+    def _stage_packed(self, block) -> torch.Tensor:
+        """A dispatch block as one [3, super_steps, batch] int32 device
+        tensor, packed into one host buffer of 32-bit words and moved in
+        one copy.  On the card the buffer is pinned and the copy does not
+        wait; two buffers take turns, and a buffer is rewritten only once
+        its last copy is done."""
         es, ed, y = block
         size = 3 * es.size
         if self.device.type != "cuda":
@@ -761,8 +887,25 @@ class OnlineGraphTrainer:
             copied.record()
         else:
             dev = host
-        dev = dev.view(3, *es.shape)
-        return dev[0].long(), dev[1].long(), dev[2].view(torch.float32)
+        return dev.view(3, *es.shape)
+
+    def _share_block(self, block, ids: np.ndarray):
+        """Rank 0's next dispatch block (None: the stream ended) and its
+        recycled ids on every rank of the mesh: → (this rank's columns of
+        the block as (es, ed, y) device tensors, or None; the ids)."""
+        shape = (0, 0) if block is None else block[0].shape
+        head, ids = pm.broadcast_arrays(
+            self.mesh, [np.asarray([block is not None, *shape], np.int32), ids], 2)
+        if not head[0]:
+            return None, ids
+        if self._feeder:
+            packed = self._stage_packed(block)
+        else:
+            packed = torch.empty((3, int(head[1]), int(head[2])), dtype=torch.int32,
+                                 device=self.device)
+        pm.broadcast(packed, 0, self.mesh.world)
+        es, ed, y = self._unpack(packed)
+        return (es[:, self._mine], ed[:, self._mine], y[:, self._mine]), ids
 
     def _train_dispatch(self, es, ed, y) -> torch.Tensor:
         """``super_steps`` optimizer steps, one per row of the block;
@@ -781,10 +924,16 @@ class OnlineGraphTrainer:
         return torch.abs(pred - y).mean()
 
     def eval_mae(self, es, ed, y) -> float:
-        """Val MAE against the CURRENT snapshot's hop features."""
+        """Val MAE against the CURRENT snapshot's hop features.  On a mesh
+        rank 0's edges, scored whole on every rank (the others may pass
+        None)."""
         self._ensure_snapshot()
         self.apply_pending_recycles()
         dev = self.device
+        if self.mesh is not None:
+            es, ed, y = pm.broadcast_arrays(self.mesh, [
+                np.asarray(es, np.int32), np.asarray(ed, np.int32), np.asarray(y, np.float32),
+            ] if self._feeder else None, 3)
         return float(
             self._eval_mae(
                 torch.as_tensor(np.asarray(es, np.int64), device=dev),
@@ -803,14 +952,21 @@ class OnlineGraphTrainer:
         self._ensure_snapshot()
         ran = 0
         while max_dispatches is None or ran < max_dispatches:
-            block = self._next_dispatch_block(timeout=idle_timeout)
-            if block is None:
-                break
-            self.apply_pending_recycles()
-            self.last_loss = self._train_dispatch(*self._stage(block))
+            block = self._next_dispatch_block(timeout=idle_timeout) if self._feeder else None
+            if self.mesh is None:
+                if block is None:
+                    break
+                self.apply_pending_recycles()
+                staged = self._stage(block)
+            else:
+                staged, ids = self._share_block(block, self._take_pending())
+                self._reset_rows(ids)
+                if staged is None:
+                    break
+            self.last_loss = self._train_dispatch(*staged)
             self.dispatch += 1
             ran += 1
-            self.records_seen += block[0].size
+            self.records_seen += cfg.super_steps * cfg.batch_size
             if cfg.refresh_every and self.dispatch % cfg.refresh_every == 0:
                 self.refresh_snapshot()
             if (
@@ -830,7 +986,10 @@ class OnlineGraphTrainer:
     def _ckpt_path(self) -> str:
         return os.path.join(os.path.abspath(self.checkpoint_dir), "online_graph.pt")
 
-    def _payload(self) -> dict:
+    def _payload(self, ad_state: Optional[dict] = None) -> dict:
+        """The checkpoint's contents; ``ad_state``: the adapter's mapping
+        when the caller took it already (the mesh checkpoint).  On a
+        node-sharded mesh every rank calls it (the tables are gathered)."""
         # The pending probe buffer feeds the NEXT drain — without it a
         # resumed run would rebuild a different window at the following
         # refresh than the uninterrupted run.
@@ -850,13 +1009,14 @@ class OnlineGraphTrainer:
         # mapping non-replayable, so it travels with the checkpoint.
         # Live adapter wins; else carry a restored-but-unclaimed stash
         # forward; else none.
-        if self._adapter is not None:
-            ad_state = self._adapter.snapshot_for_checkpoint()
-        elif self._adapter_restore is not None:
-            ad_state = dict(self._adapter_restore)
-        else:
-            ad_state = {}
-        leaves = _leaves(self.state)
+        if ad_state is None:
+            if self._adapter is not None:
+                ad_state = self._adapter.snapshot_for_checkpoint()
+            elif self._adapter_restore is not None:
+                ad_state = dict(self._adapter_restore)
+            else:
+                ad_state = {}
+        leaves = _whole_leaves(self.state)
         src, dst, rtt = self._window
 
         def t(a):
@@ -888,7 +1048,13 @@ class OnlineGraphTrainer:
         """Write the checkpoint file (atomically: a crash mid-save leaves
         the previous one).  Queued row resets are folded into the state
         first so a restore cannot resurrect a recycled id's previous
-        owner."""
+        owner.  On a mesh every rank calls it: the resets queued up to
+        the adapter's mapping are applied on every rank, the node tables
+        are gathered whole, rank 0 writes, and no rank returns before the
+        file is in place."""
+        if self.mesh is not None:
+            self._checkpoint_mesh()
+            return
         self.apply_pending_recycles()
         payload = self._payload()
         path = self._ckpt_path()
@@ -897,9 +1063,28 @@ class OnlineGraphTrainer:
         torch.save(payload, tmp)
         os.replace(tmp, path)
 
+    def _checkpoint_mesh(self) -> None:
+        ad_state = None
+        if self._feeder and self._adapter is not None:
+            ad_state, ids = self._adapter.snapshot_with_pending()
+        else:
+            ids = self._take_pending()
+        self._reset_rows(self._share_ids(ids))
+        payload = self._payload(ad_state if self._feeder else {})
+        if self._feeder:
+            path = self._ckpt_path()
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = path + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        pm.barrier(self.mesh)
+
     def make_wire_adapter(self) -> WireIngestAdapter:
         """An adapter TrainerService(online_sink=...) feeds straight off
-        the Train stream — the full wire → online-trainer path."""
+        the Train stream — the full wire → online-trainer path.  Rank 0
+        of a mesh is the one feeder."""
+        if not self._feeder:
+            raise ValueError("rank 0 feeds a mesh trainer: make the wire adapter there")
         return WireIngestAdapter(self)
 
     def close(self) -> None:
@@ -912,15 +1097,19 @@ class OnlineGraphTrainer:
         rebuild the graph snapshot from the checkpointed topology window;
         False if no checkpoint exists.  A resumed run continues
         byte-identically — including when the checkpoint straddles a
-        refresh boundary."""
+        refresh boundary.  On a mesh every rank reads the one file and
+        keeps its block of each node table."""
         if not self.checkpoint_dir or not os.path.exists(self._ckpt_path()):
             return False
         restored = torch.load(self._ckpt_path(), map_location="cpu", weights_only=True)
+        shard = self.state.model.node_shard
         with torch.no_grad():
             for name, p, mu, nu in _leaves(self.state):
-                p.copy_(restored["params"][name])
-                mu.copy_(restored["opt_mu"][name])
-                nu.copy_(restored["opt_nu"][name])
+                for leaf, key in ((p, "params"), (mu, "opt_mu"), (nu, "opt_nu")):
+                    value = restored[key][name]
+                    if shard is not None and _is_node_table_path(name):
+                        value = shard.block(value)
+                    leaf.copy_(value)
         self.state.opt.count = int(restored["opt_count"])
         self.state.step = int(restored["step"])
         self.state.generator.set_state(restored["generator"])

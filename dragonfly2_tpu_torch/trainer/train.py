@@ -3,11 +3,36 @@
 Port of ``dragonfly2_tpu/trainer/train.py``: ``train_mlp`` /
 ``evaluate_mlp`` (the batch MLP trainer of the trainer service),
 ``train_graphsage``, ``train_gat_ranker`` and ``train_hop_ranker`` on
-``_train_graph_model``, and the checkpoints.  ``device=`` takes the place
-of the JAX package's ``mesh=``: one card is one data-parallel shard, so
-the JAX trainers' rounding of the batch to a multiple of the mesh's data
-axis has no counterpart; node-sharded tables wait for the multi-device
-slice (ROADMAP queue 1 item 9).
+``_train_graph_model``, and the checkpoints.  ``device=`` trains on one
+device.  ``mesh=`` (``parallel.mesh.create_mesh``, one process per device,
+every rank making the same call) trains data-parallel, as the JAX
+trainers do on their mesh:
+- the batch is rounded to a multiple of the data axis, and the rank at
+  data coordinate ``d`` of ``n`` takes rows ``[d·b/n, (d+1)·b/n)`` of each
+  global batch (the JAX package's split and order);
+- one all-reduce per step averages the replicated leaves' gradients (and
+  the loss) over the world before the optax global-norm clip, so the clip
+  sees the global batch's gradient;
+- ``train_hop_ranker(node_sharding="model")`` partitions the hop features,
+  the learnable embedding and its AdamW moments by node over the model
+  axis (``parallel.graph_sharding.NodeShard``): an endpoint lookup is a
+  masked local gather and one all-reduce over the model group, the
+  embedding's gradient is averaged over the data group, and the clip's
+  norm counts each sharded leaf once (its squares summed over the model
+  group);
+- the GAT and GraphSAGE keep their node table whole on every rank, and
+  the backward of their gather (K3) runs on each rank's slice.  The JAX
+  dry run shards the GAT's node table by placement only and XLA gathers
+  it back: the function is the same;
+- dropout draws one mask over what the reference draws it over: the
+  GAT's and GraphSAGE's over the node table, the same on every rank; the
+  MLP's and the hop encoder's over the global batch, of which each data
+  rank keeps its rows (``models.gnn.BatchRowsDraw``), so the mesh run's
+  masks are the one-device run's.
+Each rank returns the same state and metrics (a node-sharded state holds
+the rank's block of its node tables).  The reference's ``batch_sharding``
+and ``replicated`` placements have no counterpart: a rank slices its rows
+of each batch and holds a whole copy of every replicated tensor.
 
 What is kept exactly:
 - the numpy train/validation split and the per-epoch batch order, so both
@@ -36,6 +61,7 @@ the step (the JAX package writes orbax directories).
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -44,10 +70,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.gnn import Dense, GATRanker, GNNConfig, GraphSAGE, NeighborTable, gelu
+from ..models.gnn import (
+    BatchRowsDraw, Dense, GATRanker, GNNConfig, GraphSAGE, NeighborTable, gelu,
+)
 from ..models.hop import HopConfig, HopRanker, precompute_hop_features
 from ..models.mlp import MLPConfig, MLPRegressor, warm_start_output_bias
 from ..ops import _build
+from ..parallel import mesh as pm
+from ..parallel.graph_sharding import NodeShard, build_halo_plan, precompute_hop_features_sharded
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from .ingest import EdgeBatches
 
 
@@ -102,10 +133,15 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        # On a mesh: the _MeshSync whose global norm counts sharded leaves once.
+        self.sync: Optional["_MeshSync"] = None
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor]) -> None:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        if self.sync is None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        else:
+            g_norm = self.sync.global_norm(grads)
         # optax: where(norm < max_norm, g, g / norm * max_norm).
         clipped = [
             torch.where(g_norm < self.MAX_NORM, g, (g / g_norm) * self.MAX_NORM)
@@ -151,6 +187,58 @@ def warmup_cosine_decay_schedule(
     return schedule
 
 
+class _MeshSync:
+    """The collectives of one data-parallel step over ``mesh``.
+    ``sharded[i]`` marks the parameters held as node blocks over the model
+    axis; the rest are replicated on every rank."""
+
+    def __init__(self, mesh: Mesh, sharded: List[bool]) -> None:
+        self.mesh = mesh
+        self.sharded = list(sharded)
+
+    def reduce_mean(self, flat: torch.Tensor, group, n: int) -> torch.Tensor:
+        return pm.all_reduce(flat, group).div_(n)
+
+    def average(self, loss: torch.Tensor, grads: List[torch.Tensor]):
+        """(the global batch's loss, every gradient averaged): the
+        replicated gradients and the loss in one all-reduce over the world
+        (ranks of one model group hold the same slice, so the world mean
+        is the mean over the data axis), the sharded blocks' in one over
+        the data group."""
+        mesh = self.mesh
+        out = list(grads)
+        for sharded, group, n in ((False, mesh.world, mesh.size),
+                                  (True, mesh.group(DATA_AXIS), mesh.shape[DATA_AXIS])):
+            idx = [i for i, s in enumerate(self.sharded) if s == sharded]
+            if not idx:
+                continue
+            parts = [grads[i].reshape(-1) for i in idx]
+            if not sharded:
+                parts.append(loss.reshape(1).to(grads[0].dtype))
+            flat = self.reduce_mean(torch.cat(parts), group, n)
+            at = 0
+            for i in idx:
+                k = grads[i].numel()
+                out[i] = flat[at:at + k].view_as(grads[i])
+                at += k
+            if not sharded:
+                loss = flat[at]
+        return loss, out
+
+    def norm_sq(self, repl_sq: torch.Tensor, shard_sq: torch.Tensor) -> torch.Tensor:
+        """The global squared norm: the replicated leaves' once, plus each
+        sharded leaf's squares summed over its blocks (the model group)."""
+        return repl_sq + pm.all_reduce(shard_sq, self.mesh.group(MODEL_AXIS))
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        if not any(self.sharded):
+            return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        repl = sum((torch.sum(g * g) for g, s in zip(grads, self.sharded) if not s), zero)
+        shard = sum((torch.sum(g * g) for g, s in zip(grads, self.sharded) if s), zero)
+        return torch.sqrt(self.norm_sq(repl, shard))
+
+
 def _make_optimizer(params, cfg: TrainConfig, steps_per_epoch: int) -> AdamW:
     total = max(cfg.epochs * steps_per_epoch, cfg.warmup_steps + 1)
     schedule = warmup_cosine_decay_schedule(
@@ -167,7 +255,8 @@ class TrainState:
     """The model (its parameters), the optimizer, the step count, the
     dropout generator, the feature standardization an MLP was trained
     under (``None`` for graph models) and, after training, the
-    validation edges and the model's predictions for them."""
+    validation edges and the model's predictions for them.  On a mesh
+    ``opt.sync`` holds the step's collectives."""
 
     model: nn.Module
     opt: AdamW
@@ -221,12 +310,15 @@ def _mlp_train_step(
     """One step on raw features: standardize, forward with dropout from
     the state's generator, Huber loss, gradients, the optimizer."""
     feats = (feats - mean) / std
-    pred = state.model(feats, train=True, generator=state.generator)
+    pred = state.model(feats, train=True, generator=_rows_draw(state, feats.shape[0]))
     loss = _huber(pred, target)
-    grads = torch.autograd.grad(loss, state.opt.params)
-    state.opt.update(list(grads))
+    grads = list(torch.autograd.grad(loss, state.opt.params))
+    loss = loss.detach()
+    if state.opt.sync is not None:
+        loss, grads = state.opt.sync.average(loss, grads)
+    state.opt.update(grads)
     state.step += 1
-    return state, loss.detach()
+    return state, loss
 
 
 def train_mlp(
@@ -236,14 +328,38 @@ def train_mlp(
     model_config: Optional[MLPConfig] = None,
     config: Optional[TrainConfig] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
     """Train an ``MLPRegressor`` (initialized from ``config.seed``) on
-    ``train_data``'s batches; → (state, validation metrics, history)."""
+    ``train_data``'s batches; → (state, validation metrics, history).
+    With ``mesh`` every rank calls it and trains data-parallel on the
+    mesh's device (module docstring)."""
     cfg = config or TrainConfig()
     model = MLPRegressor(
         model_config or MLPConfig(), generator=torch.Generator().manual_seed(cfg.seed)
     )
-    return _train_mlp_model(model, train_data, val_data, cfg, device)
+    return _train_mlp_model(model, train_data, val_data, cfg, device, mesh)
+
+
+def _rows_draw(state: TrainState, rows: int):
+    """Dropout's draw for a step on this rank's ``rows`` rows of each
+    global batch: on a data axis of n > 1 the global batch's mask, of
+    which the rank keeps its rows (``BatchRowsDraw``), so data ranks do
+    not repeat each other's masks; else the state's generator."""
+    sync = state.opt.sync
+    if sync is None or sync.mesh.shape[DATA_AXIS] == 1:
+        return state.generator
+    return BatchRowsDraw(state.generator, sync.mesh.shape[DATA_AXIS],
+                         sync.mesh.coord(DATA_AXIS), rows)
+
+
+def _data_slice(mesh: Optional[Mesh], batch: int) -> slice:
+    """This rank's rows of a global batch of ``batch`` rows."""
+    if mesh is None:
+        return slice(0, batch)
+    per = batch // mesh.shape[DATA_AXIS]
+    lo = mesh.coord(DATA_AXIS) * per
+    return slice(lo, lo + per)
 
 
 def _train_mlp_model(
@@ -252,17 +368,34 @@ def _train_mlp_model(
     val_data: EdgeBatches,
     cfg: TrainConfig,
     device,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
     """Train ``model`` from its current parameters.  History entries add
     ``elapsed_s`` (seconds since the first step began, taken after the
     step's loss reached the host) to the JAX trainer's keys."""
-    dev = _build.resolve_device(device)
+    if mesh is None:
+        dev = _build.resolve_device(device)
+        axis_note = ""
+    else:
+        dev = mesh.device
+        # The batch dim splits over the data axis — round to a multiple.
+        data_n = mesh.shape[DATA_AXIS]
+        axis_note = f" (data axis {data_n})"
+        if train_data.batch_size % data_n:
+            rounded = max((train_data.batch_size // data_n) * data_n, data_n)
+            train_data = EdgeBatches(
+                train_data.rows,
+                batch_size=rounded,
+                shuffle=train_data.shuffle,
+                seed=train_data.seed,
+                drop_remainder=train_data.drop_remainder,
+            )
     if len(train_data) == 0:
         # Silently running zero steps would export an untrained (random)
         # model — fail loudly instead.
         raise ValueError(
             f"no full batches: {train_data.rows.shape[0]} rows < batch "
-            f"{train_data.batch_size}"
+            f"{train_data.batch_size}{axis_note}"
         )
     warm_start_output_bias(model, float(train_data.rows[:, -1].mean()))
     in_dim = model.config.in_dim
@@ -282,8 +415,11 @@ def _train_mlp_model(
         feat_mean=feat_mean,
         feat_std=feat_std,
     )
+    if mesh is not None:
+        state.opt.sync = _MeshSync(mesh, [False] * len(state.opt.params))
     mean_t = torch.from_numpy(feat_mean).to(dev)
     std_t = torch.from_numpy(feat_std).to(dev)
+    mine = _data_slice(mesh, train_data.batch_size)
 
     history: List[Dict[str, float]] = []
     model.train()
@@ -292,8 +428,8 @@ def _train_mlp_model(
     for epoch in range(cfg.epochs):
         for feats, target, _, _ in train_data.epoch(epoch):
             state, loss = _mlp_train_step(
-                state, torch.from_numpy(feats).to(dev), torch.from_numpy(target).to(dev),
-                mean_t, std_t,
+                state, torch.from_numpy(feats[mine]).to(dev),
+                torch.from_numpy(target[mine]).to(dev), mean_t, std_t,
             )
             seen += feats.shape[0]
             if state.step % cfg.log_every == 0:
@@ -337,7 +473,12 @@ def _graph_loss_and_grads(
     """Loss of one batch (dropout from the state's generator) and the
     gradient of every parameter."""
     model = state.model
-    pred = model(node_feats, table, src, dst, qef, train=True, generator=state.generator)
+    # The GAT and GraphSAGE drop over the node table, which every rank
+    # computes whole: one mask on every rank, as the reference's one draw
+    # over the table.  The hop encoder drops per batch row.
+    gen = (_rows_draw(state, src.shape[0]) if isinstance(model, HopRanker)
+           else state.generator)
+    pred = model(node_feats, table, src, dst, qef, train=True, generator=gen)
     loss = _huber(pred, target)
     params = list(model.parameters())
     grads = torch.autograd.grad(loss, params)
@@ -348,6 +489,8 @@ def _graph_train_step(
     state: TrainState, node_feats, table, src, dst, target, qef
 ) -> Tuple[TrainState, torch.Tensor]:
     loss, grads = _graph_loss_and_grads(state, node_feats, table, src, dst, target, qef)
+    if state.opt.sync is not None:
+        loss, grads = state.opt.sync.average(loss, grads)
     state.opt.update(grads)
     state.step += 1
     return state, loss
@@ -435,10 +578,12 @@ def train_graphsage(
     config: Optional[TrainConfig] = None,
     device="cuda",
     batch_size: int = 4096,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
     """Encoder pretraining: predict per-edge RTT from endpoint embeddings
     (a ``_SAGEEdgeModel`` initialized from ``config.seed``); → (state,
-    validation metrics, history).
+    validation metrics, history).  ``mesh``: data-parallel (module
+    docstring).
 
     The probe graph's signal (EMA RTT per edge) supervises the encoder; the
     learned embeddings are the node representation the GAT ranker and the
@@ -456,7 +601,7 @@ def train_graphsage(
     )
     return _train_graph_model(
         model, node_feats, table, edge_src, edge_dst, edge_target, None,
-        cfg, device, batch_size,
+        cfg, device, batch_size, mesh=mesh,
     )
 
 
@@ -472,9 +617,12 @@ def train_gat_ranker(
     config: Optional[TrainConfig] = None,
     device="cuda",
     batch_size: int = 4096,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
     """Train a ``GATRanker`` (initialized from ``config.seed``) on the
-    download edges; → (state, validation metrics, history)."""
+    download edges; → (state, validation metrics, history).  ``mesh``:
+    data-parallel, the node table whole on every rank (module
+    docstring)."""
     cfg = config or TrainConfig()
     mcfg = model_config or GNNConfig()
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -487,7 +635,7 @@ def train_gat_ranker(
     )
     return _train_graph_model(
         model, node_feats, table, edge_src, edge_dst, edge_target,
-        query_edge_feats, cfg, device, batch_size,
+        query_edge_feats, cfg, device, batch_size, mesh=mesh,
     )
 
 
@@ -505,39 +653,59 @@ def train_hop_ranker(
     batch_size: int = 65_536,
     hop_feats=None,
     node_sharding: str = "replicated",
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
     """Train the flagship ``HopRanker`` (models/hop.py; initialized from
     ``config.seed``): aggregation is precomputed once per snapshot, the
     train step is dense matrix work on edge batches.  Pass ``hop_feats``
     (numpy or a tensor) when the caller already precomputed them (the
     scorer export needs the same array — compute once, use twice); else
-    they are computed once here, on ``device``.  Only
-    ``node_sharding="replicated"`` runs on one card."""
-    if node_sharding == "model":
-        raise ValueError(
-            "node_sharding='model' partitions the node tables over a device "
-            "mesh: it waits for the port's multi-device slice (ROADMAP queue 1 "
-            "item 9)"
-        )
-    if node_sharding != "replicated":
+    they are computed once here, on ``device`` (the mesh's device).
+
+    ``mesh``: data-parallel (module docstring).  ``node_sharding="model"``
+    (with a mesh) partitions the hop features, the embedding table and
+    its moments by node over the mesh's model axis — the config[4] scale
+    mode where node tables exceed one device's memory; the precompute
+    itself then runs node-sharded (one halo all-to-all per hop), and a
+    ``hop_feats`` handed in is the whole table or the rank's block."""
+    if node_sharding not in ("replicated", "model"):
         raise ValueError(f"unknown node_sharding {node_sharding!r}")
+    num_nodes = int(table.indices.shape[0])
+    if node_sharding == "model":
+        if mesh is None:
+            raise ValueError('node_sharding="model" needs a mesh')
+        if num_nodes % mesh.shape[MODEL_AXIS]:
+            raise ValueError(
+                f"num_nodes {num_nodes} not divisible by the model axis "
+                f"{mesh.shape[MODEL_AXIS]}"
+            )
     cfg = config or TrainConfig()
     mcfg = model_config or HopConfig()
-    dev = _build.resolve_device(device)
+    dev = _build.resolve_device(device) if mesh is None else mesh.device
     if hop_feats is None:
-        hop_feats = precompute_hop_features(
-            torch.as_tensor(np.asarray(node_feats, np.float32)), table.to(dev), hops=mcfg.hops
-        )
+        if node_sharding == "model":
+            # The [N, F] hop table is the memory wall at config[4] scale,
+            # so the precompute itself runs node-sharded and lands as the
+            # rank's block.
+            plan = build_halo_plan(table, mesh, axis=MODEL_AXIS)
+            hop_feats = precompute_hop_features_sharded(
+                mesh, node_feats, table, plan, hops=mcfg.hops, axis=MODEL_AXIS,
+            )
+        else:
+            hop_feats = precompute_hop_features(
+                torch.as_tensor(np.asarray(node_feats, np.float32)), table.to(dev),
+                hops=mcfg.hops,
+            )
     model = HopRanker(
         mcfg,
-        num_nodes=int(hop_feats.shape[0]),
+        num_nodes=num_nodes if node_sharding == "model" else int(hop_feats.shape[0]),
         in_dim=int(hop_feats.shape[1]),
         query_edge_dim=0 if query_edge_feats is None else int(query_edge_feats.shape[1]),
         generator=torch.Generator().manual_seed(cfg.seed),
     )
     return _train_graph_model(
         model, hop_feats, table, edge_src, edge_dst, edge_target,
-        query_edge_feats, cfg, dev, batch_size,
+        query_edge_feats, cfg, dev, batch_size, mesh=mesh, node_sharding=node_sharding,
     )
 
 
@@ -552,27 +720,54 @@ def _train_graph_model(
     cfg: TrainConfig,
     device,
     batch_size: int,
+    *,
+    mesh: Optional[Mesh] = None,
+    node_sharding: str = "replicated",
 ) -> Tuple[TrainState, EvalMetrics, List[Dict[str, float]]]:
     """Train ``model`` from its current parameters.  History entries add
     ``elapsed_s`` (seconds since the first step began, taken after the
-    step's loss reached the host) to the JAX trainer's keys."""
-    dev = _build.resolve_device(device)
+    step's loss reached the host) to the JAX trainer's keys.  With
+    ``node_sharding="model"`` (a ``HopRanker`` and a mesh) the model
+    keeps its block of the node tables first, and ``node_feats`` is the
+    whole hop table or the rank's block.  A model sharded already (e.g. to
+    load flax's parameters into its blocks) keeps its shard."""
+    dev = _build.resolve_device(device) if mesh is None else mesh.device
     val_idx, train_idx = split_edges(len(edge_src), cfg.seed)
 
     b0 = min(batch_size, max(len(train_idx), 2))
+    axis_note = ""
+    if mesh is not None:
+        # The batch dim splits over the data axis — round down to a multiple.
+        data_n = mesh.shape[DATA_AXIS]
+        b0 = max((b0 // data_n) * data_n, data_n)
+        axis_note = f" (data axis {data_n})"
     if len(train_idx) < b0:
-        raise ValueError(f"no full batches: {len(train_idx)} train edges < batch {b0}")
+        raise ValueError(f"no full batches: {len(train_idx)} train edges < batch {b0}{axis_note}")
     # Output-bias warm start at the training-split target mean (Huber's
     # linear tail otherwise spends the whole run closing the offset).
     warm_start_output_bias(model, float(edge_target[train_idx].mean()))
+    nf = torch.as_tensor(node_feats, dtype=torch.float32)
+    if node_sharding == "model":
+        if model.node_shard is None:
+            model.shard_nodes(NodeShard(mesh, MODEL_AXIS, model.num_nodes))
+        shard = model.node_shard
+        if nf.shape[0] == shard.num_nodes:
+            nf = shard.block(nf)
+    elif node_sharding != "replicated":
+        raise ValueError(f"unknown node_sharding {node_sharding!r}")
     model.to(dev)
+    nf = nf.to(dev)
     steps_per_epoch = max(len(train_idx) // b0, 1)
     state = TrainState(
         model=model,
         opt=_make_optimizer(list(model.parameters()), cfg, steps_per_epoch),
         generator=torch.Generator(device=dev).manual_seed(cfg.seed + 1),
     )
-    nf = torch.as_tensor(node_feats, dtype=torch.float32).to(dev)
+    if mesh is not None:
+        sharded = [node_sharding == "model" and _is_node_table_path(name)
+                   for name, _ in model.named_parameters()]
+        state.opt.sync = _MeshSync(mesh, sharded)
+    mine = _data_slice(mesh, b0)
     dev_table = table.to(dev)
     has_qef = query_edge_feats is not None
 
@@ -593,6 +788,7 @@ def _train_graph_model(
     seen = 0
     for epoch in range(cfg.epochs):
         for idx in epoch_batches(train_idx, b0, cfg.seed, epoch):
+            idx = idx[mine]
             (src, dst), qef = batch(idx)
             target = torch.from_numpy(np.asarray(edge_target[idx], np.float32)).to(dev)
             state, loss = _graph_train_step(state, nf, dev_table, src, dst, target, qef)
@@ -625,14 +821,34 @@ def _train_graph_model(
 # ---------------------------------------------------------------------------
 
 
+def full_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The state's parameters by flax path (``/``-joined), whole, on the
+    CPU.  A node-sharded state's blocks are gathered over the model axis,
+    so every rank of its mesh calls this."""
+    shard = getattr(state.model, "node_shard", None)
+    out = {}
+    for name, p in state.model.named_parameters():
+        p = p.detach()
+        if shard is not None and _is_node_table_path(name):
+            p = shard.gather(p)
+        out[name.replace(".", "/")] = p.cpu()
+    return out
+
+
 def save_checkpoint(path: str, state: TrainState) -> None:
-    """Write the state's parameters (flax paths, ``/``-joined) and step
-    to the file ``path``."""
-    params = {
-        name.replace(".", "/"): p.detach().cpu()
-        for name, p in state.model.named_parameters()
-    }
-    torch.save({"params": params, "step": int(state.step)}, path)
+    """Write the state's parameters (flax paths, ``/``-joined, node tables
+    whole) and step to the file ``path``, atomically.  On a mesh every
+    rank calls it, rank 0 writes, and no rank returns before the file is
+    in place."""
+    params = full_params(state)
+    sync = state.opt.sync
+    if sync is None or sync.mesh.rank == 0:
+        tmp = path + ".tmp"
+        torch.save({"params": params, "step": int(state.step)}, tmp)
+        os.replace(tmp, path)
+    if sync is not None:
+        # No rank returns (and reads the file) before it is in place.
+        pm.barrier(sync.mesh)
 
 
 def restore_params(path: str) -> Dict:

@@ -286,6 +286,6 @@ def test_train_hop_ranker_entry_point(graph):
         device="cpu", batch_size=B)
     assert isinstance(state.model, th.HopRanker) and state.step == 12
     assert np.isfinite(metrics.mae) and len(hist) == 12
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         ttr.train_hop_ranker(nf, tt, es, ed, y, model_config=tcfg, device="cpu",
                              batch_size=B, node_sharding="model")

@@ -662,7 +662,7 @@ def test_online_mode_tolerates_reference_csv(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Paths not ported refuse loudly
+# Paths not ported, and configurations that cannot run, refuse loudly
 # ---------------------------------------------------------------------------
 
 
@@ -670,8 +670,8 @@ def test_online_mode_tolerates_reference_csv(tmp_path):
     "kw, exc, match",
     [
         (dict(native_ingest=True), NotImplementedError, "item 14"),
-        (dict(mesh=object()), ValueError, "item 9"),
-        (dict(node_sharding="model"), ValueError, "item 9"),
+        (dict(mesh=object()), ValueError, "create_mesh"),
+        (dict(node_sharding="model"), ValueError, "needs a mesh"),
         (dict(node_sharding="bogus"), ValueError, "unknown node_sharding"),
     ],
 )
