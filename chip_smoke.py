@@ -286,6 +286,31 @@ launch counts are zeroed before each and must read 0 after.
     6 replicated ones, losses within 1e-3 relative; the plan's H against
     S and the halo bytes per hop against a full all-gather's.  The phase
     must end within 150 s.
+19. Tracing, telemetry and tenant QoS on the K1 serving path
+    (``telemetry_qos``).  ``cli.scheduler.build`` at phase 2's sizes
+    (16,384 hosts, 65,536 slots, the 1.5 ms batcher, the seeded K1
+    scorer), 64 tasks warmed with 32 downloads each (phase 2's 256 cut
+    for time); a three-tenant ``QoSPolicy`` (DRR weights 4 : 2 : 1)
+    installed through ``service.on_qos_config``; ``init_telemetry``
+    with a metric journal (1 s) and one latency SLO on
+    ``scheduler_eval_flush_seconds``.  Three arms, each run twice in
+    the mirrored order off, 0.1, 1.0, 1.0, 0.1, off (a run: 32 threads
+    x 16 ``register_peer`` calls, each thread pinned to one tenant):
+    tracing off, ``init_flight_recorder`` with a durable log at sample
+    rate 0.1 (the config default), and at 1.0.  Launch counts are zeroed
+    just before the runs and read just after.  Checks on every run:
+    flush-sketch observations = the batcher's dispatch groups = drains;
+    at 1.0, ``scheduler/eval.flush`` spans replayed from the run's log =
+    spans exported = flush observations, and the spans' ``rows`` sum to
+    the rows drained; at 0.1, the log holds every span exported and
+    exported + sampled out = flushes.  Every request answered; K1
+    launches = the batcher's scorer calls; K1 against its plain version
+    on 64 of the phase's flushes; the journal, replayed, ends on the
+    registry's flush count; the SLO engine evaluated a window; the
+    announce answer carries ``tenant_qos``.  Printed: announces/s and
+    register p50 / p99 per arm (both runs pooled) and per run, each
+    tenant's share of the rows drained, and the flushes that drained
+    two or more tenant lanes.
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -406,6 +431,15 @@ MD_PRE_TOL = 1e-5         # sharded vs replicated precompute, scaled by max(1, |
 MD_LOSS_RTOL = 1e-3       # node-sharded vs replicated losses (relative)
 MD_MAE_TOL = 5e-3         # node-sharded vs replicated validation MAE
 MD_SECONDS = 150.0        # the phase's time limit
+TQ_TASKS = 64             # phase 19: warm tasks, as phase 2
+TQ_WARM = 32              # ... warm downloads a task (phase 2's 256 cut for the phase's time)
+TQ_TENANTS = {"t-gold": ("gold", 4.0), "t-silver": ("silver", 2.0),
+              "t-bronze": ("bronze", 1.0)}   # tenant: (class, DRR weight)
+TQ_RATES = {"off": None, "sampled": 0.1, "full": 1.0}  # tracing sample rate by arm
+TQ_ORDER = ("off", "sampled", "full", "full", "sampled", "off")  # mirrored against drift
+TQ_SLO = {"name": "eval_flush", "objective": "latency",
+          "metric": "scheduler_eval_flush_seconds", "threshold_ms": 5.0, "target": 0.99,
+          "fast_window_s": 5.0, "slow_window_s": 60.0}
 
 
 class SmokeFailure(RuntimeError):
@@ -521,10 +555,11 @@ def warm_tasks(service, cluster, hosts, *, n_tasks, hosts_per_task):
 
 
 def serve_requests(service, hosts, urls, *, hosts_per_task, threads, per_thread,
-                   first=0):
+                   first=0, tenants=()):
     """``threads × per_thread`` concurrent registrations, requests
     ``first`` on; request q registers a host of the NEXT task's group
-    into task q % n_tasks, so the host has no peer there yet.  Returns
+    into task q % n_tasks, so the host has no peer there yet.  With
+    ``tenants``, thread t registers as ``tenants[t % len(tenants)]``.  Returns
     the records of every ranked candidate set and the phase's timings:
     register_peer per request, evaluate_parents per ranked set, and the
     scorer call per flush (host time, the kernel launch included)."""
@@ -566,13 +601,15 @@ def serve_requests(service, hosts, urls, *, hosts_per_task, threads, per_thread,
     barrier = threading.Barrier(threads + 1)
 
     def worker(t: int) -> None:
+        tenant = tenants[t % len(tenants)] if tenants else ""
         try:
             barrier.wait()
             for i in range(t * per_thread, (t + 1) * per_thread):
                 task_i, hi = plan[i]
                 t0 = time.perf_counter()
                 res = service.register_peer(
-                    host=hosts[hi], url=urls[task_i], peer_id=f"req-{first + i}"
+                    host=hosts[hi], url=urls[task_i], peer_id=f"req-{first + i}",
+                    tenant=tenant,
                 )
                 lat[i] = time.perf_counter() - t0
                 kinds[i] = res.schedule.kind.name if res.schedule else "NONE"
@@ -2617,6 +2654,222 @@ def multidevice_phase(torch, dev, seed, out_dir, work, gat, hop):
     return summary, gat_launches["segment_sum"], k3_err
 
 
+# ---------------------------------------------------------------------------
+# Tracing, telemetry and tenant QoS on the K1 serving path
+# ---------------------------------------------------------------------------
+
+
+def telemetry_qos_phase(torch, dev, seed, out_dir):
+    """Phase 19: the K1 serving path with the tenant QoS policy, the flight
+    recorder, the metric journal and the SLO engine.  Returns (summary,
+    launches)."""
+    import argparse
+
+    from dragonfly2_tpu_torch.cli.common import (
+        init_flight_recorder, init_telemetry, stop_telemetry)
+    from dragonfly2_tpu_torch.cli.scheduler import SchedulerConfig, build
+    from dragonfly2_tpu_torch.config.schema import TracingSection
+    from dragonfly2_tpu_torch.ops import fused_score
+    from dragonfly2_tpu_torch.records.synthetic import SyntheticCluster
+    from dragonfly2_tpu_torch.rpc.scheduler_server import SchedulerRPCAdapter, host_to_wire
+    from dragonfly2_tpu_torch.scheduler import ScorerBatcher
+    from dragonfly2_tpu_torch.scheduler import metrics as smetrics
+    from dragonfly2_tpu_torch.sim.swarm import host_from_latent
+    from dragonfly2_tpu_torch.trainer.export import MLPScorer, scorer_to_bytes
+    from dragonfly2_tpu_torch.utils import tracing
+    from dragonfly2_tpu_torch.utils.metric_journal import replay_metric_journal
+    from dragonfly2_tpu_torch.utils.metrics import merge_sketch_states
+
+    def flush_observations():
+        return smetrics.EVAL_FLUSH_SECONDS.aggregate_state()["total"]
+
+    work = os.path.join(out_dir, "telemetry_qos")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    cfg = SchedulerConfig()
+    cfg.storage.dir = os.path.join(work, "records")
+    cfg.scheduling.algorithm = "ml"
+    cfg.scheduling.eval_feature_cache_hosts = STORE_SLOTS
+    cfg.scheduling.eval_batch_linger_ms = 1.5
+    cfg.scheduling.retry_interval_s = 0.0
+    cfg.telemetry.journal_path = os.path.join(work, "scheduler.dfmj")
+    cfg.telemetry.journal_interval_s = 1.0
+    cfg.telemetry.slo_interval_s = 1.0
+    cfg.telemetry.slos = [TQ_SLO]
+    blob = scorer_to_bytes(MLPScorer(weights=weights_from_seed(seed)))
+    service = build(cfg, device=dev, scorer_blob=blob, rng=random.Random(seed))
+    batcher = service.scheduling.evaluator.batcher
+    service.on_qos_config({"tenant_qos": {
+        t: {"tenant_class": c, "weight": w} for t, (c, w) in TQ_TENANTS.items()}})
+    check(service.qos_policy is not None and batcher._qos_policy is service.qos_policy,
+          "on_qos_config did not install the policy in the batcher")
+    cluster = SyntheticCluster(num_hosts=N_HOSTS, seed=seed)
+    hosts = [host_from_latent(lh) for lh in cluster.hosts]
+    for h in hosts:
+        service.announce_host(h)
+    urls = warm_tasks(service, cluster, hosts, n_tasks=TQ_TASKS, hosts_per_task=TQ_WARM)
+    warm_s = time.perf_counter() - t_phase
+    answer = SchedulerRPCAdapter(service).announce_host(
+        {"host": host_to_wire(hosts[0]), "tenant": "t-gold"})
+
+    drains, groups, seen = [], [0], {"flushes": []}
+
+    def keep_drains(fn):
+        def wrapped(self):
+            batch = fn(self)
+            if self is batcher and batch:
+                rows = {}
+                for r in batch:
+                    rows[r.tenant] = rows.get(r.tenant, 0) + r.rows
+                drains.append(rows)
+            return batch
+        return wrapped
+
+    def count_groups(fn):
+        def wrapped(self, batch, scorer):
+            if self is batcher:
+                groups[0] += 1
+            return fn(self, batch, scorer)
+        return wrapped
+
+    args = argparse.Namespace(trace_log=None, metric_journal=None, _prog="scheduler")
+    exporter, service_name = tracing.default_tracer.exporter, tracing.default_tracer.service
+    n_req = THREADS * PER_THREAD
+    journal, engine = init_telemetry(args, cfg.telemetry, "scheduler")
+    runs = []
+    reset_kernel_counts()
+    calls0 = batcher.scorer_calls
+    try:
+        with tapped(ScorerBatcher, "_drain_locked", keep_drains), \
+                tapped(ScorerBatcher, "_dispatch_group", count_groups), \
+                tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+            for i, arm in enumerate(TQ_ORDER):
+                durable = None
+                if TQ_RATES[arm] is None:
+                    tracing.set_enabled(False)
+                else:
+                    durable = init_flight_recorder(args, TracingSection(
+                        log_path=os.path.join(work, f"{arm}{i}.dftrace"),
+                        sample_rate=TQ_RATES[arm]), "scheduler")
+                d0, g0, f0 = len(drains), groups[0], flush_observations()
+                _, timing, kinds = serve_requests(
+                    service, hosts, urls, hosts_per_task=TQ_WARM, threads=THREADS,
+                    per_thread=PER_THREAD, first=i * n_req, tenants=list(TQ_TENANTS))
+                tracing.set_enabled(True)
+                runs.append({"arm": arm, "timing": timing, "schedule_kinds": kinds,
+                             "drains": drains[d0:], "dispatch_groups": groups[0] - g0,
+                             "flush_observations": flush_observations() - f0,
+                             "durable": durable})
+                if durable is not None:
+                    durable.close()
+    finally:
+        tracing.default_tracer.exporter = exporter
+        tracing.default_tracer.service = service_name
+        tracing.set_enabled(True)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    calls = batcher.scorer_calls - calls0
+    deadline = time.monotonic() + 5.0
+    while not engine.state()["slos"] and time.monotonic() < deadline:
+        time.sleep(0.1)
+    slo_state = engine.state()["slos"]
+    stop_telemetry(journal, engine)
+    snaps, journal_stats = replay_metric_journal(cfg.telemetry.journal_path)
+    live_flushes = flush_observations()
+    journal_flushes = merge_sketch_states([
+        st for _, st in snaps[-1]["metrics"]["scheduler_eval_flush_seconds"]["series"]
+    ])["total"] if snaps else -1
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+
+    rows_by_tenant = {}
+    for run in runs:
+        drained = run.pop("drains")
+        run.update({"flushes": len(drained),
+                    "rows_drained": sum(sum(d.values()) for d in drained),
+                    "flushes_two_or_more_lanes": sum(len(d) >= 2 for d in drained),
+                    "announce_rate_per_s": n_req / run["timing"]["wall"]})
+        for d in drained:
+            for t, n in d.items():
+                rows_by_tenant[t] = rows_by_tenant.get(t, 0) + n
+        durable = run.pop("durable")
+        if durable is None:
+            continue
+        reqs, stats = tracing.replay_trace_log(durable.path)
+        spans = [sp for sp in tracing.log_spans(reqs) if sp["name"] == "scheduler/eval.flush"]
+        rows = [int(a["value"]["intValue"]) for sp in spans for a in sp["attributes"]
+                if a["key"] == "rows"]
+        run.update({"log": stats, "exported": durable.exported,
+                    "sampled_out": durable.sampled_out, "flush_spans_replayed": len(spans),
+                    "span_rows": sum(rows)})
+    arms = {}
+    for arm, rate in TQ_RATES.items():
+        mine = [r for r in runs if r["arm"] == arm]
+        pooled = {k: sum((r["timing"][k] for r in mine), [])
+                  for k in ("register", "evaluate", "flush")}
+        pooled["wall"] = sum(r["timing"]["wall"] for r in mine)
+        arms[arm] = {"sample_rate": rate, **summarize(pooled, n_req * len(mine)),
+                     "runs": [{k: v for k, v in r.items() if k not in ("arm", "timing")}
+                              for r in mine]}
+    total_rows = sum(rows_by_tenant.values())
+    out = {
+        "seconds": time.perf_counter() - t_phase, "warm_seconds": warm_s, "arms": arms,
+        "tenant_row_share": {t: n / total_rows for t, n in sorted(rows_by_tenant.items())},
+        "k1_launches": launches["fused_gather_mlp_score"], "scorer_calls": calls,
+        "batcher_fallbacks": batcher.fallbacks, "slo": slo_state,
+        "journal": {**journal_stats, "final_flush_count": journal_flushes,
+                    "live_flush_count": live_flushes},
+        "announce_tenant_qos": answer.get("tenant_qos"),
+        "k1": {"max_err_scaled": k1_err, "tol_scaled": K1_TOL,
+               "flushes_checked": len(seen["flushes"]), "ms_128": k1_ms,
+               "plain_ms_128": k1_plain_ms, "bound_ms_128": k1_bound_ms},
+    }
+    emit({"phase": "telemetry_qos", **out})
+    shutil.rmtree(cfg.storage.dir, ignore_errors=True)
+
+    for i, run in enumerate(runs):
+        what = f"run {i} ({run['arm']})"
+        check(sum(run["schedule_kinds"].values()) == n_req
+              and "NONE" not in run["schedule_kinds"],
+              f"{what}: answers {run['schedule_kinds']}")
+        check(run["flush_observations"] == run["dispatch_groups"] == run["flushes"] > 0,
+              f"{what}: flush observations {run['flush_observations']}, dispatch groups "
+              f"{run['dispatch_groups']}, drains {run['flushes']}")
+        if run["arm"] == "off":
+            continue
+        check(run["log"]["frames"] == run["exported"] and run["log"]["corrupt"] == 0
+              and not run["log"]["torn_tail"]
+              and run["exported"] + run["sampled_out"] == run["flush_observations"],
+              f"{what}: log {run['log']}, exported {run['exported']}, sampled out "
+              f"{run['sampled_out']}, flushes {run['flush_observations']}")
+        if run["arm"] == "full":
+            check(run["flush_spans_replayed"] == run["exported"]
+                  == run["flush_observations"] == run["dispatch_groups"],
+                  f"{what}: flush spans replayed {run['flush_spans_replayed']}, exported "
+                  f"{run['exported']}, flush observations {run['flush_observations']}, "
+                  f"dispatch groups {run['dispatch_groups']}")
+            check(run["span_rows"] == run["rows_drained"],
+                  f"{what}: span rows {run['span_rows']} != rows drained "
+                  f"{run['rows_drained']}")
+    check(launches["fused_gather_mlp_score"] == calls > 0,
+          f"K1 launches {launches['fused_gather_mlp_score']} != the batcher's scorer calls "
+          f"{calls}")
+    check(launches["segment_sum"] == 0 and launches["rule_weighted_sum"] == 0,
+          f"another kernel launched on the serving path: {launches}")
+    check(batcher.fallbacks == 0, f"{batcher.fallbacks} batcher fallbacks")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on phase 19's "
+          "flushes")
+    check(len(seen["flushes"]) == WIRE_K1_FLUSHES, f"{len(seen['flushes'])} flushes kept")
+    check(journal_stats["corrupt"] == 0 and journal_flushes == live_flushes,
+          f"the journal's last flush count {journal_flushes} != the registry's "
+          f"{live_flushes} ({journal_stats})")
+    check(bool(slo_state) and slo_state[0]["samples"] >= 1,
+          f"the SLO engine evaluated no window: {slo_state}")
+    check(answer.get("tenant_qos") == service.qos_policy.to_payload(),
+          f"the announce answer's tenant_qos: {answer.get('tenant_qos')}")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2881,22 +3134,30 @@ def main(argv=None) -> int:
                      "max_abs_err_multidevice_gat": md_k3_err})
     k3_entry["launches"] += md_k3
     k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"], md_k3_err)
+
+    # -- 19. tracing, telemetry and tenant QoS on the K1 serving path --------
+    loop["telemetry_qos"], tq_launches = telemetry_qos_phase(torch, dev, args.seed, work_dir)
+    tq = loop["telemetry_qos"]
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:114",
          "launches": launches["fused_gather_mlp_score"]
-         + wire_launches["fused_gather_mlp_score"] + lc_launches["fused_gather_mlp_score"],
+         + wire_launches["fused_gather_mlp_score"] + lc_launches["fused_gather_mlp_score"]
+         + tq_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
+         "launches_telemetry_qos": tq_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
          "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
+         "max_err_scaled_telemetry_qos": tq["k1"]["max_err_scaled"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "share_of_bound": k1_bound / k1_ms, "ms_128": k1_times[128][0],
          "bound_ms_128": k1_times[128][2][0], "ms_wire_128": wire["k1"]["ms_128"],
-         "ms_wire_lifecycle_128": lc["k1"]["ms_128"]},
+         "ms_wire_lifecycle_128": lc["k1"]["ms_128"],
+         "ms_telemetry_qos_128": tq["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

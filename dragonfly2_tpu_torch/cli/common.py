@@ -1,13 +1,13 @@
 """Shared CLI plumbing (reference: cmd/dependency/dependency.go:59-120).
 
-Port of ``base_parser``, ``init_logging`` and ``init_debug`` of
-``dragonfly2_tpu/cli/common.py``, and ``wait_for_signal``, the serve
-modes' wait.  The reference's tracing and telemetry
-flags (``--trace-file``, ``--otlp``, ``--trace-log``,
-``--metric-journal``) are not offered, so argparse refuses them: the span
-exporters, the flight recorder and the metric journal wait for the
-port's telemetry slice (ROADMAP queue 1 item 10), and so does the
-``DF_FAULTINJECT`` install that the reference's ``init_logging`` makes.
+Port of ``base_parser`` (with the tracing and telemetry flags
+``--trace-file``, ``--otlp``, ``--trace-log`` and ``--metric-journal``),
+``init_tracing``, ``init_flight_recorder``, ``init_telemetry``,
+``init_logging`` (which installs a ``DF_FAULTINJECT`` scenario from the
+environment) and ``init_debug`` of ``dragonfly2_tpu/cli/common.py``.
+New here: ``stop_telemetry``, which both binaries call on shutdown, and
+``wait_for_signal``, the serve modes' wait.  ``init_diagnostics`` (the
+``/metrics`` sidecar) is ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import argparse
 import signal
 import threading
+from typing import Optional
 
 from .. import __version__
 from ..utils import dflog
@@ -22,7 +23,7 @@ from ..utils import dflog
 
 def base_parser(prog: str, description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=prog, description=description)
-    p.set_defaults(_prog=prog)
+    p.set_defaults(_prog=prog)  # OTLP resource service.name
     p.add_argument("--config", default=None, help="YAML config file path")
     p.add_argument("--verbose", action="store_true", help="debug logging")
     p.add_argument("--console", action="store_true", help="log to stdout")
@@ -34,9 +35,140 @@ def base_parser(prog: str, description: str) -> argparse.ArgumentParser:
              "ephemeral)",
     )
     p.add_argument(
+        "--trace-file", default=None, metavar="PATH",
+        help="append spans as JSON lines (the --jaeger export analog, "
+             "cmd/dependency/dependency.go:263-297); cross-process trace "
+             "ids from the traceparent wire header land here",
+    )
+    p.add_argument(
+        "--otlp", default=None, metavar="TARGET",
+        help="export spans as OTLP/JSON: an http(s) collector endpoint "
+             "(Jaeger/otel-collector at :4318/v1/traces) or a file path "
+             "appended one ExportTraceServiceRequest per line — the "
+             "reference's --jaeger flag analog "
+             "(cmd/dependency/dependency.go:263-297)",
+    )
+    p.add_argument(
+        "--trace-log", default=None, metavar="PATH",
+        help="flight recorder: append-only crash-safe trace log "
+             "(length-prefixed, digest-checked OTLP/JSON frames; "
+             "head-sampled by trace id per config tracing.sample_rate) — "
+             "feed per-process logs to tools/trace_assemble.py; "
+             "overrides config tracing.log_path",
+    )
+    p.add_argument(
+        "--metric-journal", default=None, metavar="PATH",
+        help="fleet telemetry: append-only crash-safe metric journal "
+             "(length-prefixed, digest-checked DFMJ1 frames of periodic "
+             "counter/gauge/sketch snapshots + run identity) — feed "
+             "per-process journals to tools/fleet_assemble.py; overrides "
+             "config telemetry.journal_path",
+    )
+    p.add_argument(
         "--version", action="version", version=f"%(prog)s {__version__}"
     )
     return p
+
+
+def init_tracing(args) -> None:
+    """Point the process-default tracer at the configured exporter
+    (every binary, like the reference's otel wiring in cmd/dependency):
+    --otlp for standard-collector export, --trace-file for raw JSONL."""
+    if getattr(args, "otlp", None):
+        from ..utils.tracing import OTLPJSONExporter, default_tracer
+
+        default_tracer.exporter = OTLPJSONExporter(
+            args.otlp, service=getattr(args, "_prog", None) or "dragonfly"
+        )
+        return
+    if not getattr(args, "trace_file", None):
+        return
+    from ..utils.tracing import JSONLExporter, default_tracer
+
+    default_tracer.exporter = JSONLExporter(args.trace_file)
+
+
+def init_flight_recorder(args, tracing_cfg, service: Optional[str] = None):
+    """Config-driven tracer wiring, called AFTER load_config in every
+    binary (init_tracing handled the pre-config CLI flags): applies the
+    tracing.enable toggle, sizes the /debug/spans recent ring, keeps any
+    --otlp/--trace-file exporter, and attaches the durable flight
+    recorder when --trace-log or tracing.log_path names one.  Returns
+    the DurableSpanExporter (or None) so callers can flush on shutdown.
+    """
+    from ..utils import tracing as tr
+
+    service = service or getattr(args, "_prog", None) or "dragonfly"
+    tr.default_tracer.service = service
+    if tracing_cfg is not None:
+        tr.set_enabled(tracing_cfg.enable)
+    path = getattr(args, "trace_log", None) or (
+        tracing_cfg.log_path if tracing_cfg is not None else ""
+    )
+    ring_spans = tracing_cfg.ring_spans if tracing_cfg is not None else 4096
+    rate = tracing_cfg.sample_rate if tracing_cfg is not None else 1.0
+    exporters = [tr.InMemoryExporter(max_spans=ring_spans)]
+    current = tr.default_tracer.exporter
+    if not isinstance(current, (tr.InMemoryExporter, tr.CompositeExporter)):
+        exporters.append(current)  # the --otlp/--trace-file choice rides along
+    durable = None
+    if path:
+        durable = tr.DurableSpanExporter(path, service=service, sample_rate=rate)
+        exporters.append(durable)
+    tr.default_tracer.exporter = (
+        exporters[0] if len(exporters) == 1 else tr.CompositeExporter(exporters)
+    )
+    return durable
+
+
+def init_telemetry(args, telemetry_cfg, service: Optional[str] = None):
+    """Config-driven metric journal + SLO engine, called AFTER
+    load_config in every binary next to ``init_flight_recorder``
+    (DESIGN.md §23): attaches the crash-safe metric journal when
+    ``--metric-journal`` or ``telemetry.journal_path`` names one, and —
+    when ``telemetry.slos`` declares objectives — starts the burn-rate
+    engine and installs it for the ``/debug/slo`` endpoints.  Returns
+    ``(journal, engine)`` (either may be None) so callers can flush and
+    stop on shutdown."""
+    service = service or getattr(args, "_prog", None) or "dragonfly"
+    path = getattr(args, "metric_journal", None) or (
+        telemetry_cfg.journal_path if telemetry_cfg is not None else ""
+    )
+    journal = None
+    if path:
+        from ..utils.metric_journal import MetricJournal
+
+        journal = MetricJournal(
+            path,
+            service=service,
+            interval_s=(
+                telemetry_cfg.journal_interval_s
+                if telemetry_cfg is not None else 10.0
+            ),
+        ).start()
+    engine = None
+    if telemetry_cfg is not None and telemetry_cfg.slos:
+        from ..utils import slo as slo_mod
+
+        engine = slo_mod.SLOEngine(telemetry_cfg.slos)
+        engine.start(telemetry_cfg.slo_interval_s)
+        slo_mod.install_engine(engine)
+    return journal, engine
+
+
+def stop_telemetry(journal=None, engine=None) -> None:
+    """Stop what ``init_telemetry`` started: the SLO engine's thread (and
+    its install), then the journal, which writes its final snapshot.
+    The reference leaves both to exit hooks; a serve mode that stops
+    inside a longer-lived process stops them here."""
+    if engine is not None:
+        from ..utils import slo as slo_mod
+
+        engine.close()
+        if slo_mod.current_engine() is engine:
+            slo_mod.install_engine(None)
+    if journal is not None:
+        journal.close()
 
 
 def init_debug(args):
@@ -60,6 +192,13 @@ def init_logging(args, service: str) -> None:
         console=args.console or not args.log_dir,
         service=service,
     )
+    # Chaos drills hand a fault scenario to service binaries via
+    # DF_FAULTINJECT (utils/faultinject.py) — a child process then
+    # drops/delays/SIGKILLs itself at deterministic call indices, with
+    # no racy external kill timing.  No-op without the env var.
+    from ..utils import faultinject
+
+    faultinject.install_from_env()
 
 
 def wait_for_signal() -> int:

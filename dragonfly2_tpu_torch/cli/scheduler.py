@@ -29,8 +29,14 @@ reference's line of record counts.  Without it the binary serves until
 SIGINT or SIGTERM, then stops what it started in the reference's order
 and exits 0.  A gRPC port (``server.grpc_port >= 0``) or a ``grpc://``
 trainer address exits 2 naming ROADMAP queue 1 item 12c; a config key
-whose reader is not ported exits 2 naming its item.  The seed-peer
-trigger waits for ROADMAP queue 1 item 10.
+whose reader is not ported exits 2 naming its item.  As in the
+reference, ``run`` points the process tracer at ``--otlp`` /
+``--trace-file``, attaches the flight recorder (``--trace-log`` or
+``tracing.log_path``) and starts the metric journal (``--metric-journal``
+or ``telemetry.journal_path``) and the SLO engine (``telemetry.slos``);
+it stops the journal and the engine on shutdown.  ``build`` passes no
+seed-peer trigger: the reference's ``RemoteSeedPeerClient`` is ROADMAP
+queue 1 item 14.
 
     DRAGONFLY_SCHEDULER_STORAGE_DIR=DIR \\
         python -m dragonfly2_tpu_torch.cli.scheduler [--simulate N] [--device cpu]
@@ -62,7 +68,16 @@ from ..scheduler import (
 )
 from ..trainer.export import load_scorer
 from ..utils import gc as dfgc
-from .common import base_parser, init_debug, init_logging, wait_for_signal
+from .common import (
+    base_parser,
+    init_debug,
+    init_flight_recorder,
+    init_logging,
+    init_telemetry,
+    init_tracing,
+    stop_telemetry,
+    wait_for_signal,
+)
 
 # The name the serving slice gave the scheduler's config.
 SchedulerConfig = SchedulerConfigFile
@@ -147,7 +162,8 @@ def build(
 @dataclass
 class SchedulerServing:
     """What ``serve`` started; ``stop()`` stops it in the reference's
-    order (cli/scheduler.py:577-601) and then the GC runner."""
+    order (cli/scheduler.py:577-601), then the GC runner, then the
+    metric journal and the SLO engine when the binary handed them over."""
 
     service: SchedulerService
     rpc_server: object
@@ -159,6 +175,8 @@ class SchedulerServing:
     model_subscriber: object = None
     rollout_reporter: object = None
     announcer: object = None
+    journal: object = None
+    slo_engine: object = None
 
     @property
     def url(self) -> str:
@@ -179,6 +197,7 @@ class SchedulerServing:
         elif self.topology_state_path is not None:
             self.service.networktopology.save(self.topology_state_path)
         self.runner.stop()
+        stop_telemetry(self.journal, self.slo_engine)
 
 
 def serve(
@@ -370,11 +389,16 @@ def run(argv=None) -> int:
     args = p.parse_args(argv)
     init_logging(args, "scheduler")
     debug = init_debug(args)
+    init_tracing(args)
+    journal = engine = None
     try:
         try:
             cfg = load_config(SchedulerConfigFile, args.config)
+            init_flight_recorder(args, cfg.tracing, "scheduler")
+            journal, engine = init_telemetry(args, cfg.telemetry, "scheduler")
             if not args.simulate:
                 serving = serve(cfg, device=args.device)
+                serving.journal, serving.slo_engine = journal, engine
         except ConfigError as exc:
             print(f"scheduler: {exc}", file=sys.stderr)
             return 2
@@ -409,6 +433,7 @@ def run(argv=None) -> int:
         )
         return 0
     finally:
+        stop_telemetry(journal, engine)
         if debug is not None:
             debug.stop()
 

@@ -15,7 +15,10 @@ ingested download row also streams into a ``LifecycleDaemon`` (its
 ``StreamingTrainer`` on ``--device``) that registers candidates as
 ``--scheduler-id``'s models and begins their rollout through
 ``RolloutRESTClient``.  A ``grpc://`` manager and ``server.grpc_port >=
-0`` exit 2 naming ROADMAP queue 1 item 12c (the gRPC half).
+0`` exit 2 naming ROADMAP queue 1 item 12c (the gRPC half).  As in the
+reference, ``run`` wires the tracer, the flight recorder, the metric
+journal and the SLO engine from the flags and the ``tracing`` and
+``telemetry`` sections, and stops the journal and the engine on shutdown.
 
     python -m dragonfly2_tpu_torch.cli.trainer [--train-once DIR] [--manager URL] \
         [--scheduler-id ID] [--device cpu]
@@ -33,7 +36,16 @@ from ..config import ConfigError, TrainerConfigFile, load_config
 from ..manager.registry import ModelRegistry
 from ..trainer.service import TrainerService
 from ..trainer.train import TrainConfig
-from .common import base_parser, init_debug, init_logging, wait_for_signal
+from .common import (
+    base_parser,
+    init_debug,
+    init_flight_recorder,
+    init_logging,
+    init_telemetry,
+    init_tracing,
+    stop_telemetry,
+    wait_for_signal,
+)
 
 
 def train_config(cfg: TrainerConfigFile) -> TrainConfig:
@@ -62,11 +74,14 @@ def model_registry(manager_addr: Optional[str], token: Optional[str], registry=N
 
 @dataclass
 class TrainerServing:
-    """What ``serve`` started."""
+    """What ``serve`` started, and the metric journal and SLO engine when
+    the binary handed them over (``stop()`` stops them last)."""
 
     service: TrainerService
     http_server: object
     lifecycle_daemon: object = None
+    journal: object = None
+    slo_engine: object = None
 
     @property
     def url(self) -> str:
@@ -76,6 +91,7 @@ class TrainerServing:
         if self.lifecycle_daemon is not None:
             self.lifecycle_daemon.stop()
         self.http_server.stop()
+        stop_telemetry(self.journal, self.slo_engine)
 
 
 def serve(
@@ -189,9 +205,13 @@ def run(argv=None, *, registry=None) -> int:
     args = p.parse_args(argv)
     init_logging(args, "trainer")
     debug = init_debug(args)
+    init_tracing(args)
+    journal = engine = None
     try:
         try:
             cfg = load_config(TrainerConfigFile, args.config)
+            init_flight_recorder(args, cfg.tracing, "trainer")
+            journal, engine = init_telemetry(args, cfg.telemetry, "trainer")
             if args.train_once:
                 registry = model_registry(
                     args.manager or cfg.manager_addr, args.manager_token, registry
@@ -202,6 +222,7 @@ def run(argv=None, *, registry=None) -> int:
                     manager_token=args.manager_token, registry=registry,
                     scheduler_id=args.scheduler_id,
                 )
+                serving.journal, serving.slo_engine = journal, engine
         except ConfigError as exc:
             print(f"trainer: {exc}", file=sys.stderr)
             return 2
@@ -243,6 +264,7 @@ def run(argv=None, *, registry=None) -> int:
             print(f"trainer: registered {m.name} v{m.version} ({m.type})")
         return 0
     finally:
+        stop_telemetry(journal, engine)
         if debug is not None:
             debug.stop()
 

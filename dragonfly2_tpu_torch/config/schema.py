@@ -19,12 +19,19 @@ with the slices that read them, and until then a file that sets one is
 refused as an unknown key; for the keys in ``NOT_PORTED`` the message
 names the ROADMAP queue 1 item that brings their reader.
 
+``SchedulerConfigFile`` also holds the ``tracing`` and ``telemetry``
+sections, and ``scheduling.qos_autopilot``.  The reference's scheduler
+binary builds the autopilot only beside its shard guard
+(``scheduling.shard_max_inflight > 0``), which is not ported; so the
+port accepts ``qos_autopilot`` and builds no autopilot, as the reference
+does with no shard guard.
+
 The trainer binary reads ``training.epochs``, ``training.learning_rate``,
-``training.warmup_steps``, ``server``, ``data_dir``, ``manager_addr`` and
-the ``lifecycle`` section; every other key parses and is ignored
-(ROADMAP queue 1 item 10 lists what reads them in the reference).
-``telemetry.slos`` is not validated: the SLO engine waits for the
-telemetry slice.
+``training.warmup_steps``, ``server``, ``data_dir``, ``manager_addr``,
+the ``lifecycle`` section and the ``tracing`` and ``telemetry``
+sections; every other key parses and is ignored (ROADMAP queue 1 item 14
+lists what reads them in the reference).  ``telemetry.slos`` is
+validated by ``utils/slo.parse_slos``, as in the reference.
 """
 
 from __future__ import annotations
@@ -71,7 +78,11 @@ class MetricsConfig:
 
 @dataclass
 class TracingSection:
-    """Flight-recorder settings; parsed, not read (ROADMAP item 10)."""
+    """Flight recorder (utils/tracing.py DurableSpanExporter).
+    ``log_path`` turns on the per-process crash-safe trace log —
+    append-only OTLP/JSON frames.  ``sample_rate`` head-samples BY TRACE
+    ID (deterministic across processes, so a kept trace is kept on every
+    plane).  ``ring_spans`` bounds the in-memory recent ring."""
 
     enable: bool = True
     log_path: str = ""
@@ -87,8 +98,15 @@ class TracingSection:
 
 @dataclass
 class TelemetrySection:
-    """Metric journal and SLO settings; parsed, not read (ROADMAP item 10).
-    ``slos`` is kept as given, unvalidated."""
+    """Fleet telemetry plane (utils/metric_journal.py + utils/slo.py).
+    ``journal_path`` turns on the per-process crash-safe metric journal
+    — append-only digest-checked DFMJ1 frames of periodic
+    counter/gauge/sketch snapshots.  ``slos`` declares objectives the SLO
+    engine evaluates with multi-window burn-rate alerts (each entry:
+    ``name``, ``objective`` latency|availability, ``target``, plus
+    ``metric``+``threshold_ms`` or ``good_metric``+``total_metric``;
+    optional ``fast_window_s``/``slow_window_s``/``burn_threshold``),
+    exported as ``slo_burn_rate{slo}`` / ``slo_breached{slo}`` gauges."""
 
     journal_path: str = ""
     journal_interval_s: float = 10.0
@@ -100,6 +118,12 @@ class TelemetrySection:
             raise ConfigError("telemetry.journal_interval_s must be > 0")
         if self.slo_interval_s <= 0:
             raise ConfigError("telemetry.slo_interval_s must be > 0")
+        try:
+            from ..utils.slo import parse_slos
+
+            parse_slos(self.slos)
+        except ValueError as exc:
+            raise ConfigError(f"telemetry.slos: {exc}") from exc
 
 
 @dataclass
@@ -220,6 +244,11 @@ class SchedulingSection:
     # ``<model>@<idc>`` first and falls back to the global model; empty
     # keeps the reference's fleet-wide single-key behaviour.
     idc: str = ""
+    # Tenant QoS plane: with telemetry.slos declared, the SLO autopilot
+    # rides the metric journal and tightens the shard's admission
+    # (reference cli/scheduler.py); this package has no shard guard, so
+    # it is accepted and builds nothing.
+    qos_autopilot: bool = True
 
     def validate(self) -> None:
         if self.algorithm not in ("default", "nt", "ml"):
@@ -277,10 +306,14 @@ class SchedulerConfigFile:
     # Cross-replica probe-graph sync cadence (push own edges, pull the
     # other schedulers' via the manager — the Redis-sharing analog).
     topology_sync_interval_s: float = 30.0
+    tracing: TracingSection = field(default_factory=TracingSection)
+    telemetry: TelemetrySection = field(default_factory=TelemetrySection)
 
     def validate(self) -> None:
         self.server.validate()
         self.scheduling.validate()
+        self.tracing.validate()
+        self.telemetry.validate()
 
 
 # Keys of the reference's config files whose readers are not ported yet,
@@ -291,13 +324,10 @@ NOT_PORTED = {
         "security": "14 (the security plane)",
         "dynconfig_refresh_s": "14 (dynconfig)",
         "metrics": "14 (the diagnostics server)",
-        "tracing": "10 (tracing)",
-        "telemetry": "10 (telemetry)",
     },
     "SchedulingSection": {
         "shard_max_inflight": "14 (the shard guard)",
         "shard_p99_budget_ms": "14 (the shard guard)",
-        "qos_autopilot": "10 (the QoS plane)",
         "stall_max_idle_s": "12c (the gRPC push stream)",
         "stall_sweep_interval_s": "12c (the gRPC push stream)",
     },

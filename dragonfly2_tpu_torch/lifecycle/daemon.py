@@ -1,9 +1,9 @@
 """Self-driving model lifecycle plane (DESIGN.md §29).
 
 Port of ``dragonfly2_tpu/lifecycle/daemon.py``.  The daemon's trainers
-are the port's ``StreamingTrainer`` on ``device``.  The
-``lifecycle/epoch`` and ``lifecycle/promote`` spans wait for the port's
-tracing (ROADMAP queue 1 item 10).
+are the port's ``StreamingTrainer`` on ``device``.  Each epoch and each
+promotion opens the reference's ``lifecycle/epoch`` / ``lifecycle/promote``
+span.
 
 The LifecycleDaemon closes the loop the reference left as TODOs
 (trainGNN/trainMLP): it streams live download records into per-key
@@ -52,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..utils import faultinject
+from ..utils.tracing import default_tracer
 from . import metrics
 from .arbiter import GLOBAL_KEY, arbitrate_candidates, plan_epoch, regional_model_name
 from .state import LifecycleStore
@@ -222,39 +223,43 @@ class LifecycleDaemon:
 
     def run_epoch(self, key: str, *, watermark: int) -> Optional[dict]:
         """train → export(+drift baseline) → register CANDIDATE → begin
-        rollout, as one epoch."""
+        rollout, as one traced epoch."""
         from ..trainer.export import scorer_to_bytes
 
         cfg = self.config
         name = self.model_name_for(key)
         epoch = int(self.store.row(key).get("epoch", 0)) + 1
         t0 = time.monotonic()
-        trainer = self._trainers[key]
-        # trainer.step is cumulative across epochs — only THIS
-        # call's step count says whether the epoch trained anything.
-        steps = trainer.run(max_steps=cfg.max_steps_per_epoch, idle_timeout=0.01)
-        if steps == 0:
-            # Not enough queued rows for one full batch yet: leave
-            # the watermark so the cadence re-fires once they land,
-            # instead of exporting unchanged weights.
-            logger.info("lifecycle %s: no full batch yet; epoch deferred", key)
-            return None
-        scorer = trainer.export_scorer()
-        if self.export_transform is not None:
-            scorer = self.export_transform(scorer, key, epoch)
-        try:
-            faultinject.fire("lifecycle.register")
-            model = self.registry.create_model(
-                name=name,
-                type=cfg.model_type,
-                scheduler_id=cfg.scheduler_id,
-                artifact=scorer_to_bytes(scorer),
-                evaluation={"records_seen": float(trainer.records_seen)},
-            )
-            self.client.begin(model.id, canary_percent=cfg.canary_percent)
-        except Exception as exc:  # noqa: BLE001 — retry on the next cycle
-            logger.warning("lifecycle %s: register/begin failed: %s", key, exc)
-            return None
+        with default_tracer.span(
+            "lifecycle/epoch",
+            key=key, model_name=name, epoch=epoch, watermark=watermark,
+        ):
+            trainer = self._trainers[key]
+            # trainer.step is cumulative across epochs — only THIS
+            # call's step count says whether the epoch trained anything.
+            steps = trainer.run(max_steps=cfg.max_steps_per_epoch, idle_timeout=0.01)
+            if steps == 0:
+                # Not enough queued rows for one full batch yet: leave
+                # the watermark so the cadence re-fires once they land,
+                # instead of exporting unchanged weights.
+                logger.info("lifecycle %s: no full batch yet; epoch deferred", key)
+                return None
+            scorer = trainer.export_scorer()
+            if self.export_transform is not None:
+                scorer = self.export_transform(scorer, key, epoch)
+            try:
+                faultinject.fire("lifecycle.register")
+                model = self.registry.create_model(
+                    name=name,
+                    type=cfg.model_type,
+                    scheduler_id=cfg.scheduler_id,
+                    artifact=scorer_to_bytes(scorer),
+                    evaluation={"records_seen": float(trainer.records_seen)},
+                )
+                self.client.begin(model.id, canary_percent=cfg.canary_percent)
+            except Exception as exc:  # noqa: BLE001 — retry on the next cycle
+                logger.warning("lifecycle %s: register/begin failed: %s", key, exc)
+                return None
         self.store.update(
             key,
             epoch=epoch,
@@ -345,12 +350,17 @@ class LifecycleDaemon:
             for key, rep in reports.items()
             if getattr(infos[key], "phase", "") == "shadow"
         }
-        verdict = arbitrate_candidates(
-            shadow_reports,
-            min_joined=cfg.min_joined,
-            margin=cfg.arbitration_margin,
-        )
-        return self._apply(reports, infos, verdict)
+        with default_tracer.span(
+            "lifecycle/promote",
+            model_name=cfg.model_name, keys=",".join(sorted(reports)),
+        ):
+            verdict = arbitrate_candidates(
+                shadow_reports,
+                min_joined=cfg.min_joined,
+                margin=cfg.arbitration_margin,
+            )
+            outcomes = self._apply(reports, infos, verdict)
+        return outcomes
 
     def _apply(self, reports, infos, verdict) -> List[dict]:
         cfg = self.config

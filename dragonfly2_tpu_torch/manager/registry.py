@@ -16,8 +16,7 @@ in a content-addressed blob store (filesystem dir, in-memory, or rows of
 the manager's StateBackend), replacing the reference's S3/OSS Triton
 layout (types/model.go:66-73).
 
-Port of ``dragonfly2_tpu/manager/registry.py``; the ``db_path`` form
-(a private SQLite backend) waits for the SQLite backend.
+Port of ``dragonfly2_tpu/manager/registry.py``.
 """
 
 from __future__ import annotations
@@ -171,15 +170,21 @@ class ModelRegistry:
     Durable rows live behind the manager's state seam
     (manager/state.StateBackend): every mutation writes through and a
     restart reloads the table — models survive the manager the way the
-    reference's DB rows do.
+    reference's DB rows do.  ``db_path`` is the convenience form (a
+    private SQLiteBackend).
     """
 
     def __init__(
         self,
         blob_store=None,
         *,
+        db_path: Optional[str] = None,
         backend: "Optional[StateBackend]" = None,
     ) -> None:
+        if backend is None and db_path:
+            from .state import SQLiteBackend
+
+            backend = SQLiteBackend(db_path)
         self._mu = threading.RLock()
         self._models: Dict[str, Model] = {}
         self.blobs = blob_store or BlobStore()

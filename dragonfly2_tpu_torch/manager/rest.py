@@ -131,6 +131,21 @@ class ManagerRESTServer:
                 return json.loads(self.rfile.read(length) or b"{}")
 
             def do_GET(self):
+                # Request span linked to the caller's trace (otelgrpc
+                # server-interceptor analog for the REST plane): the
+                # route rides as an attribute, not the span name, so
+                # cardinality stays bounded.
+                from ..utils.tracing import TRACEPARENT_HEADER, default_tracer
+
+                with default_tracer.remote_span(
+                    "manager/GET",
+                    self.headers.get(TRACEPARENT_HEADER),
+                    path=urllib.parse.urlsplit(self.path).path,
+                    transport="rest",
+                ):
+                    self._handle_GET()
+
+            def _handle_GET(self):
                 if self._rate_limited():
                     return
                 parsed = urllib.parse.urlsplit(self.path)
@@ -256,6 +271,17 @@ class ManagerRESTServer:
                     self._json(404, {"error": "not found"})
 
             def do_POST(self):
+                from ..utils.tracing import TRACEPARENT_HEADER, default_tracer
+
+                with default_tracer.remote_span(
+                    "manager/POST",
+                    self.headers.get(TRACEPARENT_HEADER),
+                    path=urllib.parse.urlsplit(self.path).path,
+                    transport="rest",
+                ):
+                    self._handle_POST()
+
+            def _handle_POST(self):
                 if self._rate_limited():
                     return
                 path = urllib.parse.urlsplit(self.path).path

@@ -1,7 +1,7 @@
 """Rollout controller: evidence-gated promotion with automatic rollback.
 
-Port of ``dragonfly2_tpu/rollout/controller.py``; the transition spans
-(``rollout/transition``) wait for the port's tracing.
+Port of ``dragonfly2_tpu/rollout/controller.py``, with its
+``rollout/transition`` spans.
 
 The registry alone moves a version from CREATE straight to ACTIVE on
 operator say-so.  This controller inserts the gates: a per
@@ -358,19 +358,43 @@ class RolloutController:
         }
 
     def _advance(self, rollout: Rollout, to: RolloutPhase) -> None:
-        if to is RolloutPhase.CANARY:
-            self.registry.set_state(rollout.model_id, ModelState.CANARY)
-        elif to is RolloutPhase.ACTIVE:
-            # activate() owns the single-active flip (old active →
-            # INACTIVE, candidate → ACTIVE) in one persisted transaction.
-            self.registry.activate(rollout.model_id)
-        rollout.phase = to.value
-        rollout.phase_baseline = rollout.joined_edges
-        self._persist(rollout)
+        from ..utils.tracing import default_tracer
+
+        # Transition span: controller decisions are exactly the moments
+        # an operator wants on the flight recorder next to the request
+        # that triggered them (DESIGN.md §21).
+        with default_tracer.span(
+            "rollout/transition",
+            scheduler_id=rollout.scheduler_id, model_name=rollout.name,
+            from_phase=rollout.phase, to_phase=to.value,
+            version=rollout.version,
+        ):
+            if to is RolloutPhase.CANARY:
+                self.registry.set_state(rollout.model_id, ModelState.CANARY)
+            elif to is RolloutPhase.ACTIVE:
+                # activate() owns the single-active flip (old active →
+                # INACTIVE, candidate → ACTIVE) in one persisted
+                # transaction.
+                self.registry.activate(rollout.model_id)
+            rollout.phase = to.value
+            rollout.phase_baseline = rollout.joined_edges
+            self._persist(rollout)
         metrics.ROLLOUT_TRANSITIONS_TOTAL.inc(to=to.value)
         logger.info("rollout %s v%d → %s", rollout.key, rollout.version, to.value)
 
     def _rollback(self, rollout: Rollout, reason: str) -> None:
+        from ..utils.tracing import default_tracer
+
+        with default_tracer.span(
+            "rollout/transition",
+            scheduler_id=rollout.scheduler_id, model_name=rollout.name,
+            from_phase=rollout.phase,
+            to_phase=RolloutPhase.ROLLED_BACK.value,
+            version=rollout.version, reason=reason,
+        ):
+            self._rollback_traced(rollout, reason)
+
+    def _rollback_traced(self, rollout: Rollout, reason: str) -> None:
         promoted = rollout.phase == RolloutPhase.ACTIVE.value
         if promoted and rollout.previous_active_id:
             # The regression shipped: re-activate the recorded last-good

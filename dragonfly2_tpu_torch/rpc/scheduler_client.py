@@ -7,9 +7,9 @@ so the conductor's code path is identical in embedded and remote modes
 (the reference daemon likewise keeps local peer state synchronized with
 the scheduler's view through the gRPC stream).
 
-Port of ``dragonfly2_tpu/rpc/scheduler_client.py``, verbatim, except
-that requests carry no ``traceparent`` header (the tracer is ROADMAP
-queue 1 item 10); the reference's server reads the header as optional.
+Port of ``dragonfly2_tpu/rpc/scheduler_client.py``, verbatim: requests
+carry the caller's ``traceparent`` header, so either package's server
+links its handler span into the caller's trace.
 """
 
 from __future__ import annotations
@@ -79,6 +79,7 @@ class RemoteScheduler:
     ) -> dict:
         def once() -> dict:
             from ..utils import faultinject
+            from ..utils.tracing import default_tracer
 
             # Chaos seam: drop/delay/typed-error per call site, fired
             # INSIDE the retried attempt so injected faults exercise the
@@ -86,7 +87,11 @@ class RemoteScheduler:
             faultinject.fire(f"rpc.client.{method}")
 
             body = json.dumps(req).encode()
+            # Trace propagation (otelgrpc client-interceptor analog): the
+            # caller's active span rides the wire so the server links its
+            # handler span into the SAME trace.
             headers = {"Content-Type": "application/json"}
+            headers.update(default_tracer.inject())
             http_req = urllib.request.Request(
                 f"{self.base_url}/rpc/{method}",
                 data=body,

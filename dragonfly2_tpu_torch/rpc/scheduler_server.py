@@ -19,13 +19,14 @@ Wire methods:
 Port of ``dragonfly2_tpu/rpc/scheduler_server.py``.  The wire (paths,
 JSON fields, base64 payloads, ``PROTOCOL_VERSION``, status and error
 codes) is the reference's byte for byte, so either package's client
-talks to either package's server.  Differences: the handler opens no
-span (the tracer is ROADMAP queue 1 item 10), and the announce answer
-carries no ``scheduler_ring`` or ``tenant_qos`` (the shard guard and the
-QoS plane, items 14 and 10, are not ported; the reference adds neither
-key when they are off).  ``SchedulerHTTPServer.stats`` is new: the
-server's own time per method, around the whole request and around the
-service call.
+talks to either package's server.  The handler opens the reference's
+``rpc/<method>`` span linked to the caller's ``traceparent``, and the
+announce answer carries ``tenant_qos`` once a QoS policy is installed.
+Differences: the announce answer carries no ``scheduler_ring`` (the
+shard guard is ROADMAP queue 1 item 14; the reference adds no ring
+without one), and ``SchedulerHTTPServer.stats`` is new: the server's
+own time per method, around the whole request and around the service
+call.
 """
 
 from __future__ import annotations
@@ -143,7 +144,13 @@ class SchedulerRPCAdapter:
             host, tenant=str(req.get("tenant", "") or "")
         )
         stored.protocol_version = negotiated
-        return {"protocol": protocol_info(negotiated, self.capabilities)}
+        out = {"protocol": protocol_info(negotiated, self.capabilities)}
+        # Tenant QoS re-publication (DESIGN.md §26): daemons adopt upload
+        # caps + weights off the announce answer.
+        policy = self.service.qos_policy
+        if policy is not None:
+            out["tenant_qos"] = policy.to_payload()
+        return out
 
     def register_peer(self, req: dict) -> dict:
         host = self.service.resource.host_manager.load(req["host_id"])
@@ -383,10 +390,23 @@ class SchedulerHTTPServer:
                 method = self.path[len("/rpc/") :]
                 length = int(self.headers.get("Content-Length", 0))
                 try:
+                    from ..utils.tracing import (
+                        TRACEPARENT_HEADER,
+                        default_tracer,
+                    )
+
                     req = json.loads(self.rfile.read(length) or b"{}")
                     t_service = time.perf_counter()
                     try:
-                        resp = adapter.dispatch(method, req)
+                        # Handler span linked to the caller's trace
+                        # (otelgrpc server-interceptor analog): the call
+                        # stack is followable across processes by trace id.
+                        with default_tracer.remote_span(
+                            f"rpc/{method}",
+                            self.headers.get(TRACEPARENT_HEADER),
+                            transport="http",
+                        ):
+                            resp = adapter.dispatch(method, req)
                     finally:
                         service_s = time.perf_counter() - t_service
                     body = json.dumps(resp).encode()

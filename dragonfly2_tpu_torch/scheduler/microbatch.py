@@ -25,8 +25,9 @@ Mechanics (DESIGN.md §14):
 - **atomic hot-swap** — the scorer reference is snapshotted once per
   flush, so ``ModelSubscriber.refresh`` swapping mid-batch can never
   hand half a batch to each model version.
-- **degraded mode** — a failed coalesced call degrades to per-request
-  scoring; announces never stall on the batcher.
+- **fault seam** — dispatch fires ``scheduler.eval.batch``
+  (utils.faultinject).  A dropped/failed coalesced call degrades to
+  per-request scoring; announces never stall on the batcher.
 - **canary arms / pinned snapshots** — requests carry a ``candidate``
   flag (DESIGN.md §15 canary serving) and, when the caller resolved a
   scorer atomically with its CanaryRoute decision, the exact scorer
@@ -46,8 +47,7 @@ Mechanics (DESIGN.md §14):
   starve a 1-weight tenant (every drain serves every backlogged lane
   at least its head) while throughput still tracks the weights, and
   per-tenant arrival order is preserved (lanes are deques, head pops
-  only).  Until the QoS plane is part of this package no policy is
-  installed and every lane weighs 1.0.  Deficits carry across cap-limited flushes; a lane that
+  only).  Deficits carry across cap-limited flushes; a lane that
   empties resets (classic DRR).  With ONE active tenant the drain is a
   whole-queue swap — bit-equal to the pre-QoS single-queue behavior
   (the §14 oracle discipline, property-tested).  A flush past
@@ -58,6 +58,12 @@ The scorer contract this relies on is row-independence: ``score`` must
 score each row from that row (+ its buckets) alone, so padded rows and
 co-batched strangers cannot bleed into each other (trainer/export.py
 ``EdgeScorer`` docstring — the batched-score contract).
+
+Each coalesced scorer call opens one ``scheduler/eval.flush`` span with
+``batch``, ``rows`` and ``jit_compiles``.  The reference reads
+``jit_compiles`` from its recompile witness, which this package does not
+have yet (ROADMAP queue 1 item 11), so it is 0 here.  The span includes
+the device: the flush reads its scores back.
 """
 
 from __future__ import annotations
@@ -71,6 +77,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import faultinject
+from ..utils.tracing import default_tracer
 from . import metrics
 
 logger = logging.getLogger(__name__)
@@ -132,6 +140,7 @@ class ScorerBatcher:
         max_batch_rows: int = 4096,
         pad_buckets=DEFAULT_PAD_BUCKETS,
         drr_quantum: int = DEFAULT_DRR_QUANTUM,
+        qos_policy=None,
     ) -> None:
         self._cv = threading.Condition()
         # Per-tenant FIFO lanes (DESIGN.md §26): an OrderedDict so the
@@ -142,6 +151,9 @@ class ScorerBatcher:
         self._deficit: dict = {}
         # Rotating start pointer for the drain's lane order.
         self._rr = 0
+        # QoS policy (qos.policy.QoSPolicy, duck-typed on weight_of):
+        # None = every lane weighs 1.0.
+        self._qos_policy = qos_policy
         self._pending_rows = 0
         self._leader_active = False
         self._scorer = scorer
@@ -173,10 +185,21 @@ class ScorerBatcher:
         with self._cv:
             self._candidate = scorer
 
+    def set_qos_policy(self, policy) -> None:
+        """Install/clear the tenant QoS policy feeding the DRR weights
+        (dynconfig observer; None = unweighted lanes)."""
+        with self._cv:
+            self._qos_policy = policy
+
     def _weight(self, tenant: str) -> float:
-        """DRR weight of a tenant lane: equal weights until the QoS
-        policy plane is part of this package."""
-        return 1.0
+        policy = self._qos_policy
+        if policy is None:
+            return 1.0
+        try:
+            return max(float(policy.weight_of(tenant)), 1e-9)
+        except Exception as exc:  # noqa: BLE001 — a bad policy must not wedge flushes
+            logger.warning("qos policy weight_of(%r) failed: %s", tenant, exc)
+            return 1.0
 
     @property
     def has_scorer(self) -> bool:
@@ -380,8 +403,18 @@ class ScorerBatcher:
             self._dispatch_group(group, engine)
 
     def _dispatch_group(self, batch: List[_Request], scorer) -> None:
+        # One ``scheduler/eval.flush`` span per coalesced scorer call
+        # (per flush, never per announce): batch size + the compile
+        # counter ride as attributes (0 until the recompile witness is
+        # part of this package).
         t0 = time.perf_counter()
-        self._score_group(batch, scorer)
+        with default_tracer.span(
+            "scheduler/eval.flush",
+            batch=len(batch),
+            rows=sum(r.features.shape[0] for r in batch),
+            jit_compiles=0,
+        ):
+            self._score_group(batch, scorer)
         # Flush latency into the mergeable sketch (DESIGN.md §23): one
         # observe per FLUSH, never per announce.
         metrics.EVAL_FLUSH_SECONDS.observe(time.perf_counter() - t0)
@@ -421,6 +454,7 @@ class ScorerBatcher:
                 src[off : off + n] = r.src if r.src is not None else 0
                 dst[off : off + n] = r.dst if r.dst is not None else 0
                 off += n
+            faultinject.fire("scheduler.eval.batch")
             self._note_scorer_calls(1)
             scores = np.asarray(
                 scorer.score(feats, src_buckets=src, dst_buckets=dst)

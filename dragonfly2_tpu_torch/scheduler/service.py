@@ -19,10 +19,14 @@ demuxes stream messages:
 - ``sync_probes_start`` / ``sync_probes_finished`` — the probe store's
   SyncProbes exchange (service_v2.go:721-866).
 
-The cold-task seed trigger, the push hub and the shard guard are not
-part of this package yet (ROADMAP queue 1 item 10): their arguments keep
-their places and take only None, and the paths that would call them
-(seed warm-up, server push, ownership and admission checks) are absent.
+The cold-task seed trigger (``seed_peer_trigger``, any callable
+``(url, task_id) -> bool``) and the tenant QoS policy (``set_qos_policy``,
+``on_qos_config``) are the reference's.  The push hub (ROADMAP queue 1
+item 12c) and the shard guard (item 14) are not part of this package
+yet: their arguments keep their places and take only None, and the
+paths that would call them (server push, ownership and admission
+checks, the policy's admission accounting) are absent.  The reference's
+seed client, ``RemoteSeedPeerClient``, is item 14.
 """
 
 from __future__ import annotations
@@ -84,27 +88,57 @@ class SchedulerService:
         hub=None,
         shard_guard=None,
     ) -> None:
-        # The cold-task seed trigger, the push hub and the shard guard are
-        # not part of this package yet: the arguments keep their places and
-        # take only None.
-        for name, value in (
-            ("seed_peer_trigger", seed_peer_trigger),
-            ("hub", hub),
-            ("shard_guard", shard_guard),
-        ):
+        # The push hub and the shard guard are not part of this package
+        # yet: the arguments keep their places and take only None.
+        for name, value in (("hub", hub), ("shard_guard", shard_guard)):
             if value is not None:
                 raise NotImplementedError(f"SchedulerService({name}=...) is not ported")
         self.resource = resource
         self.scheduling = scheduling
         self.storage = storage
         self.networktopology = networktopology
+        # Optional callable(url, task_id) -> bool: asks a seed peer to warm
+        # the task (resource/seed_peer.go:93-229 TriggerDownloadTask; wired
+        # to a seed daemon's conductor in-process, an RPC in deployments).
+        self.seed_peer_trigger = seed_peer_trigger
         self._mu = threading.Lock()
+        self._seed_triggered: set = set()  # task ids already warmed
         self._gauges_refreshed_at = float("-inf")
         # Columnar host store (DESIGN.md §18): when the evaluator carries
         # one, announce decode binds hosts on arrival so their serving
         # state lives in slot columns from birth and the evaluate path
         # never marshals objects into the matrix.
         self._host_store = getattr(scheduling.evaluator, "feature_cache", None)
+        # Tenant QoS policy (DESIGN.md §26): installed via dynconfig
+        # (set_qos_policy) and re-published on announce answers so
+        # daemons converge on it without their own manager dependency.
+        self.qos_policy = None
+
+    # -- tenant QoS (DESIGN.md §26) ------------------------------------------
+
+    def set_qos_policy(self, policy) -> None:
+        """Install a ``qos.QoSPolicy`` across this scheduler's
+        enforcement points: the scorer batcher's DRR weights (the
+        reference also hands it to the shard guard's admission
+        accounting, which is not part of this package)."""
+        self.qos_policy = policy
+        batcher = getattr(self.scheduling.evaluator, "batcher", None)
+        if batcher is not None:
+            batcher.set_qos_policy(policy)
+
+    def on_qos_config(self, config: dict) -> None:
+        """Dynconfig observer: adopt the manager-published ``tenant_qos``
+        blob.  Malformed payloads are skipped (an observer exception
+        would take down the dynconfig refresh for every observer)."""
+        payload = config.get("tenant_qos")
+        if not isinstance(payload, dict) or not payload:
+            return
+        from ..qos.policy import QoSPolicy
+
+        try:
+            self.set_qos_policy(QoSPolicy.from_payload(payload))
+        except (KeyError, TypeError, ValueError):
+            logger.warning("ignoring malformed tenant_qos payload")
 
     # -- registration -------------------------------------------------------
 
@@ -174,6 +208,40 @@ class SchedulerService:
         else:
             _try_event(peer.fsm, "RegisterNormal")
         schedule = self.scheduling.schedule_candidate_parents(peer, blocklist)
+        if (
+            schedule.kind is ScheduleResultKind.NEED_BACK_TO_SOURCE
+            and self.seed_peer_trigger is not None
+            and not task.has_available_peer()
+            # A SEED registering a cold task IS the warm-up — triggering
+            # for it would call back into the very daemon that is mid-
+            # register (its conductor dedups same-task downloads, so the
+            # nested obtain would join the blocked run: a trigger↔register
+            # deadlock until both sides' timeouts unwind).  Seeds go
+            # straight to source; only normal peers get a seed warmed.
+            and not host.type.is_seed
+        ):
+            # Cold task: warm a seed peer first, then reschedule once —
+            # the child gets a parent instead of hitting the origin
+            # (service_v2.go:1370 downloadTaskBySeedPeer).  Once per task,
+            # claimed under the lock: the seed's OWN registration re-enters
+            # this path (observed: unbounded recursive triggering without
+            # the claim), and concurrent cold registrations must not launch
+            # duplicate seed downloads.  The trigger is synchronous here
+            # (in-process seed); the wire deployment should pass an async
+            # trigger and rely on the client's reschedule-on-piece-failure.
+            with self._mu:
+                first = task.id not in self._seed_triggered
+                if first:
+                    self._seed_triggered.add(task.id)
+            triggered = False
+            if first:
+                try:
+                    triggered = self.seed_peer_trigger(task.url, task.id)
+                except Exception as exc:  # noqa: BLE001 — trigger failure → back-to-source
+                    logger.warning("seed trigger for %s failed: %s", task.id, exc)
+                    triggered = False
+            if triggered:
+                schedule = self.scheduling.schedule_candidate_parents(peer, blocklist)
         metrics.SCHEDULE_TOTAL.inc(outcome=schedule.kind.name.lower())
         metrics.SCHEDULE_RETRIES.observe(schedule.retries)
         metrics.REGISTER_PEER_TOTAL.inc(result="ok")
@@ -189,8 +257,9 @@ class SchedulerService:
         """Host stats announce (service_v2 AnnounceHost): store-or-refresh
         the host record and WRITE ITS COLUMNS on arrival (DESIGN.md §18)
         — the announce decode is the marshalling point, not the evaluate
-        path.  ``tenant`` is accepted for the announce surface; per-tenant
-        accounting waits for the QoS plane."""
+        path.  ``tenant`` is accepted for the announce surface; the
+        reference's per-tenant accounting and announce-rate caps ride its
+        shard guard's admission, which is not part of this package."""
         t0 = time.monotonic()
         stored = self.resource.store_host(host)
         if stored is not host:

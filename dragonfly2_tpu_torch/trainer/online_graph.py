@@ -47,8 +47,9 @@ What the port changes:
   node tables gathered whole and written by rank 0; ``resume`` has each
   rank read it and keep its block, so a mesh checkpoint resumes on one
   device and the reverse;
-- no ``trainer.dispatch`` fault seam and no ``trainer/dispatch`` span
-  (item 10);
+- the ``trainer/dispatch`` span measures host time: the dispatch's
+  kernels are queued inside it, not waited for (the reference's span
+  closes after XLA's asynchronous dispatch alike);
 - the checkpoint is one ``torch.save`` file: params, AdamW moments and
   count, step, the dropout generator's state, the stream position, the
   topology window, the pending probe buffer, the node features and the
@@ -82,6 +83,8 @@ from ..ops import _build
 from ..parallel import mesh as pm
 from ..parallel.graph_sharding import NodeShard, build_halo_plan, precompute_hop_features_sharded
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from ..utils import faultinject
+from ..utils.tracing import default_tracer
 from .train import (
     TrainConfig,
     TrainState,
@@ -956,14 +959,26 @@ class OnlineGraphTrainer:
             if self.mesh is None:
                 if block is None:
                     break
-                self.apply_pending_recycles()
-                staged = self._stage(block)
             else:
                 staged, ids = self._share_block(block, self._take_pending())
                 self._reset_rows(ids)
                 if staged is None:
                     break
-            self.last_loss = self._train_dispatch(*staged)
+            # Chaos seam: the trainer-crash drill SIGKILLs here at a
+            # deterministic dispatch index — after the previous
+            # checkpoint committed, before this block trains.
+            faultinject.fire("trainer.dispatch")
+            # Dispatch span (flight recorder, DESIGN.md §21): one per
+            # trained block, so online-training stalls line up against
+            # the download/announce traces feeding them.
+            with default_tracer.span(
+                "trainer/dispatch", dispatch=self.dispatch,
+                records=cfg.super_steps * cfg.batch_size,
+            ):
+                if self.mesh is None:
+                    self.apply_pending_recycles()
+                    staged = self._stage(block)
+                self.last_loss = self._train_dispatch(*staged)
             self.dispatch += 1
             ran += 1
             self.records_seen += cfg.super_steps * cfg.batch_size

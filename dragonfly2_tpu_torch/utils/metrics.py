@@ -31,9 +31,11 @@ def _escape_help(v: str) -> str:
 
 
 def _current_trace_id() -> Optional[str]:
-    """Active trace id on this thread (exemplar hook).  Tracing is not
-    part of this package yet, so there is never an active trace."""
-    return None
+    """Active trace id on this thread (exemplar hook): one thread-local
+    read through the tracer — cheap enough for per-observe use."""
+    from .tracing import current_trace_id
+
+    return current_trace_id()
 
 
 class _Metric:

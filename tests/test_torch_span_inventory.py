@@ -1,0 +1,176 @@
+"""Port parity: the span sites, ``dragonfly2_tpu_torch`` against
+``dragonfly2_tpu``.
+
+For one lifecycle drill (``sim.lifecycle.run_lifecycle_drill``: the
+daemon's ``lifecycle/epoch`` and ``lifecycle/promote``, the controller's
+``rollout/transition``), one online dispatch (``trainer/dispatch``), one
+coalesced batcher flush (``scheduler/eval.flush``), and the manager's
+REST handler spans (``manager/GET``, ``manager/POST``), the multiset of
+(span name, sorted attribute keys) each package exports is equal.
+Where the values are inputs and not trained weights they are compared
+too.  ``jit_compiles`` is 0 in the port (no recompile witness yet).
+
+Both packages' default tracers are swapped for in-memory rings and
+restored after.  The port runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import threading
+import urllib.request
+
+import numpy as np
+import pytest
+
+import dragonfly2_tpu.manager as j_manager
+import dragonfly2_tpu.manager.rest as j_rest
+import dragonfly2_tpu.scheduler.microbatch as j_mb
+import dragonfly2_tpu.sim.lifecycle as j_sim
+import dragonfly2_tpu.utils.tracing as jtr
+import dragonfly2_tpu_torch.manager as t_manager
+import dragonfly2_tpu_torch.manager.rest as t_rest
+import dragonfly2_tpu_torch.scheduler.microbatch as t_mb
+import dragonfly2_tpu_torch.sim.lifecycle as t_sim
+import dragonfly2_tpu_torch.utils.tracing as ttr
+
+PKGS = {"jax": jtr, "torch": ttr}
+
+
+@pytest.fixture()
+def rings():
+    saved = [(m, m.default_tracer.exporter, m.enabled()) for m in PKGS.values()]
+    out = {}
+    for name, m in PKGS.items():
+        out[name] = m.default_tracer.exporter = m.InMemoryExporter(max_spans=1 << 16)
+        m.set_enabled(True)
+    yield out
+    for m, exporter, enabled in saved:
+        m.default_tracer.exporter = exporter
+        m.set_enabled(enabled)
+
+
+def _inventory(ring, names):
+    return collections.Counter(
+        (s.name, tuple(sorted(s.attributes))) for s in ring.spans if s.name in names)
+
+
+DRILL = dict(epoch_records=128, batch_size=32, announces=24, parents=4,
+             min_shadow_samples=40, min_canary_samples=40)
+LIFECYCLE_SPANS = {"rollout/transition", "lifecycle/epoch", "lifecycle/promote"}
+
+
+def test_lifecycle_drill_spans_equal(rings):
+    port = t_sim.run_lifecycle_drill(t_sim.LifecycleDrillConfig(**DRILL), device="cpu")
+    ref = j_sim.run_lifecycle_drill(j_sim.LifecycleDrillConfig(**DRILL))
+    assert port["ok"] and ref["ok"]
+    inv = {name: _inventory(ring, LIFECYCLE_SPANS) for name, ring in rings.items()}
+    assert inv["torch"] == inv["jax"]
+    assert {name for name, _keys in inv["torch"]} == LIFECYCLE_SPANS
+
+    def transitions(ring):
+        return [(s.attributes["from_phase"], s.attributes["to_phase"],
+                 s.attributes["version"], s.attributes.get("reason", "").split(":")[0])
+                for s in ring.spans if s.name == "rollout/transition"]
+
+    assert transitions(rings["torch"]) == transitions(rings["jax"])
+    assert any(t[1] == "rolled_back" for t in transitions(rings["torch"]))
+
+
+def test_online_dispatch_spans_equal(rings):
+    import dragonfly2_tpu.trainer.online_graph as jog
+    import dragonfly2_tpu_torch.trainer.online_graph as tog
+    from dragonfly2_tpu.models.hop import HopConfig as JHopConfig
+    from dragonfly2_tpu.trainer.train import TrainConfig as JTrainConfig
+    from dragonfly2_tpu_torch.models.hop import HopConfig
+    from dragonfly2_tpu_torch.trainer.train import TrainConfig
+
+    n, hop = 64, dict(hidden=16, out_dim=8, node_embed_dim=4)
+    base = dict(num_nodes=n, max_neighbors=4, batch_size=64, super_steps=2,
+                queue_capacity=16, total_steps_hint=100)
+    rng = np.random.default_rng(0)
+    nf = rng.standard_normal((n, 12)).astype(np.float32)
+    src = rng.integers(0, n, 256).astype(np.int32)
+    dst = ((src + rng.integers(1, n, 256)) % n).astype(np.int32)
+    rtt = rng.random(256).astype(np.float32)
+    es = rng.integers(0, n, 128 * 3).astype(np.int32)
+    ed = ((es + 1) % n).astype(np.int32)
+    y = rng.random(128 * 3).astype(np.float32)
+    jt = jog.OnlineGraphTrainer(
+        jog.OnlineGraphConfig(model=JHopConfig(dropout=0.0, **hop), native_ingest=False,
+                              train=JTrainConfig(warmup_steps=2), **base),
+        node_feats=nf, topo_src=src, topo_dst=dst, topo_rtt=rtt)
+    tt = tog.OnlineGraphTrainer(
+        tog.OnlineGraphConfig(model=HopConfig(dropout=0.0, **hop),
+                              train=TrainConfig(warmup_steps=2), **base),
+        node_feats=nf, topo_src=src, topo_dst=dst, topo_rtt=rtt, device="cpu")
+    for trainer in (jt, tt):
+        trainer.feed_downloads(es, ed, y)
+        assert trainer.run(max_dispatches=3, idle_timeout=0.1) == 3
+
+    def dispatches(ring):
+        return [(s.name, dict(s.attributes)) for s in ring.spans if s.name == "trainer/dispatch"]
+
+    assert dispatches(rings["torch"]) == dispatches(rings["jax"]) == [
+        ("trainer/dispatch", {"dispatch": i, "records": 128}) for i in range(3)]
+
+
+def test_batcher_flush_spans_equal(rings):
+    class SumScorer:
+        wants_features = True
+
+        def score(self, feats, src_buckets=None, dst_buckets=None):
+            return feats.sum(axis=1)
+
+    flushes = {}
+    for name, mb in (("jax", j_mb), ("torch", t_mb)):
+        b = mb.ScorerBatcher(SumScorer(), linger_s=0.05)
+        barrier = threading.Barrier(4)
+
+        def worker(i, b=b, barrier=barrier):
+            barrier.wait()
+            b.score(np.full((i + 1, 3), float(i), np.float32), tenant=f"t{i % 2}")
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(30)
+        spans = [s for s in rings[name].spans if s.name == "scheduler/eval.flush"]
+        assert sum(s.attributes["batch"] for s in spans) == 4
+        assert sum(s.attributes["rows"] for s in spans) == 1 + 2 + 3 + 4
+        flushes[name] = _inventory(rings[name], {"scheduler/eval.flush"})
+    assert flushes["torch"] == {("scheduler/eval.flush", ("batch", "jit_compiles", "rows")):
+                                sum(flushes["torch"].values())}
+    assert set(flushes["torch"]) == set(flushes["jax"])
+    assert all(s.attributes["jit_compiles"] == 0 for s in rings["torch"].spans
+               if s.name == "scheduler/eval.flush")
+
+
+def test_manager_rest_spans_equal(rings):
+    for name, manager, rest in (("jax", j_manager, j_rest), ("torch", t_manager, t_rest)):
+        srv = rest.ManagerRESTServer(manager.ModelRegistry(), manager.ClusterManager())
+        srv.serve()
+        try:
+            with PKGS[name].default_tracer.span("client") as root:
+                headers = PKGS[name].default_tracer.inject()
+            for method, path, body in (("GET", "/api/v1/healthy", None),
+                                       ("POST", "/api/v1/topology",
+                                        {"scheduler_id": "s", "edges": []}),
+                                       ("GET", "/api/v1/no-such-route", None)):
+                req = urllib.request.Request(
+                    srv.url + path, method=method, headers=headers,
+                    data=None if body is None else json.dumps(body).encode())
+                try:
+                    urllib.request.urlopen(req, timeout=30).close()
+                except urllib.error.HTTPError as exc:
+                    assert exc.code == 404
+        finally:
+            srv.stop()
+        spans = [s for s in rings[name].spans if s.name.startswith("manager/")]
+        assert [s.attributes["path"] for s in spans] == [
+            "/api/v1/healthy", "/api/v1/topology", "/api/v1/no-such-route"]
+        assert all((s.trace_id, s.parent_id) == (root.trace_id, root.span_id) for s in spans)
+    assert _inventory(rings["torch"], {"manager/GET", "manager/POST"}) == _inventory(
+        rings["jax"], {"manager/GET", "manager/POST"})

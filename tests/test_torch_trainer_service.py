@@ -307,10 +307,22 @@ def test_reference_config_file_loads_alike_and_trace_flags_are_refused(tmp_path,
     for mod in (jschema, tschema):
         with pytest.raises(mod.ConfigError, match="epochs"):
             mod.load_config(mod.TrainerConfigFile, str(bad), env=False)
-    # The reference's tracing and telemetry flags have nothing behind them
-    # in the port yet: argparse refuses them instead of ignoring them.
-    for flag in ("--trace-file", "--otlp", "--trace-log", "--metric-journal"):
-        with pytest.raises(SystemExit) as exc:
-            tcli.run([flag, str(tmp_path / "x"), "--device", "cpu"])
-        assert exc.value.code == 2
-        assert "unrecognized arguments" in capsys.readouterr().err
+    # The reference's tracing and telemetry flags are the port's too: each
+    # parses and the binary runs on (what they write is held in
+    # tests/test_torch_cli_telemetry.py).  An unknown flag is still refused.
+    from dragonfly2_tpu_torch.utils import tracing as ttracing
+
+    exporter, enabled = ttracing.default_tracer.exporter, ttracing.enabled()
+    try:
+        for flag in ("--trace-file", "--otlp", "--trace-log", "--metric-journal"):
+            argv = [flag, str(tmp_path / flag.strip("-")), "--train-once",
+                    str(tmp_path / "empty"), "--device", "cpu"]
+            assert tcli.run(argv) == 1
+            assert "no download*.dfc shards" in capsys.readouterr().err
+    finally:
+        ttracing.default_tracer.exporter = exporter
+        ttracing.set_enabled(enabled)
+    with pytest.raises(SystemExit) as exc:
+        tcli.run(["--jaeger", str(tmp_path / "x"), "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
