@@ -311,6 +311,26 @@ launch counts are zeroed before each and must read 0 after.
     register p50 / p99 per arm (both runs pooled) and per run, each
     tenant's share of the rows drained, and the flushes that drained
     two or more tenant lanes.
+20. The peer daemon's download path (``peer_swarm``):
+    ``bench/peer_swarm.run`` in this process, under the out directory: an
+    origin (a stdlib HTTP server with ``Range``) serving a 256 MiB file
+    made from the seed; ``cli.scheduler.serve`` with algorithm ``ml`` and
+    the seeded K1 scorer; 16 daemons, each ``cli.dfdaemon.build`` with the
+    default 4 MiB pieces (64 pieces) and its own piece server, announced.
+    Daemon 0 downloads the file back to source, daemons 1-15 then at the
+    same time, and last one ``cli.dfget --daemon`` download goes through
+    a ``DaemonControlServer`` over daemon 15 (``DF_DAEMON_STATE`` under
+    the out directory).  Launch counts are zeroed just before the run and
+    read just after.  Checks: every output's sha256 equals the origin's;
+    only daemon 0 went back to source; the origin served at most 1.25 x
+    the file; pieces from peers and from the source add up to 16 x 64
+    (and equal the daemons' upload counts and the origin's range
+    requests); one Download record per daemon's download; no evaluator
+    degrade; K1 launches = the batcher's scorer calls > 0; K1 against its
+    plain version on the phase's own flush rows.  Printed: wall seconds,
+    aggregate MB/s, per-daemon MB/s p50 / p99, origin bytes, pieces by
+    source and parent host, K1 launches, its time at the phase's flush
+    rows and its error.  The phase writes 4 GiB and deletes it at the end.
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -419,6 +439,8 @@ WIRE_CLIENTS = 16
 WIRE_SEQUENTIAL = 256
 WIRE_TRAIN_INTERVAL = 150.0  # past the downloads and probes (~120 s on the card)
 WIRE_K1_FLUSHES = 64      # flushes whose inputs K1 is held to its plain version on
+PS_DAEMONS = 16            # phase 20: daemons in the peer swarm
+PS_SIZE_MIB = 256          # ... the origin file (a layer or shard; GBs cut for time)
 LC_TRAIN_INTERVAL = 45.0  # the Announcer's interval in the lifecycle phase (7 days cut):
                           # its first round lands after the seed scorer's parent choice
 LC_DAEMON_INTERVAL = 2.0  # the lifecycle daemon's cycle (30 s cut)
@@ -2870,6 +2892,47 @@ def telemetry_qos_phase(torch, dev, seed, out_dir):
     return out, launches
 
 
+def peer_swarm_phase(torch, dev, seed, out_dir):
+    """Phase 20: the peer daemon's download path (``bench/peer_swarm``),
+    K1 ranking the daemons' parents.  Returns (summary, launches)."""
+    from dragonfly2_tpu_torch.bench import peer_swarm
+    from dragonfly2_tpu_torch.ops import fused_score
+
+    seen = {"flushes": []}
+    args = peer_swarm.parse_args([
+        "--daemons", str(PS_DAEMONS), "--size-mib", str(PS_SIZE_MIB),
+        "--seed", str(seed), "--out", out_dir, "--device", "cuda",
+    ])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+        summary = peer_swarm.run(args, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    phase_s = time.perf_counter() - t0
+    check(len(seen["flushes"]) > 0, "no K1 flush on the peer swarm's path")
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+    out = {
+        **summary, "phase_seconds": phase_s, "kernel_launches": launches,
+        "k1": {"launches": launches["fused_gather_mlp_score"],
+               "scorer_calls": summary["scorer_calls"], "max_err_scaled": k1_err,
+               "tol_scaled": K1_TOL, "flushes_checked": len(seen["flushes"]),
+               "ms_128": k1_ms, "us_128": k1_ms * 1e3, "plain_ms_128": k1_plain_ms,
+               "bound_ms_128": k1_bound_ms},
+    }
+    emit({"phase": "peer_swarm", **out})
+    for name, ok in summary["checks"].items():
+        check(ok, f"peer swarm check {name} failed: {json.dumps(summary)}")
+    check(launches["fused_gather_mlp_score"] == summary["scorer_calls"] > 0,
+          f"K1 launches {launches['fused_gather_mlp_score']} != the batcher's scorer calls "
+          f"{summary['scorer_calls']} on the peer swarm")
+    check(launches["segment_sum"] == 0 and launches["rule_weighted_sum"] == 0,
+          f"another kernel launched on the peer swarm: {launches}")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the peer "
+          "swarm's flushes")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3138,26 +3201,32 @@ def main(argv=None) -> int:
     # -- 19. tracing, telemetry and tenant QoS on the K1 serving path --------
     loop["telemetry_qos"], tq_launches = telemetry_qos_phase(torch, dev, args.seed, work_dir)
     tq = loop["telemetry_qos"]
+    # -- 20. the peer daemon's download path, K1 ranking parents -------------
+    loop["peer_swarm"], ps_launches = peer_swarm_phase(torch, dev, args.seed, work_dir)
+    ps = loop["peer_swarm"]
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:114",
          "launches": launches["fused_gather_mlp_score"]
          + wire_launches["fused_gather_mlp_score"] + lc_launches["fused_gather_mlp_score"]
-         + tq_launches["fused_gather_mlp_score"],
+         + tq_launches["fused_gather_mlp_score"] + ps_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
          "launches_telemetry_qos": tq_launches["fused_gather_mlp_score"],
+         "launches_peer_swarm": ps_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
          "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
          "max_err_scaled_telemetry_qos": tq["k1"]["max_err_scaled"],
+         "max_err_scaled_peer_swarm": ps["k1"]["max_err_scaled"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "share_of_bound": k1_bound / k1_ms, "ms_128": k1_times[128][0],
          "bound_ms_128": k1_times[128][2][0], "ms_wire_128": wire["k1"]["ms_128"],
          "ms_wire_lifecycle_128": lc["k1"]["ms_128"],
-         "ms_telemetry_qos_128": tq["k1"]["ms_128"]},
+         "ms_telemetry_qos_128": tq["k1"]["ms_128"],
+         "ms_peer_swarm_128": ps["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

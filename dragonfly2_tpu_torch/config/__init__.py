@@ -1,11 +1,14 @@
-"""Configuration: the trainer's and the scheduler's config files, YAML and
-environment."""
+"""Configuration: the trainer's, the scheduler's and the peer daemon's
+config files, YAML and environment."""
 
 from .schema import (  # noqa: F401
     ConfigError,
+    DaemonConfig,
+    DaemonStorageSection,
     GCSection,
     LifecycleSection,
     NetworkTopologySection,
+    ProxySection,
     SchedulerConfigFile,
     SchedulingSection,
     StorageConfig,

@@ -1,12 +1,13 @@
-"""Config dataclasses + YAML/env loading + validation: the trainer's and
-the scheduler's.
+"""Config dataclasses + YAML/env loading + validation: the trainer's, the
+scheduler's and the peer daemon's.
 
 Port of the part of ``dragonfly2_tpu/config/schema.py`` that the trainer
 and scheduler binaries read: ``ConfigError``, the sections
 ``TrainerConfigFile`` holds, ``_from_dict``, ``_apply_env`` and
 ``load_config``, verbatim (same keys, defaults, validation and
-``DRAGONFLY_TRAINER_*`` / ``DRAGONFLY_SCHEDULER_*`` environment
-overrides), so the reference's trainer files load.  ``yaml`` is imported
+``DRAGONFLY_TRAINER_*`` / ``DRAGONFLY_SCHEDULER_*`` /
+``DRAGONFLY_DAEMON_*`` environment overrides), so the reference's
+trainer files load.  ``yaml`` is imported
 only when a path is given.  The other binaries' config files come with
 their slices.
 
@@ -32,6 +33,12 @@ the ``lifecycle`` section and the ``tracing`` and ``telemetry``
 sections; every other key parses and is ignored (ROADMAP queue 1 item 14
 lists what reads them in the reference).  ``telemetry.slos`` is
 validated by ``utils/slo.parse_slos``, as in the reference.
+
+``DaemonConfig``, ``DaemonStorageSection`` and ``ProxySection`` are the
+reference's, without the keys whose readers are item 14's (``security``,
+``metrics``, ``proxy.sni_*``: refused through ``NOT_PORTED``).
+``native_fetch`` defaults to False, and ``native_fetch: true`` or a
+``control_vsock_port`` >= 0 fails validation naming item 14.
 """
 
 from __future__ import annotations
@@ -316,6 +323,89 @@ class SchedulerConfigFile:
         self.telemetry.validate()
 
 
+@dataclass
+class DaemonStorageSection:
+    dir: str = "/var/lib/dragonfly/daemon"
+    quota_bytes: int = 10 << 30
+
+
+@dataclass
+class ProxySection:
+    enable: bool = False
+    port: int = 65001
+
+
+@dataclass
+class DaemonConfig:
+    server: ServerConfig = field(default_factory=lambda: ServerConfig(port=65000))
+    storage: DaemonStorageSection = field(default_factory=DaemonStorageSection)
+    proxy: ProxySection = field(default_factory=ProxySection)
+    # Control-API bind (dfget --daemon wire, /download, /obtain_seeds).
+    # Loopback by default — /download writes local files; bind a routable
+    # host only inside trusted pods/compose networks (the container e2e
+    # drives daemons through it).
+    control_host: str = "127.0.0.1"
+    control_port: int = 0
+    # AF_VSOCK control listener for VM guests (pkg/rpc/vsock.go analog);
+    # -1 = disabled, 0 = OS-assigned.  Only -1 is ported (item 14).
+    control_vsock_port: int = -1
+    scheduler_addr: str = ""
+    # Declared tenant identity (DESIGN.md §26): stamped on registers and
+    # announces so the scheduler's per-tenant accounting, the upload
+    # caps, and the weighted-fair lanes key on it.  Authenticated
+    # deployments derive it from the manager credential instead
+    # (qos.derive_tenant); "" rides as the default tenant.
+    tenant: str = ""
+    # Manager address for service-identity bootstrap (daemons otherwise
+    # only talk to the scheduler); required when security.auto_issue is on.
+    manager_addr: str = ""
+    manager_token: str = ""
+    piece_size: int = 4 << 20
+    concurrent_upload_limit: int = 50
+    # Concurrent back-to-source range groups (peerhost.go ConcurrentOption
+    # GoroutineCount); 1 = sequential origin fetch.
+    concurrent_source_groups: int = 1
+    # Pass-through read plane (DESIGN.md §25): commit-tee buffer depth
+    # in pieces per stream consumer; 0 = disable the tee (proxy/gateway
+    # streams read every piece back off disk).
+    stream_tee_depth: int = 8
+    # In-engine piece fetch loop (DESIGN.md §28).  The reference defaults
+    # it on; the port has no native engine, so it defaults off and True
+    # is refused (item 14).
+    native_fetch: bool = False
+    # Cloud back-to-source credentials by scheme (peerhost.go source
+    # plugins): {"s3": {...}, "oss": {...}, "hdfs": {...}, "oras": {...}}
+    # — see dragonfly2_tpu_torch.source.configure_sources.
+    source: dict = field(default_factory=dict)
+    total_rate_limit: float = 1e9
+    probe_interval_s: float = 20 * 60.0
+    tracing: TracingSection = field(default_factory=TracingSection)
+    telemetry: TelemetrySection = field(default_factory=TelemetrySection)
+    log: LogConfig = field(default_factory=LogConfig)
+
+    def validate(self) -> None:
+        self.server.validate()
+        self.log.validate()
+        self.tracing.validate()
+        self.telemetry.validate()
+        if self.piece_size < 4096:
+            raise ConfigError(f"piece_size {self.piece_size} too small")
+        if self.stream_tee_depth < 0:
+            raise ConfigError(
+                f"stream_tee_depth {self.stream_tee_depth} must be >= 0"
+            )
+        if self.native_fetch:
+            raise ConfigError(
+                "native_fetch: true needs the native engine, which is not "
+                "ported yet (ROADMAP queue 1 item 14)"
+            )
+        if self.control_vsock_port >= 0:
+            raise ConfigError(
+                "control_vsock_port >= 0 asks for the vsock transport, which "
+                "is not ported yet (ROADMAP queue 1 item 14)"
+            )
+
+
 # Keys of the reference's config files whose readers are not ported yet,
 # by the config class that would hold them: a file that sets one is
 # refused, and the message names the item that brings the reader.
@@ -324,6 +414,15 @@ NOT_PORTED = {
         "security": "14 (the security plane)",
         "dynconfig_refresh_s": "14 (dynconfig)",
         "metrics": "14 (the diagnostics server)",
+    },
+    "DaemonConfig": {
+        "security": "14 (the security plane)",
+        "metrics": "14 (the diagnostics server)",
+    },
+    "ProxySection": {
+        "sni_enable": "14 (the SNI proxy)",
+        "sni_port": "14 (the SNI proxy)",
+        "sni_hijack_hosts": "14 (the SNI proxy)",
     },
     "SchedulingSection": {
         "shard_max_inflight": "14 (the shard guard)",

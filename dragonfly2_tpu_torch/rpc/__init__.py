@@ -5,7 +5,13 @@ Port of the HTTP half of ``dragonfly2_tpu/rpc/``, stdlib only:
 
 - ``scheduler_server`` / ``scheduler_client`` — HTTP/JSON control plane
   binding the real SchedulerService; the client maintains local mirrors of
-  Host/Task/Peer.
+  Host/Task/Peer so the daemon's Conductor runs unchanged against a remote
+  scheduler.
+- ``piece_transport`` — HTTP piece data plane: a threading server over the
+  daemon's UploadManager (GET /pieces/<task>/<n>, Range supported) and the
+  matching fetcher.
+- ``daemon_control`` — the daemon's loopback control API and the
+  dfget→daemon contract (state file, spawn).
 - ``trainer_transport`` — the scheduler→trainer dataset stream (chunked
   HTTP uploads into TrainerService).
 - ``registry_client`` / ``cluster_client`` — the manager's REST surface
@@ -19,11 +25,15 @@ Port of the HTTP half of ``dragonfly2_tpu/rpc/``, stdlib only:
 The gRPC bindings of the same adapters (``SchedulerGRPCServer`` and the
 rest of the reference's ``grpc_transport``) are ROADMAP queue 1 item 12c;
 their names resolve lazily here, as in the reference, and raise until
-then.  The piece data plane and the daemon control API come with the
-peer daemon (item 14).
+then.
 """
 
 from .balancer import HashRing  # noqa: F401
+from .piece_transport import (  # noqa: F401
+    HTTPPieceFetcher,
+    PieceConnectionPool,
+    PieceHTTPServer,
+)
 from .registry_client import RemoteRegistry  # noqa: F401
 from .retry import retry_call  # noqa: F401
 from .scheduler_client import RemoteScheduler  # noqa: F401

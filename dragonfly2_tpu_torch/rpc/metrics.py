@@ -2,8 +2,8 @@
 gRPC server + the rate-limit interceptor, pkg/rpc/interceptor.go).
 
 Port of the part of ``dragonfly2_tpu/rpc/metrics.py`` the HTTP half
-reads: the rate limiter's rejections, the manager endpoints' failovers
-and the circuit breakers' state.  The gRPC, sync-peers and manager-HA
+reads: the rate limiter's rejections, the manager endpoints' failovers,
+the circuit breakers' state and the daemon control API's downloads.  The gRPC, sync-peers and manager-HA
 series come with the modules that write them.
 """
 
@@ -24,4 +24,8 @@ CIRCUIT_BREAKER_STATE = _reg.gauge(
     "rpc_circuit_breaker_state",
     "Per-target breaker state: 0 closed, 1 half_open, 2 open",
     ["target"],
+)
+DAEMON_CONTROL_DOWNLOADS = _reg.counter(
+    "daemon_control_downloads_total", "Downloads via the control API",
+    ["result"],
 )

@@ -2,14 +2,17 @@
 ``chip_smoke.py`` import neither JAX nor anything of the JAX package
 ``dragonfly2_tpu`` (not even its jax-free modules).
 
-Two checks: a static AST scan of every module, and a subprocess that
-imports the port's entry points with ``jax`` and ``dragonfly2_tpu``
-made unimportable.
+Three checks: a static AST scan of every module's imports, a scan of
+every string constant for a name of a ``dragonfly2_tpu.`` module (a
+``python -m`` spawn or an ``importlib`` target that no import scan sees),
+and a subprocess that imports the port's entry points with ``jax`` and
+``dragonfly2_tpu`` made unimportable.
 """
 
 from __future__ import annotations
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +49,39 @@ def test_module_imports_no_jax_and_nothing_of_the_jax_package(path):
                 and _forbidden(a.value)
             ]
     assert not bad, f"{path.name} imports {bad}"
+
+
+_JAX_MODULE_NAME = re.compile(r"(?<![\w.])dragonfly2_tpu\.[A-Za-z_]")
+
+
+def _docstring_nodes(tree):
+    """The docstring constants of the module, its classes and functions:
+    prose about the reference, which names its modules by design."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                out.add(id(body[0].value))
+    return out
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(REPO)) for p in PORT_FILES]
+)
+def test_no_string_names_a_jax_package_module(path):
+    """A string such as ``"dragonfly2_tpu.cli.dfdaemon"`` in a spawn's argv
+    would run the JAX package's code with no import the scan above sees.
+    Docstrings may cite the reference's files; no other string may name a
+    ``dragonfly2_tpu.`` module (``dragonfly2_tpu_torch.`` is the port's)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = _docstring_nodes(tree)
+    bad = [
+        (node.lineno, node.value) for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str)
+        and id(node) not in docs and _JAX_MODULE_NAME.search(node.value)
+    ]
+    assert not bad, f"{path.name}: strings naming a JAX package module: {bad}"
 
 
 _BLOCKED_IMPORT = """
@@ -111,6 +147,13 @@ print("OK")
         "dragonfly2_tpu_torch.bench.wire_loop",
         "dragonfly2_tpu_torch.rollout.client",
         "dragonfly2_tpu_torch.rollout.reporter",
+        "dragonfly2_tpu_torch.cli.dfdaemon",
+        "dragonfly2_tpu_torch.cli.dfget",
+        "dragonfly2_tpu_torch.daemon",
+        "dragonfly2_tpu_torch.rpc.piece_transport",
+        "dragonfly2_tpu_torch.rpc.daemon_control",
+        "dragonfly2_tpu_torch.source",
+        "dragonfly2_tpu_torch.bench.peer_swarm",
         "chip_smoke",
     ],
 )

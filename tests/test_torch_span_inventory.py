@@ -4,8 +4,10 @@
 For one lifecycle drill (``sim.lifecycle.run_lifecycle_drill``: the
 daemon's ``lifecycle/epoch`` and ``lifecycle/promote``, the controller's
 ``rollout/transition``), one online dispatch (``trainer/dispatch``), one
-coalesced batcher flush (``scheduler/eval.flush``), and the manager's
-REST handler spans (``manager/GET``, ``manager/POST``), the multiset of
+coalesced batcher flush (``scheduler/eval.flush``), the manager's REST
+handler spans (``manager/GET``, ``manager/POST``), and a two-daemon
+download (``daemon/download``, ``daemon/piece``, ``daemon/source.piece``,
+``daemon/report.flush``: one daemon back to source, one P2P), the multiset of
 (span name, sorted attribute keys) each package exports is equal.
 Where the values are inputs and not trained weights they are compared
 too.  ``jit_compiles`` is 0 in the port (no recompile witness yet).
@@ -174,3 +176,43 @@ def test_manager_rest_spans_equal(rings):
         assert all((s.trace_id, s.parent_id) == (root.trace_id, root.span_id) for s in spans)
     assert _inventory(rings["torch"], {"manager/GET", "manager/POST"}) == _inventory(
         rings["jax"], {"manager/GET", "manager/POST"})
+
+
+DAEMON_SPANS = {"daemon/download", "daemon/piece", "daemon/source.piece",
+                "daemon/report.flush"}
+
+
+def test_two_daemon_download_spans_equal(rings, tmp_path):
+    """Daemon 0 goes back to source, daemon 1 downloads P2P from it, in
+    each package's in-process swarm.  The report batcher lingers past the
+    download, so each P2P download flushes its reports once, at close."""
+    from tests.test_daemon import PIECE, _Swarm as JSwarm
+    from tests.test_torch_daemon import _Swarm as TSwarm
+
+    url = "https://origin/span-inventory"
+    results = {}
+    for name, swarm_cls in (("jax", JSwarm), ("torch", TSwarm)):
+        swarm = swarm_cls(tmp_path / name, n_hosts=2)
+        for d in swarm.daemons:
+            d.conductor.report_linger_s = 60.0
+        r0 = swarm.daemons[0].download(url, piece_size=PIECE, content_length=4 * PIECE)
+        r1 = swarm.daemons[1].download(url, piece_size=PIECE)
+        assert r0.ok and r0.back_to_source and r1.ok and not r1.back_to_source
+        results[name] = (r0, r1)
+        for d in swarm.daemons:
+            d.stop()
+    inv = {name: _inventory(ring, DAEMON_SPANS) for name, ring in rings.items()}
+    assert inv["torch"] == inv["jax"]
+    assert {name for name, _keys in inv["torch"]} == DAEMON_SPANS
+    assert sum(n for (name, _k), n in inv["torch"].items() if name == "daemon/piece") == 4
+    assert sum(n for (name, _k), n in inv["torch"].items()
+               if name == "daemon/source.piece") == 4
+
+    def values(ring):
+        return sorted(
+            (s.name, s.attributes.get("number", -1), s.attributes.get("bytes", -1),
+             s.attributes.get("reports", -1), s.attributes.get("back_to_source"))
+            for s in ring.spans if s.name in DAEMON_SPANS)
+
+    assert values(rings["torch"]) == values(rings["jax"])
+
