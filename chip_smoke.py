@@ -331,6 +331,35 @@ launch counts are zeroed before each and must read 0 after.
     aggregate MB/s, per-daemon MB/s p50 / p99, origin bytes, pieces by
     source and parent host, K1 launches, its time at the phase's flush
     rows and its error.  The phase writes 4 GiB and deletes it at the end.
+21. Preheat and the seed peer (``preheat_swarm``):
+    ``bench/preheat_swarm.run`` in this process, under the out directory:
+    two origins (file A, 256 MiB, made from the seed as in phase 20; file
+    B, 64 MiB); ``cli.manager.serve``; ``cli.scheduler.serve`` with
+    algorithm ``ml``, the seeded K1 scorer, the manager's URL and
+    ``dynconfig_refresh_s`` 1 (the job worker's long poll cut to 1 s);
+    one ``cli.dfdaemon.seed_peer`` composition (SUPER_SEED) and 15
+    daemons at the default 4 MiB pieces, announced.  A ``preheat`` job
+    for A over the manager's REST; the 15 daemons download A at the same
+    time; daemon 1 downloads B with no source client (the cold task: the
+    scheduler triggers the seed inline); the cluster's
+    ``filter_parent_limit`` goes to 6 over REST, and once dynconfig has
+    applied it daemons 0 and 2-14 download B.  Launch counts are zeroed
+    just before the run and read just after.  Checks: the preheat group
+    reads SUCCESS and the origin served A exactly once, all to the seed;
+    every sha256 equals its origin's; no normal daemon went back to
+    source and the origin's bytes for A stay 1.00 x the file; the cold
+    task's pieces all came from the seed and the origin served B once,
+    to the seed; the seed was triggered once for each file; the update
+    applied within three refreshes and every register after it handed K1
+    at most 6 rows; a SUPER_SEED row (column 9) among the scored rows
+    and in a recorded flush; no evaluator degrade and no batcher
+    fallback; K1 launches = the batcher's scorer calls > 0; K1 against
+    its plain version on the phase's own flushes.  Printed: preheat
+    seconds, the seed's share of P2P pieces, aggregate MB/s, origin
+    bytes, the cold task's trigger seconds, update-to-applied seconds,
+    rows per register before and after, the manager's job polls, K1
+    launches, its time at the phase's flush rows and its error.  The
+    phase writes 4.6 GiB and deletes it at the end.
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -441,6 +470,9 @@ WIRE_TRAIN_INTERVAL = 150.0  # past the downloads and probes (~120 s on the card
 WIRE_K1_FLUSHES = 64      # flushes whose inputs K1 is held to its plain version on
 PS_DAEMONS = 16            # phase 20: daemons in the peer swarm
 PS_SIZE_MIB = 256          # ... the origin file (a layer or shard; GBs cut for time)
+PH_DAEMONS = 15            # phase 21: normal daemons beside the one seed peer
+PH_SIZE_MIB = 256          # ... file A, preheated (as phase 20's file)
+PH_COLD_MIB = 64           # ... file B, the cold task
 LC_TRAIN_INTERVAL = 45.0  # the Announcer's interval in the lifecycle phase (7 days cut):
                           # its first round lands after the seed scorer's parent choice
 LC_DAEMON_INTERVAL = 2.0  # the lifecycle daemon's cycle (30 s cut)
@@ -1502,7 +1534,8 @@ def rollout_serving_phase(dev, seed, out_dir):
     shutil.rmtree(cfg.storage.dir, ignore_errors=True)
     cfg.scheduling.algorithm = "ml"
     cfg.scheduling.retry_interval_s = 0.0
-    service = build(cfg, device=dev, rng=random.Random(seed))
+    # Synthetic seed hosts: no daemon answers their port, so no trigger.
+    service = build(cfg, device=dev, rng=random.Random(seed), seed_trigger=False)
     ev = service.scheduling.evaluator
     batcher = ev.batcher
     cluster = SyntheticCluster(num_hosts=ROLL_TASKS * ROLL_HOSTS_PER_TASK, seed=seed)
@@ -2720,7 +2753,8 @@ def telemetry_qos_phase(torch, dev, seed, out_dir):
     cfg.telemetry.slo_interval_s = 1.0
     cfg.telemetry.slos = [TQ_SLO]
     blob = scorer_to_bytes(MLPScorer(weights=weights_from_seed(seed)))
-    service = build(cfg, device=dev, scorer_blob=blob, rng=random.Random(seed))
+    service = build(cfg, device=dev, scorer_blob=blob, rng=random.Random(seed),
+                    seed_trigger=False)  # synthetic seed hosts: no trigger
     batcher = service.scheduling.evaluator.batcher
     service.on_qos_config({"tenant_qos": {
         t: {"tenant_class": c, "weight": w} for t, (c, w) in TQ_TENANTS.items()}})
@@ -2933,6 +2967,57 @@ def peer_swarm_phase(torch, dev, seed, out_dir):
     return out, launches
 
 
+def preheat_phase(torch, dev, seed, out_dir):
+    """Phase 21: preheat and the seed peer (``bench/preheat_swarm``), K1
+    ranking seed parents, dynconfig reaching the scheduler live.
+    Returns (summary, launches)."""
+    from dragonfly2_tpu_torch.bench import preheat_swarm
+    from dragonfly2_tpu_torch.ops import fused_score
+
+    seen = {"flushes": []}
+    args = preheat_swarm.parse_args([
+        "--daemons", str(PH_DAEMONS), "--size-mib", str(PH_SIZE_MIB),
+        "--cold-mib", str(PH_COLD_MIB), "--seed", str(seed), "--out", out_dir,
+        "--device", "cuda",
+    ])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+        summary = preheat_swarm.run(args, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    phase_s = time.perf_counter() - t0
+    check(len(seen["flushes"]) > 0, "no K1 flush on the preheat path")
+    # SUPER_SEED rows among the recorded flushes' parent slots: column 9
+    # of the mirror, on rows with any edge feature set (a pad row's edge
+    # features are all 0 and its slot is 0).
+    mat = seen["scorer"]._sync_mirror().float().cpu().numpy()
+    seed_rows = sum(int(((mat[src, 9] == 1) & (np.abs(edge).sum(axis=1) > 0)).sum())
+                    for edge, src, _ in seen["flushes"])
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+    out = {
+        **summary, "phase_seconds": phase_s, "kernel_launches": launches,
+        "k1": {"launches": launches["fused_gather_mlp_score"],
+               "scorer_calls": summary["scorer_calls"], "max_err_scaled": k1_err,
+               "tol_scaled": K1_TOL, "flushes_checked": len(seen["flushes"]),
+               "super_seed_rows_in_flushes": seed_rows,
+               "ms_128": k1_ms, "us_128": k1_ms * 1e3, "plain_ms_128": k1_plain_ms,
+               "bound_ms_128": k1_bound_ms},
+    }
+    emit({"phase": "preheat_swarm", **out})
+    for name, ok in summary["checks"].items():
+        check(ok, f"preheat swarm check {name} failed: {json.dumps(summary)}")
+    check(launches["fused_gather_mlp_score"] == summary["scorer_calls"] > 0,
+          f"K1 launches {launches['fused_gather_mlp_score']} != the batcher's scorer calls "
+          f"{summary['scorer_calls']} on the preheat path")
+    check(launches["segment_sum"] == 0 and launches["rule_weighted_sum"] == 0,
+          f"another kernel launched on the preheat path: {launches}")
+    check(seed_rows > 0, "no SUPER_SEED row (column 9) in a recorded K1 flush")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the preheat "
+          "path's flushes")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2995,7 +3080,10 @@ def main(argv=None) -> int:
     # goes back to source without sleeping out the retry loop.
     cfg.scheduling.retry_interval_s = 0.0
     blob = scorer_to_bytes(MLPScorer(weights=weights_from_seed(args.seed)))
-    service = build(cfg, device=dev, scorer_blob=blob, rng=random.Random(args.seed))
+    # The cluster's seed hosts are synthetic (no daemon answers their
+    # port): no cold-task seed trigger, as before the trigger existed.
+    service = build(cfg, device=dev, scorer_blob=blob, rng=random.Random(args.seed),
+                    seed_trigger=False)
     ev = service.scheduling.evaluator
     batcher = ev.batcher
     scorer = ev._scorer
@@ -3204,29 +3292,36 @@ def main(argv=None) -> int:
     # -- 20. the peer daemon's download path, K1 ranking parents -------------
     loop["peer_swarm"], ps_launches = peer_swarm_phase(torch, dev, args.seed, work_dir)
     ps = loop["peer_swarm"]
+    # -- 21. preheat and the seed peer, K1 ranking seed parents --------------
+    loop["preheat_swarm"], ph_launches = preheat_phase(torch, dev, args.seed, work_dir)
+    ph = loop["preheat_swarm"]
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:114",
          "launches": launches["fused_gather_mlp_score"]
          + wire_launches["fused_gather_mlp_score"] + lc_launches["fused_gather_mlp_score"]
-         + tq_launches["fused_gather_mlp_score"] + ps_launches["fused_gather_mlp_score"],
+         + tq_launches["fused_gather_mlp_score"] + ps_launches["fused_gather_mlp_score"]
+         + ph_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
          "launches_telemetry_qos": tq_launches["fused_gather_mlp_score"],
          "launches_peer_swarm": ps_launches["fused_gather_mlp_score"],
+         "launches_preheat": ph_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
          "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
          "max_err_scaled_telemetry_qos": tq["k1"]["max_err_scaled"],
          "max_err_scaled_peer_swarm": ps["k1"]["max_err_scaled"],
+         "max_err_scaled_preheat": ph["k1"]["max_err_scaled"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "share_of_bound": k1_bound / k1_ms, "ms_128": k1_times[128][0],
          "bound_ms_128": k1_times[128][2][0], "ms_wire_128": wire["k1"]["ms_128"],
          "ms_wire_lifecycle_128": lc["k1"]["ms_128"],
          "ms_telemetry_qos_128": tq["k1"]["ms_128"],
-         "ms_peer_swarm_128": ps["k1"]["ms_128"]},
+         "ms_peer_swarm_128": ps["k1"]["ms_128"],
+         "ms_preheat_128": ph["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

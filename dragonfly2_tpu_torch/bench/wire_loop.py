@@ -580,6 +580,19 @@ def _segment(swarm: Swarm, t0, t1) -> dict:
     return {**_ms(dts), "seconds": t1 - t0, "announces_per_s": len(dts) / (t1 - t0)}
 
 
+def first_byte_tap(receive, first_byte: dict):
+    """Wrap a trainer's ``receive_shard_bytes`` so ``first_byte`` maps each
+    Train session to the host time of its first uploaded chunk.  Keyed by
+    the session object, which the dict keeps alive: an ``id()`` key is
+    reused once a finished round's session is freed, and the new round's
+    first chunk would then keep the old round's time."""
+    def timed_receive(session, *a, **kw):
+        first_byte.setdefault(session, time.perf_counter())
+        return receive(session, *a, **kw)
+
+    return timed_receive
+
+
 def run(args: argparse.Namespace, *, log=print) -> dict:
     """One wire loop (see the module docstring) → its summary."""
     import torch
@@ -632,13 +645,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
                                     scheduler_id=scheduler_id)
         stack.callback(trainer.stop)
         first_byte = {}  # session → host time of its first uploaded chunk
-        receive = trainer.service.receive_shard_bytes
-
-        def timed_receive(session, *a, **kw):
-            first_byte.setdefault(id(session), time.perf_counter())
-            return receive(session, *a, **kw)
-
-        trainer.service.receive_shard_bytes = timed_receive
+        trainer.service.receive_shard_bytes = first_byte_tap(
+            trainer.service.receive_shard_bytes, first_byte)
 
         scfg = SchedulerConfigFile()
         scfg.server.host, scfg.server.port = "127.0.0.1", sched_port
@@ -656,8 +664,10 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         scfg.trainer.enable, scfg.trainer.addr = True, trainer.url
         scfg.trainer.interval_s = args.train_interval
         t_boot = time.perf_counter()
+        # The swarm's seed hosts are synthetic (no daemon answers their
+        # port): no cold-task seed trigger, as before the trigger existed.
         sched = scheduler_cli.serve(scfg, device=dev, scorer_blob=seeded_k1_blob(args.seed),
-                                    rng=random.Random(args.seed))
+                                    rng=random.Random(args.seed), seed_trigger=False)
         stack.callback(sched.stop)
         if reserved is not None:
             reserved.close()
@@ -686,7 +696,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         rcfg.storage.dir = os.path.join(out, "rule_records")
         rcfg.scheduling.retry_interval_s = 0.0
         rcfg.network_topology.enable = False
-        rule = scheduler_cli.serve(rcfg, device=dev, rng=random.Random(args.seed))
+        rule = scheduler_cli.serve(rcfg, device=dev, rng=random.Random(args.seed),
+                                   seed_trigger=False)
         stack.callback(rule.stop)
 
         swarm = Swarm(args.hosts, args.seed)

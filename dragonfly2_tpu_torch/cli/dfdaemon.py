@@ -7,9 +7,13 @@ piece server, host announcer, probe agent and the control API.
 exits (smoke mode).
 
 Port of ``dragonfly2_tpu/cli/dfdaemon.py``: ``build`` and ``run`` with
-the download path.  What is not ported exits 2 naming its ROADMAP queue 1
-item: ``--seed-peer`` (``daemon/seeder.py``), ``--pex-port``
-(``daemon/pex_net.py``), a comma-separated scheduler list
+the download path, and ``--seed-peer``: the host announces as
+``SUPER_SEED``, a ``Seeder`` rides the loopback control server, and a
+second, public ``DaemonControlServer`` serving only ``/healthy`` and
+``/obtain_seeds`` puts its port into the announce, where the scheduler's
+``RemoteSeedPeerClient`` dials it (``seed_peer`` composes that part).
+What is not ported exits 2 naming its ROADMAP queue 1 item:
+``--pex-port`` (``daemon/pex_net.py``), a comma-separated scheduler list
 (``rpc/steering.py``), the config's ``security`` and ``proxy.sni_*``
 keys, ``native_fetch: true`` and ``control_vsock_port`` (all item 14),
 and a ``grpc://`` scheduler (item 12c).  The piece store is the Python
@@ -159,6 +163,31 @@ def build(cfg: DaemonConfig, scheduler_url: str):
     }
 
 
+def seed_peer(parts: dict, cfg: DaemonConfig) -> dict:
+    """Seed mode (seeder.go:41-151) over ``build``'s parts: the host
+    becomes a SUPER_SEED and a public seed endpoint (``/obtain_seeds`` and
+    ``/healthy`` only), bound on the serving address, serves a ``Seeder``;
+    its port goes into the host announce, so call this before the first
+    announce.  → ``{"seeder", "seed_endpoint"}``; pass the seeder to the
+    loopback ``DaemonControlServer`` too, as ``run`` does."""
+    from ..daemon.seeder import Seeder
+    from ..rpc.daemon_control import DaemonControlServer
+    from ..utils.types import HostType
+
+    parts["host"].type = HostType.SUPER_SEED
+    seeder = Seeder(parts["conductor"], parts["storage"])
+    # Separate PUBLIC surface for the scheduler's cross-process trigger:
+    # /obtain_seeds (+/healthy) only, bound on the serving address and
+    # advertised via the host announce's port.
+    seed_endpoint = DaemonControlServer(
+        parts["conductor"], piece_size=cfg.piece_size,
+        host=cfg.server.host, seeder=seeder, public=True,
+    )
+    seed_endpoint.serve()
+    parts["host"].port = seed_endpoint.address[1]
+    return {"seeder": seeder, "seed_endpoint": seed_endpoint}
+
+
 def run(argv=None) -> int:
     p = base_parser("dfdaemon", "Peer daemon service")
     p.add_argument("--scheduler", required=True, help="scheduler RPC URL")
@@ -166,8 +195,8 @@ def run(argv=None) -> int:
                    help="download one URL through the daemon and exit")
     p.add_argument("-O", "--output", default=None, help="output path (--download)")
     p.add_argument("--seed-peer", action="store_true",
-                   help="announce as a seed peer (not ported: ROADMAP queue 1 "
-                        "item 14)")
+                   help="announce as a seed peer and serve the ObtainSeeds "
+                        "endpoint the scheduler triggers cold tasks through")
     p.add_argument("--pex-port", type=int, default=-1, metavar="PORT",
                    help="networked peer-exchange gossip on this UDP port "
                         "(not ported: ROADMAP queue 1 item 14; -1 = disabled)")
@@ -178,18 +207,11 @@ def run(argv=None) -> int:
     debug = init_debug(args)
     init_tracing(args)
     journal = engine = None
-    parts = control = None
+    parts = control = seed = None
     try:
-        refused = []
-        if args.seed_peer:
-            refused.append("--seed-peer: the seed peer (daemon/seeder.py, with "
-                           "the scheduler's RemoteSeedPeerClient)")
         if args.pex_port >= 0:
-            refused.append("--pex-port: networked peer exchange (daemon/pex_net.py)")
-        for what in refused:
-            print(f"dfdaemon: {what} is not ported yet (ROADMAP queue 1 item 14)",
-                  file=sys.stderr)
-        if refused:
+            print("dfdaemon: --pex-port: networked peer exchange (daemon/pex_net.py) "
+                  "is not ported yet (ROADMAP queue 1 item 14)", file=sys.stderr)
             return 2
         try:
             cfg = load_config(DaemonConfig, args.config)
@@ -210,9 +232,17 @@ def run(argv=None) -> int:
         # such a boundary.
         from ..rpc.daemon_control import DaemonControlServer, write_state
 
+        if args.seed_peer:
+            # Seed mode: announce as SUPER_SEED and carry the public seed
+            # endpoint's port in the announce so the scheduler's trigger
+            # client (scheduler/seed_client.py) can dial /obtain_seeds.
+            seed = seed_peer(parts, cfg)
         control = DaemonControlServer(
             parts["conductor"], piece_size=cfg.piece_size,
             host=cfg.control_host, port=cfg.control_port,
+            # The seeder rides the loopback server too (not just the
+            # public seed endpoint), as in the reference.
+            seeder=seed["seeder"] if seed is not None else None,
         )
         control.serve()
         parts["announcer"].serve()
@@ -276,6 +306,9 @@ def run(argv=None) -> int:
             parts["piece_server"].stop()
         if control is not None:
             control.stop()
+        if seed is not None:
+            seed["seed_endpoint"].stop()
+            seed["seeder"].queue.stop()
         stop_telemetry(journal, engine)
         if debug is not None:
             debug.stop()

@@ -19,9 +19,13 @@ of the announces into ``storage.dir/shadow_replay.dfc``, with a
 ``RolloutReporter`` reporting every
 ``scheduling.rollout_report_interval_s``; with ``trainer.enable`` and
 ``trainer.addr``, the ``Announcer`` uploads the record shards every
-``trainer.interval_s``.  Two things the reference
-starts with a manager are not started here: the remote job worker and
-dynconfig (ROADMAP queue 1 item 14); serve mode says so at boot.
+``trainer.interval_s``.  With a manager, serve mode also starts the
+remote job worker on queue ``scheduler:<id>`` (the preheat handler warms
+each URL through the service's seed trigger, the sync-peers handler dumps
+the host manager) and ``Dynconfig``, which polls
+``/api/v1/clusters/<cluster_id>:config`` every ``dynconfig_refresh_s``
+(cached at ``storage.dir/dynconfig_cache.json``) and applies the
+cluster's four scheduling limits and its tenant QoS table live.
 
 ``run(argv)`` is the binary.  ``--simulate N`` runs an N-download
 synthetic swarm into the configured record storage and prints the
@@ -34,9 +38,11 @@ reference, ``run`` points the process tracer at ``--otlp`` /
 ``--trace-file``, attaches the flight recorder (``--trace-log`` or
 ``tracing.log_path``) and starts the metric journal (``--metric-journal``
 or ``telemetry.journal_path``) and the SLO engine (``telemetry.slos``);
-it stops the journal and the engine on shutdown.  ``build`` passes no
-seed-peer trigger: the reference's ``RemoteSeedPeerClient`` is ROADMAP
-queue 1 item 14.
+it stops the journal and the engine on shutdown.  ``build`` passes the
+reference's cold-task seed trigger, ``RemoteSeedPeerClient``, which dials
+the ``/obtain_seeds`` endpoint of an announced seed daemon; a caller whose
+seed hosts are synthetic (no daemon answers their port) passes
+``seed_trigger=False``.
 
     DRAGONFLY_SCHEDULER_STORAGE_DIR=DIR \\
         python -m dragonfly2_tpu_torch.cli.scheduler [--simulate N] [--device cpu]
@@ -89,6 +95,7 @@ def build(
     device="cuda",
     scorer_blob: Optional[bytes] = None,
     rng: Optional[random.Random] = None,
+    seed_trigger: bool = True,
 ) -> SchedulerService:
     """Composition root (scheduler.go:69-301 New).
 
@@ -97,8 +104,10 @@ def build(
     an exported scorer artifact (``trainer.export.scorer_to_bytes``) for
     the ``ml`` algorithm.  ``rng`` drives candidate sampling and the probe
     store's choice of probe targets (one generator for both, as the
-    reference's process-global ``random``).  The service carries
-    ``.storage`` and ``.networktopology`` (None when
+    reference's process-global ``random``).  ``seed_trigger`` installs
+    the cold-task trigger that dials an announced seed daemon (False:
+    none, for fleets whose seed hosts no daemon serves).  The service
+    carries ``.storage`` and ``.networktopology`` (None when
     ``network_topology.enable`` is off)."""
     cfg = cfg or SchedulerConfigFile()
     cfg.validate()
@@ -156,7 +165,15 @@ def build(
         max_size=cfg.storage.max_size,
         max_backups=cfg.storage.max_backups,
     )
-    return SchedulerService(resource, scheduling, storage, topology)
+    # Cold-task seed trigger: dials an announced seed daemon's
+    # /obtain_seeds stream (seed_peer.go:93-229 TriggerDownloadTask) —
+    # returns fast with False when no seed peer has announced.
+    from ..scheduler.seed_client import RemoteSeedPeerClient
+
+    return SchedulerService(
+        resource, scheduling, storage, topology,
+        seed_peer_trigger=RemoteSeedPeerClient(resource) if seed_trigger else None,
+    )
 
 
 @dataclass
@@ -171,6 +188,8 @@ class SchedulerServing:
     scheduler_id: str
     topology_state_path: Optional[str] = None
     cluster_link: object = None
+    job_worker: object = None
+    dynconfig: object = None
     topology_sync: object = None
     model_subscriber: object = None
     rollout_reporter: object = None
@@ -186,8 +205,12 @@ class SchedulerServing:
         self.rpc_server.stop()
         if self.announcer is not None:
             self.announcer.stop()
+        if self.job_worker is not None:
+            self.job_worker.stop()
         if self.cluster_link is not None:
             self.cluster_link.stop()
+        if self.dynconfig is not None:
+            self.dynconfig.stop()
         if self.rollout_reporter is not None:
             self.rollout_reporter.stop()
         if self.model_subscriber is not None:
@@ -200,15 +223,139 @@ class SchedulerServing:
         stop_telemetry(self.journal, self.slo_engine)
 
 
+def _job_worker(service: SchedulerService, manager_endpoints, scheduler_id: str, token):
+    """The remote job worker on ``scheduler:<id>`` (reference
+    cli/scheduler.py:343-369): preheat warms each URL into an announced
+    seed daemon through the service's trigger (job.go:244-283 →
+    TriggerDownloadTask); sync_peers dumps the host manager."""
+    from ..jobs.preheat import PREHEAT
+    from ..jobs.remote import RemoteJobWorker
+    from ..jobs.sync_peers import SYNC_PEERS, make_sync_peers_handler
+    from ..utils import idgen
+
+    job_worker = RemoteJobWorker(
+        manager_endpoints, f"scheduler:{scheduler_id}", token=token
+    )
+
+    def preheat_handler(args):
+        # Warm each URL into an announced seed daemon via the
+        # ObtainSeeds trigger (job.go:244-283 → TriggerDownloadTask).
+        if service.seed_peer_trigger is None:
+            raise RuntimeError("no seed trigger configured")
+        results = {}
+        for url in args.get("urls", []):
+            if not service.seed_peer_trigger(url, idgen.task_id(url)):
+                raise RuntimeError(f"preheat of {url}: no seed served it")
+            results[url] = "seeded"
+        return results
+
+    job_worker.register(PREHEAT, preheat_handler)
+    job_worker.register(SYNC_PEERS, make_sync_peers_handler(service.resource))
+    return job_worker
+
+
+def _dynconfig(cfg: SchedulerConfigFile, service: SchedulerService, manager_endpoints):
+    """Cluster-scoped scheduling config, applied LIVE (reference
+    cli/scheduler.py:371-452): the manager's scheduler-cluster record
+    feeds candidate/filter limits through dynconfig, and the scheduling
+    pass reads the shared SchedulingConfig on every call — a console
+    update changes the very next pass (scheduling.go:404-410
+    consumption; the disk cache keeps the last-known config through
+    manager outages)."""
+    import json as _json
+    import logging as _logging
+    import urllib.error as _urlerror
+    import urllib.request as _request
+
+    from ..manager.dynconfig import Dynconfig
+
+    _dynlog = _logging.getLogger("dragonfly2_tpu_torch.cli.scheduler.dynconfig")
+    _warned_404 = []
+
+    def _fetch_one_endpoint(base):
+        req = _request.Request(
+            f"{base}/api/v1/clusters/{cfg.cluster_id}:config"
+        )
+        try:
+            with _request.urlopen(req, timeout=10) as resp:
+                return _json.loads(resp.read())
+        except _urlerror.HTTPError as exc:
+            if exc.code == 404 and not _warned_404:
+                # Misconfiguration, not an outage: the manager has no
+                # record for this cluster_id, so console updates will
+                # never reach this scheduler — say so ONCE, loudly
+                # (Dynconfig's refresh swallows fetch errors silently).
+                _warned_404.append(True)
+                _dynlog.warning(
+                    "cluster %r has no config record on the manager — "
+                    "live scheduling overrides are inactive until it "
+                    "is created (POST /api/v1/clusters)", cfg.cluster_id,
+                )
+            raise
+
+    def _fetch_cluster_config():
+        # Sweep the replica list before giving up: the disk cache is the
+        # LAST resort (all replicas down), not the answer to one dead
+        # leader.
+        return manager_endpoints.call(_fetch_one_endpoint)
+
+    def _apply_cluster_config(data):
+        scc = data.get("scheduler_cluster_config")
+        if not isinstance(scc, dict):
+            return
+        sc = service.scheduling.config
+        # Read-validate EVERYTHING before writing anything — a bad value
+        # must not leave the live config half-updated (the manager
+        # validates writes, but the disk cache or an older manager may
+        # still hand back junk).
+        updates = {}
+        for key in (
+            "candidate_parent_limit",
+            "filter_parent_limit",
+            "retry_limit",
+            "retry_back_to_source_limit",
+        ):
+            if key in scc:
+                try:
+                    updates[key] = int(scc[key])
+                except (TypeError, ValueError):
+                    _dynlog.warning(
+                        "ignoring cluster config with bad %s=%r",
+                        key, scc[key],
+                    )
+                    return
+        for key, value in updates.items():
+            setattr(sc, key, value)
+
+    # The storage dir may not exist before record storage's first flush.
+    os.makedirs(cfg.storage.dir, exist_ok=True)
+    dynconfig = Dynconfig(
+        _fetch_cluster_config,
+        refresh_interval=cfg.dynconfig_refresh_s,
+        cache_path=os.path.join(cfg.storage.dir, "dynconfig_cache.json"),
+    )
+    dynconfig.register(_apply_cluster_config)
+    # The reference also registers its shard guard's ring adoption here
+    # (shard_guard.on_config); the shard guard is ROADMAP queue 1 item 14.
+    # Tenant QoS adoption (DESIGN.md §26): the manager publishes the
+    # per-tenant table with the same payload; the service installs it
+    # across admission accounting + the batcher's DRR weights and
+    # re-publishes it on announce answers.
+    dynconfig.register(service.on_qos_config)
+    return dynconfig
+
+
 def serve(
     cfg: Optional[SchedulerConfigFile] = None,
     *,
     device="cuda",
     scorer_blob: Optional[bytes] = None,
     rng: Optional[random.Random] = None,
+    seed_trigger: bool = True,
 ) -> SchedulerServing:
     """The binary's serve mode (reference cli/scheduler.py:167-575) as a
-    composition: ``build(cfg, device=, scorer_blob=, rng=)`` behind
+    composition: ``build(cfg, device=, scorer_blob=, rng=,
+    seed_trigger=)`` behind
     ``SchedulerHTTPServer`` on ``server.host:server.port`` (0 binds an
     ephemeral port), with the GC runner, the probe-graph checkpoint, the
     manager link and the trainer link the config asks for.  A
@@ -232,7 +379,8 @@ def serve(
     from ..rpc import RemoteTrainer, SchedulerHTTPServer
     from ..rpc.ratelimit import maybe_bucket
 
-    service = build(cfg, device=device, scorer_blob=scorer_blob, rng=rng)
+    service = build(cfg, device=device, scorer_blob=scorer_blob, rng=rng,
+                    seed_trigger=seed_trigger)
     resource = service.resource
     runner = dfgc.GC()
     runner.add(
@@ -299,11 +447,10 @@ def serve(
             hostname=socket.gethostname(), ip=cfg.server.host,
             port=rpc_server.address[1],
         )
-        print(
-            "scheduler: with a manager the reference also starts the remote job "
-            "worker and dynconfig; neither is ported (ROADMAP queue 1 item 14)",
-            flush=True,
-        )
+        serving.job_worker = _job_worker(service, manager_endpoints, scheduler_id, token)
+        serving.job_worker.serve()
+        serving.dynconfig = _dynconfig(cfg, service, manager_endpoints)
+        serving.dynconfig.serve()
         # Cross-replica topology sharing through the manager (the Redis
         # analog): probes landed on OTHER schedulers inform this one's nt
         # evaluator, and each sync checkpoints the local graph to disk.
@@ -373,6 +520,8 @@ def serve(
         f"scheduler: serving rpc on {rpc_server.url}"
         + (f", dataset uploads to {cfg.trainer.addr} every "
            f"{cfg.trainer.interval_s:.0f}s" if serving.announcer else "")
+        + (f", job queue {serving.job_worker.queue_name} on {cfg.manager_addr}"
+           if serving.job_worker else "")
         + " (ctrl-c to stop)",
         flush=True,
     )

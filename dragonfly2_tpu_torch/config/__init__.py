@@ -1,5 +1,5 @@
-"""Configuration: the trainer's, the scheduler's and the peer daemon's
-config files, YAML and environment."""
+"""Configuration: the trainer's, the scheduler's, the manager's and the
+peer daemon's config files, YAML and environment."""
 
 from .schema import (  # noqa: F401
     ConfigError,
@@ -7,8 +7,11 @@ from .schema import (  # noqa: F401
     DaemonStorageSection,
     GCSection,
     LifecycleSection,
+    ManagerConfig,
+    ModelRegistrySection,
     NetworkTopologySection,
     ProxySection,
+    RolloutSection,
     SchedulerConfigFile,
     SchedulingSection,
     StorageConfig,

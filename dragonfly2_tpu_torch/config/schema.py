@@ -1,12 +1,12 @@
 """Config dataclasses + YAML/env loading + validation: the trainer's, the
-scheduler's and the peer daemon's.
+scheduler's, the manager's and the peer daemon's.
 
 Port of the part of ``dragonfly2_tpu/config/schema.py`` that the trainer
 and scheduler binaries read: ``ConfigError``, the sections
 ``TrainerConfigFile`` holds, ``_from_dict``, ``_apply_env`` and
 ``load_config``, verbatim (same keys, defaults, validation and
 ``DRAGONFLY_TRAINER_*`` / ``DRAGONFLY_SCHEDULER_*`` /
-``DRAGONFLY_DAEMON_*`` environment overrides), so the reference's
+``DRAGONFLY_MANAGER_*`` / ``DRAGONFLY_DAEMON_*`` environment overrides), so the reference's
 trainer files load.  ``yaml`` is imported
 only when a path is given.  The other binaries' config files come with
 their slices.
@@ -14,7 +14,7 @@ their slices.
 ``SchedulerConfigFile`` holds only the sections and fields the port's
 ``cli/scheduler`` reads (``server``, ``scheduling``,
 ``network_topology``, ``storage``, ``trainer``, ``gc``, the manager
-link and the topology sync cadence), with the reference's names,
+link, the dynconfig and topology sync cadences), with the reference's names,
 defaults and validation.  The reference's other scheduler keys come
 with the slices that read them, and until then a file that sets one is
 refused as an unknown key; for the keys in ``NOT_PORTED`` the message
@@ -33,6 +33,12 @@ the ``lifecycle`` section and the ``tracing`` and ``telemetry``
 sections; every other key parses and is ignored (ROADMAP queue 1 item 14
 lists what reads them in the reference).  ``telemetry.slos`` is
 validated by ``utils/slo.parse_slos``, as in the reference.
+
+``ManagerConfig``, ``ModelRegistrySection`` and ``RolloutSection`` are
+the reference's, with ``DRAGONFLY_MANAGER_*`` overrides, without the keys
+whose readers are item 14's (``ha``, ``token_secret``, ``users_db``,
+``root_password``, ``oauth_providers``, ``ca_dir``, ``objectstorage``,
+``metrics``: refused through ``NOT_PORTED``).
 
 ``DaemonConfig``, ``DaemonStorageSection`` and ``ProxySection`` are the
 reference's, without the keys whose readers are item 14's (``security``,
@@ -310,6 +316,10 @@ class SchedulerConfigFile:
     # registration routes; empty on open managers.
     manager_token: str = ""
     cluster_id: str = "default"
+    # How often to poll the manager for cluster-scoped scheduling config
+    # (dynconfig.go refresh interval; the reference defaults to 10s for
+    # schedulers).
+    dynconfig_refresh_s: float = 10.0
     # Cross-replica probe-graph sync cadence (push own edges, pull the
     # other schedulers' via the manager — the Redis-sharing analog).
     topology_sync_interval_s: float = 30.0
@@ -321,6 +331,57 @@ class SchedulerConfigFile:
         self.scheduling.validate()
         self.tracing.validate()
         self.telemetry.validate()
+
+
+@dataclass
+class ModelRegistrySection:
+    blob_dir: str = "/var/lib/dragonfly/models"
+
+
+@dataclass
+class RolloutSection:
+    """Rollout-controller guardrails (rollout/controller.py
+    RolloutGuardrails; DESIGN.md §15 documents each threshold)."""
+
+    min_shadow_samples: int = 200
+    min_canary_samples: int = 200
+    max_regret_ratio: float = 1.10
+    regret_slack: float = 0.02
+    max_inversion_ratio: float = 1.10
+    max_psi: float = 0.25
+    canary_percent: int = 10
+
+    def validate(self) -> None:
+        if not (0 <= self.canary_percent <= 100):
+            raise ConfigError("rollout.canary_percent must be in [0, 100]")
+        if self.max_regret_ratio < 1.0 or self.max_inversion_ratio < 1.0:
+            raise ConfigError("rollout ratio guardrails must be >= 1.0")
+        if self.min_shadow_samples < 1 or self.min_canary_samples < 1:
+            raise ConfigError("rollout sample floors must be >= 1")
+
+
+@dataclass
+class ManagerConfig:
+    server: ServerConfig = field(default_factory=lambda: ServerConfig(port=65003))
+    registry: ModelRegistrySection = field(default_factory=ModelRegistrySection)
+    rollout: RolloutSection = field(default_factory=RolloutSection)
+    keepalive_ttl_s: float = 60.0
+    # Floor for the job broker's wire-supplied visibility window: a
+    # worker's poll may request faster redelivery of popped-but-
+    # unreported jobs, but never below this — an impatient worker must
+    # not duplicate every in-flight job on its queue.  Operators shrink
+    # it for recovery drills/tests.
+    jobs_min_requeue_s: float = 30.0
+    tracing: TracingSection = field(default_factory=TracingSection)
+    telemetry: TelemetrySection = field(default_factory=TelemetrySection)
+    log: LogConfig = field(default_factory=LogConfig)
+
+    def validate(self) -> None:
+        self.server.validate()
+        self.log.validate()
+        self.tracing.validate()
+        self.telemetry.validate()
+        self.rollout.validate()
 
 
 @dataclass
@@ -412,7 +473,16 @@ class DaemonConfig:
 NOT_PORTED = {
     "SchedulerConfigFile": {
         "security": "14 (the security plane)",
-        "dynconfig_refresh_s": "14 (dynconfig)",
+        "metrics": "14 (the diagnostics server)",
+    },
+    "ManagerConfig": {
+        "ha": "14 (manager replication)",
+        "token_secret": "14 (manager users and tokens)",
+        "users_db": "14 (manager users and tokens)",
+        "root_password": "14 (manager users and tokens)",
+        "oauth_providers": "14 (manager OAuth)",
+        "ca_dir": "14 (the cluster CA)",
+        "objectstorage": "14 (object storage)",
         "metrics": "14 (the diagnostics server)",
     },
     "DaemonConfig": {

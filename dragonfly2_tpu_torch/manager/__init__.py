@@ -4,10 +4,15 @@ immutable scorer artifacts with transactional single-active activation
 per scheduler (reference: manager/rpcserver/manager_server_v1.go:802-901
 CreateModel, manager/service/model.go:103-190 activation) — the
 durable-state seam its rows ride (``state.MemoryBackend``), scheduler
-membership with keepalive (``cluster``) and the REST surface over both
-(``rest.ManagerRESTServer``, imported from its module).
+membership with keepalive (``cluster``), the scheduler-cluster searcher
+(``searcher``), the CRUD rows whose cluster config feeds the schedulers'
+dynconfig (``crud``), the dynconfig client (``dynconfig``) and the REST
+surface over them (``rest.ManagerRESTServer``, imported from its module).
 """
 
+from .searcher import ClusterScopes, SchedulerCluster, Searcher  # noqa: F401
+from .dynconfig import Dynconfig, DynconfigServer  # noqa: F401
+from .crud import CrudStore  # noqa: F401
 from .cluster import ClusterManager, SchedulerInstance, SeedPeerInstance  # noqa: F401
 from .registry import (  # noqa: F401
     ArtifactDigestError,

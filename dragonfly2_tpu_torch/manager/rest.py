@@ -2,8 +2,8 @@
 surface the console drives; swagger'd CRUD for models/clusters/schedulers).
 
 Port of the routes of ``dragonfly2_tpu/manager/rest.py`` that the
-learned-scheduling loop crosses, with the reference's paths, JSON and
-status codes:
+learned-scheduling loop and the preheat path cross, with the reference's
+paths, JSON and status codes:
 
   GET    /api/v1/healthy                         liveness
   GET    /api/v1/models?scheduler_id=&name=      list models
@@ -24,16 +24,46 @@ status codes:
   POST   /api/v1/schedulers/<id>:keepalive       liveness tick → {known}
   GET    /api/v1/topology?exclude=<id>           the other replicas' probe edges
   POST   /api/v1/topology                        push this scheduler's edges
+  GET    /api/v1/clusters:search?ip=&hostname=&idc=&location=
+
+The job broker wire (jobs/remote.py contract; the broker is
+``jobs/queue.JobQueue``):
+
+  POST   /api/v1/jobs                            {type, args, queues} → group
+  GET    /api/v1/jobs                            recent group jobs
+  GET    /api/v1/jobs/<gid>                      group + per-job states
+  POST   /api/v1/jobs:poll                       {queue, timeout_s?} → job | {}
+  POST   /api/v1/jobs/<id>:result                {state, result?, error?}
+
+CRUD resources (manager/handlers/application.go, scheduler_cluster.go;
+rows in manager/crud.py CrudStore, write-through to the state backend):
+
+  GET    /api/v1/applications                    list
+  POST   /api/v1/applications                    create
+  POST   /api/v1/applications/<id>:update        partial update
+  POST   /api/v1/applications/<id>:delete
+  GET    /api/v1/configs                         list operator settings
+  POST   /api/v1/configs                         create
+  POST   /api/v1/configs/<id>:update             partial update
+  POST   /api/v1/configs/<id>:delete
+  GET    /api/v1/clusters                        list scheduler clusters
+  POST   /api/v1/clusters                        create
+  POST   /api/v1/clusters/<id>:update            partial update
+  POST   /api/v1/clusters/<id>:delete
+  GET    /api/v1/clusters/<id>:config            the dynconfig payload a
+         scheduler polls (scheduling.go:404-410 limit consumption)
 
 The rollout routes need a ``RolloutController`` (``rollout=``); without
 one they answer 404, as the reference's do, and ``:candidate`` reports
-``canary_percent`` 0.  Every other route of the reference (users,
-personal access tokens, OAuth, jobs, the CRUD resources and cluster
-dynconfig, buckets, certs, replication, the console, metrics and debug
-pages) answers 404 here, as the reference's do when their backing object
-is ``None``; the constructor takes none of those objects (ROADMAP queue 1
-item 14).  With no token verifier and no user store, the reference
-authorizes every request; so does this port, which has neither.
+``canary_percent`` 0.  As in the reference, a server given no job queue
+or CRUD store makes its own in memory, and the CRUD store always holds
+the default cluster.  Every other route of the reference (users,
+personal access tokens, OAuth, buckets, certs, replication, the console,
+metrics and debug pages) answers 404 here, as the reference's do when
+their backing object is ``None``; the constructor takes none of those
+objects (ROADMAP queue 1 item 14).  With no token verifier and no user
+store, the reference authorizes every request; so does this port, which
+has neither.
 """
 
 from __future__ import annotations
@@ -43,12 +73,15 @@ import json
 import threading
 import time
 import urllib.parse
+from dataclasses import asdict
 from http.server import BaseHTTPRequestHandler
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 from ..rpc._server import ThreadedHTTPService
 from .cluster import ClusterManager, SchedulerInstance
+from .crud import CrudStore
 from .registry import Model, ModelRegistry
+from .searcher import SchedulerCluster, Searcher
 
 
 def _model_to_json(m: Model) -> dict:
@@ -69,10 +102,16 @@ class ManagerRESTServer:
         self,
         registry: ModelRegistry,
         clusters: ClusterManager,
+        searcher: Optional[Searcher] = None,
+        scheduler_clusters: Optional[List[SchedulerCluster]] = None,
         *,
         host: str = "127.0.0.1",
         port: int = 0,
+        jobqueue=None,
+        crud: Optional[CrudStore] = None,
         rate_limit=None,
+        state_backend=None,
+        jobs_min_requeue_s: float = 30.0,
         rollout=None,
     ):
         self.registry = registry
@@ -80,6 +119,13 @@ class ManagerRESTServer:
         # Rollout controller (rollout/controller.py): serves the
         # candidate poll + evaluation-report routes; None → 404s.
         self.rollout = rollout
+        self.searcher = searcher or Searcher()
+        self.scheduler_clusters = scheduler_clusters or []
+        # CRUD resources (applications + scheduler-cluster records whose
+        # config blobs feed the schedulers' dynconfig).  The default
+        # cluster always exists — dynconfig consumers need one to poll.
+        self.crud = crud or CrudStore()
+        self.crud.ensure_default_cluster()
         # Token-bucket middleware (manager/middlewares rate limiter): one
         # bucket bounds the whole REST surface; None = off.
         self.rate_limit = rate_limit
@@ -93,6 +139,36 @@ class ManagerRESTServer:
         self.topology_shared: dict = {}
         self.topology_ttl_s = 600.0
         self._topology_mu = threading.Lock()
+        # With the manager state seam attached, pushed topology survives
+        # a manager crash: replicas keep pulling the merged graph after
+        # a restart instead of waiting a full re-push cycle.
+        self._topology_table = (
+            state_backend.table("topology") if state_backend is not None
+            else None
+        )
+        if self._topology_table is not None:
+            self.topology_shared = self._topology_table.load_all()
+        # Sharded-fleet membership directory (scheduler/sharding.py,
+        # DESIGN.md §24): the ACTIVE scheduler set per cluster, versioned
+        # and persisted, published with the cluster dynconfig so every
+        # client converges on the same ring.  Without a state seam the
+        # ring is still published, from an in-memory backend (versions
+        # restart).
+        from ..manager.state import MemoryBackend
+        from ..scheduler.sharding import ShardDirectory
+
+        self.shards = ShardDirectory(
+            state_backend if state_backend is not None else MemoryBackend()
+        )
+        # Job broker (machinery-over-Redis analog, jobs/remote.py): the
+        # manager hosts the queues; remote scheduler workers poll them
+        # over this REST surface.
+        if jobqueue is None:
+            from ..jobs.queue import JobQueue
+
+            jobqueue = JobQueue()
+        self.jobqueue = jobqueue
+        self.jobs_min_requeue_s = jobs_min_requeue_s
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -260,6 +336,8 @@ class ManagerRESTServer:
                         ]
                         for sid in dead:
                             del server.topology_shared[sid]
+                            if server._topology_table is not None:
+                                server._topology_table.delete(sid)
                         edges = [
                             e
                             for sid, entry in server.topology_shared.items()
@@ -267,6 +345,62 @@ class ManagerRESTServer:
                             for e in entry["edges"]
                         ]
                     self._json(200, {"edges": edges})
+                elif path == "/api/v1/jobs":
+                    # Recent group jobs (console view; handlers/job.go list).
+                    self._json(200, server.jobqueue.list_groups())
+                elif path.startswith("/api/v1/jobs/"):
+                    gid = path[len("/api/v1/jobs/"):]
+                    try:
+                        self._json(200, server.jobqueue.group_snapshot(gid))
+                    except KeyError:
+                        self._json(404, {"error": f"no group {gid!r}"})
+                elif path == "/api/v1/applications":
+                    self._json(
+                        200, [asdict(a) for a in server.crud.list("application")]
+                    )
+                elif path == "/api/v1/configs":
+                    self._json(200, [asdict(c) for c in server.crud.list("config")])
+                elif path == "/api/v1/clusters":
+                    self._json(200, [asdict(c) for c in server.crud.list("cluster")])
+                elif path.startswith("/api/v1/clusters/") and path.endswith(
+                    ":config"
+                ):
+                    # The dynconfig payload a scheduler polls for its live
+                    # scheduling limits (scheduling.go:404-410).
+                    cid = path[len("/api/v1/clusters/"):-len(":config")]
+                    try:
+                        payload = server.crud.cluster_config(cid)
+                        # The reference derives tenant_id from an
+                        # authenticated poll's credential; with no token
+                        # verifier and no user store no poll carries one.
+                        # The shard ring rides the cluster dynconfig
+                        # (DESIGN.md §24): membership is the ACTIVE
+                        # scheduler set; a set change bumps the durable
+                        # ring version and every poller re-routes.
+                        payload["scheduler_ring"] = server.shards.publish(
+                            cid,
+                            [
+                                (s.id, f"http://{s.ip}:{s.port}")
+                                for s in server.clusters.active_schedulers(cid)
+                            ],
+                        )
+                        self._json(200, payload)
+                    except KeyError as exc:
+                        self._json(404, {"error": str(exc)})
+                elif path == "/api/v1/clusters:search":
+                    try:
+                        ranked = server.searcher.find_scheduler_clusters(
+                            server.search_clusters(),
+                            ip=q.get("ip", ""),
+                            hostname=q.get("hostname", ""),
+                            conditions={
+                                "idc": q.get("idc", ""),
+                                "location": q.get("location", ""),
+                            },
+                        )
+                        self._json(200, [c.id for c in ranked])
+                    except LookupError as exc:
+                        self._json(404, {"error": str(exc)})
                 else:
                     self._json(404, {"error": "not found"})
 
@@ -285,6 +419,22 @@ class ManagerRESTServer:
                 if self._rate_limited():
                     return
                 path = urllib.parse.urlsplit(self.path).path
+                # The reference checks a role per route here; with no
+                # token verifier and no user store every request is
+                # authorized, and this port has neither.
+                if path.startswith("/api/v1/jobs"):
+                    self._job_routes(path)
+                    return
+                if (
+                    path.startswith("/api/v1/applications")
+                    or path.startswith("/api/v1/configs")
+                    or (
+                        path.startswith("/api/v1/clusters")
+                        and not path.startswith("/api/v1/clusters:")
+                    )
+                ):
+                    self._crud_routes(path)
+                    return
                 if path == "/api/v1/topology":
                     # Scheduler push: replace this scheduler's edge set.
                     try:
@@ -303,6 +453,10 @@ class ManagerRESTServer:
                             server.topology_shared[sid] = {
                                 "edges": edges, "pushed_at": time.time(),
                             }
+                            if server._topology_table is not None:
+                                server._topology_table.put(
+                                    sid, server.topology_shared[sid]
+                                )
                         self._json(200, {"ok": True, "edges": len(edges)})
                     except (KeyError, ValueError, TypeError) as exc:
                         self._json(400, {"error": str(exc)})
@@ -430,8 +584,128 @@ class ManagerRESTServer:
                     return
                 self._json(404, {"error": "not found"})
 
+            def _crud_routes(self, path: str) -> None:
+                """Applications + scheduler-cluster CRUD
+                (manager/handlers/application.go, scheduler_cluster.go)."""
+                if path.startswith("/api/v1/applications"):
+                    kind, base = "application", "/api/v1/applications"
+                elif path.startswith("/api/v1/configs"):
+                    kind, base = "config", "/api/v1/configs"
+                else:
+                    kind, base = "cluster", "/api/v1/clusters"
+                try:
+                    if path == base:
+                        obj = server.crud.create(kind, **self._body())
+                        self._json(200, asdict(obj))
+                        return
+                    rest = path[len(base) + 1:]
+                    row_id, _, action = rest.rpartition(":")
+                    if action == "update":
+                        obj = server.crud.update(kind, row_id, **self._body())
+                        self._json(200, asdict(obj))
+                    elif action == "delete":
+                        server.crud.delete(kind, row_id)
+                        self._json(200, {"ok": True})
+                    else:
+                        self._json(404, {"error": f"unknown action {action!r}"})
+                except KeyError as exc:
+                    self._json(404, {"error": str(exc)})
+                except (ValueError, TypeError) as exc:
+                    self._json(400, {"error": str(exc)})
+
+            def _job_routes(self, path: str) -> None:
+                """Job broker wire (jobs/remote.py contract)."""
+                from ..jobs.queue import JobState
+
+                try:
+                    if path == "/api/v1/jobs":
+                        req = self._body()
+                        queues = req.get("queues") or []
+                        if not queues or "type" not in req:
+                            self._json(400, {"error": "type and queues required"})
+                            return
+                        group = server.jobqueue.create_group_job(
+                            req["type"],
+                            {q: dict(req.get("args") or {}) for q in queues},
+                        )
+                        self._json(200, server.jobqueue.group_snapshot(group.id))
+                    elif path == "/api/v1/jobs:poll":
+                        req = self._body()
+                        queue_name = req.get("queue", "")
+                        if not queue_name:
+                            self._json(400, {"error": "queue required"})
+                            return
+                        timeout = min(float(req.get("timeout_s") or 5.0), 30.0)
+                        # Visibility window override (machinery's
+                        # visibility-timeout analog) — floored by the
+                        # operator's jobs_min_requeue_s: an impatient
+                        # worker must not force-redeliver every job
+                        # another worker is still executing.
+                        requeue_after = max(
+                            float(req.get("requeue_started_after_s") or 120.0),
+                            server.jobs_min_requeue_s,
+                        )
+                        job = server.jobqueue.poll(
+                            queue_name, timeout=timeout,
+                            requeue_started_after_s=requeue_after,
+                        )
+                        if job is None:
+                            self._json(200, {})  # empty poll (204 bodies confuse keep-alive)
+                            return
+                        self._json(200, {
+                            "id": job.id, "type": job.type,
+                            "args": job.args, "group_id": job.group_id,
+                        })
+                    elif path.startswith("/api/v1/jobs/") and path.endswith(":result"):
+                        job_id = path[len("/api/v1/jobs/"):-len(":result")]
+                        req = self._body()
+                        state = JobState(req.get("state", "FAILURE"))
+                        if state not in (JobState.SUCCESS, JobState.FAILURE):
+                            self._json(400, {"error": f"bad state {state}"})
+                            return
+                        server.jobqueue.set_result(
+                            job_id, state,
+                            result=req.get("result"),
+                            error=req.get("error", ""),
+                        )
+                        self._json(200, {"ok": True})
+                    else:
+                        self._json(404, {"error": "not found"})
+                except KeyError as exc:
+                    self._json(404, {"error": str(exc)})
+                except ValueError as exc:
+                    self._json(400, {"error": str(exc)})
+
         self._svc = ThreadedHTTPService(Handler, host, port, "manager-rest")
         self.address: Tuple[str, int] = self._svc.address
+
+    def search_clusters(self) -> List[SchedulerCluster]:
+        """The searcher's candidate set: the constructor-injected list when
+        provided (tests, static deployments), else the CRUD cluster rows —
+        ONE cluster model, so a cluster created over REST is immediately
+        searchable, with live scheduler ids from the keepalive table."""
+        if self.scheduler_clusters:
+            return self.scheduler_clusters
+        from .searcher import ClusterScopes
+
+        out = []
+        for rec in self.crud.list("cluster"):
+            scopes = rec.scopes or {}
+            out.append(SchedulerCluster(
+                id=rec.id,
+                name=rec.name,
+                is_default=rec.is_default,
+                scopes=ClusterScopes(
+                    idc=scopes.get("idc", ""),
+                    location=scopes.get("location", ""),
+                    cidrs=tuple(scopes.get("cidrs", ())),
+                    hostnames=tuple(scopes.get("hostnames", ())),
+                ),
+                scheduler_ids=[
+                    s.id for s in self.clusters.active_schedulers(rec.id)
+                ],
+            ))
+        return out
 
     @property
     def url(self) -> str:

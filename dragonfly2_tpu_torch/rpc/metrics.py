@@ -3,8 +3,9 @@ gRPC server + the rate-limit interceptor, pkg/rpc/interceptor.go).
 
 Port of the part of ``dragonfly2_tpu/rpc/metrics.py`` the HTTP half
 reads: the rate limiter's rejections, the manager endpoints' failovers,
-the circuit breakers' state and the daemon control API's downloads.  The gRPC, sync-peers and manager-HA
-series come with the modules that write them.
+the circuit breakers' state, the daemon control API's downloads and the
+manager's sync-peers rounds.  The gRPC and manager-HA series come with
+the modules that write them.
 """
 
 from __future__ import annotations
@@ -14,6 +15,12 @@ from ..utils.metrics import default_registry as _reg
 RATE_LIMITED_TOTAL = _reg.counter(
     "rpc_rate_limited_total", "Requests rejected by the rate limiter",
     ["transport"],
+)
+SYNC_PEERS_ROUNDS_TOTAL = _reg.counter(
+    "manager_sync_peers_rounds_total", "sync_peers rounds completed"
+)
+SYNC_PEERS_ACTIVE = _reg.gauge(
+    "manager_sync_peers_active_peers", "Active peers in the last merge"
 )
 MANAGER_ENDPOINT_FAILOVERS_TOTAL = _reg.counter(
     "manager_endpoint_failovers_total",

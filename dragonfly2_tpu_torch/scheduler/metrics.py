@@ -89,3 +89,9 @@ ROLLOUT_SERVING_STATE = _reg.gauge(
     "Local rollout serving state per model name: 0 active-only, "
     "2 shadow, 3 canary (codes match manager rollout_state)", ["name"],
 )
+
+# -- sharded fleet: the manager's membership directory ----------------------
+SHARD_RING_VERSION = _reg.gauge(
+    "scheduler_shard_ring_version",
+    "Consistent-hash ring version this process has adopted", ["cluster"],
+)

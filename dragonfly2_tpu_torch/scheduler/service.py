@@ -26,7 +26,8 @@ item 12c) and the shard guard (item 14) are not part of this package
 yet: their arguments keep their places and take only None, and the
 paths that would call them (server push, ownership and admission
 checks, the policy's admission accounting) are absent.  The reference's
-seed client, ``RemoteSeedPeerClient``, is item 14.
+seed client, ``scheduler/seed_client.RemoteSeedPeerClient``, is the
+trigger ``cli/scheduler.build`` passes.
 """
 
 from __future__ import annotations

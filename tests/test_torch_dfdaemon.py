@@ -260,7 +260,7 @@ def test_peer_swarm_small(tmp_path):
 
 
 @pytest.mark.parametrize("argv,env,config,item", [
-    (["--seed-peer"], {}, None, "item 14"),
+    (["--seed-peer", "--pex-port", "0"], {}, None, "item 14"),
     (["--pex-port", "0"], {}, None, "item 14"),
     ([], {}, "security: {auto_issue: true}\n", "item 14"),
     ([], {}, "proxy: {sni_enable: true}\n", "item 14"),

@@ -154,6 +154,14 @@ print("OK")
         "dragonfly2_tpu_torch.rpc.daemon_control",
         "dragonfly2_tpu_torch.source",
         "dragonfly2_tpu_torch.bench.peer_swarm",
+        "dragonfly2_tpu_torch.cli.manager",
+        "dragonfly2_tpu_torch.jobs",
+        "dragonfly2_tpu_torch.jobs.remote",
+        "dragonfly2_tpu_torch.manager.dynconfig",
+        "dragonfly2_tpu_torch.manager.crud",
+        "dragonfly2_tpu_torch.daemon.seeder",
+        "dragonfly2_tpu_torch.scheduler.seed_client",
+        "dragonfly2_tpu_torch.bench.preheat_swarm",
         "chip_smoke",
     ],
 )

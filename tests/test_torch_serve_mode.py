@@ -118,3 +118,27 @@ def test_wire_loop_small(tmp_path):
     assert k1["fused_flushes"] > 0 and k1["launches"] == k1["launches_after_swap"] == 0
     assert k1["batcher_fallbacks"] == 0 and k1["rule_degrades"] == 0
     assert s["registered_schedulers"] and s["registered_schedulers"][0].startswith("sched-")
+
+
+def test_first_byte_tap_keeps_each_session_apart():
+    """The fault behind a ``min() iterable argument is empty`` in
+    ``test_wire_loop_small``: the wire loop's first-byte tap keyed Train
+    sessions by ``id()``; once a finished round's session was freed the
+    next round's session took its id, and its first chunk kept the old
+    round's time, so no first byte fell after the measured round's
+    start.  The tap keys by the session object now."""
+    from dragonfly2_tpu_torch.trainer.service import TrainSession
+
+    first_byte, received = {}, []
+    tap = wire_loop.first_byte_tap(
+        lambda session, *a, seq=0: received.append((*a, seq)), first_byte)
+    old = TrainSession(None, "host", "sched")
+    tap(old, "download", "a", b"x")
+    t_old = first_byte[old]
+    del old  # the round ends: the transport drops its session
+    new = TrainSession(None, "host", "sched")
+    tap(new, "download", "a", b"y")
+    tap(new, "download", "a", b"z", seq=1)
+    assert len(first_byte) == 2 and first_byte[new] > t_old
+    assert received == [("download", "a", b"x", 0), ("download", "a", b"y", 0),
+                        ("download", "a", b"z", 1)]

@@ -134,8 +134,8 @@ def _services(tmp_path, blob):
     jcfg.scheduling.algorithm = "ml"
     jcfg.scheduling.retry_interval_s = 0.0
     jsvc, jstorage, _ = jax_build(jcfg)
-    # The port's seed trigger is None-only: the reference side matches it
-    # (its remote trigger would dial the synthetic seed hosts).
+    # Neither side gets a seed trigger: the remote trigger would dial the
+    # synthetic seed hosts, which no daemon serves.
     jsvc.seed_peer_trigger = None
     jev = jsvc.scheduling.evaluator
     jev.set_scorer(
@@ -146,7 +146,7 @@ def _services(tmp_path, blob):
     cfg.storage.dir = str(tmp_path / "port-records")
     cfg.scheduling.algorithm = "ml"
     cfg.scheduling.retry_interval_s = 0.0
-    svc = build(cfg, device="cpu", scorer_blob=blob, rng=random.Random())
+    svc = build(cfg, device="cpu", scorer_blob=blob, rng=random.Random(), seed_trigger=False)
     return (jsvc, jstorage), svc
 
 

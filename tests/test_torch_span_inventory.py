@@ -5,7 +5,8 @@ For one lifecycle drill (``sim.lifecycle.run_lifecycle_drill``: the
 daemon's ``lifecycle/epoch`` and ``lifecycle/promote``, the controller's
 ``rollout/transition``), one online dispatch (``trainer/dispatch``), one
 coalesced batcher flush (``scheduler/eval.flush``), the manager's REST
-handler spans (``manager/GET``, ``manager/POST``), and a two-daemon
+handler spans (``manager/GET``, ``manager/POST``), the preheat fan-out and
+its execution (``jobs/preheat``, ``jobs/preheat.execute``), and a two-daemon
 download (``daemon/download``, ``daemon/piece``, ``daemon/source.piece``,
 ``daemon/report.flush``: one daemon back to source, one P2P), the multiset of
 (span name, sorted attribute keys) each package exports is equal.
@@ -21,6 +22,7 @@ from __future__ import annotations
 import collections
 import json
 import threading
+import types
 import urllib.request
 
 import numpy as np
@@ -216,3 +218,52 @@ def test_two_daemon_download_spans_equal(rings, tmp_path):
 
     assert values(rings["torch"]) == values(rings["jax"])
 
+
+
+PREHEAT_SPANS = {"jobs/preheat", "jobs/preheat.execute"}
+
+
+def test_preheat_spans_equal(rings):
+    """The manager's fan-out (``jobs/preheat``, for a URL list and for an
+    image's layers) and the worker-side execution
+    (``jobs/preheat.execute``) export the same spans in both packages."""
+    import importlib
+
+    class Resolver:
+        def resolve_layers(self, manifest_url):
+            return types.SimpleNamespace(urls=[manifest_url + "/l1", manifest_url + "/l2"],
+                                         headers={"Authorization": "Bearer t"})
+
+    class SeedDaemon:
+        def __init__(self):
+            self.calls = []
+
+        def download(self, url, **kw):
+            self.calls.append((url, int(kw["priority"])))
+            return types.SimpleNamespace(ok=True, pieces=3)
+
+    results = {}
+    for name in ("jax", "torch"):
+        root = "dragonfly2_tpu" if name == "jax" else "dragonfly2_tpu_torch"
+        queue = importlib.import_module(f"{root}.jobs.queue")
+        preheat = importlib.import_module(f"{root}.jobs.preheat")
+        broker = queue.JobQueue()
+        preheat.preheat(broker, ["https://o/a", "https://o/b"], ["scheduler:s1", "scheduler:s2"])
+        preheat.preheat_image(broker, "https://reg/v2/app/manifests/v1", ["scheduler:s1"],
+                              Resolver())
+        seed = SeedDaemon()
+        handler = preheat.make_preheat_handler(seed)
+        results[name] = (handler({"urls": ["https://o/a"], "piece_size": 4096,
+                                  "priority": 6}), seed.calls)
+    assert results["torch"] == results["jax"] == ({"https://o/a": 3}, [("https://o/a", 6)])
+    inv = {name: _inventory(ring, PREHEAT_SPANS) for name, ring in rings.items()}
+    assert inv["torch"] == inv["jax"]
+    assert {name for name, _keys in inv["torch"]} == PREHEAT_SPANS
+    assert sum(inv["torch"].values()) == 3
+
+    def values(ring):
+        return sorted((s.name, s.attributes.get("urls", -1), s.attributes.get("queues", -1),
+                       s.attributes.get("image", "")) for s in ring.spans
+                      if s.name in PREHEAT_SPANS)
+
+    assert values(rings["torch"]) == values(rings["jax"])
