@@ -322,10 +322,14 @@ launch counts are zeroed before each and must read 0 after.
     a ``DaemonControlServer`` over daemon 15 (``DF_DAEMON_STATE`` under
     the out directory).  Launch counts are zeroed just before the run and
     read just after.  Checks: every output's sha256 equals the origin's;
-    only daemon 0 went back to source; the origin served at most 1.25 x
-    the file; pieces from peers and from the source add up to 16 x 64
-    (and equal the daemons' upload counts and the origin's range
-    requests); one Download record per daemon's download; no evaluator
+    only daemon 0 went back to source and the origin served at most 1.25
+    x the file (when the evaluator's bad-node rule excluded daemon 0 as a
+    parent: daemon 0 served nothing, one more daemon went back to source,
+    1.25 x the file for each); pieces from peers and from the source add up to 16 x 64
+    (the source's equal the origin's range requests, the peers' the
+    daemons' upload counts up to the serves of hedged fetches' losing
+    arms and of failed fetches); one Download record per daemon's
+    download; no evaluator
     degrade; K1 launches = the batcher's scorer calls > 0; K1 against its
     plain version on the phase's own flush rows.  Printed: wall seconds,
     aggregate MB/s, per-daemon MB/s p50 / p99, origin bytes, pieces by
@@ -360,6 +364,51 @@ launch counts are zeroed before each and must read 0 after.
     rows per register before and after, the manager's job polls, K1
     launches, its time at the phase's flush rows and its error.  The
     phase writes 4.6 GiB and deletes it at the end.
+22. The sharded scheduler fleet (``shard_fleet``).  (a) The columnar
+    fleet, ``bench/fleet_swarm.run`` at ``BENCH_SW_r01.json``'s
+    configuration: 128,000 peers, 4 shards, 4 ticks, 2 interleaved rounds
+    after a warm round, announce rate 0.5, download rate 0.0005, 65,536
+    cache hosts, seed 7; one shard killed and one added mid-round.
+    Host-only (the rule evaluator): launch counts are zeroed before it and
+    must read 0 after.  Checks: 0 failed downloads in both arms and
+    downloads completed after the kill.  Printed: announces/s by arm,
+    hosts per shard (max), bind misses, handoffs on kill and on add,
+    redirects followed.  (b) ``bench/shard_fleet.run`` in this process,
+    under the out directory: ``cli.manager.serve``, two
+    ``cli.scheduler.serve`` shards in this process and one
+    ``python -m dragonfly2_tpu_torch.cli.scheduler`` child
+    (``sim.chaos.ChaosProcess``) on the card, all ``ml`` with the seeded
+    K1 scorer (the child reads the same blob through ``--scorer-blob``;
+    the kernels' library is built in this process first), the manager's
+    URL, ``dynconfig_refresh_s`` 0.5 and the shard guard with admission
+    at the defaults; 16 daemons at the ``DaemonConfig`` defaults, each
+    given the three URLs (``SteeringSchedulerClient``); 8 origin files of
+    32 MiB whose URLs give each shard >= 2 tasks by the published ring.
+    One daemon per file goes back to source, then 7 more per file: the
+    survivors' files first, the child SIGKILLed while they are in flight
+    and expired at the manager (its last keepalive aged out of the TTL,
+    as the reference's drill does), and the victim's files once both
+    survivors and every daemon hold ring v2 (the reference's daemon fails
+    a download whose scheduler dies under it).  Launch counts are zeroed
+    just before (b) and read just after; they are this process's, so only
+    the two in-process shards' K1 launches are seen.  Checks: every check
+    of the run's summary (ring v1 of three, v2 of two and newer, adopted
+    by the survivors through dynconfig and carried on announce answers
+    and by every daemon; every sha256 equal; the Download records before
+    the kill on each task's v1 owner only, the victim's tasks' after it
+    on their v2 owners; a handoff span on each survivor; each survivor
+    file's origin bytes <= 1.25 x the file; no degrade and no fallback,
+    in process or in the child's output); K1 launches = the in-process
+    batchers' scorer calls > 0; K1 against its plain version on the
+    phase's own flush rows.  Printed: wall seconds, the seconds from the
+    kill to ring v2 at the manager, at each survivor and at the first
+    daemon, aggregate MB/s, pieces by source, the victim's files' origin
+    bytes, sheds by priority and the most requests in flight, K1
+    launches, its time at the phase's flush rows and its error.
+
+The serve-mode phases (16, 17, 20, 21 and 22(b)) run the shard guard
+with admission at the config's defaults, as the reference's binary does;
+each prints the sheds by priority class its run caused (``sheds``).
 
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
@@ -381,6 +430,7 @@ import time
 
 import numpy as np
 
+from dragonfly2_tpu_torch.bench.shard_fleet import shed_counts
 from dragonfly2_tpu_torch.bench.timing import (
     bound, device_ms, k1_cost, k2_cost, k3_cost,
 )
@@ -473,6 +523,13 @@ PS_SIZE_MIB = 256          # ... the origin file (a layer or shard; GBs cut for 
 PH_DAEMONS = 15            # phase 21: normal daemons beside the one seed peer
 PH_SIZE_MIB = 256          # ... file A, preheated (as phase 20's file)
 PH_COLD_MIB = 64           # ... file B, the cold task
+SF_FLEET = {"peers": 128_000, "shards": 4, "ticks": 4, "rounds": 2,  # phase 22(a):
+            "announce_rate": 0.5, "download_rate": 0.0005,        # BENCH_SW_r01.json's
+            "cache_hosts": 65_536, "seed": 7}                     # configuration
+SK_DAEMONS = 16            # phase 22(b): daemons steering across the three shards
+SK_FILES = 8               # ... origin files (every shard owns >= 2 by the ring)
+SK_SIZE_MIB = 32           # ... each file's size
+SK_REFRESH_S = 0.5         # ... the schedulers' dynconfig_refresh_s (10 s cut)
 LC_TRAIN_INTERVAL = 45.0  # the Announcer's interval in the lifecycle phase (7 days cut):
                           # its first round lands after the seed scorer's parent choice
 LC_DAEMON_INTERVAL = 2.0  # the lifecycle daemon's cycle (30 s cut)
@@ -534,6 +591,14 @@ def kernel_counts():
     from dragonfly2_tpu_torch.ops import fused_score, segment
 
     return {**fused_score.LAUNCHES, **segment.LAUNCHES}
+
+
+def sheds_since(before):
+    """Sheds by priority class since ``shed_counts()`` read ``before``:
+    the serve-mode phases' schedulers run the shard guard with admission
+    at the config's defaults (512 in flight, 50 ms p99)."""
+    return {k: v - before.get(k, 0.0) for k, v in shed_counts().items()
+            if v - before.get(k, 0.0)}
 
 
 def weights_from_seed(seed: int, dims=(32, 64, 64, 1)):
@@ -2214,13 +2279,16 @@ def federated_phase(torch, dev, seed):
 
 
 def keep_k1_flushes(seen):
-    """A tap for ``FusedMLPScorer.score`` that keeps the scorer and the
-    inputs of its first ``WIRE_K1_FLUSHES`` flushes in ``seen``."""
+    """A tap for ``FusedMLPScorer.score`` that keeps the inputs of the
+    first ``WIRE_K1_FLUSHES`` flushes in ``seen``, with the scorer that
+    made each (``scorers``; a path with several schedulers has one a
+    shard, each gathering from its own slot mirror) and the last one."""
     def keep(fn):
         def wrapped(self, features, *, src_buckets=None, dst_buckets=None):
             out = fn(self, features, src_buckets=src_buckets, dst_buckets=dst_buckets)
             if len(seen["flushes"]) < WIRE_K1_FLUSHES:
                 seen["scorer"] = self
+                seen.setdefault("scorers", []).append(self)
                 seen["flushes"].append((np.array(features, np.float32, copy=True),
                                         np.array(src_buckets, copy=True),
                                         np.array(dst_buckets, copy=True)))
@@ -2230,19 +2298,23 @@ def keep_k1_flushes(seen):
 
 
 def k1_on_flushes(torch, dev, seen):
-    """K1 against its plain version on a wire path's own flushes (the slot
-    matrix as the run left it; these launches come after the counts), and
-    K1's, the plain version's and the bound's ms at 128 rows (the pad most
-    flushes take) of the path's rows → (max err scaled, ms, plain ms,
-    bound ms)."""
+    """K1 against its plain version on a wire path's own flushes, each on
+    the slot matrix of the scorer that made it, as the run left it (slots
+    index that scorer's mirror alone: another shard's rows may be unbound,
+    uninitialized memory; these launches come after the counts), and K1's,
+    the plain version's and the bound's ms at 128 rows (the pad most
+    flushes take) of the first scorer's rows → (max err scaled, ms, plain
+    ms, bound ms)."""
     from dragonfly2_tpu_torch.ops import fused_score
 
-    scorer = seen["scorer"]
-    mat = scorer._sync_mirror()
-    mlp = scorer.mlp
+    mirrors = {}
     k1_err = 0.0
     k1_in = []
-    for edge, src, dst in seen["flushes"]:
+    first = seen["scorers"][0]
+    for scorer, (edge, src, dst) in zip(seen["scorers"], seen["flushes"]):
+        if id(scorer) not in mirrors:
+            mirrors[id(scorer)] = scorer._sync_mirror()
+        mat, mlp = mirrors[id(scorer)], scorer.mlp
         s = torch.from_numpy(src.astype(np.int32)).to(dev)
         d = torch.from_numpy(dst.astype(np.int32)).to(dev)
         e = torch.from_numpy(edge).to(dev)
@@ -2253,7 +2325,9 @@ def k1_on_flushes(torch, dev, seen):
         check(bool(torch.isfinite(got).all()), "K1 non-finite on a wire flush")
         k1_err = max(k1_err, float((got - want).abs().max())
                      / max(1.0, float(want.abs().max())))
-        k1_in.append((s, d, e))
+        if scorer is first:
+            k1_in.append((s, d, e))
+    mat, mlp = mirrors[id(first)], first.mlp
     s128, d128, e128 = (torch.cat([x[i] for x in k1_in])[:128] for i in range(3))
     d1, d2 = mlp.w0c.shape[1], mlp.w1.shape[1]
     k1_ms = device_ms(lambda: fused_score.fused_gather_mlp_score(mat, s128, d128, e128, mlp))
@@ -2304,6 +2378,7 @@ def wire_loop_phase(torch, dev, seed, out_dir):
         "--seed", str(seed), "--out", work, "--device", "cuda",
     ])
     reset_kernel_counts()
+    sheds0 = shed_counts()
     t0 = time.perf_counter()
     with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)), \
             tapped(segment, "segment_sum_bucketed", keep_first_k3), \
@@ -2343,6 +2418,7 @@ def wire_loop_phase(torch, dev, seed, out_dir):
     out = {
         **summary,
         "wall_seconds": wall_s, "kernel_launches": launches, "gat_steps": seen["gat_steps"],
+        "sheds": sheds_since(sheds0),
         "k1": {**k1, "max_err_scaled": k1_err, "tol_scaled": K1_TOL,
                "flushes_checked": len(seen["flushes"]), "ms_128": k1_ms,
                "plain_ms_128": k1_plain_ms, "bound_ms_128": k1_bound_ms},
@@ -2412,6 +2488,7 @@ def wire_lifecycle_phase(torch, dev, seed, out_dir):
         "--timeout", str(LC_TIMEOUT), "--seed", str(seed), "--out", work, "--device", "cuda",
     ])
     reset_kernel_counts()
+    sheds0 = shed_counts()
     t0 = time.perf_counter()
     with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
         summary = wire_loop.run(args, log=lambda line: print(line, flush=True))
@@ -2424,6 +2501,7 @@ def wire_lifecycle_phase(torch, dev, seed, out_dir):
     walk, install, rows, k1, pc = (summary[k] for k in (
         "walk", "install", "rows", "k1", "parent_choice"))
     out = {**summary, "wall_seconds": wall_s, "kernel_launches": launches,
+           "sheds": sheds_since(sheds0),
            "k1": {**k1, "max_err_scaled": k1_err, "tol_scaled": K1_TOL,
                   "flushes_checked": len(seen["flushes"]), "ms_128": k1_ms,
                   "plain_ms_128": k1_plain_ms, "bound_ms_128": k1_bound_ms}}
@@ -2938,6 +3016,7 @@ def peer_swarm_phase(torch, dev, seed, out_dir):
         "--seed", str(seed), "--out", out_dir, "--device", "cuda",
     ])
     reset_kernel_counts()
+    sheds0 = shed_counts()
     t0 = time.perf_counter()
     with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
         summary = peer_swarm.run(args, log=lambda line: print(line, flush=True))
@@ -2948,6 +3027,7 @@ def peer_swarm_phase(torch, dev, seed, out_dir):
     k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
     out = {
         **summary, "phase_seconds": phase_s, "kernel_launches": launches,
+        "sheds": sheds_since(sheds0),
         "k1": {"launches": launches["fused_gather_mlp_score"],
                "scorer_calls": summary["scorer_calls"], "max_err_scaled": k1_err,
                "tol_scaled": K1_TOL, "flushes_checked": len(seen["flushes"]),
@@ -2981,9 +3061,11 @@ def preheat_phase(torch, dev, seed, out_dir):
         "--device", "cuda",
     ])
     reset_kernel_counts()
+    sheds0 = shed_counts()
     t0 = time.perf_counter()
     with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
         summary = preheat_swarm.run(args, log=lambda line: print(line, flush=True))
+    sheds = sheds_since(sheds0)
     torch.cuda.synchronize()
     launches = kernel_counts()
     phase_s = time.perf_counter() - t0
@@ -2997,6 +3079,7 @@ def preheat_phase(torch, dev, seed, out_dir):
     k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
     out = {
         **summary, "phase_seconds": phase_s, "kernel_launches": launches,
+        "sheds": sheds,
         "k1": {"launches": launches["fused_gather_mlp_score"],
                "scorer_calls": summary["scorer_calls"], "max_err_scaled": k1_err,
                "tol_scaled": K1_TOL, "flushes_checked": len(seen["flushes"]),
@@ -3016,6 +3099,85 @@ def preheat_phase(torch, dev, seed, out_dir):
     check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the preheat "
           "path's flushes")
     return out, launches
+
+
+def shard_fleet_phase(torch, dev, seed, out_dir):
+    """Phase 22: the sharded scheduler fleet.  (a) the columnar fleet
+    (``bench/fleet_swarm``, host-only: no kernel may launch), (b) three
+    ``ml`` schedulers behind the manager's ring with daemons steering
+    across them and the child shard SIGKILLed (``bench/shard_fleet``).
+    K1's launches are counted in this process, so only the two
+    in-process shards' launches are seen; the child's are its own.
+    Returns (summary, launches of (b))."""
+    from dragonfly2_tpu_torch.bench import fleet_swarm, shard_fleet
+    from dragonfly2_tpu_torch.ops import fused_score
+
+    # (a) the columnar fleet at BENCH_SW_r01.json's configuration.
+    fargs = fleet_swarm.parse_args([f"--{k.replace('_', '-')}={v}" for k, v in SF_FLEET.items()])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    fleet = fleet_swarm.run(fargs)
+    fleet_s = time.perf_counter() - t0
+    fleet_launches = kernel_counts()
+    arms, drill = fleet["arms"], fleet["membership_drill"]
+    fleet_out = {
+        "seconds": fleet_s, "config": fleet["config"], "speedup_shards": fleet["speedup_shards"],
+        "announces_per_sec": {a: arms[a]["announces_per_sec"] for a in arms},
+        "hosts_per_shard_max": {a: arms[a]["hosts_per_shard_max"] for a in arms},
+        "bind_misses": {a: arms[a]["bind_misses"] for a in arms},
+        "downloads_ok": {a: arms[a]["downloads_ok"] for a in arms},
+        "downloads_failed": {a: arms[a]["downloads_failed"] for a in arms},
+        "sheds": {a: arms[a]["sheds"] for a in arms},
+        "kill_handoffs": drill.get("kill_handoffs"), "add_handoffs": drill.get("add_handoffs"),
+        "downloads_after_kill": drill.get("downloads_after_kill"),
+        "redirects_followed": drill.get("redirects_followed"),
+        "kernel_launches": fleet_launches,
+    }
+    emit({"phase": "shard_fleet_columnar", **fleet_out})
+    check(fleet["ok"] and drill.get("ran"), f"the columnar fleet's drill did not run: {drill}")
+    check(all(arms[a]["downloads_failed"] == 0 for a in arms),
+          f"columnar fleet downloads failed: {fleet_out['downloads_failed']}")
+    check(drill["downloads_after_kill"] > 0, "no download completed after the shard kill")
+    check(not any(fleet_launches.values()), f"a kernel launched on the host-only fleet: "
+          f"{fleet_launches}")
+
+    # (b) ml shards over the wire, K1 in each, the child SIGKILLed.
+    seen = {"flushes": []}
+    args = shard_fleet.parse_args([
+        "--daemons", str(SK_DAEMONS), "--files", str(SK_FILES), "--size-mib", str(SK_SIZE_MIB),
+        "--refresh-s", str(SK_REFRESH_S), "--seed", str(seed), "--out", out_dir,
+        "--device", "cuda",
+    ])
+    reset_kernel_counts()
+    sheds0 = shed_counts()
+    t0 = time.perf_counter()
+    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+        summary = shard_fleet.run(args, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    phase_s = time.perf_counter() - t0
+    check(len(seen["flushes"]) > 0, "no K1 flush on the in-process shards")
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+    out = {
+        **summary, "phase_seconds": phase_s, "kernel_launches": launches,
+        "sheds": sheds_since(sheds0),
+        "k1": {"launches": launches["fused_gather_mlp_score"],
+               "scorer_calls": summary["scorer_calls"], "max_err_scaled": k1_err,
+               "tol_scaled": K1_TOL, "flushes_checked": len(seen["flushes"]),
+               "ms_128": k1_ms, "us_128": k1_ms * 1e3, "plain_ms_128": k1_plain_ms,
+               "bound_ms_128": k1_bound_ms},
+    }
+    emit({"phase": "shard_fleet", **out})
+    for name, ok in summary["checks"].items():
+        check(ok, f"shard fleet check {name} failed: {json.dumps(summary)}")
+    check(launches["fused_gather_mlp_score"] == summary["scorer_calls"] > 0,
+          f"K1 launches {launches['fused_gather_mlp_score']} != the in-process batchers' "
+          f"scorer calls {summary['scorer_calls']} on the shard fleet")
+    check(launches["segment_sum"] == 0 and launches["rule_weighted_sum"] == 0,
+          f"another kernel launched on the shard fleet: {launches}")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the shard "
+          "fleet's flushes")
+    return {"columnar": fleet_out, **out}, launches
 
 
 def main(argv=None) -> int:
@@ -3295,6 +3457,9 @@ def main(argv=None) -> int:
     # -- 21. preheat and the seed peer, K1 ranking seed parents --------------
     loop["preheat_swarm"], ph_launches = preheat_phase(torch, dev, args.seed, work_dir)
     ph = loop["preheat_swarm"]
+    # -- 22. the sharded scheduler fleet, K1 in each ml shard ----------------
+    loop["shard_fleet"], sf_launches = shard_fleet_phase(torch, dev, args.seed, work_dir)
+    sf = loop["shard_fleet"]
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
@@ -3302,18 +3467,20 @@ def main(argv=None) -> int:
          "launches": launches["fused_gather_mlp_score"]
          + wire_launches["fused_gather_mlp_score"] + lc_launches["fused_gather_mlp_score"]
          + tq_launches["fused_gather_mlp_score"] + ps_launches["fused_gather_mlp_score"]
-         + ph_launches["fused_gather_mlp_score"],
+         + ph_launches["fused_gather_mlp_score"] + sf_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
          "launches_telemetry_qos": tq_launches["fused_gather_mlp_score"],
          "launches_peer_swarm": ps_launches["fused_gather_mlp_score"],
          "launches_preheat": ph_launches["fused_gather_mlp_score"],
+         "launches_shard_fleet": sf_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
          "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
          "max_err_scaled_telemetry_qos": tq["k1"]["max_err_scaled"],
          "max_err_scaled_peer_swarm": ps["k1"]["max_err_scaled"],
          "max_err_scaled_preheat": ph["k1"]["max_err_scaled"],
+         "max_err_scaled_shard_fleet": sf["k1"]["max_err_scaled"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "share_of_bound": k1_bound / k1_ms, "ms_128": k1_times[128][0],
@@ -3321,7 +3488,8 @@ def main(argv=None) -> int:
          "ms_wire_lifecycle_128": lc["k1"]["ms_128"],
          "ms_telemetry_qos_128": tq["k1"]["ms_128"],
          "ms_peer_swarm_128": ps["k1"]["ms_128"],
-         "ms_preheat_128": ph["k1"]["ms_128"]},
+         "ms_preheat_128": ph["k1"]["ms_128"],
+         "ms_shard_fleet_128": sf["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

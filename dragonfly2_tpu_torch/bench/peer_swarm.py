@@ -26,11 +26,18 @@ The summary holds the wall time and rates, each download's result, the
 origin's bytes and requests, the pieces by source and by parent host
 (from the scheduler's peers), the Download records, the evaluator's
 degrades and the batcher's scorer calls, and ``checks``: every output's
-sha256 equals the origin's; only daemon 0 went back to source; the origin
-served at most 1.25 × the file; pieces from peers and from the source add
-up to daemons × pieces, and equal the daemons' upload counts and the
-origin's range requests; one Download record per download that
-registered; no evaluator degrade.  Everything the run wrote under
+sha256 equals the origin's; only daemon 0 went back to source and the
+origin served at most 1.25 × the file, unless the evaluator's bad-node
+rule excluded daemon 0 as a parent (its verdict is in the summary as
+``daemon0_bad_node``): then daemon 0 served nothing, one more daemon went
+back to source and the origin served at most 1.25 × the file for each;
+pieces from peers and from the source add up to daemons × pieces, the
+source's equal the origin's range requests, and the peers' equal the
+daemons' upload counts up to the serves that no piece is attributed to
+(a hedged fetch's losing arm, a fetch that failed after its parent
+served it: the summary's ``hedges_fired`` and ``failed_fetches`` bound
+them); one Download record per download that registered; no evaluator
+degrade.  Everything the run wrote under
 ``--out`` is deleted at the end.
 
 Runs on ``--device`` (``cuda`` by default; with no card it exits 2).
@@ -184,6 +191,7 @@ def _pieces_by_parent(service, task_id: str, host_names: dict) -> dict:
 
 def run(args: argparse.Namespace, *, log=print) -> dict:
     from ..cli import dfdaemon, dfget
+    from ..daemon.piece_pipeline import PIECE_HEDGE_TOTAL
     from ..cli import scheduler as scheduler_cli
     from ..config import DaemonConfig, SchedulerConfigFile
     from ..rpc.daemon_control import STATE_ENV, DaemonControlServer, write_state
@@ -230,6 +238,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         host_names = {n["host"].id: f"daemon{i}" for i, n in enumerate(nodes)}
         setup_s = time.perf_counter() - t_setup
         calls0 = ev.batcher.scorer_calls
+        hedges0 = PIECE_HEDGE_TOTAL.value(outcome="fired")
         log(f"peer_swarm: {args.daemons} daemons, {size} bytes in {n_pieces} pieces, "
             f"scheduler {serving.url}, origin {origin.url} ({setup_s:.1f}s setup)")
 
@@ -244,6 +253,10 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         t0 = time.perf_counter()
         download(0)
         t_first = time.perf_counter()
+        # The evaluator's verdict on daemon 0 as a parent when the others
+        # register (its costs change only once it serves).
+        peer0 = service.resource.peer_manager.load(results[0].peer_id) if results[0] else None
+        parent0_bad = bool(peer0 is not None and ev.is_bad_node(peer0))
         threads = [threading.Thread(target=download, args=(i,), name=f"daemon{i}-dl",
                                     daemon=True) for i in range(1, args.daemons)]
         for th in threads:
@@ -279,6 +292,10 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
                and time.monotonic() < deadline):
             time.sleep(0.01)
         uploads = [n["upload"].upload_count for n in nodes]
+        # A hedged fetch's losing arm and a fetch that failed after its
+        # parent served the body are serves no piece is attributed to.
+        hedges = PIECE_HEDGE_TOTAL.value(outcome="fired") - hedges0
+        failed = sum(r.failed_pieces for r in results if r is not None)
         costs = [r.cost_s for r in results if r is not None]
         p2p_rates = [size / r.cost_s / 1e6 for r in results[1:] if r is not None and r.ok]
         swarm_s = t_swarm - t0
@@ -298,19 +315,28 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             "origin": {"bytes": origin.bytes_served, "requests": origin.requests,
                        "limit_bytes": ORIGIN_BYTES_LIMIT * size},
             "pieces_by_parent": by_parent, "uploads": uploads,
+            "hedges_fired": hedges, "failed_fetches": failed, "daemon0_bad_node": parent0_bad,
             "download_records": service.storage.download_count,
             "rule_degrades": ev.degrades, "scorer_calls": scorer_calls,
             "batcher_fallbacks": ev.batcher.fallbacks,
             "dfget": {"rc": dfget_rc, "seconds": dfget_s},
         }
+        # Daemon 0 seeds the swarm unless the evaluator's bad-node rule
+        # (its last piece cost past 3 sigma of the others, evaluator.go:
+        # 92-129) excludes it as a parent: then it serves nothing and the
+        # first daemon to register goes back to source in its place.
+        sources = 2 if parent0_bad else 1
+        seeded_by = [True] * sources + [False] * (args.daemons - sources)
         summary["checks"] = {
             "all_downloads_ok": all(ok) and dfget_rc == 0,
             "sha256_equal": all(s == origin_sha for s in shas) and dfget_sha == origin_sha,
-            "only_daemon0_back_to_source": summary["back_to_source"]
-            == [True] + [False] * (args.daemons - 1),
-            "origin_bytes_within_limit": origin.bytes_served <= ORIGIN_BYTES_LIMIT * size,
+            "only_daemon0_back_to_source": sorted(summary["back_to_source"], reverse=True)
+            == seeded_by and summary["back_to_source"][0]
+            and (not parent0_bad or uploads[0] == 0),
+            "origin_bytes_within_limit":
+            origin.bytes_served <= ORIGIN_BYTES_LIMIT * size * sources,
             "pieces_add_up": sum(by_parent.values()) == args.daemons * n_pieces
-            and p2p_pieces == sum(uploads)
+            and p2p_pieces <= sum(uploads) <= p2p_pieces + hedges + failed
             and by_parent.get("source", 0) == origin.requests,
             "one_record_per_download": service.storage.download_count == args.daemons,
             "no_degrade": ev.degrades == 0 and ev.batcher.fallbacks == 0,

@@ -12,13 +12,16 @@ the download path, and ``--seed-peer``: the host announces as
 second, public ``DaemonControlServer`` serving only ``/healthy`` and
 ``/obtain_seeds`` puts its port into the announce, where the scheduler's
 ``RemoteSeedPeerClient`` dials it (``seed_peer`` composes that part).
-What is not ported exits 2 naming its ROADMAP queue 1 item:
-``--pex-port`` (``daemon/pex_net.py``), a comma-separated scheduler list
-(``rpc/steering.py``), the config's ``security`` and ``proxy.sni_*``
-keys, ``native_fetch: true`` and ``control_vsock_port`` (all item 14),
-and a ``grpc://`` scheduler (item 12c).  The piece store is the Python
-one.  ``run`` prints at boot that the diagnostics sidecar is not started
-(item 14), and stops on SIGTERM as on SIGINT.
+A comma-separated scheduler list builds the reference's
+``rpc/steering.SteeringSchedulerClient``: each task's calls go to its
+owner on the consistent-hash ring (the shard ring the schedulers publish
+on announce answers, once one has), announces fan out to every
+scheduler.  What is not ported exits 2 naming its ROADMAP queue 1 item:
+``--pex-port`` (``daemon/pex_net.py``), the config's ``security`` and
+``proxy.sni_*`` keys, ``native_fetch: true`` and ``control_vsock_port``
+(all item 14), and a ``grpc://`` scheduler (item 12c).  The piece store
+is the Python one.  ``run`` prints at boot that the diagnostics sidecar
+is not started (item 14), and stops on SIGTERM as on SIGINT.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ from .common import (
 log = logging.getLogger(__name__)
 
 
-def _scheduler_url(scheduler_url: str) -> str:
-    """The one scheduler address, split as the reference splits it;
+def _scheduler_urls(scheduler_url: str) -> list:
+    """The scheduler addresses, split as the reference splits them;
     raises ``ConfigError`` for what the port does not carry yet."""
     # Comma-separated scheduler list → consistent-hash steering: each
     # task's swarm state lives on ONE replica (pkg/balancer semantics,
@@ -65,18 +68,13 @@ def _scheduler_url(scheduler_url: str) -> str:
             "a grpc:// scheduler needs the gRPC transport, which is not "
             "ported yet (ROADMAP queue 1 item 12c)"
         )
-    if len(scheduler_urls) > 1:
-        raise ConfigError(
-            "a comma-separated scheduler list needs the steering client "
-            "(rpc/steering.py), which is not ported yet (ROADMAP queue 1 "
-            "item 14)"
-        )
-    return scheduler_urls[0]
+    return scheduler_urls
 
 
 def build(cfg: DaemonConfig, scheduler_url: str):
-    """Daemon composition against a wire scheduler (daemon.go:118-417)."""
-    scheduler_url = _scheduler_url(scheduler_url)
+    """Daemon composition against a wire scheduler, or a comma-separated
+    list of them (daemon.go:118-417)."""
+    scheduler_urls = _scheduler_urls(scheduler_url)
     if cfg.source:
         from ..source import configure_sources
 
@@ -110,7 +108,12 @@ def build(cfg: DaemonConfig, scheduler_url: str):
         download_port=piece_server.port,
         concurrent_upload_limit=cfg.concurrent_upload_limit,
     )
-    client = RemoteScheduler(scheduler_url)
+    if len(scheduler_urls) > 1:
+        from ..rpc.steering import SteeringSchedulerClient
+
+        client = SteeringSchedulerClient(scheduler_urls, factory=RemoteScheduler)
+    else:
+        client = RemoteScheduler(scheduler_urls[0])
     # Declared tenant identity (DESIGN.md §26): stamped on announces and
     # registers; the wire client carries it as client state.
     if cfg.tenant and hasattr(client, "tenant"):

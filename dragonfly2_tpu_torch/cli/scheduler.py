@@ -11,7 +11,10 @@ subscription would.
 ``serve`` is the binary's serve mode as a composition that returns a
 handle (``.url``, ``.stop()``): ``SchedulerHTTPServer`` over ``build``,
 the GC runner, the probe graph reloaded from and saved to
-``storage.dir/topology_state.json``, and with ``manager_addr`` the
+``storage.dir/topology_state.json``, the shard guard (with admission at
+``scheduling.shard_max_inflight`` / ``shard_p99_budget_ms`` and a
+``TenantAccounting``, and the SLO autopilot on the metric journal when
+``telemetry.slos`` is declared), and with ``manager_addr`` the
 registration (``RemoteClusterClient``), ``TopologySync`` and, for
 ``ml``, a ``ModelSubscriber`` over ``RemoteRegistry`` and
 ``RolloutRESTClient`` that shadow-scores ``scheduling.shadow_sample_rate``
@@ -25,14 +28,19 @@ each URL through the service's seed trigger, the sync-peers handler dumps
 the host manager) and ``Dynconfig``, which polls
 ``/api/v1/clusters/<cluster_id>:config`` every ``dynconfig_refresh_s``
 (cached at ``storage.dir/dynconfig_cache.json``) and applies the
-cluster's four scheduling limits and its tenant QoS table live.
+cluster's four scheduling limits, its shard ring (the guard's handoff
+sweep on a version bump) and its tenant QoS table live.
 
 ``run(argv)`` is the binary.  ``--simulate N`` runs an N-download
 synthetic swarm into the configured record storage and prints the
 reference's line of record counts.  Without it the binary serves until
 SIGINT or SIGTERM, then stops what it started in the reference's order
-and exits 0.  A gRPC port (``server.grpc_port >= 0``) or a ``grpc://``
-trainer address exits 2 naming ROADMAP queue 1 item 12c; a config key
+and exits 0.  ``--scorer-blob PATH`` (the port's own option) reads an
+exported scorer artifact and installs K1's fused scorer as ``serve``'s
+``scorer_blob`` does, so a scheduler started as a child process ranks
+with the same weights as one composed in process.  A gRPC port
+(``server.grpc_port >= 0``) or a ``grpc://`` trainer address exits 2
+naming ROADMAP queue 1 item 12c; a config key
 whose reader is not ported exits 2 naming its item.  As in the
 reference, ``run`` points the process tracer at ``--otlp`` /
 ``--trace-file``, attaches the flight recorder (``--trace-log`` or
@@ -194,6 +202,8 @@ class SchedulerServing:
     model_subscriber: object = None
     rollout_reporter: object = None
     announcer: object = None
+    shard_guard: object = None
+    qos_autopilot: object = None
     journal: object = None
     slo_engine: object = None
 
@@ -211,6 +221,8 @@ class SchedulerServing:
             self.cluster_link.stop()
         if self.dynconfig is not None:
             self.dynconfig.stop()
+        if self.qos_autopilot is not None:
+            self.qos_autopilot.close()
         if self.rollout_reporter is not None:
             self.rollout_reporter.stop()
         if self.model_subscriber is not None:
@@ -254,7 +266,8 @@ def _job_worker(service: SchedulerService, manager_endpoints, scheduler_id: str,
     return job_worker
 
 
-def _dynconfig(cfg: SchedulerConfigFile, service: SchedulerService, manager_endpoints):
+def _dynconfig(cfg: SchedulerConfigFile, service: SchedulerService, manager_endpoints,
+               shard_guard):
     """Cluster-scoped scheduling config, applied LIVE (reference
     cli/scheduler.py:371-452): the manager's scheduler-cluster record
     feeds candidate/filter limits through dynconfig, and the scheduling
@@ -335,8 +348,11 @@ def _dynconfig(cfg: SchedulerConfigFile, service: SchedulerService, manager_endp
         cache_path=os.path.join(cfg.storage.dir, "dynconfig_cache.json"),
     )
     dynconfig.register(_apply_cluster_config)
-    # The reference also registers its shard guard's ring adoption here
-    # (shard_guard.on_config); the shard guard is ROADMAP queue 1 item 14.
+    # Ring adoption: the manager publishes the shard ring with the
+    # cluster config; a version bump triggers the guard's handoff
+    # sweep (tasks this shard no longer owns steer to their new
+    # owner on the peers' next call).
+    dynconfig.register(shard_guard.on_config)
     # Tenant QoS adoption (DESIGN.md §26): the manager publishes the
     # per-tenant table with the same payload; the service installs it
     # across admission accounting + the batcher's DRR weights and
@@ -352,13 +368,18 @@ def serve(
     scorer_blob: Optional[bytes] = None,
     rng: Optional[random.Random] = None,
     seed_trigger: bool = True,
+    journal=None,
 ) -> SchedulerServing:
     """The binary's serve mode (reference cli/scheduler.py:167-575) as a
     composition: ``build(cfg, device=, scorer_blob=, rng=,
     seed_trigger=)`` behind
     ``SchedulerHTTPServer`` on ``server.host:server.port`` (0 binds an
     ephemeral port), with the GC runner, the probe-graph checkpoint, the
-    manager link and the trainer link the config asks for.  A
+    shard guard, the manager link and the trainer link the config asks
+    for.  ``journal`` is the binary's metric journal
+    (``utils.metric_journal.MetricJournal``): with it, admission on and
+    ``telemetry.slos`` declared, the SLO autopilot ingests every
+    snapshot it writes (reference cli/scheduler.py:267-304).  A
     ``scorer_blob`` installs K1's fused scorer, so announces arriving
     over HTTP are ranked by K1 until a subscription installs what
     ``load_scorer`` returns.  Raises ``ConfigError`` for what is not
@@ -428,6 +449,39 @@ def serve(
         service=service, rpc_server=rpc_server, runner=runner,
         scheduler_id=scheduler_id, topology_state_path=topology_state_path,
     )
+    # Sharded-fleet guard (DESIGN.md §24): ownership steering + admission
+    # control on the task-scoped entry points.  The ring arrives through
+    # dynconfig (below) once a manager publishes it; until then the
+    # guard is pass-through (single-shard behavior).
+    from ..scheduler.sharding import AdmissionController, ShardGuard
+
+    shard_admission = None
+    if cfg.scheduling.shard_max_inflight > 0:
+        from ..qos.accounting import TenantAccounting
+
+        # Tenant accounting rides admission from boot (DESIGN.md §26):
+        # per-tenant usage/caps start on the default policy and adopt
+        # the manager-published tenant_qos via dynconfig below.
+        shard_admission = AdmissionController(
+            max_inflight=cfg.scheduling.shard_max_inflight,
+            p99_budget_s=cfg.scheduling.shard_p99_budget_ms / 1e3,
+            accounting=TenantAccounting(),
+        )
+        if cfg.scheduling.qos_autopilot and journal is not None and cfg.telemetry.slos:
+            # SLO autopilot (qos/autopilot.py): rides the metric
+            # journal's cadence — every written frame is ingested live,
+            # so journal replay reproduces the decisions exactly.
+            from ..qos.autopilot import SLOAutopilot
+
+            serving.qos_autopilot = SLOAutopilot(
+                cfg.telemetry.slos,
+                admission=shard_admission,
+                accounting=shard_admission.accounting,
+            )
+            journal.on_snapshot = serving.qos_autopilot.ingest
+    serving.shard_guard = ShardGuard(scheduler_id, admission=shard_admission)
+    serving.shard_guard.resource = service.resource
+    service.shard_guard = serving.shard_guard
     if cfg.manager_addr:
         from ..rpc.cluster_client import RemoteClusterClient
         from ..rpc.registry_client import RemoteRegistry
@@ -449,7 +503,8 @@ def serve(
         )
         serving.job_worker = _job_worker(service, manager_endpoints, scheduler_id, token)
         serving.job_worker.serve()
-        serving.dynconfig = _dynconfig(cfg, service, manager_endpoints)
+        serving.dynconfig = _dynconfig(cfg, service, manager_endpoints,
+                                       serving.shard_guard)
         serving.dynconfig.serve()
         # Cross-replica topology sharing through the manager (the Redis
         # analog): probes landed on OTHER schedulers inform this one's nt
@@ -535,6 +590,9 @@ def run(argv=None) -> int:
                    help="run an N-download synthetic swarm and exit")
     p.add_argument("--device", default="cuda",
                    help="torch device a fused scorer serves on (cuda or cpu)")
+    p.add_argument("--scorer-blob", default="", metavar="PATH",
+                   help="an exported scorer artifact: serve mode ranks with K1's "
+                   "fused scorer over it (scheduling.algorithm ml)")
     args = p.parse_args(argv)
     init_logging(args, "scheduler")
     debug = init_debug(args)
@@ -546,7 +604,12 @@ def run(argv=None) -> int:
             init_flight_recorder(args, cfg.tracing, "scheduler")
             journal, engine = init_telemetry(args, cfg.telemetry, "scheduler")
             if not args.simulate:
-                serving = serve(cfg, device=args.device)
+                blob = None
+                if args.scorer_blob:
+                    with open(args.scorer_blob, "rb") as f:
+                        blob = f.read()
+                serving = serve(cfg, device=args.device, scorer_blob=blob,
+                                journal=journal)
                 serving.journal, serving.slo_engine = journal, engine
         except ConfigError as exc:
             print(f"scheduler: {exc}", file=sys.stderr)

@@ -21,11 +21,11 @@ refused as an unknown key; for the keys in ``NOT_PORTED`` the message
 names the ROADMAP queue 1 item that brings their reader.
 
 ``SchedulerConfigFile`` also holds the ``tracing`` and ``telemetry``
-sections, and ``scheduling.qos_autopilot``.  The reference's scheduler
-binary builds the autopilot only beside its shard guard
-(``scheduling.shard_max_inflight > 0``), which is not ported; so the
-port accepts ``qos_autopilot`` and builds no autopilot, as the reference
-does with no shard guard.
+sections, and the shard guard's settings: ``scheduling.shard_max_inflight``
+and ``shard_p99_budget_ms`` (the admission bounds; 0 in-flight builds the
+guard without admission) and ``qos_autopilot`` (the SLO autopilot, built
+beside admission when a metric journal and ``telemetry.slos`` are
+present), as in the reference.
 
 The trainer binary reads ``training.epochs``, ``training.learning_rate``,
 ``training.warmup_steps``, ``server``, ``data_dir``, ``manager_addr``,
@@ -257,10 +257,16 @@ class SchedulingSection:
     # ``<model>@<idc>`` first and falls back to the global model; empty
     # keeps the reference's fleet-wide single-key behaviour.
     idc: str = ""
-    # Tenant QoS plane: with telemetry.slos declared, the SLO autopilot
-    # rides the metric journal and tightens the shard's admission
-    # (reference cli/scheduler.py); this package has no shard guard, so
-    # it is accepted and builds nothing.
+    # Sharded fleet (DESIGN.md §24): admission control bounds for this
+    # shard — concurrent task-scoped requests past max_inflight (and
+    # announce p99 past the budget) start shedding the lowest priority
+    # classes with 503+Retry-After.  0 max_inflight disables admission.
+    shard_max_inflight: int = 512
+    shard_p99_budget_ms: float = 50.0
+    # Tenant QoS plane (DESIGN.md §26): with telemetry.slos declared, a
+    # metric journal configured and admission enabled, the SLO autopilot
+    # feeds burn verdicts back into the shed floor + over-quota tenants'
+    # announce caps; False leaves admission on the measured signals only.
     qos_autopilot: bool = True
 
     def validate(self) -> None:
@@ -276,6 +282,10 @@ class SchedulingSection:
             raise ConfigError("eval_feature_cache_hosts < 1")
         if not (0.0 <= self.shadow_sample_rate <= 1.0):
             raise ConfigError("shadow_sample_rate must be in [0, 1]")
+        if self.shard_max_inflight < 0:
+            raise ConfigError("shard_max_inflight < 0")
+        if self.shard_p99_budget_ms <= 0:
+            raise ConfigError("shard_p99_budget_ms <= 0")
         if not (0.0 <= self.model_poll_jitter < 0.5):
             raise ConfigError("model_poll_jitter must be in [0, 0.5)")
 
@@ -495,8 +505,6 @@ NOT_PORTED = {
         "sni_hijack_hosts": "14 (the SNI proxy)",
     },
     "SchedulingSection": {
-        "shard_max_inflight": "14 (the shard guard)",
-        "shard_p99_budget_ms": "14 (the shard guard)",
         "stall_max_idle_s": "12c (the gRPC push stream)",
         "stall_sweep_interval_s": "12c (the gRPC push stream)",
     },

@@ -64,6 +64,7 @@ from .traffic_shaper import TrafficShaper
 
 if TYPE_CHECKING:  # the wiring-time scheduler arms (no runtime import cycle)
     from ..rpc.scheduler_client import RemoteScheduler
+    from ..rpc.steering import SteeringSchedulerClient
 
 
 class PieceFetcher(Protocol):
@@ -255,7 +256,7 @@ class Conductor:
         self,
         host: Host,
         storage: DaemonStorage,
-        scheduler: "Union[SchedulerService, RemoteScheduler]",
+        scheduler: "Union[SchedulerService, RemoteScheduler, SteeringSchedulerClient]",
         piece_fetcher: PieceFetcher,
         source_fetcher: Optional[SourceFetcher] = None,
         *,

@@ -24,10 +24,8 @@ shaper (``daemon/traffic_shaper.py``), the scorer micro-batcher's
 deficit-round-robin lanes (``scheduler/microbatch.py``), and the
 admission controller (``scheduler/sharding.py``).
 
-Port of ``dragonfly2_tpu/qos/``, with the logic verbatim.  In this
-package the scorer batcher's DRR lanes read the policy; the daemon's
-chokepoints and the shard guard's admission controller are not part of
-it yet (ROADMAP queue 1 item 14).
+Port of ``dragonfly2_tpu/qos/``, with the logic verbatim.  Every
+chokepoint named above reads the policy in this package too.
 """
 
 from .accounting import TenantAccounting  # noqa: F401

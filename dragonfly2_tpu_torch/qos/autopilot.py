@@ -24,9 +24,9 @@ Every level change closes one ``scheduler/qos.autopilot`` span
 (DF016-inventoried) carrying from/to levels and the triggering verdict.
 
 Port of ``dragonfly2_tpu/qos/autopilot.py``, verbatim.  ``admission``
-is any object with ``set_shed_bias``: the shard guard's admission
-controller that the reference's scheduler binary hands it is ROADMAP
-queue 1 item 14.
+is any object with ``set_shed_bias``: the scheduler binary
+(``cli/scheduler.serve``) hands it the shard guard's admission
+controller, as the reference's does.
 """
 
 from __future__ import annotations

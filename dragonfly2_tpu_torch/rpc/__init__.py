@@ -20,7 +20,10 @@ Port of the HTTP half of ``dragonfly2_tpu/rpc/``, stdlib only:
   (pkg/balancer/consistent_hashing.go).
 - ``retry``     — exponential backoff for client calls
   (pkg/rpc retry interceptors).
-- ``resolver``  — the shared multi-endpoint manager address book.
+- ``resolver``  — the shared multi-endpoint manager address book, the
+  dynconfig-fed scheduler resolver and the shard router.
+- ``steering`` — the daemon's client over a scheduler list: each task's
+  calls go to its owner on the consistent-hash ring.
 
 The gRPC bindings of the same adapters (``SchedulerGRPCServer`` and the
 rest of the reference's ``grpc_transport``) are ROADMAP queue 1 item 12c;

@@ -21,12 +21,11 @@ JSON fields, base64 payloads, ``PROTOCOL_VERSION``, status and error
 codes) is the reference's byte for byte, so either package's client
 talks to either package's server.  The handler opens the reference's
 ``rpc/<method>`` span linked to the caller's ``traceparent``, and the
-announce answer carries ``tenant_qos`` once a QoS policy is installed.
-Differences: the announce answer carries no ``scheduler_ring`` (the
-shard guard is ROADMAP queue 1 item 14; the reference adds no ring
-without one), and ``SchedulerHTTPServer.stats`` is new: the server's
-own time per method, around the whole request and around the service
-call.
+announce answer carries the adopted ``scheduler_ring`` once the
+service's shard guard holds one, and ``tenant_qos`` once a QoS policy
+is installed.  One difference: ``SchedulerHTTPServer.stats`` is new,
+the server's own time per method, around the whole request and around
+the service call.
 """
 
 from __future__ import annotations
@@ -145,8 +144,17 @@ class SchedulerRPCAdapter:
         )
         stored.protocol_version = negotiated
         out = {"protocol": protocol_info(negotiated, self.capabilities)}
-        # Tenant QoS re-publication (DESIGN.md §26): daemons adopt upload
-        # caps + weights off the announce answer.
+        # Ring re-publication (DESIGN.md §24): the announce answer
+        # carries the shard ring this scheduler adopted from dynconfig,
+        # so every announcing peer converges on the SAME versioned
+        # ownership map without its own manager dependency.
+        guard = self.service.shard_guard
+        if guard is not None:
+            ring = guard.ring()
+            if ring is not None and len(ring):
+                out["scheduler_ring"] = ring.to_payload()
+        # Tenant QoS re-publication (DESIGN.md §26, same discipline):
+        # daemons adopt upload caps + weights off the announce answer.
         policy = self.service.qos_policy
         if policy is not None:
             out["tenant_qos"] = policy.to_payload()

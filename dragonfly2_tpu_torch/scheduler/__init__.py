@@ -5,7 +5,8 @@ DAG), the columnar host store, the parent-selection engine with the rule,
 network-topology and ML evaluators, the scorer micro-batcher the ML
 evaluator uses, the model subscription that installs registry scorers on
 it, the network-topology probe store, the training-record production path, and
-the Announcer that uploads those records to the trainer.
+the Announcer that uploads those records to the trainer, and the sharded
+fleet's ring, ownership guard and admission control.
 """
 
 from .announcer import Announcer  # noqa: F401
@@ -25,3 +26,11 @@ from .model_loader import ModelSubscriber  # noqa: F401
 from .networktopology import NetworkTopology, Probe, ProbeAgent, TopologyConfig  # noqa: F401
 from .scheduling import ScheduleResult, ScheduleResultKind, Scheduling, SchedulingConfig  # noqa: F401
 from .service import RegisterResult, SchedulerService  # noqa: F401
+from .sharding import (  # noqa: F401
+    AdmissionController,
+    ShardDirectory,
+    ShardGuard,
+    ShardRing,
+    ShardSaturatedError,
+    WrongShardError,
+)

@@ -90,8 +90,21 @@ ROLLOUT_SERVING_STATE = _reg.gauge(
     "2 shadow, 3 canary (codes match manager rollout_state)", ["name"],
 )
 
-# -- sharded fleet: the manager's membership directory ----------------------
+# -- sharded fleet (DESIGN.md §24: ring routing, handoff, shedding) ----------
 SHARD_RING_VERSION = _reg.gauge(
     "scheduler_shard_ring_version",
     "Consistent-hash ring version this process has adopted", ["cluster"],
+)
+SHARD_REDIRECTS_TOTAL = _reg.counter(
+    "scheduler_shard_redirects_total",
+    "Task-scoped calls answered with a wrong-shard steering redirect",
+)
+SHARD_HANDOFFS_TOTAL = _reg.counter(
+    "scheduler_shard_handoffs_total",
+    "Tasks marked for cross-shard migration by membership-change sweeps",
+)
+SHARD_SHED_TOTAL = _reg.counter(
+    "scheduler_shard_shed_total",
+    "Requests refused by admission control, by priority class",
+    ["priority"],
 )

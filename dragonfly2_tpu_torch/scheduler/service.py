@@ -20,14 +20,15 @@ demuxes stream messages:
   SyncProbes exchange (service_v2.go:721-866).
 
 The cold-task seed trigger (``seed_peer_trigger``, any callable
-``(url, task_id) -> bool``) and the tenant QoS policy (``set_qos_policy``,
-``on_qos_config``) are the reference's.  The push hub (ROADMAP queue 1
-item 12c) and the shard guard (item 14) are not part of this package
-yet: their arguments keep their places and take only None, and the
-paths that would call them (server push, ownership and admission
-checks, the policy's admission accounting) are absent.  The reference's
-seed client, ``scheduler/seed_client.RemoteSeedPeerClient``, is the
-trigger ``cli/scheduler.build`` passes.
+``(url, task_id) -> bool``), the tenant QoS policy (``set_qos_policy``,
+``on_qos_config``) and the shard guard (``shard_guard``: ownership
+checks on the task-scoped entry points, admission on registers and
+announces, the policy's admission accounting) are the reference's.  The
+push hub (ROADMAP queue 1 item 12c) is not part of this package yet: its
+argument keeps its place and takes only None, and the server-push paths
+are absent.  The reference's seed client,
+``scheduler/seed_client.RemoteSeedPeerClient``, is the trigger
+``cli/scheduler.build`` passes.
 """
 
 from __future__ import annotations
@@ -89,15 +90,20 @@ class SchedulerService:
         hub=None,
         shard_guard=None,
     ) -> None:
-        # The push hub and the shard guard are not part of this package
-        # yet: the arguments keep their places and take only None.
-        for name, value in (("hub", hub), ("shard_guard", shard_guard)):
-            if value is not None:
-                raise NotImplementedError(f"SchedulerService({name}=...) is not ported")
+        # The push hub is not part of this package yet: the argument keeps
+        # its place and takes only None.
+        if hub is not None:
+            raise NotImplementedError("SchedulerService(hub=...) is not ported")
         self.resource = resource
         self.scheduling = scheduling
         self.storage = storage
         self.networktopology = networktopology
+        # Optional sharding.ShardGuard: ownership + admission checks at
+        # the task-scoped entry points (DESIGN.md §24).  The guard needs
+        # the resource to sweep live tasks on a membership change.
+        self.shard_guard = shard_guard
+        if shard_guard is not None:
+            shard_guard.resource = resource
         # Optional callable(url, task_id) -> bool: asks a seed peer to warm
         # the task (resource/seed_peer.go:93-229 TriggerDownloadTask; wired
         # to a seed daemon's conductor in-process, an RPC in deployments).
@@ -112,17 +118,26 @@ class SchedulerService:
         self._host_store = getattr(scheduling.evaluator, "feature_cache", None)
         # Tenant QoS policy (DESIGN.md §26): installed via dynconfig
         # (set_qos_policy) and re-published on announce answers so
-        # daemons converge on it without their own manager dependency.
+        # daemons converge on it without their own manager dependency
+        # (the §24 ring re-publication discipline).
         self.qos_policy = None
 
     # -- tenant QoS (DESIGN.md §26) ------------------------------------------
 
     def set_qos_policy(self, policy) -> None:
         """Install a ``qos.QoSPolicy`` across this scheduler's
-        enforcement points: the scorer batcher's DRR weights (the
-        reference also hands it to the shard guard's admission
-        accounting, which is not part of this package)."""
+        enforcement points: admission accounting (per-tenant caps +
+        over-quota shedding) and the scorer batcher's DRR weights."""
         self.qos_policy = policy
+        guard = self.shard_guard
+        if guard is not None and guard.admission is not None:
+            acct = guard.admission.accounting
+            if acct is None:
+                from ..qos.accounting import TenantAccounting
+
+                guard.admission.accounting = TenantAccounting(policy)
+            else:
+                acct.set_policy(policy)
         batcher = getattr(self.scheduling.evaluator, "batcher", None)
         if batcher is not None:
             batcher.set_qos_policy(policy)
@@ -156,6 +171,13 @@ class SchedulerService:
         tenant: str = "",
         blocklist: Optional[Set[str]] = None,
     ) -> RegisterResult:
+        if self.shard_guard is not None:
+            # Ownership before any state is created: a mis-routed
+            # register must steer to the owner, not seed a split-brain
+            # swarm here.  Admission next — the noisy tenant's lowest
+            # priority band sheds first (DESIGN.md §26).
+            self.shard_guard.check_task(task_id or idgen.task_id(url))
+            self.shard_guard.admit(priority, tenant=tenant)
         host = self.resource.store_host(host)
         freshly_bound = False
         if self._host_store is not None:
@@ -258,10 +280,16 @@ class SchedulerService:
         """Host stats announce (service_v2 AnnounceHost): store-or-refresh
         the host record and WRITE ITS COLUMNS on arrival (DESIGN.md §18)
         — the announce decode is the marshalling point, not the evaluate
-        path.  ``tenant`` is accepted for the announce surface; the
-        reference's per-tenant accounting and announce-rate caps ride its
-        shard guard's admission, which is not part of this package."""
+        path.  Both wire adapters and the in-process
+        ``daemon.host_announcer`` land here.  ``tenant`` feeds the
+        per-tenant accounting + announce-rate caps (DESIGN.md §26)."""
         t0 = time.monotonic()
+        if self.shard_guard is not None:
+            # Host-scoped: every shard accepts announces (each keeps its
+            # own host inventory) — only the shed gate applies (tenant
+            # announce caps included), and the handling latency feeds
+            # the shard's windowed burn signal.
+            self.shard_guard.admit(Priority.LEVEL0, tenant=tenant)
         stored = self.resource.store_host(host)
         if stored is not host:
             # Refresh announce-time stats AND addresses on the existing
@@ -286,6 +314,8 @@ class SchedulerService:
         else:
             stored.touch()
         metrics.ANNOUNCE_SECONDS.observe(time.monotonic() - t0)
+        if self.shard_guard is not None and self.shard_guard.admission is not None:
+            self.shard_guard.admission.observe(time.monotonic() - t0)
         return stored
 
     # Lifecycle gauges refresh at most this often: every register/leave
@@ -355,6 +385,10 @@ class SchedulerService:
         cost_ns: int = 0,
     ) -> None:
         """DownloadPieceFinishedRequest (service_v2.go:1157)."""
+        if self.shard_guard is not None:
+            # A handed-off task's in-flight reports steer to the new
+            # owner instead of mutating a swarm this shard gave away.
+            self.shard_guard.check_task(peer.task.id)
         metrics.PIECE_RESULT_TOTAL.inc(result="finished")
         is_new = peer.finish_piece(
             piece_number, cost_ns, parent_id=parent_id, length=length
@@ -401,6 +435,8 @@ class SchedulerService:
 
     def report_peer_finished(self, peer: Peer) -> None:
         """handlePeerSuccess (:1284) + createDownloadRecord (:1418-1629)."""
+        if self.shard_guard is not None:
+            self.shard_guard.check_task(peer.task.id)
         metrics.PEER_RESULT_TOTAL.inc(result="succeeded")
         _try_event(peer.fsm, "DownloadSucceeded")
         peer.cost_ns = int((time.time() - peer.created_at) * 1e9)

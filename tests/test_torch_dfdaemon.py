@@ -268,7 +268,7 @@ def test_peer_swarm_small(tmp_path):
     ([], {"DRAGONFLY_DAEMON_NATIVE_FETCH": "true"}, None, "item 14"),
     ([], {"DRAGONFLY_DAEMON_CONTROL_VSOCK_PORT": "0"}, None, "item 14"),
     ("grpc", {}, None, "item 12c"),
-    ("list", {}, None, "item 14"),
+    ("list", {}, None, "item 12c"),
 ])
 def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatch, capsys,
                                                             argv, env, config, item):
@@ -281,7 +281,7 @@ def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatc
     if argv == "grpc":
         argv, scheduler = [], "grpc://127.0.0.1:9"
     elif argv == "list":
-        argv, scheduler = [], "http://127.0.0.1:9,http://127.0.0.1:10"
+        argv, scheduler = [], "http://127.0.0.1:9,grpc://127.0.0.1:10"
     if config is not None:
         (tmp_path / "daemon.yaml").write_text(config)
         argv = [*argv, "--config", str(tmp_path / "daemon.yaml")]

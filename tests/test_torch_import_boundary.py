@@ -162,6 +162,13 @@ print("OK")
         "dragonfly2_tpu_torch.daemon.seeder",
         "dragonfly2_tpu_torch.scheduler.seed_client",
         "dragonfly2_tpu_torch.bench.preheat_swarm",
+        "dragonfly2_tpu_torch.scheduler.sharding",
+        "dragonfly2_tpu_torch.rpc.resolver",
+        "dragonfly2_tpu_torch.rpc.steering",
+        "dragonfly2_tpu_torch.sim.fleet",
+        "dragonfly2_tpu_torch.sim.chaos",
+        "dragonfly2_tpu_torch.bench.fleet_swarm",
+        "dragonfly2_tpu_torch.bench.shard_fleet",
         "chip_smoke",
     ],
 )

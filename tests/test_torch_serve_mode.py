@@ -70,12 +70,12 @@ def test_trainer_binary_serves_the_lifecycle_daemon_with_a_manager(tmp_path):
     ("scheduler", [], {"DRAGONFLY_SCHEDULER_SERVER_GRPC_PORT": "0"}, "item 12c"),
     ("scheduler", [], {"DRAGONFLY_SCHEDULER_TRAINER_ENABLE": "true",
                        "DRAGONFLY_SCHEDULER_TRAINER_ADDR": "grpc://trainer:9090"}, "item 12c"),
-    ("scheduler", ["--config", "sharded.yaml"], {}, "item 14"),
+    ("scheduler", ["--config", "metrics.yaml"], {}, "item 14"),
     ("scheduler", ["--config", "secured.yaml"], {}, "item 14"),
 ])
 def test_refused_options_exit_2_naming_their_item(tmp_path, monkeypatch, capsys, kind, argv,
                                                   env, item):
-    (tmp_path / "sharded.yaml").write_text("scheduling: {shard_max_inflight: 512}\n")
+    (tmp_path / "metrics.yaml").write_text("metrics: {enable: true}\n")
     (tmp_path / "secured.yaml").write_text("security: {auto_issue: true}\n")
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("DRAGONFLY_SCHEDULER_STORAGE_DIR", str(tmp_path / "records"))

@@ -6,7 +6,9 @@ daemon's ``lifecycle/epoch`` and ``lifecycle/promote``, the controller's
 ``rollout/transition``), one online dispatch (``trainer/dispatch``), one
 coalesced batcher flush (``scheduler/eval.flush``), the manager's REST
 handler spans (``manager/GET``, ``manager/POST``), the preheat fan-out and
-its execution (``jobs/preheat``, ``jobs/preheat.execute``), and a two-daemon
+its execution (``jobs/preheat``, ``jobs/preheat.execute``), the shard
+guard's membership sweep and the client-side migration edge
+(``scheduler/shard.handoff``), and a two-daemon
 download (``daemon/download``, ``daemon/piece``, ``daemon/source.piece``,
 ``daemon/report.flush``: one daemon back to source, one P2P), the multiset of
 (span name, sorted attribute keys) each package exports is equal.
@@ -267,3 +269,45 @@ def test_preheat_spans_equal(rings):
                       if s.name in PREHEAT_SPANS)
 
     assert values(rings["torch"]) == values(rings["jax"])
+
+
+HANDOFF_SPANS = {"scheduler/shard.handoff"}
+
+
+def test_shard_handoff_spans_equal(rings):
+    """The shard guard's sweep on a ring-version bump and the client's
+    ``handoff_span`` export the same ``scheduler/shard.handoff`` spans,
+    with the same shard, ring version and tasks moved, in both packages."""
+    import importlib
+
+    for name in ("jax", "torch"):
+        root = "dragonfly2_tpu" if name == "jax" else "dragonfly2_tpu_torch"
+        sched = importlib.import_module(f"{root}.scheduler")
+        sharding = importlib.import_module(f"{root}.scheduler.sharding")
+        resource_mod = importlib.import_module(f"{root}.scheduler.resource")
+        guard = sched.ShardGuard("s0")
+        service = sched.SchedulerService(
+            sched.Resource(),
+            sched.Scheduling(sched.Evaluator(), sched.SchedulingConfig(retry_interval=0)),
+            None, None, shard_guard=guard,
+        )
+        guard.update_ring(sched.ShardRing({"s0": ""}, version=1))
+        for i in range(40):
+            host = resource_mod.Host(id=f"h{i}", hostname=f"h{i}", ip=f"10.0.0.{i}",
+                                     port=8002, download_port=8001)
+            service.register_peer(host=host, url=f"https://o/{i}")
+        guard.update_ring(sched.ShardRing({f"s{i}": "" for i in range(4)}, version=2))
+        with sharding.handoff_span("t-1", from_shard="s1", to_shard="s0", ring_version=2):
+            pass
+    inv = {name: _inventory(ring, HANDOFF_SPANS) for name, ring in rings.items()}
+    assert inv["torch"] == inv["jax"]
+    assert sum(inv["torch"].values()) == 3
+
+    def values(ring):
+        return sorted(tuple(sorted((k, str(v)) for k, v in s.attributes.items()))
+                      for s in ring.spans if s.name in HANDOFF_SPANS)
+
+    assert values(rings["torch"]) == values(rings["jax"])
+    moved = [s.attributes["tasks_moved"] for s in rings["torch"].spans
+             if s.name in HANDOFF_SPANS and "tasks_moved" in s.attributes]
+    assert moved[0] == 0 and 0 < moved[1] < 40
