@@ -142,7 +142,9 @@ launch counts are zeroed before each and must read 0 after.
     GAT layers; K3 against its plain version on the run's own first
     backward input and plan (taken by a tap), within 1e-5 × max |sum|
     (no floor: the gradients are far below 1); the GAT's validation MAE
-    below the train-mean predictor's.
+    below the train-mean predictor's.  K3's device time there is printed
+    beside its plain version's and ``index_add_``'s on the same input
+    (the library call for the same sums).
     The kernels line's K3 launches are phase 6's plus this run's.
 12. The scheduler's record and probe half (``swarm``):
     ``cli.scheduler.run(["--simulate", "500", "--device", "cuda"])`` with
@@ -410,6 +412,23 @@ The serve-mode phases (16, 17, 20, 21 and 22(b)) run the shard guard
 with admission at the config's defaults, as the reference's binary does;
 each prints the sheds by priority class its run caused (``sheds``).
 
+The native host engine (``dragonfly2_tpu_torch/native``): phase 1 also
+builds ``native/src/native.cpp`` with g++ beside the nvcc builds and
+prints ``g++ --version`` (no g++ fails the smoke, naming it); it checks
+``native.build_error()`` is None.  The record storage of phases 2 and 12
+must write through ``NativeColumnarWriter`` (a tap on
+``records.storage._make_columnar_writer``), and ``dfc_rows`` must read
+exactly the rows appended.  Phase 14's run A runs the native ingest
+engine at the defaults (the adapter native, its ``rows_in`` = the rows
+sent); a second wire run on the same records with ``--python-ingest``
+prints its records/s through the service beside run A's and the
+device's.  Phases 20, 21 and 22(b) run every daemon on the native engine
+at the defaults (``engine_ran``: every store native,
+``NativePieceServer`` the server, > 0 pieces through ``pf_*``) and check
+``native.leaked_servers() == (0, 0)`` after teardown; phase 20 runs a
+second arm at the same configuration on the Python store and server with
+``native_fetch: false`` and prints both arms side by side.
+
     python3 chip_smoke.py [--seed 0] [--out DIR]
 """
 
@@ -572,6 +591,59 @@ def tapped(module, name, wrap):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def tap_record_writers():
+    """Record storage's DFC1 writers from now on: → (seen, restore).
+    ``seen["types"]`` holds the writer classes' names, ``seen["rows"]``
+    the rows appended through them; ``restore()`` ends the tap."""
+    from dragonfly2_tpu_torch.records import storage as record_storage
+
+    seen = {"types": set(), "rows": 0}
+    original = record_storage._make_columnar_writer
+
+    def make(path, columns):
+        writer = original(path, columns)
+        seen["types"].add(type(writer).__name__)
+        append = writer.append
+
+        def counted(rows):
+            n = append(rows)
+            seen["rows"] += int(n)
+            return n
+
+        writer.append = counted
+        return writer
+
+    record_storage._make_columnar_writer = make
+
+    def restore():
+        record_storage._make_columnar_writer = original
+
+    return seen, restore
+
+
+def check_native_writes(seen, rows_read, where):
+    """Phases 2 and 12: the records went through the native DFC1 writer
+    and the reader reads back the rows it wrote."""
+    check(seen["types"] == {"NativeColumnarWriter"},
+          f"{where}: record storage wrote through {sorted(seen['types'])}, not "
+          "NativeColumnarWriter")
+    check(rows_read == seen["rows"] > 0,
+          f"{where}: dfc_rows read {rows_read} rows, the native writer appended {seen['rows']}")
+
+
+def check_native_daemons(summary, where):
+    """Phases 20-22(b) at the defaults: the native engine ran, not its
+    fallback, and no native server leaked."""
+    engine = summary["engine"]
+    check(all(engine["is_native"]), f"{where}: a daemon's store is not native: "
+          f"{engine['is_native']}")
+    check(engine["piece_servers"] == ["NativePieceServer"],
+          f"{where}: piece servers {engine['piece_servers']}")
+    check(engine["native_fetch_pieces"] > 0, f"{where}: no piece through the native fetch loop")
+    check(engine["leaked_servers"] == [0, 0],
+          f"{where}: native.leaked_servers() = {engine['leaked_servers']} at teardown")
 
 
 def emit(obj) -> None:
@@ -1329,6 +1401,13 @@ def trainer_service_phase(torch, dev, seed, out_dir):
             return out
         return wrapped
 
+    def keep_gather(fn):
+        def wrapped(*a, **kw):
+            gather = fn(*a, **kw)
+            seen.setdefault("gather", gather)
+            return gather
+        return wrapped
+
     # The --train-once round's config: under TrainConfig(epochs=2) (lr
     # 3e-4, 100 warm-up steps) the 56 steps end inside the warm-up, at the
     # mean predictor's MAE, in the JAX package as in the port.
@@ -1336,6 +1415,7 @@ def trainer_service_phase(torch, dev, seed, out_dir):
     reset_kernel_counts()
     t2 = time.perf_counter()
     with tapped(segment, "segment_sum_bucketed", keep_first_k3), \
+            tapped(segment, "make_neighbor_gather", keep_gather), \
             tapped(train_mod, "train_gat_ranker", keep_run):
         svc = TrainerService(ModelRegistry(), gnn_model="gat",
                              train_config=gat_config, device=dev)
@@ -1348,7 +1428,7 @@ def trainer_service_phase(torch, dev, seed, out_dir):
     gat_s = time.perf_counter() - t2
     gat_launches = kernel_counts()
     check(gat_run.error is None and GNN_MODEL_NAME in gat_run.metrics and "run" in seen
-          and "k3" in seen, f"service gat run: {gat_run.error}")
+          and "k3" in seen and "gather" in seen, f"service gat run: {gat_run.error}")
 
     # K3 against its plain version at this path's shapes, on the tapped
     # input; these launches come after the counts were read.
@@ -1364,7 +1444,15 @@ def trainer_service_phase(torch, dev, seed, out_dir):
     k3_max = float(want.abs().max())
     k3_nonzero = int((want != 0).any(dim=1).sum())
     k3_ms = device_ms(lambda: segment.segment_sum_bucketed(values, plan, **k3_kw))
+    k3_plain_ms = device_ms(lambda: _segment_sum_plain(
+        values, plan, exact=k3_kw["exact"], presorted=k3_kw.get("presorted", False)))
     k3_bound_ms, _ = bound(*k3_cost(plan, values.shape[1], values.element_size()))
+    # The library call for the same sums: index_add_ of the gather's
+    # backward input, in f32, into the segments.
+    vals32 = values.float()
+    k3_lib_ms = device_ms(lambda: torch.zeros((plan.num_segments, values.shape[1]),
+                                              device=dev).index_add_(
+        0, seen["gather"].flat_indices, vals32), samples=10, reps=5)
     steps = state.step
     layers = run_kw["model_config"].num_layers
     val_idx, train_idx = split_edges(len(target), run_kw["config"].seed)
@@ -1386,7 +1474,8 @@ def trainer_service_phase(torch, dev, seed, out_dir):
                "chunks": int(plan.chunks["chunk_lo"].numel()), "partials": plan.n_partials,
                "max_abs_err": k3_err, "max_abs_want": k3_max, "nonzero_rows": k3_nonzero,
                "tol_relative": K3_TOL,
-               "ms": k3_ms, "bound_ms": k3_bound_ms},
+               "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
+               "index_add_ms": k3_lib_ms},
     }
     emit({"phase": "trainer_service", **summary})
     check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
@@ -1737,6 +1826,7 @@ def swarm_phase(torch, dev, seed, out_dir):
     records = os.path.join(out_dir, "swarm_records")
     shutil.rmtree(records, ignore_errors=True)
     storage = Storage(records)
+    writers, untap_writers = tap_record_writers()
     sim = SwarmSimulator(storage, config=SwarmConfig(num_hosts=SWARM_HOSTS, seed=seed),
                          rng=random.Random(seed))
     t0 = time.perf_counter()
@@ -1747,8 +1837,10 @@ def swarm_phase(torch, dev, seed, out_dir):
     probe_s = time.perf_counter() - t1
     snapshots = sim.snapshot_topology()
     storage.flush()
+    untap_writers()
     dl_rows = dfc_rows(storage.download_columnar_paths())
     topo_rows = dfc_rows(storage.network_topology_columnar_paths())
+    check_native_writes(writers, dl_rows + topo_rows, "swarm")
     ids, src, dst, rtt = sim.topology.to_edge_arrays()
     in_deg = np.bincount(dst, minlength=len(ids))
 
@@ -2107,11 +2199,14 @@ def online_graph_phase(torch, dev, seed, out_dir):
         "peak_memory_gib": peak / 2**30, "kernel_launches": launches,
     }
     emit({"phase": "online_graph_wire", **summary})
+    sent = OG_DISPATCHES * rows_per_dispatch
+    check(a["ingest"]["native"] and a["ingest"]["stats"]["rows_in"] == sent,
+          f"online graph run A: the native ingest engine did not run on every row: "
+          f"{a['ingest']}")
     check(bool(np.isfinite(losses).all()) and len(losses) == OG_DISPATCHES,
           f"online graph: {len(losses)} dispatch losses, finite: {np.isfinite(losses).all()}")
     check(losses[-4:].mean() < losses[:4].mean(),
           f"online graph loss did not fall: {losses[:4].mean()} -> {losses[-4:].mean()}")
-    sent = OG_DISPATCHES * rows_per_dispatch
     check(a["records_seen"] == a["rows_sent"] == a["rows_off_the_wire"] == sent
           and a["leftover_rows"] == 0 and a["overflow_edges"] == 0,
           f"online graph rows: sent {a['rows_sent']}, off the wire {a['rows_off_the_wire']}, "
@@ -2131,6 +2226,33 @@ def online_graph_phase(torch, dev, seed, out_dir):
           f"online graph: the last refresh's fresh snapshot scored worse than the stale "
           f"one: {last}")
     check(not any(launches.values()), f"a kernel launched on the online graph path: {launches}")
+
+    # -- run A again on the same records, the adapter's Python path -------
+    reset_kernel_counts()
+    py = bench.run(bench.parse_args(common + [
+        "--wire", "--python-ingest", "--records", str(OG_DISPATCHES * rows_per_dispatch),
+        "--ckpt-dir", os.path.join(root, "a_python")]), log=log)
+    torch.cuda.synchronize()
+    py_launches = kernel_counts()
+    py_device = rows_per_dispatch / (float(np.median(py["dispatch_ms"])) / 1e3)
+    summary["ingest_arms"] = {
+        "native": {"records_per_s_service": a["records_per_s_service"],
+                   "device_records_per_s": summary["device_records_per_s"],
+                   "service_s": a["service_s"], "stats": a["ingest"]["stats"]},
+        "python": {"records_per_s_service": py["records_per_s_service"],
+                   "device_records_per_s": py_device, "service_s": py["service_s"],
+                   "losses": py["losses"]},
+    }
+    emit({"phase": "online_graph_ingest_arms", **summary["ingest_arms"]})
+    check(not py["ingest"]["native"] and py["records_seen"] == py["rows_sent"]
+          == py["rows_off_the_wire"] == sent and py["overflow_edges"] == 0,
+          f"online graph Python-ingest arm: native {py['ingest']['native']}, sent "
+          f"{py['rows_sent']}, off the wire {py['rows_off_the_wire']}, trained "
+          f"{py['records_seen']} (want {sent})")
+    check(bool(np.isfinite(py["losses"]).all()), "online graph Python-ingest arm: a "
+          "non-finite loss")
+    check(not any(py_launches.values()),
+          f"a kernel launched on the online graph path: {py_launches}")
 
     # -- the same block twice from one state; a profile of two dispatches -
     world = bench._World(OG_NODES, OG_BATCH, OG_SUPER, seed)
@@ -2282,13 +2404,17 @@ def keep_k1_flushes(seen):
     """A tap for ``FusedMLPScorer.score`` that keeps the inputs of the
     first ``WIRE_K1_FLUSHES`` flushes in ``seen``, with the scorer that
     made each (``scorers``; a path with several schedulers has one a
-    shard, each gathering from its own slot mirror) and the last one."""
+    shard, each gathering from its own slot mirror), the slot mirror the
+    flush gathered from (``mirrors``: a re-sync replaces the tensor, so
+    the reference keeps the flush's rows while later announces rebind
+    slots) and the last scorer."""
     def keep(fn):
         def wrapped(self, features, *, src_buckets=None, dst_buckets=None):
             out = fn(self, features, src_buckets=src_buckets, dst_buckets=dst_buckets)
             if len(seen["flushes"]) < WIRE_K1_FLUSHES:
                 seen["scorer"] = self
                 seen.setdefault("scorers", []).append(self)
+                seen.setdefault("mirrors", []).append(self._mat_dev)
                 seen["flushes"].append((np.array(features, np.float32, copy=True),
                                         np.array(src_buckets, copy=True),
                                         np.array(dst_buckets, copy=True)))
@@ -2299,22 +2425,20 @@ def keep_k1_flushes(seen):
 
 def k1_on_flushes(torch, dev, seen):
     """K1 against its plain version on a wire path's own flushes, each on
-    the slot matrix of the scorer that made it, as the run left it (slots
-    index that scorer's mirror alone: another shard's rows may be unbound,
-    uninitialized memory; these launches come after the counts), and K1's,
-    the plain version's and the bound's ms at 128 rows (the pad most
-    flushes take) of the first scorer's rows → (max err scaled, ms, plain
-    ms, bound ms)."""
+    the slot mirror it gathered from (its scorer's, as it stood at the
+    flush: the rows its slots held then; another shard's rows, or a slot
+    unbound later, may be uninitialized memory; these launches come after
+    the counts), and K1's, the plain version's and the bound's ms at 128
+    rows (the pad most flushes take) of the first flush's mirror and rows
+    → (max err scaled, ms, plain ms, bound ms)."""
     from dragonfly2_tpu_torch.ops import fused_score
 
-    mirrors = {}
     k1_err = 0.0
     k1_in = []
-    first = seen["scorers"][0]
-    for scorer, (edge, src, dst) in zip(seen["scorers"], seen["flushes"]):
-        if id(scorer) not in mirrors:
-            mirrors[id(scorer)] = scorer._sync_mirror()
-        mat, mlp = mirrors[id(scorer)], scorer.mlp
+    first = seen["mirrors"][0]
+    for scorer, mat, (edge, src, dst) in zip(seen["scorers"], seen["mirrors"],
+                                              seen["flushes"]):
+        mlp = scorer.mlp
         s = torch.from_numpy(src.astype(np.int32)).to(dev)
         d = torch.from_numpy(dst.astype(np.int32)).to(dev)
         e = torch.from_numpy(edge).to(dev)
@@ -2323,11 +2447,18 @@ def k1_on_flushes(torch, dev, seen):
                                               mlp.b0, mlp.layers())
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), "K1 non-finite on a wire flush")
-        k1_err = max(k1_err, float((got - want).abs().max())
-                     / max(1.0, float(want.abs().max())))
-        if scorer is first:
+        err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        if err > K1_TOL:
+            # What the flush held, printed before the caller's check fails.
+            emit({"phase": "k1_flush_off_plain", "err_scaled": err, "rows": int(s.numel()),
+                  "rows_off": int(((got - want).abs() > K1_TOL).sum()),
+                  "slot_rows_max_abs": float(mat[torch.cat([s, d]).long()].abs().max()),
+                  "edge_max_abs": float(e.abs().max()),
+                  "want_max_abs": float(want.abs().max())})
+        k1_err = max(k1_err, err)
+        if mat is first:
             k1_in.append((s, d, e))
-    mat, mlp = mirrors[id(first)], first.mlp
+    mat, mlp = first, seen["scorers"][0].mlp
     s128, d128, e128 = (torch.cat([x[i] for x in k1_in])[:128] for i in range(3))
     d1, d2 = mlp.w0c.shape[1], mlp.w1.shape[1]
     k1_ms = device_ms(lambda: fused_score.fused_gather_mlp_score(mat, s128, d128, e128, mlp))
@@ -3006,45 +3137,69 @@ def telemetry_qos_phase(torch, dev, seed, out_dir):
 
 def peer_swarm_phase(torch, dev, seed, out_dir):
     """Phase 20: the peer daemon's download path (``bench/peer_swarm``),
-    K1 ranking the daemons' parents.  Returns (summary, launches)."""
+    K1 ranking the daemons' parents: at the defaults (the native engine),
+    then on the Python store and server with ``native_fetch`` off.
+    Returns (the native arm's summary with the Python arm's under
+    ``python_arm``, the launches of both arms)."""
     from dragonfly2_tpu_torch.bench import peer_swarm
     from dragonfly2_tpu_torch.ops import fused_score
 
-    seen = {"flushes": []}
-    args = peer_swarm.parse_args([
-        "--daemons", str(PS_DAEMONS), "--size-mib", str(PS_SIZE_MIB),
-        "--seed", str(seed), "--out", out_dir, "--device", "cuda",
-    ])
-    reset_kernel_counts()
-    sheds0 = shed_counts()
-    t0 = time.perf_counter()
-    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
-        summary = peer_swarm.run(args, log=lambda line: print(line, flush=True))
-    torch.cuda.synchronize()
-    launches = kernel_counts()
-    phase_s = time.perf_counter() - t0
-    check(len(seen["flushes"]) > 0, "no K1 flush on the peer swarm's path")
-    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
-    out = {
-        **summary, "phase_seconds": phase_s, "kernel_launches": launches,
-        "sheds": sheds_since(sheds0),
-        "k1": {"launches": launches["fused_gather_mlp_score"],
-               "scorer_calls": summary["scorer_calls"], "max_err_scaled": k1_err,
-               "tol_scaled": K1_TOL, "flushes_checked": len(seen["flushes"]),
-               "ms_128": k1_ms, "us_128": k1_ms * 1e3, "plain_ms_128": k1_plain_ms,
-               "bound_ms_128": k1_bound_ms},
-    }
-    emit({"phase": "peer_swarm", **out})
-    for name, ok in summary["checks"].items():
-        check(ok, f"peer swarm check {name} failed: {json.dumps(summary)}")
-    check(launches["fused_gather_mlp_score"] == summary["scorer_calls"] > 0,
-          f"K1 launches {launches['fused_gather_mlp_score']} != the batcher's scorer calls "
-          f"{summary['scorer_calls']} on the peer swarm")
-    check(launches["segment_sum"] == 0 and launches["rule_weighted_sum"] == 0,
-          f"another kernel launched on the peer swarm: {launches}")
-    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the peer "
-          "swarm's flushes")
-    return out, launches
+    arms, launches = {}, {}
+    for arm, extra in (("native", []), ("python", ["--python-engine"])):
+        seen = {"flushes": []}
+        args = peer_swarm.parse_args([
+            "--daemons", str(PS_DAEMONS), "--size-mib", str(PS_SIZE_MIB),
+            "--seed", str(seed), "--out", out_dir, "--device", "cuda", *extra,
+        ])
+        reset_kernel_counts()
+        sheds0 = shed_counts()
+        t0 = time.perf_counter()
+        with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+            summary = peer_swarm.run(args, log=lambda line: print(line, flush=True))
+        torch.cuda.synchronize()
+        arm_launches = kernel_counts()
+        phase_s = time.perf_counter() - t0
+        check(len(seen["flushes"]) > 0, f"no K1 flush on the peer swarm's path ({arm} arm)")
+        k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+        out = {
+            **summary, "arm": arm, "phase_seconds": phase_s, "kernel_launches": arm_launches,
+            "sheds": sheds_since(sheds0),
+            "k1": {"launches": arm_launches["fused_gather_mlp_score"],
+                   "scorer_calls": summary["scorer_calls"], "max_err_scaled": k1_err,
+                   "tol_scaled": K1_TOL, "flushes_checked": len(seen["flushes"]),
+                   "ms_128": k1_ms, "us_128": k1_ms * 1e3, "plain_ms_128": k1_plain_ms,
+                   "bound_ms_128": k1_bound_ms},
+        }
+        emit({"phase": "peer_swarm", **out})
+        for name, ok in summary["checks"].items():
+            check(ok, f"peer swarm check {name} failed ({arm} arm): {json.dumps(summary)}")
+        if arm == "native":
+            check_native_daemons(summary, "peer swarm")
+        check(arm_launches["fused_gather_mlp_score"] == summary["scorer_calls"] > 0,
+              f"K1 launches {arm_launches['fused_gather_mlp_score']} != the batcher's scorer "
+              f"calls {summary['scorer_calls']} on the peer swarm ({arm} arm)")
+        check(arm_launches["segment_sum"] == 0 and arm_launches["rule_weighted_sum"] == 0,
+              f"another kernel launched on the peer swarm ({arm} arm): {arm_launches}")
+        check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the peer "
+              f"swarm's flushes ({arm} arm)")
+        arms[arm] = out
+        for name, n in arm_launches.items():
+            launches[name] = launches.get(name, 0) + n
+    # The two engines side by side at one configuration.
+    emit({"phase": "peer_swarm_arms", **{arm: {
+        "wall_seconds": o["wall_seconds"], "aggregate_mb_s": o["aggregate_mb_s"],
+        "daemon_mb_s": o["daemon_mb_s"], "p2p_mb_s": o["p2p_mb_s"],
+        "pieces_by_parent": o["pieces_by_parent"], "daemon0_p2p_share": o["daemon0_p2p_share"],
+        "native_fetch_pieces": o["engine"]["native_fetch_pieces"],
+        "sendfile_bytes": o["engine"]["sendfile_bytes"],
+        "python_served_bytes": o["engine"]["python_served_bytes"],
+        "batched_pieces": o["engine"]["batched_pieces"],
+        "k1_launches": o["k1"]["launches"]} for arm, o in arms.items()}})
+    native_out = arms["native"]
+    native_out["python_arm"] = arms["python"]
+    native_out["k1"]["launches_python_arm"] = arms["python"]["k1"]["launches"]
+    native_out["k1"]["max_err_scaled"] = max(o["k1"]["max_err_scaled"] for o in arms.values())
+    return native_out, launches
 
 
 def preheat_phase(torch, dev, seed, out_dir):
@@ -3071,11 +3226,11 @@ def preheat_phase(torch, dev, seed, out_dir):
     phase_s = time.perf_counter() - t0
     check(len(seen["flushes"]) > 0, "no K1 flush on the preheat path")
     # SUPER_SEED rows among the recorded flushes' parent slots: column 9
-    # of the mirror, on rows with any edge feature set (a pad row's edge
-    # features are all 0 and its slot is 0).
-    mat = seen["scorer"]._sync_mirror().float().cpu().numpy()
-    seed_rows = sum(int(((mat[src, 9] == 1) & (np.abs(edge).sum(axis=1) > 0)).sum())
-                    for edge, src, _ in seen["flushes"])
+    # of each flush's mirror, on rows with any edge feature set (a pad
+    # row's edge features are all 0 and its slot is 0).
+    seed_rows = sum(int(((mat.float().cpu().numpy()[src, 9] == 1)
+                         & (np.abs(edge).sum(axis=1) > 0)).sum())
+                    for mat, (edge, src, _) in zip(seen["mirrors"], seen["flushes"]))
     k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
     out = {
         **summary, "phase_seconds": phase_s, "kernel_launches": launches,
@@ -3090,6 +3245,7 @@ def preheat_phase(torch, dev, seed, out_dir):
     emit({"phase": "preheat_swarm", **out})
     for name, ok in summary["checks"].items():
         check(ok, f"preheat swarm check {name} failed: {json.dumps(summary)}")
+    check_native_daemons(summary, "preheat swarm")
     check(launches["fused_gather_mlp_score"] == summary["scorer_calls"] > 0,
           f"K1 launches {launches['fused_gather_mlp_score']} != the batcher's scorer calls "
           f"{summary['scorer_calls']} on the preheat path")
@@ -3170,6 +3326,7 @@ def shard_fleet_phase(torch, dev, seed, out_dir):
     emit({"phase": "shard_fleet", **out})
     for name, ok in summary["checks"].items():
         check(ok, f"shard fleet check {name} failed: {json.dumps(summary)}")
+    check_native_daemons(summary, "shard fleet")
     check(launches["fused_gather_mlp_score"] == summary["scorer_calls"] > 0,
           f"K1 launches {launches['fused_gather_mlp_score']} != the in-process batchers' "
           f"scorer calls {summary['scorer_calls']} on the shard fleet")
@@ -3221,12 +3378,26 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()
     card = smi[0] if smi else "not read"
     print(card, flush=True)
+    from dragonfly2_tpu_torch import native
+
+    gxx = shutil.which("g++")
+    check(gxx is not None, "g++ not found: the native host engine cannot be built")
+    gxx_version = subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                                 timeout=60).stdout.splitlines()[0]
+    print(f"g++: {gxx_version}", flush=True)
     t0 = time.perf_counter()
+    # The native engine builds with g++ while nvcc builds the kernels.
+    native_build = threading.Thread(target=native.load, name="native-build")
+    native_build.start()
     _build.load()
+    native_build.join()
     build_s = time.perf_counter() - t0
     print(_build.build_log, file=sys.stderr, flush=True)
     emit({"phase": "build", "card": card, "seconds": build_s,
-          "nvcc_seconds": _build.build_seconds})
+          "nvcc_seconds": _build.build_seconds, "gxx": gxx_version,
+          "native_seconds": native.build_seconds, "native_library": str(native.lib_path)})
+    check(native.build_error() is None,
+          f"the native host engine did not build: {native.build_error()}")
 
     # -- 2. serving path ----------------------------------------------------
     work_dir = args.out or os.path.join(REPO, "build", "chip_smoke")
@@ -3252,6 +3423,7 @@ def main(argv=None) -> int:
     cluster = SyntheticCluster(num_hosts=N_HOSTS, seed=args.seed)
     hosts = [host_from_latent(lh) for lh in cluster.hosts]
 
+    writers2, untap_writers = tap_record_writers()
     reset_kernel_counts()
     t_path = time.perf_counter()
     for h in hosts:
@@ -3320,6 +3492,11 @@ def main(argv=None) -> int:
     check(service.storage.download_count == N_TASKS * HOSTS_PER_TASK,
           f"{service.storage.download_count} Download records for "
           f"{N_TASKS * HOSTS_PER_TASK} finished warm-up downloads")
+    service.storage.flush()
+    untap_writers()
+    check_native_writes(writers2, dfc_rows(service.storage.download_columnar_paths()
+                                           + service.storage.network_topology_columnar_paths()),
+                        "serving")
     shutil.rmtree(cfg.storage.dir, ignore_errors=True)
     ref = load_scorer(blob)
     score_err, inputs = verify_rankings(ev, scorer, ref, records)
@@ -3409,7 +3586,10 @@ def main(argv=None) -> int:
     k3_entry.update({"launches_training": k3_entry["launches"],
                      "launches_service_gat": service_k3,
                      "max_abs_err_service_gat": service_k3_err,
-                     "ms_service_gat": loop["trainer_service"]["k3"]["ms"]})
+                     "ms_service_gat": loop["trainer_service"]["k3"]["ms"],
+                     "plain_ms_service_gat": loop["trainer_service"]["k3"]["plain_ms"],
+                     "library_ms_service_gat": loop["trainer_service"]["k3"]["index_add_ms"],
+                     "bound_ms_service_gat": loop["trainer_service"]["k3"]["bound_ms"]})
     k3_entry["launches"] += service_k3
     k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"], service_k3_err)
 
@@ -3473,6 +3653,7 @@ def main(argv=None) -> int:
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
          "launches_telemetry_qos": tq_launches["fused_gather_mlp_score"],
          "launches_peer_swarm": ps_launches["fused_gather_mlp_score"],
+         "launches_peer_swarm_python_arm": ps["k1"]["launches_python_arm"],
          "launches_preheat": ph_launches["fused_gather_mlp_score"],
          "launches_shard_fleet": sf_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],

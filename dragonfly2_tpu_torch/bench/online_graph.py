@@ -25,6 +25,10 @@ probe shards in hash-bucket space; snapshot 0 is built from the first
 wire-fed sweep, and validation edges map through the adapter's ids.  The
 producer waits for the driver's refresh of epoch e before it sends epoch
 e + 1's sweep, so each refresh sees exactly its own epoch's topology.
+The adapter runs the native ``oi_*`` engine at the default
+``native_ingest``, the trainer taking its dispatch blocks from the
+engine's edge ring; ``--python-ingest`` runs the Python adapter instead.
+The summary's ``ingest`` says which ran and holds the engine's counters.
 The path stays in process: the chunks enter ``TrainerService`` directly,
 not through its HTTP server (``rpc/trainer_transport.py``, which the
 trainer binary's serve mode runs; ``bench/wire_loop.py`` drives it).
@@ -48,7 +52,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import queue
 import shutil
 import sys
 import tempfile
@@ -82,6 +85,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="feed both streams as DFC1 chunks through TrainerService")
     ap.add_argument("--block-rows", type=int, default=1_000_000,
                     help="download rows per wire chunk (--wire)")
+    ap.add_argument("--python-ingest", action="store_true",
+                    help="the wire adapter's Python path, not the native engine (--wire)")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -138,15 +143,13 @@ class _World:
         return es, ed, y
 
 
-def _stop_thread(stop: threading.Event, thread: threading.Thread, q: "queue.Queue") -> None:
-    """Stop a producer that may be blocked on the trainer's full queue:
-    drain the queue until it sees ``stop`` and returns."""
+def _stop_producer(stop: threading.Event, thread: threading.Thread, trainer) -> None:
+    """Stop a producer that may be blocked on the trainer's full queue or
+    the native ingest engine's full edge ring: take dispatch blocks until
+    it sees ``stop`` and returns."""
     stop.set()
     while thread.is_alive():
-        try:
-            q.get(timeout=0.05)
-        except queue.Empty:
-            pass
+        trainer._next_dispatch_block(timeout=0.05)
     thread.join()
 
 
@@ -370,7 +373,7 @@ def _run_direct(args, dev, torch, log) -> dict:
                 f"(checkpoint written, snapshot {trainer.snapshot_idx})")
             killed = d
             break
-    _stop_thread(stop, thread, trainer._downloads)
+    _stop_producer(stop, thread, trainer)
     out = _summary(trainer, torch, clock, losses, t_train0, start_dispatch, d, {
         "mode": "direct", "dispatch": trainer.dispatch, "refreshes": refreshes,
         "val_curve": curve, "resumed_at": resumed_at, "killed_at": killed,
@@ -393,7 +396,7 @@ def _run_wire(args, dev, torch, log) -> dict:
     empty = (np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0, np.float32))
     trainer, n_dispatch = _trainer(
         args, dev, node_feats=np.zeros((args.nodes, HOST_FEATURE_DIM), np.float32),
-        topo=empty, queue_capacity=4,
+        topo=empty, queue_capacity=4, native_ingest=not args.python_ingest,
     )
     rows_per_dispatch = args.batch * args.super_steps
     total_rows = n_dispatch * rows_per_dispatch
@@ -528,7 +531,7 @@ def _run_wire(args, dev, torch, log) -> dict:
                     f"{refreshes[-1]['fresh_mae']:.4f}")
         out = _summary(trainer, torch, clock, losses, t_train0, 0, d, {})
     finally:
-        _stop_thread(stop, thread, trainer._downloads)
+        _stop_producer(stop, thread, trainer)
         shutil.rmtree(stage, ignore_errors=True)
     if failure:
         raise failure[0]
@@ -541,7 +544,10 @@ def _run_wire(args, dev, torch, log) -> dict:
                                  if kind == "download"),
         "leftover_rows": 0 if trainer._leftover is None else int(len(trainer._leftover[0])),
         "overflow_edges": adapter.overflow_edges, "evicted_nodes": adapter.evicted_nodes,
-        "nodes_recycled": trainer.nodes_recycled, "mapped_nodes": int(adapter._next_id),
+        "nodes_recycled": trainer.nodes_recycled,
+        "mapped_nodes": int(adapter.native_stats()["next_id"] if adapter.is_native
+                            else adapter._next_id),
+        "ingest": {"native": adapter.is_native, "stats": adapter.native_stats()},
         "service_s": end_s, "records_per_s_service": trainer.records_seen / end_s,
         "wall_s": time.perf_counter() - t_wall0,
     })

@@ -13,7 +13,10 @@ real file piece by piece.
 - ``--daemons`` daemons, each ``cli.dfdaemon.build`` with the default
   ``DaemonConfig`` but its storage under ``--out``, its piece server on
   port 0 and ``--piece-kib`` pieces (default 4 MiB, the config's), each
-  announced once.
+  announced once.  At the defaults each daemon runs the native engine: the
+  native piece store, ``NativePieceServer`` and the native fetch loop;
+  ``--python-engine`` builds them with the Python store and server and
+  ``native_fetch: false``.
 
 Then daemon 0 downloads the file back to source; daemons 1 to N-1
 download it at the same time; last, one ``cli.dfget --daemon`` download
@@ -37,7 +40,14 @@ daemons' upload counts up to the serves that no piece is attributed to
 (a hedged fetch's losing arm, a fetch that failed after its parent
 served it: the summary's ``hedges_fired`` and ``failed_fetches`` bound
 them); one Download record per download that registered; no evaluator
-degrade.  Everything the run wrote under
+degrade; the daemons ran the engine asked for (``engine_ran``) and the
+native servers leaked no thread at teardown (``no_leaked_servers``).
+``engine`` reports which engine ran (``engine_report``): ``is_native``
+for each daemon, the piece servers' types, the P2P pieces through the
+native fetch loop and through the Python arm, the pieces and bytes each
+daemon served, the bytes served by the native servers (``sendfile``) and
+by the Python ones, the native servers' batched pieces, and
+``native.leaked_servers()`` after teardown.  Everything the run wrote under
 ``--out`` is deleted at the end.
 
 Runs on ``--device`` (``cuda`` by default; with no card it exits 2).
@@ -75,7 +85,80 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--out", default="", help="directory for every file of the run "
                     "(default: a fresh temporary directory); deleted after")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--python-engine", action="store_true",
+                    help="daemons on the Python piece store and server, native_fetch off")
     return ap.parse_args(argv)
+
+
+def daemon_config(args: argparse.Namespace, store_dir: str, piece_size: int):
+    """A daemon's config at the ``DaemonConfig`` defaults but for its
+    storage dir, a loopback piece server on port 0, ``piece_size`` and,
+    with ``--python-engine``, ``native_fetch: false``."""
+    from ..config import DaemonConfig
+
+    dc = DaemonConfig()
+    dc.storage.dir = store_dir
+    dc.server.host, dc.server.port = "127.0.0.1", 0
+    dc.server.advertise_ip = "127.0.0.1"
+    dc.piece_size = piece_size
+    dc.native_fetch = not getattr(args, "python_engine", False)
+    dc.validate()
+    return dc
+
+
+def served(node: dict) -> tuple:
+    """(pieces, bytes) a ``cli.dfdaemon.build`` daemon's piece server has
+    served: the native server counts in its engine, the Python one in its
+    ``UploadManager``."""
+    from ..rpc.piece_transport import NativePieceServer
+
+    server = node["piece_server"]
+    if isinstance(server, NativePieceServer):
+        return server.upload_count, server.bytes_served
+    return node["upload"].upload_count, node["upload"].bytes_served
+
+
+def engine_report(nodes: list) -> dict:
+    """Which engine a set of ``cli.dfdaemon.build`` daemons ran, read
+    before their servers stop (``leaked_servers`` is added after)."""
+    from ..rpc.piece_transport import NativePieceServer
+
+    servers = [n["piece_server"] for n in nodes]
+    native_servers = [s for s in servers if isinstance(s, NativePieceServer)]
+    counts = [served(n) for n in nodes]
+    return {
+        "is_native": [bool(n["storage"].is_native) for n in nodes],
+        "piece_servers": sorted({type(s).__name__ for s in servers}),
+        "native_fetch_pieces": sum(n["conductor"].native_pieces for n in nodes),
+        "served_pieces": [c[0] for c in counts],
+        "served_bytes": [c[1] for c in counts],
+        "sendfile_bytes": sum(s.bytes_served for s in native_servers),
+        "python_served_bytes": sum(c[1] for n, c in zip(nodes, counts)
+                                   if not isinstance(n["piece_server"], NativePieceServer)),
+        "batched_pieces": sum(s.batched_pieces for s in native_servers),
+    }
+
+
+def engine_ran(engine: dict, native: bool) -> bool:
+    """Every daemon ran the engine asked for: with ``native`` the native
+    store and ``NativePieceServer`` and more than 0 pieces through the
+    fetch loop, else the Python store and server and none."""
+    if native:
+        return (all(engine["is_native"]) and engine["piece_servers"] == ["NativePieceServer"]
+                and engine["native_fetch_pieces"] > 0)
+    return (not any(engine["is_native"]) and engine["piece_servers"] == ["PieceHTTPServer"]
+            and engine["native_fetch_pieces"] == 0)
+
+
+def finish_engine(summary: dict) -> None:
+    """After teardown: ``native.leaked_servers()`` into ``engine`` and the
+    ``no_leaked_servers`` check (a native server whose stop timed out
+    leaks its struct and counts here)."""
+    from .. import native
+
+    leaked = list(native.leaked_servers())
+    summary["engine"]["leaked_servers"] = leaked
+    summary["checks"]["no_leaked_servers"] = leaked == [0, 0]
 
 
 class Origin:
@@ -193,7 +276,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     from ..cli import dfdaemon, dfget
     from ..daemon.piece_pipeline import PIECE_HEDGE_TOTAL
     from ..cli import scheduler as scheduler_cli
-    from ..config import DaemonConfig, SchedulerConfigFile
+    from ..config import SchedulerConfigFile
     from ..rpc.daemon_control import STATE_ENV, DaemonControlServer, write_state
     from .wire_loop import seeded_k1_blob
 
@@ -204,7 +287,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     size = args.size_mib << 20
     piece_size = args.piece_kib << 10
     n_pieces = (size + piece_size - 1) // piece_size
-    origin = serving = control = None
+    origin = serving = control = summary = None
     nodes = []
     saved_state = os.environ.get(STATE_ENV)
     try:
@@ -225,14 +308,10 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
                                       rng=random.Random(args.seed))
         service = serving.service
         ev = service.scheduling.evaluator
+        native = not args.python_engine
         for i in range(args.daemons):
-            dc = DaemonConfig()
-            dc.storage.dir = os.path.join(work, f"daemon{i}")
-            dc.server.host, dc.server.port = "127.0.0.1", 0
-            dc.server.advertise_ip = "127.0.0.1"
-            dc.piece_size = piece_size
-            dc.validate()
-            nodes.append(dfdaemon.build(dc, serving.url))
+            dc = daemon_config(args, os.path.join(work, f"daemon{i}"), piece_size)
+            nodes.append(dfdaemon.build(dc, serving.url, prefer_native=native))
         for n in nodes:
             n["announcer"].announce_once()
         host_names = {n["host"].id: f"daemon{i}" for i, n in enumerate(nodes)}
@@ -288,10 +367,11 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         # A piece server accounts a serve after it has written the body, so
         # its count may trail the client that already holds the piece.
         deadline = time.monotonic() + 10.0
-        while (sum(n["upload"].upload_count for n in nodes) < p2p_pieces
+        while (sum(served(n)[0] for n in nodes) < p2p_pieces
                and time.monotonic() < deadline):
             time.sleep(0.01)
-        uploads = [n["upload"].upload_count for n in nodes]
+        engine = engine_report(nodes)
+        uploads = engine["served_pieces"]
         # A hedged fetch's losing arm and a fetch that failed after its
         # parent served the body are serves no piece is attributed to.
         hedges = PIECE_HEDGE_TOTAL.value(outcome="fired") - hedges0
@@ -305,6 +385,9 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             "wall_seconds": swarm_s, "first_seconds": t_first - t0,
             "concurrent_seconds": t_swarm - t_first,
             "aggregate_mb_s": args.daemons * size / swarm_s / 1e6,
+            "daemon_mb_s": [size / r.cost_s / 1e6 if r is not None and r.ok else 0.0
+                            for r in results],
+            "daemon0_p2p_share": by_parent.get("daemon0", 0) / max(p2p_pieces, 1),
             "source_mb_s": size / results[0].cost_s / 1e6 if ok[0] else 0.0,
             "p2p_mb_s": {"p50": float(np.percentile(p2p_rates, 50)) if p2p_rates else 0.0,
                          "p99": float(np.percentile(p2p_rates, 99)) if p2p_rates else 0.0,
@@ -320,6 +403,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             "rule_degrades": ev.degrades, "scorer_calls": scorer_calls,
             "batcher_fallbacks": ev.batcher.fallbacks,
             "dfget": {"rc": dfget_rc, "seconds": dfget_s},
+            "engine": engine,
         }
         # Daemon 0 seeds the swarm unless the evaluator's bad-node rule
         # (its last piece cost past 3 sigma of the others, evaluator.go:
@@ -340,8 +424,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             and by_parent.get("source", 0) == origin.requests,
             "one_record_per_download": service.storage.download_count == args.daemons,
             "no_degrade": ev.degrades == 0 and ev.batcher.fallbacks == 0,
+            "engine_ran": engine_ran(engine, native),
         }
-        return summary
     finally:
         if control is not None:
             control.stop()
@@ -359,6 +443,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         shutil.rmtree(work, ignore_errors=True)
         if not args.out:
             shutil.rmtree(out_dir, ignore_errors=True)
+    finish_engine(summary)
+    return summary
 
 
 def main(argv=None) -> int:

@@ -20,6 +20,8 @@ reaches the scheduler live through dynconfig.
 - ``--daemons`` normal daemons at the ``DaemonConfig`` defaults but their
   storage under ``--out``, piece servers on port 0 and ``--piece-kib``
   pieces (default 4 MiB, the config's); every daemon announced once.
+  At these defaults every daemon, the seed too, runs the native engine
+  (store, ``NativePieceServer``, fetch loop).
 
 Then, in order:
 
@@ -44,8 +46,10 @@ requests, pieces by parent host for each file, the seed's share of P2P
 pieces, the trigger's calls and seconds, the dynconfig update's
 update-to-applied seconds, the rows per register before the update and
 after it is applied, the manager's job polls, the evaluator's degrades
-and the batcher's scorer calls, and ``checks``.  Everything the run wrote
-under ``--out`` is deleted at the end.
+and the batcher's scorer calls, ``engine`` (``peer_swarm.engine_report``
+over the seed and the daemons, the seed first, with
+``native.leaked_servers()`` after teardown), and ``checks``.  Everything
+the run wrote under ``--out`` is deleted at the end.
 
 Runs on ``--device`` (``cuda`` by default; with no card it exits 2).
 Prints the servers' boot lines, then one JSON line last.
@@ -68,7 +72,16 @@ import time
 
 import numpy as np
 
-from .peer_swarm import Origin, _make_file, _pieces_by_parent, _task_sha256
+from .peer_swarm import (
+    Origin,
+    _make_file,
+    _pieces_by_parent,
+    _task_sha256,
+    daemon_config,
+    engine_ran,
+    engine_report,
+    finish_engine,
+)
 
 DYNCONFIG_REFRESH_S = 1.0  # the scheduler's dynconfig_refresh_s (10 s cut for the run's time)
 POLL_TIMEOUT_S = 1.0       # the job worker's long poll (5 s cut: it bounds the stop)
@@ -138,7 +151,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     from ..cli import dfdaemon
     from ..cli import manager as manager_cli
     from ..cli import scheduler as scheduler_cli
-    from ..config import DaemonConfig, ManagerConfig, SchedulerConfigFile
+    from ..config import ManagerConfig, SchedulerConfigFile
     from ..jobs.preheat import PREHEAT
     from ..jobs.remote import RemoteJobClient
     from ..utils import idgen
@@ -153,7 +166,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     n_a = (size_a + piece_size - 1) // piece_size
     n_b = (size_b + piece_size - 1) // piece_size
     origins, nodes = [], []
-    manager = serving = seed = None
+    manager = serving = seed = summary = None
     try:
         t_setup = time.perf_counter()
         sha_a = _make_file(os.path.join(work, "a.bin"), size_a, args.seed)
@@ -223,12 +236,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         service.seed_peer_trigger = timed_trigger
 
         def daemon(name):
-            dc = DaemonConfig()
-            dc.storage.dir = os.path.join(work, name)
-            dc.server.host, dc.server.port = "127.0.0.1", 0
-            dc.server.advertise_ip = "127.0.0.1"
-            dc.piece_size = piece_size
-            dc.validate()
+            dc = daemon_config(args, os.path.join(work, name), piece_size)
             return dc, dfdaemon.build(dc, serving.url)
 
         dc, seed = daemon("seed")
@@ -358,6 +366,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             "rule_degrades": ev.degrades, "scorer_calls": ev.batcher.scorer_calls,
             "scorer_calls_swarm": calls_swarm,
             "batcher_fallbacks": ev.batcher.fallbacks,
+            "engine": engine_report([seed, *nodes]),
         }
         seed_a = summary["preheat"]["source_pieces_by_daemon"]
         summary["checks"] = {
@@ -388,8 +397,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             and max(rows_after) <= FILTER_LIMIT,
             "a_seed_row_scored": summary["requests_with_seed_row"] > 0,
             "no_degrade": ev.degrades == 0 and ev.batcher.fallbacks == 0,
+            "engine_ran": engine_ran(summary["engine"], True),
         }
-        return summary
     finally:
         for n in nodes:
             n["announcer"].stop()
@@ -409,6 +418,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         shutil.rmtree(work, ignore_errors=True)
         if not args.out:
             shutil.rmtree(out_dir, ignore_errors=True)
+    finish_engine(summary)
+    return summary
 
 
 def main(argv=None) -> int:

@@ -56,8 +56,11 @@ before the kill are on each task's v1 owner only; the victim's tasks'
 records after the kill are on their v2 owners only, one per wave-2
 download; a handoff span on each survivor; the origin served each
 survivor file at most 1.25 x its size; no evaluator degrade and no
-batcher fallback in process.  Everything the run wrote under ``--out``
-is deleted at the end.
+batcher fallback in process; every daemon ran the native engine
+(``engine_ran``: its store, ``NativePieceServer``, pieces through the
+native fetch loop) and no native server leaked at teardown.  ``engine``
+is ``peer_swarm.engine_report`` over the daemons.  Everything the run
+wrote under ``--out`` is deleted at the end.
 
 K1's launches are counted in this process only: the child's are its
 own.  The two in-process batchers' scorer calls are what the caller
@@ -82,7 +85,16 @@ import tempfile
 import threading
 import time
 
-from .peer_swarm import ORIGIN_BYTES_LIMIT, Origin, _make_file, _task_sha256
+from .peer_swarm import (
+    ORIGIN_BYTES_LIMIT,
+    Origin,
+    _make_file,
+    _task_sha256,
+    daemon_config,
+    engine_ran,
+    engine_report,
+    finish_engine,
+)
 
 SCHEDULERS = 3          # two in this process, one child
 IN_PROCESS = 2
@@ -221,7 +233,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     from ..cli import dfdaemon
     from ..cli import manager as manager_cli
     from ..cli import scheduler as scheduler_cli
-    from ..config import DaemonConfig, ManagerConfig, SchedulerConfigFile
+    from ..config import ManagerConfig, SchedulerConfigFile
     from ..records.storage import Storage
     from ..rpc.daemon_control import STATE_ENV
     from ..scheduler import ShardRing, metrics
@@ -241,7 +253,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
     if args.files < 2 * SCHEDULERS or wave2 < 1:
         raise ValueError("shard_fleet needs >= 6 files and >= 4 daemons")
     origins, nodes, servings = [], [], []
-    manager = child = None
+    manager = child = summary = None
     saved_state = os.environ.get(STATE_ENV)
     saved_exporter = default_tracer.exporter
     handoffs = _HandoffSpans()
@@ -337,12 +349,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         victim_files = [k for k, f in enumerate(files) if f["owner_v1"] == victim_id]
 
         for i in range(args.daemons):
-            dc = DaemonConfig()
-            dc.storage.dir = os.path.join(work, f"daemon{i}")
-            dc.server.host, dc.server.port = "127.0.0.1", 0
-            dc.server.advertise_ip = "127.0.0.1"
-            dc.piece_size = piece_size
-            dc.validate()
+            dc = daemon_config(args, os.path.join(work, f"daemon{i}"), piece_size)
             nodes.append(dfdaemon.build(dc, ",".join(urls)))
 
         # Every shard answers announces with ring v1 (the child's guard
@@ -441,7 +448,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
                     for sid in after if sid not in (owner_v2[k], victim_id))
             for k in victim_files)
         origin_bytes = {k: files[k]["origin"].bytes_served for k in range(args.files)}
-        uploads = [n["upload"].upload_count for n in nodes]
+        engine = engine_report(nodes)
+        uploads = engine["served_pieces"]
         source_pieces = sum(f["origin"].requests for f in files)
         degrades = [ev.degrades for ev in evs]
         fallbacks = [ev.batcher.fallbacks for ev in evs]
@@ -482,6 +490,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
                           "max_inflight": guards[0].admission.max_inflight,
                           "p99_budget_s": guards[0].admission.p99_budget_s},
             "child_output_tail": child.lines[-6:],
+            "engine": engine,
         }
         survivor_ids = [id_of[s.url] for s in servings]
         summary["checks"] = {
@@ -508,8 +517,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             "child_no_degrade": not any(
                 marker in line for line in child.lines
                 for marker in ("ranking with rules", "degrading to per-request", "Traceback")),
+            "engine_ran": engine_ran(engine, True),
         }
-        return summary
     finally:
         default_tracer.exporter = saved_exporter
         for n in nodes:
@@ -530,6 +539,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         shutil.rmtree(work, ignore_errors=True)
         if not args.out:
             shutil.rmtree(out_dir, ignore_errors=True)
+    finish_engine(summary)
+    return summary
 
 
 def main(argv=None) -> int:

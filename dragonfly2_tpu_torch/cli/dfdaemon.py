@@ -18,9 +18,11 @@ owner on the consistent-hash ring (the shard ring the schedulers publish
 on announce answers, once one has), announces fan out to every
 scheduler.  What is not ported exits 2 naming its ROADMAP queue 1 item:
 ``--pex-port`` (``daemon/pex_net.py``), the config's ``security`` and
-``proxy.sni_*`` keys, ``native_fetch: true`` and ``control_vsock_port``
-(all item 14), and a ``grpc://`` scheduler (item 12c).  The piece store
-is the Python one.  ``run`` prints at boot that the diagnostics sidecar
+``proxy.sni_*`` keys and ``control_vsock_port`` (all item 14), and a
+``grpc://`` scheduler (item 12c).  At the defaults the piece store, the
+piece server and the fetch loop are the port's native engine, as in the
+reference (``native_fetch`` and the engine's build decide; without a
+library the Python ones run).  ``run`` prints at boot that the diagnostics sidecar
 is not started (item 14), and stops on SIGTERM as on SIGINT.
 """
 
@@ -71,15 +73,18 @@ def _scheduler_urls(scheduler_url: str) -> list:
     return scheduler_urls
 
 
-def build(cfg: DaemonConfig, scheduler_url: str):
+def build(cfg: DaemonConfig, scheduler_url: str, *, prefer_native: bool = True):
     """Daemon composition against a wire scheduler, or a comma-separated
-    list of them (daemon.go:118-417)."""
+    list of them (daemon.go:118-417).  ``prefer_native=False`` builds the
+    Python piece store, and with it the Python piece server (the
+    reference's composition always prefers the native engine)."""
     scheduler_urls = _scheduler_urls(scheduler_url)
     if cfg.source:
         from ..source import configure_sources
 
         configure_sources(cfg.source)
-    storage = DaemonStorage(cfg.storage.dir, quota_bytes=cfg.storage.quota_bytes)
+    storage = DaemonStorage(cfg.storage.dir, quota_bytes=cfg.storage.quota_bytes,
+                            prefer_native=prefer_native)
     upload = UploadManager(storage, concurrent_limit=cfg.concurrent_upload_limit)
 
     hostname = socket.gethostname()
@@ -88,8 +93,8 @@ def build(cfg: DaemonConfig, scheduler_url: str):
     # Advertise a routable address — peers on OTHER machines dial it.
     ip = cfg.server.advertise_ip or local_ip()
 
-    # The reference serves pieces from its C++ server when its store is
-    # native; the port's store is the Python one, served by Python HTTP.
+    # Native-engine stores serve pieces from the C++ server (sendfile hot
+    # path); Python HTTP remains the fallback/TLS server.
     from ..rpc.piece_transport import make_piece_server
 
     # Bind the CONFIGURED piece port (0 = ephemeral): deployments pin it

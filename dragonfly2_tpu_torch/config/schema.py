@@ -43,8 +43,7 @@ whose readers are item 14's (``ha``, ``token_secret``, ``users_db``,
 ``DaemonConfig``, ``DaemonStorageSection`` and ``ProxySection`` are the
 reference's, without the keys whose readers are item 14's (``security``,
 ``metrics``, ``proxy.sni_*``: refused through ``NOT_PORTED``).
-``native_fetch`` defaults to False, and ``native_fetch: true`` or a
-``control_vsock_port`` >= 0 fails validation naming item 14.
+A ``control_vsock_port`` >= 0 fails validation naming item 14.
 """
 
 from __future__ import annotations
@@ -440,10 +439,11 @@ class DaemonConfig:
     # in pieces per stream consumer; 0 = disable the tee (proxy/gateway
     # streams read every piece back off disk).
     stream_tee_depth: int = 8
-    # In-engine piece fetch loop (DESIGN.md §28).  The reference defaults
-    # it on; the port has no native engine, so it defaults off and True
-    # is refused (item 14).
-    native_fetch: bool = False
+    # In-engine piece fetch loop (DESIGN.md §28): the conductor drains a
+    # piece window through native pf_* workers when the whole fallback
+    # matrix allows (native storage, plain-HTTP transport, no stream
+    # consumers, no piece-plane faults).  Off → always the Python arm.
+    native_fetch: bool = True
     # Cloud back-to-source credentials by scheme (peerhost.go source
     # plugins): {"s3": {...}, "oss": {...}, "hdfs": {...}, "oras": {...}}
     # — see dragonfly2_tpu_torch.source.configure_sources.
@@ -464,11 +464,6 @@ class DaemonConfig:
         if self.stream_tee_depth < 0:
             raise ConfigError(
                 f"stream_tee_depth {self.stream_tee_depth} must be >= 0"
-            )
-        if self.native_fetch:
-            raise ConfigError(
-                "native_fetch: true needs the native engine, which is not "
-                "ported yet (ROADMAP queue 1 item 14)"
             )
         if self.control_vsock_port >= 0:
             raise ConfigError(

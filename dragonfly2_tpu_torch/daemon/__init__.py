@@ -2,8 +2,8 @@
 
 The download engine that turns scheduler decisions into bytes on disk:
 
-- ``storage``        — local piece store (the Python engine; the native
-                       one is ROADMAP queue 1 item 14) + disk-quota
+- ``storage``        — local piece store (the native engine when it
+                       builds, else the Python one) + disk-quota
                        reclaimer (client/daemon/storage/storage_manager.go).
 - ``upload``         — serves pieces to other peers
                        (client/daemon/upload/upload_manager.go); in-process

@@ -28,10 +28,10 @@ pool; back-to-source verdicts abort the pool and fall through to the
 origin path.
 
 Port of ``dragonfly2_tpu/daemon/conductor.py``, verbatim but for the
-native fetch window (``_native_fetch_window``): the port has no native
-engine (ROADMAP queue 1 item 14), so ``native_fetch`` defaults to False,
-True raises, and every piece takes the Python arm, which is the
-reference's own arm whenever its store is the Python one.
+``native_pieces`` count: a piece window drains through the port's native
+fetch loop (``_native_fetch_window``, ``native.pf_*``) when every gate of
+the reference's routing matrix passes, and through the Python arm
+otherwise; ``native_pieces`` counts the pieces the engine landed.
 """
 
 from __future__ import annotations
@@ -276,7 +276,7 @@ class Conductor:
         hedge_multiplier: float = 1.5,
         stream_tee_depth: int = 8,
         tenant: str = "",
-        native_fetch: bool = False,
+        native_fetch: bool = True,
         pex=None,
     ) -> None:
         self.host = host
@@ -331,14 +331,15 @@ class Conductor:
         # buffer depth in pieces; 0 disables the tee (stream consumers
         # read every piece back off disk — the bench's reference arm).
         self.stream_tee_depth = max(0, stream_tee_depth)
-        # The reference drains a piece window through its native engine's
-        # fetch loop when every gate passes (DESIGN.md §28); the port has
-        # no native engine, so every piece takes the Python arm below.
-        if native_fetch:
-            raise NotImplementedError(
-                "Conductor(native_fetch=True): the native fetch loop is not "
-                "ported yet (ROADMAP queue 1 item 14)"
-            )
+        # Native data plane, client half (DESIGN.md §28): when every gate
+        # passes (native store engine, plain-HTTP parents, no tee
+        # consumers, no piece-plane chaos scenario), a piece window
+        # drains through the in-engine fetch loop; any piece it cannot
+        # land falls back into the Python path below, byte-identically.
+        self.native_fetch = native_fetch
+        # Pieces the in-engine fetch loop landed (the rest of a P2P
+        # download took the Python arm).
+        self.native_pieces = 0
         # Storage writes + piece-run bookkeeping from concurrent source
         # workers are serialized; the origin fetch AND the scheduler
         # report overlap (the report is an RPC on remote wirings — it
@@ -825,6 +826,162 @@ class Conductor:
             bytes=counters["nbytes"], cost_s=time.monotonic() - t0,
         )
 
+    # -- the in-engine fetch window (DESIGN.md §28) ---------------------------
+
+    def _native_fetch_window(
+        self, task, run: TaskRun, state: "_SwarmState", pending,
+        report_finished,
+    ) -> None:
+        """One native pass over the pending window: pieces whose chosen
+        parent has a dialable plain-HTTP endpoint go to the in-engine
+        fetch loop (``native.pf_*`` — pooled keep-alive fetch → length
+        check → crc+fsync commit, zero Python per-piece overhead); this
+        thread drains the bounded completion queue and does the per-piece
+        bookkeeping.  Python keeps every SCHEDULING decision — parent
+        selection happens here before submit, and any non-zero completion
+        status simply leaves the piece in ``pending`` for the ordinary
+        retry/hedge/reschedule machinery below.  One attempt per piece:
+        hedging needs the latency tracker's clock around a single fetch,
+        so stragglers re-enter the Python arm rather than hedge natively.
+
+        Fallback matrix (§28) — the byte-identical Python arm takes over
+        whole when: the knob is off, storage is not the native engine,
+        the transport cannot be dialed natively (TLS), a stream consumer
+        is attached (the tee needs verified bodies in Python), the
+        installed fault scenario targets the piece plane (the engine
+        cannot fire Python seams per piece), or the library is absent.
+        """
+        from ..utils import faultinject
+
+        if not self.native_fetch or not pending:
+            return
+        if not getattr(self.storage, "is_native", False):
+            return
+        endpoint_of = getattr(self.piece_fetcher, "native_endpoint", None)
+        if endpoint_of is None:
+            return
+        if run.tee.consumer_count() > 0:
+            return
+        if faultinject.targets(
+            "piece.fetch", "piece.fetch.body", "daemon.stream.tee"
+        ):
+            return
+        from .. import native
+
+        if not native.available():
+            return
+        # Dispatch seam (DF004): a raising fault forces the Python arm;
+        # the crash kind SIGKILLs mid-window — the resumability drill's
+        # deterministic kill switch for the native path.
+        try:
+            faultinject.fire("daemon.piece.native_fetch")
+        except Exception as exc:  # noqa: BLE001 — injected: Python arm
+            logging.getLogger(__name__).debug(
+                "native fetch dispatch faulted (%s): Python arm", exc
+            )
+            return
+
+        with state.lock:
+            plist = list(state.parents)
+            bitmaps = dict(state.bitmaps)
+        endpoints: Dict[str, tuple] = {}
+        for p in plist:
+            ep = endpoint_of(p.host.id)
+            if ep is not None:
+                endpoints[p.id] = ep
+        if not endpoints:
+            return
+
+        def holds_snap(pid: str, number: int) -> bool:
+            bm = bitmaps.get(pid)
+            return bm is None or (number < len(bm) and bool(bm[number]))
+
+        from ..utils.tracing import default_tracer
+
+        log = logging.getLogger(__name__)
+        fetcher = None
+        succeeded: Set[int] = set()
+        try:
+            fetcher = native.NativePieceFetcher(
+                self.storage.engine,
+                workers=max(self.piece_parallelism, 1),
+                tenant=self.tenant,
+            )
+            slot_of: Dict[str, int] = {}
+            id_by_slot: Dict[int, str] = {}
+            for pid, (ip, port) in endpoints.items():
+                slot = len(slot_of)
+                fetcher.set_parent(slot, ip, int(port))
+                slot_of[pid] = slot
+                id_by_slot[slot] = pid
+            n_submitted = 0
+            for number in list(pending):
+                holders = [
+                    p for p in plist
+                    if p.id in slot_of and holds_snap(p.id, number)
+                ]
+                if not holders:
+                    continue  # Python path polls bitmaps for this one
+                parent = holders[number % len(holders)]
+                expected = _expected_piece_len(
+                    task.content_length, task.piece_size, number
+                )
+                # expected 0 → the engine skips the length check (unknown
+                # content length); the crc at commit still gates the body.
+                if fetcher.submit(
+                    task.id, slot_of[parent.id], number, max(expected, 0)
+                ):
+                    n_submitted += 1
+            ndone = 0
+            deadline = time.monotonic() + self.piece_wait_timeout_s
+            while ndone < n_submitted and time.monotonic() < deadline:
+                for number, status, length, slot, cost_ns in fetcher.complete(
+                    timeout_ms=1000
+                ):
+                    ndone += 1
+                    # Same seam, per drained record: the chaos drill's
+                    # crash kind lands the SIGKILL between a C++ commit
+                    # and its Python bookkeeping — the worst spot for
+                    # durability; a raise aborts the window and the
+                    # Python arm re-fetches whatever went un-booked.
+                    faultinject.fire("daemon.piece.native_fetch")
+                    if status != 0:
+                        continue  # stays pending → Python retry/hedge
+                    parent_id = id_by_slot.get(slot, "")
+                    # Same per-piece flight-recorder evidence as the
+                    # Python arm (DF016's daemon/piece witness), opened
+                    # at drain time from the engine's cost clock.
+                    with default_tracer.span(
+                        "daemon/piece", number=number, task_id=task.id
+                    ) as sp:
+                        sp.set(parent=parent_id, bytes=length, native=True)
+                    run.mark_piece(number)
+                    with state.lock:
+                        state.nbytes += length
+                        self.native_pieces += 1
+                    if self.traffic_shaper is not None:
+                        self.traffic_shaper.record(task.id, length)
+                    report_finished(number, parent_id, length,
+                                    max(int(cost_ns), 1))
+                    succeeded.add(number)
+        except Exception as exc:  # noqa: BLE001 — window is best-effort
+            # Whatever did not land stays in `pending`; the Python arm
+            # owns it from here (a latched reporter error re-raises there
+            # with its ordinary abort semantics).
+            log.debug("native fetch window stopped: %s", exc)
+        finally:
+            if fetcher is not None:
+                fetcher.close()
+            if succeeded:
+                # Commits bypassed DaemonStorage.write_piece — restore
+                # the LRU-reclaim evidence in one touch.
+                touch = getattr(self.storage, "touch_task", None)
+                if touch is not None:
+                    touch(task.id)
+                remaining = [n for n in pending if n not in succeeded]
+                pending.clear()
+                pending.extend(remaining)
+
     # -- the concurrent P2P phase -------------------------------------------
 
     def _pull_from_parents(
@@ -1041,6 +1198,11 @@ class Conductor:
                     commit_piece(number, data, winner_id, cost_ns)
                 return True
             return False
+
+        # In-engine fast path first (§28): one native pass drains what it
+        # can; whatever it leaves in `pending` flows to the Python workers
+        # below, whose per-piece semantics are the reference arm.
+        self._native_fetch_window(task, run, state, pending, report_finished)
 
         # Worker threads have their OWN (empty) span stacks; hand them the
         # download span's context so their piece reports stay in-trace.

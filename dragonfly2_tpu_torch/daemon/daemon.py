@@ -6,9 +6,7 @@ resolves a parent host id to that daemon's UploadManager — the in-process
 stand-in for the HTTP piece data plane, with identical semantics
 (concurrency caps, crc-verified reads).
 
-Port of ``dragonfly2_tpu/daemon/daemon.py``; ``prefer_native`` defaults
-to False, since the port's storage is the Python piece store (ROADMAP
-queue 1 item 14 brings the native one).
+Port of ``dragonfly2_tpu/daemon/daemon.py``, verbatim but for the imports.
 """
 
 from __future__ import annotations
@@ -83,7 +81,7 @@ class Daemon:
         source_fetcher=None,
         quota_bytes: int = 10 << 30,
         total_rate: float = 1e9,
-        prefer_native: bool = False,
+        prefer_native: bool = True,
         concurrent_source_groups: int = 1,
         tenant: str = "",
     ) -> None:

@@ -3,13 +3,22 @@
 Reference: client/daemon/storage/storage_manager.go (TaskStorageDriver
 :54-135, ReloadPersistentTask :703-760, Reclaimer :82-91).
 
-Port of ``dragonfly2_tpu/daemon/storage.py`` with the Python piece store
-only: its layout (``header.json``, the ``pieces.jsonl`` journal and one
-``data`` file a task) is the reference's Python store's, so either
-package reloads a task the other wrote.  The reference prefers its
-native C++ store when that builds; the port has no native engine
-(ROADMAP queue 1 item 14), so ``prefer_native`` defaults to False and
-True raises.
+Uses the port's native C++ piece store when it builds
+(``dragonfly2_tpu_torch/native``), else the pure-Python store, which is
+the spec.  Each engine's layout is its counterpart's in the reference, so
+a task the JAX package's native (or Python) store wrote reloads in the
+port's native (or Python) store.  Both keep a task's bytes in one
+``data`` file at ``number * piece_size``; the native store keeps its
+metadata in a binary ``meta`` file (``TaskHeader`` then ``PieceMeta``
+records, ``records/abi_contracts.py``), the Python store in
+``header.json`` and the ``pieces.jsonl`` journal.
+
+Port of ``dragonfly2_tpu/daemon/storage.py``, verbatim but for two
+things: the warning when the native store was asked for and cannot be
+had, and ``reload_persistent_tasks``, which first rewrites a task whose
+metadata the other engine wrote into this engine's form
+(``adopt_task_layout``), so a daemon that changes engines across a
+restart keeps its tasks; the reference reloads only its own engine's.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import struct
 import threading
 import time
 import zlib
@@ -24,8 +34,83 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
+from ..records import abi_contracts as _abi
 
 logger = logging.getLogger(__name__)
+
+_TASK_HEADER = _abi.record_format("TaskHeader")
+_TASK_HEADER_SIZE = _abi.record_size("TaskHeader")
+_PIECE_META = _abi.record_format("PieceMeta")
+_PIECE_META_SIZE = _abi.record_size("PieceMeta")
+_TASK_MAGIC = _abi.constant("kTaskMagic").encode("ascii")
+_COMMITTED = _abi.constant("kPieceFlagCommitted")
+
+
+def adopt_task_layout(task_dir: str, *, native_layout: bool) -> bool:
+    """Rewrite a task's metadata into one engine's form, in place:
+    ``native_layout=True`` turns ``header.json`` + ``pieces.jsonl`` into
+    the native ``meta`` file, False the reverse.  The ``data`` file is
+    both engines'.  A torn trailing record is dropped, as either engine's
+    reload drops it; the new files are written whole before the old ones
+    go.  → whether the task was rewritten (False: already in that form,
+    or no metadata)."""
+    meta_path = os.path.join(task_dir, "meta")
+    header_path = os.path.join(task_dir, "header.json")
+    journal_path = os.path.join(task_dir, "pieces.jsonl")
+    if native_layout:
+        if os.path.exists(meta_path) or not os.path.exists(header_path):
+            return False
+        with open(header_path) as f:
+            header = json.load(f)
+        pieces: Dict[int, tuple] = {}
+        if os.path.exists(journal_path):
+            with open(journal_path) as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue
+                    pieces[int(rec["n"])] = (int(rec["length"]), int(rec["crc"]))
+        piece_size = int(header["piece_size"])
+        out = [struct.pack(_TASK_HEADER, _TASK_MAGIC, piece_size,
+                           int(header["content_length"]))]
+        out += [struct.pack(_PIECE_META, n, length, n * piece_size, crc, _COMMITTED)
+                for n, (length, crc) in sorted(pieces.items())]
+        tmp = meta_path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(b"".join(out))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, meta_path)
+        for path in (journal_path, header_path):
+            if os.path.exists(path):
+                os.remove(path)
+        return True
+    if os.path.exists(header_path) or not os.path.exists(meta_path):
+        return False
+    with open(meta_path, "rb") as f:
+        raw = f.read()
+    if len(raw) < _TASK_HEADER_SIZE:
+        return False
+    magic, piece_size, content_length = struct.unpack_from(_TASK_HEADER, raw, 0)
+    if magic != _TASK_MAGIC:
+        return False
+    committed: Dict[int, tuple] = {}
+    end = len(raw) - (len(raw) - _TASK_HEADER_SIZE) % _PIECE_META_SIZE
+    for off in range(_TASK_HEADER_SIZE, end, _PIECE_META_SIZE):
+        number, length, _offset, crc, flags = struct.unpack_from(_PIECE_META, raw, off)
+        if flags & _COMMITTED:
+            committed[number] = (length, crc)
+    with open(journal_path + ".tmp", "w") as f:
+        for n, (length, crc) in sorted(committed.items()):
+            f.write(json.dumps({"n": n, "length": length, "crc": crc}) + "\n")
+    os.replace(journal_path + ".tmp", journal_path)
+    with open(header_path + ".tmp", "w") as f:
+        json.dump({"piece_size": piece_size, "content_length": content_length}, f)
+    os.replace(header_path + ".tmp", header_path)
+    os.remove(meta_path)
+    return True
 
 
 class _PyPieceStore:
@@ -201,25 +286,32 @@ class _PyPieceStore:
 
 
 class DaemonStorage:
-    """Task-level storage manager with quota GC, on the Python piece
-    store.  ``prefer_native=True`` asks for the native engine, which is
-    not ported (ROADMAP queue 1 item 14), and raises."""
+    """Task-level storage manager with quota GC.
+
+    ``prefer_native=True`` uses the C++ engine when it builds (``is_native``
+    tells); tests can force the Python engine for hermeticity.
+    """
 
     def __init__(
         self,
         root: str,
         *,
         quota_bytes: int = 10 << 30,
-        prefer_native: bool = False,
+        prefer_native: bool = True,
     ) -> None:
-        if prefer_native:
-            raise NotImplementedError(
-                "DaemonStorage(prefer_native=True): the native piece store is "
-                "not ported yet (ROADMAP queue 1 item 14)"
-            )
         self.root = root
         self.quota_bytes = quota_bytes
-        self.engine = _PyPieceStore(root)
+        engine = None
+        if prefer_native:
+            if native.available():
+                try:
+                    engine = native.NativePieceStore(root)
+                except native.NativeError as exc:
+                    logger.warning("native piece store refused %s (%s): Python store", root, exc)
+            else:
+                logger.warning("native piece store unavailable (%s): Python store",
+                               native.build_error())
+        self.engine = engine or _PyPieceStore(root)
         self._mu = threading.Lock()
         self._tasks: Dict[str, dict] = {}  # task_id → {piece_size, atime}
 
@@ -236,9 +328,11 @@ class DaemonStorage:
 
     def reload_persistent_tasks(self, task_ids: List[str]) -> List[str]:
         """Crash restart: reopen tasks that survived on disk
-        (storage_manager.go:703-760 ReloadPersistentTask)."""
+        (storage_manager.go:703-760 ReloadPersistentTask).  A task the
+        other engine wrote is first rewritten into this one's form."""
         loaded = []
         for tid in task_ids:
+            adopt_task_layout(os.path.join(self.root, tid), native_layout=self.is_native)
             if self.engine.load_task(tid):
                 with self._mu:
                     self._tasks[tid] = {

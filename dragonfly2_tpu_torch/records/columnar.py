@@ -24,10 +24,11 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-# The JAX package reads these 4 bytes from its native ABI registry
-# (constant ``kMagic``, shared with its C++ record engine); the port keeps
-# the literal, and a test holds the two equal.
-MAGIC = b"DFC1"
+from . import abi_contracts as _abi
+
+# Shared with the native record engine (native.cpp kMagic) through the
+# ABI registry.
+MAGIC = _abi.constant("kMagic").encode("ascii")
 _LEN_FMT = "<I"
 
 

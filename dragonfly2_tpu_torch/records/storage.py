@@ -15,14 +15,13 @@ Storage interface (storage.go:58-89); ``*_columnar_paths()`` etc. hand
 the shard list to the trainer (``cli/trainer --train-once`` reads the
 directory's ``download*.dfc`` and ``networktopology*.dfc``).
 
-Port of ``dragonfly2_tpu/records/storage.py``, logic verbatim, with two
-differences.  The DFC1 mirror is always written by this package's
-``ColumnarWriter``: the JAX package prefers its native C++ writer when it
-builds, which this package does not carry yet (ROADMAP queue 1 item 14).
-Both write the same format, so either package reads the other's shards.
-And the directory is made at the first flush, not at construction, so a
-scheduler built with the default ``storage.dir`` touches no disk until it
-writes a record.
+Port of ``dragonfly2_tpu/records/storage.py``, logic verbatim, with one
+difference: the directory is made at the first flush, not at
+construction, so a scheduler built with the default ``storage.dir``
+touches no disk until it writes a record.  The DFC1 mirror is written by
+the port's native C++ writer when it builds, else by ``ColumnarWriter``,
+as in the reference; both write the same bytes, so either package reads
+either writer's shards.
 """
 
 from __future__ import annotations
@@ -44,6 +43,19 @@ NETWORK_TOPOLOGY_BASE = "networktopology"
 DEFAULT_BUFFER_SIZE = 100          # records buffered before flush
 DEFAULT_MAX_SIZE = 100 << 20       # bytes before rotation
 DEFAULT_MAX_BACKUPS = 10
+
+
+def _make_columnar_writer(path: str, columns: Sequence[str]):
+    """C++ engine when buildable, Python otherwise — same DFC1 format, so
+    readers never care which wrote the shard (native/src/native.cpp)."""
+    from .. import native
+
+    if native.available():
+        try:
+            return native.NativeColumnarWriter(path, columns)
+        except native.NativeError:
+            pass
+    return ColumnarWriter(path, columns)
 
 
 class _RotatingRecordFile:
@@ -99,7 +111,7 @@ class _RotatingRecordFile:
         rows = [self._featurize(r) for r in records]
         rows = [r for r in rows if r.shape[0] > 0]
         if rows:
-            with ColumnarWriter(self._dfc_path, self._columns) as w:
+            with _make_columnar_writer(self._dfc_path, self._columns) as w:
                 w.append(np.concatenate(rows, axis=0))
         if os.path.getsize(self._jsonl_path) >= self._max_size:
             self._rotate_locked()

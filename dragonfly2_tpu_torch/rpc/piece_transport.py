@@ -27,12 +27,11 @@ Bodies land in a reusable per-thread buffer via ``readinto`` (no
 per-chunk allocate-and-join).  The pool invalidates on breaker-open and
 on parent re-resolve (a restarted parent announces a new port).
 
-Port of ``dragonfly2_tpu/rpc/piece_transport.py`` with the Python server
-only: the reference's ``NativePieceServer`` (its C++ engine's in-engine
-server) and ``HTTPPieceFetcher.native_endpoint`` (its native fetch loop's
-dial) are ROADMAP queue 1 item 14, so ``make_piece_server`` always builds
-a ``PieceHTTPServer`` and raises when asked for the native one.  The wire
-is the reference's, so either package's fetcher reads the other's server.
+Port of ``dragonfly2_tpu/rpc/piece_transport.py``, verbatim but for the
+imports: ``make_piece_server`` builds the port's native in-engine server
+(``NativePieceServer``) over a native store, else the Python one.  The
+wire is the reference's, so either package's fetcher reads either
+package's server.
 """
 
 from __future__ import annotations
@@ -48,16 +47,17 @@ from http.server import BaseHTTPRequestHandler
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..daemon.upload import UploadBusy, UploadManager
+from ..records import abi_contracts as _abi
 from ..utils.metrics import default_registry as _mreg
 from ._server import ThreadedHTTPService
 from .retry import retry_call
 
 logger = logging.getLogger(__name__)
 
-# Long-poll wait clamp for /tasks/<id>/pieces: the reference reads it
-# from its ABI registry (kLongPollMaxMs, shared with its native server);
-# the port carries the literal, held equal to the reference's by test.
-LONG_POLL_MAX_MS = 30000
+# Long-poll wait clamp for /tasks/<id>/pieces — shared with the native
+# in-engine server (native.cpp kLongPollMaxMs) via the ABI registry so
+# both planes defer at most the same bound.
+LONG_POLL_MAX_MS = _abi.constant("kLongPollMaxMs")
 
 # Fleet telemetry sketch (DESIGN.md §23): the transport-level fetch wall
 # (dial + request + body, retries included) — the layer below the
@@ -296,23 +296,102 @@ class PieceHTTPServer:
         self._svc.stop()
 
 
+class NativePieceServer:
+    """PieceHTTPServer-compatible facade over the C++ in-engine server
+    (native.cpp ps_serve): same wire contract, but piece/range bodies go
+    kernel→socket via sendfile with no Python on the data path — the
+    upload_manager.go-grade hot path (BENCHMARKS.md piece-plane table).
+
+    Binds AND serves from __init__ (the engine has no separate bind
+    phase); ``serve()`` is a compatibility no-op.
+    """
+
+    def __init__(
+        self,
+        upload: UploadManager,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        *,
+        concurrent_limit: int = 64,
+    ):
+        import socket as _socket
+
+        from ..native import NativePieceStore
+
+        engine = upload.storage.engine
+        if not isinstance(engine, NativePieceStore):
+            raise TypeError(
+                "NativePieceServer needs a native-engine DaemonStorage "
+                "(prefer_native=True and a built libdragonfly_native.so)"
+            )
+        self.upload = upload
+        self._engine = engine
+        # The engine binds via inet_pton (IPv4 literal only); resolve
+        # hostnames here so configs that worked with the Python server
+        # (server.host: "localhost") keep working.
+        bind_ip = _socket.gethostbyname(host)
+        bound = engine.serve(bind_ip, port, concurrent_limit=concurrent_limit)
+        self.address: Tuple[str, int] = (bind_ip, bound)
+
+    @property
+    def port(self) -> int:
+        return self.address[1]
+
+    @property
+    def upload_count(self) -> int:
+        """Pieces served (UploadManager.upload_count parity — the C++
+        server accounts in-engine, ps_serve_stats2)."""
+        return self._engine.serve_stats()[0]
+
+    @property
+    def bytes_served(self) -> int:
+        return self._engine.serve_stats()[1]
+
+    @property
+    def batched_pieces(self) -> int:
+        """Pieces served through a coalesced writev burst (§28 batched
+        submission) — the bench's both-ends-amortized evidence."""
+        return self._engine.serve_stats_full()["batched"]
+
+    def serve(self) -> None:  # already serving — interface parity
+        pass
+
+    def stop(self) -> None:
+        self._engine.serve_stop()
+
+
 def make_piece_server(
     upload: UploadManager,
     host: str = "127.0.0.1",
     port: int = 0,
     *,
     ssl_context=None,
-    prefer_native: bool = False,
+    prefer_native: bool = True,
 ):
-    """The piece server: the Python ThreadingHTTPServer.  The reference
-    picks its C++ in-engine server when the store runs its native engine;
-    ``prefer_native=True`` asks for that server, which is not ported
-    (ROADMAP queue 1 item 14), and raises."""
-    if prefer_native:
-        raise NotImplementedError(
-            "make_piece_server(prefer_native=True): the native piece server "
-            "is not ported yet (ROADMAP queue 1 item 14)"
-        )
+    """Best available piece server: the C++ in-engine one when the store
+    runs the native engine (and no TLS is required — the native server
+    speaks plain HTTP; mTLS deployments keep the Python server), else the
+    Python ThreadingHTTPServer.  The upload manager's configured
+    concurrency cap carries into the native server's 503 limit."""
+    from ..native import NativePieceStore
+
+    if (
+        prefer_native
+        and ssl_context is None
+        and isinstance(getattr(upload.storage, "engine", None), NativePieceStore)
+    ):
+        try:
+            return NativePieceServer(
+                upload, host, port,
+                concurrent_limit=getattr(upload, "concurrent_limit", 64),
+            )
+        except Exception as exc:  # noqa: BLE001 — unresolvable host / engine error
+            import logging
+
+            # Python server below handles what the engine cannot.
+            logging.getLogger(__name__).warning(
+                "native piece server unavailable, falling back: %s", exc
+            )
     return PieceHTTPServer(upload, host, port, ssl_context=ssl_context)
 
 
@@ -619,6 +698,19 @@ class HTTPPieceFetcher:
 
     def close(self) -> None:
         self.pool.close()
+
+    def native_endpoint(self, parent_host_id: str):
+        """(ip, port) the in-engine fetch loop (native.pf_*) can dial for
+        this parent, or None when the transport cannot be represented
+        natively — TLS deployments (the engine speaks plain HTTP) and
+        unresolvable parents stay on the Python path (§28 fallback
+        matrix)."""
+        if self.ssl_context is not None:
+            return None
+        try:
+            return self._resolve(parent_host_id)
+        except KeyError:
+            return None
 
     def piece_bitmap(self, parent_host_id: str, task_id: str):
         """Which pieces the parent holds (None when unknown/unreachable)."""

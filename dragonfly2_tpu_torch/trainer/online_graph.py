@@ -27,8 +27,9 @@ What the port changes:
 - the embedding's backward adds repeated ids in a fixed order
   (``models/hop._RowGather``), so a resumed run is bit-identical on the
   card, as the reference's is on the TPU;
-- the wire adapter runs its Python path only: ``native_ingest=True``
-  raises (the C++ engine is ROADMAP item 14);
+- the wire adapter runs the port's own native ``oi_*`` engine
+  (``native_ingest``, on by default, as in the reference) and falls back
+  to its Python path, the spec, where the library does not build;
 - on a mesh (``parallel.mesh.create_mesh``; one process per device, every
   rank constructing the trainer and calling ``run``, ``eval_mae``,
   ``refresh_snapshot``, ``apply_pending_recycles``, ``checkpoint``,
@@ -96,12 +97,6 @@ from .train import (
 )
 
 logger = logging.getLogger(__name__)
-
-_NATIVE_REFUSAL = (
-    "native_ingest=True needs the port's copy of the native oi_* ingest "
-    "engine, which waits for ROADMAP queue 1 item 14; use native_ingest=False"
-)
-
 
 def _leaves(state: TrainState):
     """(flax path, parameter, AdamW first moment, second moment) in flax
@@ -171,29 +166,76 @@ class WireIngestAdapter:
     capacity recycling; ``node_ttl=0`` (the default) keeps the fixed
     first-come mapping exactly.
 
-    The reference's native fast path (its C++ ``oi_*`` engine) is not
-    ported: ``use_native=True`` raises (ROADMAP item 14).
+    **Native fast path** (``OnlineGraphConfig.native_ingest``, default
+    on, fallback with a warning): this class is the SPEC; when the C++
+    engine is available the whole per-chunk pass — mapping, lifecycle,
+    feature accumulation, edge buffering — runs in native.cpp's ``oi_*``
+    engine without the GIL, and the trainer takes dispatch blocks
+    straight from the engine's edge ring (``trainer.block_source``)
+    instead of the Python queue.  One deliberate divergence, the
+    reference's: the native engine folds EVERY kept row into the feature
+    means (no ``FEATURE_SAMPLE_ROWS`` sampling).
     """
 
     def __init__(
         self, trainer: "OnlineGraphTrainer", *, use_native: Optional[bool] = None
     ) -> None:
-        from ..records.features import HOST_FEATURE_DIM, NUM_HASH_BUCKETS
+        from ..records.features import (
+            DOWNLOAD_COLUMNS,
+            HOST_FEATURE_DIM,
+            NUM_HASH_BUCKETS,
+        )
 
+        self.trainer = trainer
+        n = trainer.config.num_nodes
+        self._native = None
         if use_native is None:
             use_native = trainer.config.native_ingest
         if use_native:
-            raise NotImplementedError(_NATIVE_REFUSAL)
-        self.trainer = trainer
-        n = trainer.config.num_nodes
+            try:
+                from ..native import NativeOnlineIngest
+
+                cfg = trainer.config
+                ring = max(cfg.queue_capacity, 2) * (
+                    cfg.super_steps * cfg.batch_size
+                )
+                self._native = NativeOnlineIngest(
+                    n, NUM_HASH_BUCKETS, HOST_FEATURE_DIM,
+                    len(DOWNLOAD_COLUMNS), cfg.node_ttl, ring,
+                )
+            except Exception as exc:  # noqa: BLE001 — optimization only
+                logger.warning(
+                    "native ingest unavailable (%s); python fallback", exc
+                )
+                self._native = None
+            if self._native is not None:
+                if (
+                    not trainer._downloads.empty()
+                    or trainer._leftover is not None
+                ):
+                    # Switching to the engine's edge ring would silently
+                    # strand edges already in the Python queue.  (When
+                    # the library is UNAVAILABLE the python fallback
+                    # keeps them — so check only after construction.)
+                    self._native.close()
+                    self._native = None
+                    raise RuntimeError(
+                        "cannot attach a native-ingest adapter after "
+                        "feed_downloads: queued edges would be lost "
+                        "(attach the adapter first, or set "
+                        "native_ingest=False)"
+                    )
+                trainer.block_source = self._native_block
         # Vectorized bucket → dense-id table (the ingest hot path must
-        # sustain wire rate): -2 = unseen, -1 = overflow.
+        # sustain wire rate): -2 = unseen, -1 = overflow.  Unused (but
+        # kept allocated) when the native engine owns the mapping.
         self._id_table = np.full(NUM_HASH_BUCKETS, -2, np.int32)
         self._next_id = 0
         self._feat_sum = np.zeros((n, HOST_FEATURE_DIM), np.float32)
         self._feat_cnt = np.zeros(n, np.float32)
-        self._py_overflow = 0
+        self._py_overflow = 0  # python-path edges + native-path topo drops
         self._py_evicted = 0
+        self._native_overflow_seen = 0  # engine counter high-water (metrics)
         self._warned_full = False
         # Lifecycle state: last time each dense id was seen on any
         # stream, its current bucket (for reverse unmapping), and the
@@ -213,24 +255,83 @@ class WireIngestAdapter:
 
     @property
     def overflow_edges(self) -> int:
+        if self._native is not None:
+            return self._native.stats()["overflow_edges"] + self._py_overflow
         return self._py_overflow
 
     @property
     def evicted_nodes(self) -> int:
+        if self._native is not None:
+            return self._native.stats()["evicted_nodes"]
         return self._py_evicted
+
+    @property
+    def is_native(self) -> bool:
+        return self._native is not None
+
+    def native_stats(self) -> Optional[dict]:
+        """The engine's counters (``overflow_edges``, ``evicted_nodes``,
+        ``next_id``, ``rows_in``); None on the Python path."""
+        return None if self._native is None else self._native.stats()
+
+    def _native_block(self, timeout: float):
+        """trainer.block_source: one [super_steps, batch] dispatch block
+        straight out of the engine's edge ring (a single C++ memcpy —
+        no Python-level queue/concatenate on the hot path)."""
+        cfg = self.trainer.config
+        need = cfg.super_steps * cfg.batch_size
+        got = self._native.take_edges(need, timeout)
+        if got is None:
+            return None
+        shape = (cfg.super_steps, cfg.batch_size)
+        return (
+            got[0].reshape(shape), got[1].reshape(shape),
+            got[2].reshape(shape),
+        )
+
+    def poll_recycled(self) -> None:
+        """Drain engine-side evictions into the trainer's recycle queue
+        (the python path queues them inline in _evict_expired)."""
+        if self._native is None:
+            return
+        from .metrics import ONLINE_NODES_EVICTED
+
+        while True:
+            ids = self._native.take_recycled()
+            if not len(ids):
+                return
+            ONLINE_NODES_EVICTED.inc(len(ids))
+            self.trainer.request_recycle(ids)
 
     def _apply_restore(self, st: dict) -> None:
         """Re-attach a checkpointed id mapping: the mapping is NOT
         derivable from the stream in ttl mode (eviction is clock-driven),
         so it rides in the trainer checkpoint — host X keeps the dense id
-        whose embedding learned X."""
+        whose embedding learned X.  The state format is shared between
+        the python and native engines: either can restore the other's."""
         n = self.trainer.config.num_nodes
         if len(st["adapter_bucket_of"]) != n:
+            # A mismatched num_nodes would OOB-read in the native import
+            # (and silently desync the python arrays).
             raise ValueError(
                 f"checkpoint adapter state is for num_nodes="
                 f"{len(st['adapter_bucket_of'])}, trainer has {n}"
             )
         free = [int(i) for i in st["adapter_free"] if i >= 0]
+        if self._native is not None:
+            self._native.import_state(
+                st["adapter_id_table"], st["adapter_bucket_of"],
+                st["adapter_last_seen"], np.asarray(free, np.int32),
+                st["adapter_feat_sum"], st["adapter_feat_cnt"],
+                int(st["adapter_next_id"]),
+                int(st["adapter_overflow_edges"]),
+                int(st["adapter_evicted_nodes"]),
+            )
+            self._py_overflow = 0
+            # Sync the metrics high-water to the imported counter, else
+            # the first post-restore drop re-counts the whole history.
+            self._native_overflow_seen = int(st["adapter_overflow_edges"])
+            return
         with self._mu:
             self._id_table = np.asarray(st["adapter_id_table"], np.int32).copy()
             self._bucket_of = np.asarray(st["adapter_bucket_of"], np.int64).copy()
@@ -245,11 +346,16 @@ class WireIngestAdapter:
 
     def snapshot_for_checkpoint(self) -> dict:
         """A consistent (mapping, applied-row-resets) pair for the
-        trainer checkpoint: applies pending recycles, then snapshots the
-        mapping, retrying if an eviction raced in between — a saved
-        mapping must never outrun its embedding resets."""
+        trainer checkpoint: drains + applies pending recycles, then
+        snapshots the mapping, retrying if an eviction raced in between
+        — a saved mapping must never outrun its embedding resets."""
         while True:
             self.trainer.apply_pending_recycles()
+            if self._native is not None:
+                st = self._native_mapping_state()
+                if st is None:  # eviction landed after the drain
+                    continue
+                return st
             with self._mu:
                 with self.trainer._recycle_lock:
                     if self.trainer._pending_recycle:
@@ -260,8 +366,37 @@ class WireIngestAdapter:
         """(mapping, the recycled ids queued up to it), taken together:
         the mesh checkpoint resets those rows on every rank before it
         saves, so the saved mapping never outruns its resets."""
+        if self._native is not None:
+            while True:
+                self.poll_recycled()
+                st = self._native_mapping_state()
+                if st is not None:
+                    return st, self.trainer._take_pending()
         with self._mu:
             return self._mapping_state(), self.trainer._take_pending()
+
+    def _native_mapping_state(self) -> Optional[dict]:
+        """The engine's id mapping in the checkpoint's format; None while
+        an eviction's recycled ids still wait to be drained."""
+        st = self._native.export_state()
+        if st is None:
+            return None
+        return {
+            "adapter_id_table": st["id_table"],
+            "adapter_bucket_of": st["bucket_of"],
+            "adapter_last_seen": st["last_seen"],
+            # Trailing -1 sentinel: free ids are always >= 0.
+            "adapter_free": np.concatenate(
+                [st["free"].astype(np.int64), [-1]]
+            ),
+            "adapter_next_id": st["next_id"],
+            "adapter_feat_sum": st["feat_sum"],
+            "adapter_feat_cnt": st["feat_cnt"],
+            "adapter_overflow_edges": (
+                st["overflow_edges"] + self._py_overflow
+            ),
+            "adapter_evicted_nodes": st["evicted_nodes"],
+        }
 
     def _mapping_state(self) -> dict:
         """The id mapping (callers hold ``_mu``)."""
@@ -362,11 +497,14 @@ class WireIngestAdapter:
         """bucket → dense id for hosts already mapped (-1 / -2 for the
         rest); assigns nothing and touches no lifecycle stamp (evaluation
         rows)."""
+        if self._native is not None:
+            return self._native.lookup(np.asarray(buckets, np.float32))
         with self._mu:
             return self._id_table[np.asarray(buckets).astype(np.int64)]
 
     def _warn_table_full_once(self) -> None:
-        """One warning per adapter lifetime (callers hold _mu)."""
+        """One warning per adapter lifetime, whichever path drops first
+        (callers hold _mu)."""
         if self._warned_full:
             return
         self._warned_full = True
@@ -386,9 +524,26 @@ class WireIngestAdapter:
 
         ONLINE_OVERFLOW_EDGES.inc(n_dropped)
 
+    def close(self) -> None:
+        """Release the native engine (its buffers are invisible to the
+        Python gc; a parked wire feeder also keeps it alive).  Final
+        counters fold into the python-side fields so overflow_edges /
+        evicted_nodes stay readable after close.  Idempotent."""
+        if self._native is None:
+            return
+        st = self._native.stats()
+        self._py_overflow += int(st["overflow_edges"])
+        self._py_evicted = int(st["evicted_nodes"])
+        self._native_overflow_seen = 0
+        self._native.close()
+        self._native = None
+        self.trainer.block_source = None
+
     def node_features(self) -> np.ndarray:
         """Materialize the running per-node feature means — called by the
         trainer ONCE per snapshot build (lazy; never per chunk)."""
+        if self._native is not None:
+            return self._native.node_features()
         with self._mu:
             return self._feat_sum / np.maximum(self._feat_cnt[:, None], 1.0)
 
@@ -401,6 +556,23 @@ class WireIngestAdapter:
         if rows.size == 0:
             return
         now = self.clock()
+        if self._native is not None:
+            # The whole per-chunk pass (map, lifecycle, accumulate,
+            # ring append w/ backpressure) is ONE GIL-free call.
+            self._native.feed_download_rows(rows, now)
+            # Engine-side drops must stay observable: same warning +
+            # metric the python path emits, driven by the counter delta
+            # (under _mu — wire threads feed concurrently).
+            with self._mu:
+                ov = self._native.stats()["overflow_edges"]
+                dropped = ov - self._native_overflow_seen
+                if dropped > 0:
+                    self._native_overflow_seen = ov
+                    self._warn_table_full_once()
+                    from .metrics import ONLINE_OVERFLOW_EDGES
+
+                    ONLINE_OVERFLOW_EDGES.inc(dropped)
+            return
         with self._mu:
             # ONE mapping call over both endpoint columns: every host in
             # the chunk is touched before any eviction runs, so a live
@@ -436,7 +608,14 @@ class WireIngestAdapter:
             return
         now = self.clock()
         with self._mu:
-            both = self._map_ids(np.concatenate([rows[:, 0], rows[:, 1]]), now)
+            # Only the mapping call differs between engines; the engine
+            # has its own mutex, so holding _mu around it just keeps the
+            # counter updates below single-writer like the python path.
+            flat = np.concatenate([rows[:, 0], rows[:, 1]])
+            if self._native is not None:
+                both = self._native.map_buckets(flat, now)
+            else:
+                both = self._map_ids(flat, now)
             src, dst = both[: len(rows)], both[len(rows):]
             ok = (src >= 0) & (dst >= 0)
             self._count_overflow(int((~ok).sum()))
@@ -465,9 +644,12 @@ class OnlineGraphConfig:
     model: HopConfig = field(default_factory=HopConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     total_steps_hint: int = 100_000  # LR schedule horizon
-    # The C++ wire-ingest engine is not ported (ROADMAP item 14): True
-    # raises instead of falling back.
-    native_ingest: bool = False
+    # C++ wire-ingest fast path (native.cpp oi_* engine): mapping,
+    # lifecycle, feature accumulation and edge buffering run GIL-free,
+    # and the trainer takes dispatch blocks straight from the engine's
+    # ring.  Falls back, with a warning, to the (spec) Python adapter
+    # when the native library can't build.
+    native_ingest: bool = True
     # A (data, model) mesh from parallel.mesh.create_mesh (None = one
     # device): batches split over the data axis; node_sharding="model"
     # partitions the hop table, the embedding (+ its moments) and the
@@ -516,8 +698,6 @@ class OnlineGraphTrainer:
                     f"batch_size {config.batch_size} not divisible by the "
                     f"data axis {mesh.shape[DATA_AXIS]}"
                 )
-        if config.native_ingest:
-            raise NotImplementedError(_NATIVE_REFUSAL)
         self.config = config
         self.checkpoint_dir = checkpoint_dir
         self.mesh = mesh
@@ -537,6 +717,9 @@ class OnlineGraphTrainer:
 
         self._downloads: "queue.Queue" = queue.Queue(maxsize=config.queue_capacity)
         self._leftover: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+        # Set by a native-ingest adapter: dispatch blocks come straight
+        # from the C++ edge ring instead of the Python queue.
+        self.block_source = None
 
         self.dispatch = 0
         self.snapshot_idx = 0
@@ -599,6 +782,12 @@ class OnlineGraphTrainer:
     ) -> bool:
         """Offer download edges (flat arrays; any length).  Blocks when the
         queue is full — ingest backpressure, like the wire handler."""
+        if self.block_source is not None:
+            raise RuntimeError(
+                "native-ingest adapter attached: downloads must arrive "
+                "via the wire adapter, not feed_downloads (the queue "
+                "would be silently ignored)"
+            )
         try:
             self._downloads.put(
                 (
@@ -613,11 +802,16 @@ class OnlineGraphTrainer:
             return False
 
     def end_of_stream(self) -> None:
+        if self._adapter is not None and self._adapter.is_native:
+            self._adapter._native.eof()
+            return
         self._downloads.put(None)
 
     def _next_dispatch_block(self, timeout: Optional[float]):
         """Accumulate queued edges into one [super_steps, batch] block
         (static shapes)."""
+        if self.block_source is not None:
+            return self.block_source(timeout if timeout is not None else 3600.0)
         need = self.config.super_steps * self.config.batch_size
         parts: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         have = 0
@@ -798,6 +992,13 @@ class OnlineGraphTrainer:
             with self._recycle_lock:
                 self._pending_recycle.append(ids)
 
+    def _drain_pending(self) -> np.ndarray:
+        """``_take_pending`` after the native adapter's evictions have
+        joined the queue."""
+        if self._adapter is not None:
+            self._adapter.poll_recycled()  # native evictions queue here
+        return self._take_pending()
+
     def _take_pending(self) -> np.ndarray:
         """The queued recycled ids (distinct, sorted), the queue emptied."""
         with self._recycle_lock:
@@ -819,7 +1020,7 @@ class OnlineGraphTrainer:
         host and must not inherit its predecessor's learned state.
         Returns the number of distinct rows reset.  On a mesh, rank 0's
         queue, reset on every rank."""
-        return self._reset_rows(self._share_ids(self._take_pending()))
+        return self._reset_rows(self._share_ids(self._drain_pending()))
 
     def _reset_rows(self, ids: np.ndarray) -> int:
         if len(ids) == 0:
@@ -960,7 +1161,7 @@ class OnlineGraphTrainer:
                 if block is None:
                     break
             else:
-                staged, ids = self._share_block(block, self._take_pending())
+                staged, ids = self._share_block(block, self._drain_pending())
                 self._reset_rows(ids)
                 if staged is None:
                     break
@@ -1103,9 +1304,11 @@ class OnlineGraphTrainer:
         return WireIngestAdapter(self)
 
     def close(self) -> None:
-        """Release stream-side resources.  The Python adapter holds none
-        (the reference's closes its native engine); kept for the
-        reference's interface."""
+        """Release stream-side resources (the wire adapter's native
+        engine, if any).  Training state is unaffected — checkpoint
+        first if it matters."""
+        if self._adapter is not None:
+            self._adapter.close()
 
     def resume(self) -> bool:
         """Restore params/moments/step/generator/stream position AND

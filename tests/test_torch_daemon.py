@@ -2,8 +2,9 @@
 against ``dragonfly2_tpu``.
 
 The cases of ``tests/test_daemon.py`` that the download path covers, on
-the port (the Python piece store; the native cases are ROADMAP queue 1
-item 14, as are the seed trigger's and the native record path's): piece
+the port (piece storage on the native store and the Python one; the
+swarms on the Python store, as the reference's; the native fetch loop is
+``tests/test_torch_native_fetch.py``'s): piece
 storage, upload caps, the shaper, PEX, the conductor through the real
 scheduler, the review regressions, the host announcer, swarm churn, the
 peer engine, the PEX worker pool and tiny-file direct pieces.
@@ -63,10 +64,8 @@ class FakeOrigin:
         return self.content(url, number)
 
 
-@pytest.fixture(params=["python"])
+@pytest.fixture(params=["native", "python"])
 def engine_pref(request):
-    # The reference also runs its native store here; the port has the
-    # Python one only (ROADMAP queue 1 item 14).
     return request.param == "native"
 
 
@@ -774,7 +773,7 @@ def test_store_written_by_one_package_reloads_in_the_other(tmp_path, writer):
     pieces = [(n, rng.bytes(PIECE)) for n in (3, 0, 1)]
     pieces += [(5, rng.bytes(777)), (1, rng.bytes(PIECE))]
     classes = {"jax": (JDaemonStorage, {"prefer_native": False}),
-               "torch": (DaemonStorage, {})}
+               "torch": (DaemonStorage, {"prefer_native": False})}
     for name, (cls, kw) in classes.items():
         _write_task(cls, tmp_path / name, pieces, content_length=content_length, **kw)
     for fname in ("header.json", "pieces.jsonl", "data"):

@@ -17,9 +17,12 @@ parents (the counterpart of ``tests/test_rpc.py``'s
   daemons, a 12 MiB file in 512 KiB pieces; every one of its checks
   holds.
 - Every option the port does not carry yet exits 2 (or raises) naming
-  its ROADMAP item.
+  its ROADMAP item; ``native_fetch: true`` and the native store, server
+  and fetch loop, which once did, now build a native daemon.
 
-The JAX daemons run on the Python piece store, as the port's do.  Every
+The port's daemons run its native engine (the defaults); the JAX
+daemons run their Python piece store, so a mixed swarm has each package's
+client read the other engine's server.  Every
 server and announcer is stopped in a ``finally``; every piece server
 binds port 0 and ``DF_DAEMON_STATE`` points into the test's directory.
 """
@@ -39,12 +42,13 @@ from dragonfly2_tpu.cli import scheduler as j_scheduler_cli
 from dragonfly2_tpu.config import DaemonConfig as JDaemonConfig
 from dragonfly2_tpu.config import SchedulerConfigFile as JSchedulerConfigFile
 from dragonfly2_tpu.rpc import SchedulerHTTPServer as JSchedulerHTTPServer
+from dragonfly2_tpu_torch.bench.peer_swarm import served
 from dragonfly2_tpu_torch.cli import dfdaemon, dfget
 from dragonfly2_tpu_torch.cli import scheduler as scheduler_cli
-from dragonfly2_tpu_torch.config import ConfigError, DaemonConfig, SchedulerConfigFile
+from dragonfly2_tpu_torch.config import ConfigError, DaemonConfig, SchedulerConfigFile, load_config
 from dragonfly2_tpu_torch.daemon import Conductor, DaemonStorage
 from dragonfly2_tpu_torch.rpc.daemon_control import DaemonControlServer, write_state
-from dragonfly2_tpu_torch.rpc.piece_transport import make_piece_server
+from dragonfly2_tpu_torch.rpc.piece_transport import NativePieceServer, make_piece_server
 from dragonfly2_tpu_torch.trainer.export import MLPScorer, scorer_to_bytes
 
 PIECE = 65536
@@ -167,8 +171,7 @@ def test_port_daemons_k1_ranks_the_parents(tmp_path, monkeypatch, port_scheduler
             r = n["conductor"].download(src_url, piece_size=PIECE)
             assert r.ok and not r.back_to_source and r.pieces == 6
             assert read_back(n, r, len(payload)) == payload
-        assert settled(lambda: nodes[0]["upload"].upload_count
-                       + nodes[1]["upload"].upload_count == 12)
+        assert settled(lambda: served(nodes[0])[0] + served(nodes[1])[0] == 12)
         assert ev.batcher.scorer_calls >= 1 and ev.degrades == 0
         port_scheduler.service.storage.flush()
         assert port_scheduler.service.storage.download_count == 3
@@ -197,7 +200,7 @@ def test_mixed_swarm_is_p2p_across_packages(tmp_path, monkeypatch, request, orig
         r1 = nodes[1]["conductor"].download(src_url, piece_size=PIECE)
         assert r1.ok and not r1.back_to_source
         assert r1.task_id == r0.task_id
-        assert r1.pieces == 6 and settled(lambda: nodes[0]["upload"].upload_count == 6)
+        assert r1.pieces == 6 and settled(lambda: served(nodes[0])[0] == 6)
         assert read_back(nodes[1], r1, len(payload)) == read_back(nodes[0], r0, len(payload)) \
             == payload
     finally:
@@ -285,6 +288,19 @@ def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatc
     if config is not None:
         (tmp_path / "daemon.yaml").write_text(config)
         argv = [*argv, "--config", str(tmp_path / "daemon.yaml")]
+    if env.get("DRAGONFLY_DAEMON_NATIVE_FETCH") == "true":
+        # Ported: the config loads and validates, and a daemon built from
+        # it runs the native store, server and fetch loop.
+        cfg = load_config(DaemonConfig, None)
+        cfg.validate()
+        assert cfg.native_fetch
+        parts = dfdaemon.build(cfg, scheduler)
+        try:
+            assert parts["conductor"].native_fetch and parts["storage"].is_native
+            assert isinstance(parts["piece_server"], NativePieceServer)
+        finally:
+            stop_all([parts])
+        return
     assert dfdaemon.run(["--scheduler", scheduler, *argv]) == 2
     err = capsys.readouterr().err
     assert f"ROADMAP queue 1 {item}" in err, err
@@ -292,18 +308,21 @@ def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatc
 
 
 def test_native_paths_raise_naming_item_14(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DaemonStorage(str(tmp_path / "s"), prefer_native=True)
+    """The native paths are ported and are the defaults, as in the
+    reference; only the vsock transport still raises naming item 14."""
+    assert DaemonStorage(str(tmp_path / "n"), prefer_native=True).is_native
     storage = DaemonStorage(str(tmp_path / "s"))
-    assert not storage.is_native
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Conductor(None, storage, None, piece_fetcher=None, native_fetch=True)
+    assert storage.is_native
+    assert Conductor(None, storage, None, piece_fetcher=None, native_fetch=True).native_fetch
     from dragonfly2_tpu_torch.daemon import UploadManager
 
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_piece_server(UploadManager(storage), port=0, prefer_native=True)
-    with pytest.raises(ConfigError, match="item 14"):
-        DaemonConfig(native_fetch=True).validate()
+    server = make_piece_server(UploadManager(storage), port=0, prefer_native=True)
+    try:
+        assert isinstance(server, NativePieceServer) and server.port > 0
+    finally:
+        server.stop()
+    DaemonConfig(native_fetch=True).validate()
+    assert DaemonConfig().native_fetch
     control = DaemonControlServer(conductor=None)
     control.serve()
     try:

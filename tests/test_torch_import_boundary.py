@@ -6,7 +6,10 @@ Three checks: a static AST scan of every module's imports, a scan of
 every string constant for a name of a ``dragonfly2_tpu.`` module (a
 ``python -m`` spawn or an ``importlib`` target that no import scan sees),
 and a subprocess that imports the port's entry points with ``jax`` and
-``dragonfly2_tpu`` made unimportable.
+``dragonfly2_tpu`` made unimportable.  Last, the port's native library is
+its own: loaded in such a subprocess, it lies under
+``build/dragonfly2_tpu_torch_native/`` and the JAX package's
+``libdragonfly_native.so`` is never mapped.
 """
 
 from __future__ import annotations
@@ -169,6 +172,9 @@ print("OK")
         "dragonfly2_tpu_torch.sim.chaos",
         "dragonfly2_tpu_torch.bench.fleet_swarm",
         "dragonfly2_tpu_torch.bench.shard_fleet",
+        "dragonfly2_tpu_torch.native",
+        "dragonfly2_tpu_torch.utils.dfabi",
+        "dragonfly2_tpu_torch.records.abi_contracts",
         "chip_smoke",
     ],
 )
@@ -179,3 +185,29 @@ def test_entry_points_import_with_the_jax_package_blocked(module):
         cwd=str(REPO),
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr
+
+
+_NATIVE_LOAD = """
+import os
+from dragonfly2_tpu_torch import native
+from dragonfly2_tpu_torch.utils import dfabi
+lib = native.load()
+assert lib is not None, native.build_error()
+assert dfabi.compare() == [], dfabi.compare()
+maps = open("/proc/self/maps").read()
+print(native.lib_path)
+print("jax-library-mapped" if "dragonfly2_tpu/native/libdragonfly_native" in maps else "own")
+"""
+
+
+def test_the_native_library_is_the_ports_own_build():
+    code = _BLOCKED_IMPORT.format(roots=_FORBIDDEN_ROOTS, repo=str(REPO),
+                                  module="dragonfly2_tpu_torch.native")
+    code = code.replace('print("OK")', _NATIVE_LOAD)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr
+    path, mapped = proc.stdout.split()
+    assert Path(path).parent == REPO / "build" / "dragonfly2_tpu_torch_native"
+    assert Path(path).name.startswith("libdragonfly_native_") and Path(path).is_file()
+    assert mapped == "own"

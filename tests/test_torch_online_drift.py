@@ -77,7 +77,8 @@ def _pair(hidden=HIDDEN):
     )
     tt = tog.OnlineGraphTrainer(
         tog.OnlineGraphConfig(model=HopConfig(hidden=hidden, dropout=0.0),
-                              train=TrainConfig(warmup_steps=WARMUP), **CFG),
+                              train=TrainConfig(warmup_steps=WARMUP),
+                              native_ingest=False, **CFG),
         node_feats=nf, topo_src=empty[0], topo_dst=empty[1], topo_rtt=empty[2],
         device="cpu",
     )

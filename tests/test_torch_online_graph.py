@@ -5,8 +5,10 @@ north star writes it: continuous two-stream ingest into the flagship hop
 ranker, mid-training snapshot refresh, node-id recycling, resume).
 
 The port runs on the CPU (``device="cpu"``); the JAX package on its CPU
-backend with ``native_ingest=False`` (its Python adapter, the one the
-port ports).  Sizes are the reference test's own (128 nodes, K 8, batch
+backend.  Both run ``native_ingest=False`` (the Python adapter, the
+spec), except where a case says otherwise: the native ``oi_*`` engine,
+the default in both packages, is held to the spec and to the JAX
+package's engine in ``tests/test_torch_native_ingest.py``.  Sizes are the reference test's own (128 nodes, K 8, batch
 256, 4 steps a dispatch, ``HopConfig(hidden=16, out_dim=8,
 node_embed_dim=4)``).  Parity runs carry flax's init into the port
 (``load_flax_params``) and set dropout to 0: a seed initializes the two
@@ -99,9 +101,10 @@ def _downloads(cluster, seed, n):
 
 
 def _mk_trainer(cluster, tmp_path=None, *, dropout=0.1, **cfg_kw):
-    """A port trainer on the CPU, bootstrapped as the reference test's."""
+    """A port trainer on the CPU, bootstrapped as the reference test's,
+    on the Python adapter unless ``native_ingest`` says otherwise."""
     cfg = tog.OnlineGraphConfig(
-        **{**BASE, "model": HopConfig(dropout=dropout, **HOP),
+        **{**BASE, "native_ingest": False, "model": HopConfig(dropout=dropout, **HOP),
            "train": TrainConfig(warmup_steps=2), **cfg_kw}
     )
     src, dst, rtt = _topo(cluster, seed=1)
@@ -131,7 +134,7 @@ def _pair(dtype="f32", *, bootstrap=None, **cfg_kw):
     )
     tt = tog.OnlineGraphTrainer(
         tog.OnlineGraphConfig(model=HopConfig(dtype=td, dropout=0.0, **HOP),
-                              train=TrainConfig(warmup_steps=2), **kw),
+                              train=TrainConfig(warmup_steps=2), native_ingest=False, **kw),
         node_feats=nf, topo_src=src, topo_dst=dst, topo_rtt=rtt, device="cpu",
     )
     load_flax_params(tt.state.model, jax.tree_util.tree_map(np.asarray, jt.state.params))
@@ -596,8 +599,9 @@ def test_train_stream_feeds_online_trainer(tmp_path):
     from dragonfly2_tpu_torch.trainer.service import TrainerService
 
     cluster = _mk_cluster()
-    tr = _mk_trainer(cluster)
+    tr = _mk_trainer(cluster, native_ingest=True)  # the default engine
     adapter = tr.make_wire_adapter()
+    assert adapter.is_native
     service = TrainerService(data_dir=str(tmp_path / "stage"), online_sink=adapter,
                              device="cpu")
     session = service.open_train_stream(ip="10.0.0.7", hostname="wire-online",
@@ -676,14 +680,24 @@ def test_online_mode_tolerates_reference_csv(tmp_path):
     ],
 )
 def test_unported_paths_refuse(kw, exc, match):
+    if kw == dict(native_ingest=True):
+        # Ported (the native oi_* engine): what raised now builds a
+        # trainer whose wire adapter runs the engine.
+        tr = _mk_trainer(_mk_cluster(), **kw)
+        assert tr.config.native_ingest and tr.make_wire_adapter().is_native
+        return
     with pytest.raises(exc, match=match):
         _mk_trainer(_mk_cluster(), **kw)
 
 
 def test_native_adapter_refuses():
+    """Ported: ``use_native=True`` runs the port's native engine, and the
+    trainer takes its blocks from the engine's edge ring."""
     tr = _mk_trainer(_mk_cluster())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tog.WireIngestAdapter(tr, use_native=True)
+    ad = tog.WireIngestAdapter(tr, use_native=True)
+    assert ad.is_native and tr.block_source is not None
+    tr.close()
+    assert not ad.is_native and tr.block_source is None
 
 
 def test_cuda_device_without_a_card_raises():

@@ -5,7 +5,9 @@ counterparts of ``tests/test_online_graph.py``'s ``TestOnlineMeshMode``.
 The mesh runs as 4 spawned gloo ranks on the CPU, a (2 data × 2 model)
 mesh (``parallel.dryrun.run_ranks``: one spawn for the module, a
 ``FileStore`` in a fresh temporary directory).  Rank 0 is the one feeder:
-only it is handed downloads and topology after the bootstrap.  The
+only it is handed downloads and topology after the bootstrap, directly
+or through its wire adapter (on the native ingest engine, the default,
+and on the Python path: the same rows train the same state).  The
 one-device runs are the port's own, in the test process, at the
 reference test's sizes (128 nodes, K 8, batch 256, 4 steps a dispatch,
 ``HopConfig(hidden=16, out_dim=8, node_embed_dim=4)``).  The JAX online
@@ -172,6 +174,19 @@ def _rank_body(rank, dev, root):
     out["resumed_single"] = s.resume()
     out["hash_single"] = tog.state_hash(s.state)
 
+    # Rank 0 feeds through the wire adapter, on the native engine and on
+    # the Python path: the same rows give the same blocks, broadcast.
+    for engine in ("native", "python"):
+        cw = _mk_cluster()
+        w = _mk_trainer(cw, mesh=mesh, native_ingest=engine == "native")
+        if feeder:
+            ad = w.make_wire_adapter()
+            out[f"wire_{engine}_is_native"] = ad.is_native
+            ad.feed_download_rows(cw.generate_feature_rows(4 * 256 + 100, seed=17))
+        out[f"wire_{engine}_ran"] = w.run(max_dispatches=1, idle_timeout=0.5)
+        out[f"wire_{engine}_hash"] = tog.state_hash(w.state)
+        w.close()
+
     # Configurations the mesh refuses.
     out["refusals"] = []
     for kw in (dict(num_nodes=N_NODES + 1), dict(batch_size=255)):
@@ -258,3 +273,14 @@ def test_bad_configs_refuse(runs):
     with pytest.raises(ValueError, match="create_mesh"):
         _mk_trainer(cl, mesh=object())
     assert os.path.isdir(runs[2])
+
+
+def test_rank_zero_feeds_from_the_native_engine(runs):
+    """On a mesh the one feeder's wire adapter runs the native ingest
+    engine (the default): its block is broadcast, every rank trains it,
+    and the state equals the Python adapter's on the same rows."""
+    _, ranks, _ = runs
+    assert ranks[0]["wire_native_is_native"] and not ranks[0]["wire_python_is_native"]
+    for r in ranks:
+        assert r["wire_native_ran"] == r["wire_python_ran"] == 1
+        assert r["wire_native_hash"] == r["wire_python_hash"] == ranks[0]["wire_native_hash"]

@@ -4,9 +4,11 @@
 The cases of ``tests/test_piece_plane.py`` on the port: keep-alive
 connection pool lifecycle, sendfile/buffered serve byte-identity (pieces
 AND byte ranges), sub-piece Range reads, the commit pipeline, batched
-piece reports across transports and hedged straggler fetch.  The mTLS
-case, the native cases and the ``tools/bench_download`` smoke are ROADMAP
-queue 1 item 14.
+piece reports across transports and hedged straggler fetch, on the
+Python store and server (the two packages' Python planes are compared).
+The native cases are ``tests/test_torch_native_server.py`` and
+``tests/test_torch_native_fetch.py``; the mTLS case and the
+``tools/bench_download`` smoke are ROADMAP queue 1 item 14.
 
 Then the two packages against each other: a port ``HTTPPieceFetcher``
 reads from a JAX ``PieceHTTPServer`` and the other way round, and
@@ -582,7 +584,7 @@ def _planes(tmp_path, blocks, *, concurrent_limit=50):
     out = {}
     for name, (st_cls, um_cls, srv_cls, kw) in {
         "jax": (JDaemonStorage, JUploadManager, JPieceHTTPServer, {"prefer_native": False}),
-        "torch": (DaemonStorage, UploadManager, PieceHTTPServer, {}),
+        "torch": (DaemonStorage, UploadManager, PieceHTTPServer, {"prefer_native": False}),
     }.items():
         st = st_cls(str(tmp_path / name), **kw)
         st.register_task("t", piece_size=PIECE, content_length=len(blocks) * PIECE)

@@ -218,7 +218,16 @@ class TestPublicSurfaceLockdown:
 
 
 class _RangeOrigin(BaseHTTPRequestHandler):
+    """An origin that answers each GET after ``LATENCY_S``, as a remote
+    origin does.  The seed reports each piece's origin time as its cost,
+    and the scheduler's bad-node rule excludes a parent whose last cost
+    is over 20 times the mean of the others: answered in ~0.3 ms, a few
+    ms of scheduling stall on the seed's last reported piece (a loaded
+    machine) made the seed a bad node at the child's one reschedule after
+    the trigger, and the child, with no source client, failed."""
+
     BLOB = bytes(i % 251 for i in range(6 * PIECE))
+    LATENCY_S = 0.025
     hits = []
 
     def log_message(self, *args):
@@ -232,6 +241,7 @@ class _RangeOrigin(BaseHTTPRequestHandler):
 
     def do_GET(self):
         type(self).hits.append(self.path)
+        time.sleep(self.LATENCY_S)
         rng = self.headers.get("Range")
         body, code = self.BLOB, 200
         if rng:

@@ -10,7 +10,9 @@ its execution (``jobs/preheat``, ``jobs/preheat.execute``), the shard
 guard's membership sweep and the client-side migration edge
 (``scheduler/shard.handoff``), and a two-daemon
 download (``daemon/download``, ``daemon/piece``, ``daemon/source.piece``,
-``daemon/report.flush``: one daemon back to source, one P2P), the multiset of
+``daemon/report.flush``: one daemon back to source, one P2P; and over the
+wire with the child's piece window through the native fetch loop, whose
+``daemon/piece`` spans carry ``native``), the multiset of
 (span name, sorted attribute keys) each package exports is equal.
 Where the values are inputs and not trained weights they are compared
 too.  ``jit_compiles`` is 0 in the port (no recompile witness yet).
@@ -24,6 +26,7 @@ from __future__ import annotations
 import collections
 import json
 import threading
+import time
 import types
 import urllib.request
 
@@ -311,3 +314,80 @@ def test_shard_handoff_spans_equal(rings):
     moved = [s.attributes["tasks_moved"] for s in rings["torch"].spans
              if s.name in HANDOFF_SPANS and "tasks_moved" in s.attributes]
     assert moved[0] == 0 and 0 < moved[1] < 40
+
+
+def _native_window_download(pkg: str, tmp_path, pieces):
+    """One wire parent (the Python store and server) warmed back to
+    source, then one child on the native store with ``native_fetch``: its
+    piece window goes through the native fetch loop, in ``pkg``."""
+    import importlib
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    daemon, conductor_mod = mod("daemon"), mod("daemon.conductor")
+    rpc, sched, resource_mod = mod("rpc"), mod("scheduler"), mod("scheduler.resource")
+    from_records = mod("records.storage")
+    server_mod = mod("rpc.scheduler_server")
+
+    class Origin:
+        def fetch(self, url, number, piece_size):
+            # A remote origin's latency: the parent's piece costs are its
+            # origin times, and at microseconds a stall would make it a bad
+            # node (the evaluator's 20x rule) for the child.
+            time.sleep(0.02)
+            return pieces[number]
+
+    url, piece = "https://origin/native-window-spans", len(pieces[0])
+    resource = sched.Resource()
+    service = sched.SchedulerService(
+        resource, sched.Scheduling(sched.Evaluator(), sched.SchedulingConfig(retry_interval=0)),
+        from_records.Storage(str(tmp_path / pkg / "records"), buffer_size=8),
+        sched.NetworkTopology(resource.host_manager))
+    server = server_mod.SchedulerHTTPServer(service)
+    server.serve()
+    servers = []
+    try:
+        nodes = []
+        for name, native, source in (("parent", False, Origin()), ("child", True, None)):
+            storage = daemon.DaemonStorage(str(tmp_path / pkg / name), prefer_native=native)
+            assert storage.is_native == native
+            piece_server = rpc.PieceHTTPServer(daemon.UploadManager(storage))
+            piece_server.serve()
+            servers.append(piece_server)
+            host = resource_mod.Host(id=f"nw-{name}", hostname=f"nw-{name}", ip="127.0.0.1",
+                                     port=8002, download_port=piece_server.port)
+            client = rpc.RemoteScheduler(server.url, timeout=5.0)
+            nodes.append(conductor_mod.Conductor(
+                host, storage, client, piece_fetcher=rpc.HTTPPieceFetcher(client.resolve_host),
+                source_fetcher=source, native_fetch=native))
+        r0 = nodes[0].download(url, piece_size=piece, content_length=piece * len(pieces))
+        r1 = nodes[1].download(url, piece_size=piece, content_length=piece * len(pieces))
+        assert r0.ok and r0.back_to_source and r1.ok and not r1.back_to_source
+        assert nodes[1].storage.read_task_bytes(r1.task_id) == b"".join(pieces)
+    finally:
+        for s in servers:
+            s.stop()
+        server.stop()
+
+
+def test_native_fetch_window_spans_equal(rings, tmp_path):
+    """The native fetch window's ``daemon/piece`` spans (``native=True``,
+    opened at drain time from the engine's cost clock) in both packages:
+    one a piece the child's window landed, with the Python arm's keys."""
+    rng = np.random.default_rng(9)
+    pieces = [rng.bytes(64 * 1024) for _ in range(4)]
+    for pkg in ("dragonfly2_tpu", "dragonfly2_tpu_torch"):
+        _native_window_download(pkg, tmp_path, pieces)
+    inv = {name: _inventory(ring, DAEMON_SPANS) for name, ring in rings.items()}
+    assert inv["torch"] == inv["jax"]
+
+    def native_pieces(ring):
+        # The parent's peer id up to its per-run uuid: ip-hostname.
+        return sorted((s.attributes["number"], s.attributes["bytes"],
+                       s.attributes["parent"].rsplit("-", 2)[0])
+                      for s in ring.spans
+                      if s.name == "daemon/piece" and s.attributes.get("native"))
+
+    assert native_pieces(rings["torch"]) == native_pieces(rings["jax"])
+    assert [n for n, _b, _p in native_pieces(rings["torch"])] == [0, 1, 2, 3]

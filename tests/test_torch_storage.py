@@ -7,7 +7,10 @@ packages' ``Storage``.  Each package reads the other's files: JSONL
 records equal, DFC1 rows equal.  The JSONL files are equal byte for byte;
 so are the DFC1 files wherever the JAX side writes through its Python
 ``ColumnarWriter`` (it prefers its native writer when that builds, which
-writes the same rows).  Topology rows carry a freshness column computed
+writes the same rows under a header whose keys are in another order).
+The port writes through its native writer at its defaults, whose shards
+equal its Python writer's byte for byte
+(``tests/test_torch_native_engine.py``).  Topology rows carry a freshness column computed
 against the wall clock at flush time: it is held within 1e-3, every other
 column exactly.  Rotation by size, backups, the path lists, ``clear`` and
 the counts behave alike.
