@@ -13,7 +13,8 @@ Phases:
    65,536-slot host store, the 1.5 ms batcher, a fused scorer made
    from a seeded 32→64→64→1 scorer blob and record storage under the out
    directory.  16,384 synthetic hosts announce; 64 tasks are warmed with
-   256 downloads each (register, task length, every piece from the first
+   128 downloads each (256 before, cut for the run's time; register,
+   task length, every piece from the first
    scheduled parent or the source, finished: one Download record each,
    checked); then 32 threads send 16 ``register_peer`` requests each,
    every one into a task where its host has no peer yet, and one client
@@ -218,8 +219,9 @@ launch counts are zeroed before each and must read 0 after.
     round, MAE per round and records/s.
 16. The deployment over real sockets (``wire_loop``), through
     ``bench/wire_loop.run`` at the swarm phase's size (configs[1]'s 1,000
-    ``SyntheticCluster`` hosts, 8 probe rounds; the downloads cut from
-    10,000 to 4,000 for the phase's time): a ``ManagerRESTServer``, the
+    ``SyntheticCluster`` hosts; the downloads cut from 10,000 to 4,000
+    and the probe rounds from 8 to 4 for the phase's time): a
+    ``ManagerRESTServer``, the
     trainer's serve composition on the card (``cli.trainer.serve``, the
     GAT branch, ``RemoteRegistry`` to the manager), the scheduler's
     (``cli.scheduler.serve``: ``ml``, the probe store, the seed-made
@@ -227,7 +229,7 @@ launch counts are zeroed before each and must read 0 after.
     link every 60 s) and a rule-ranking scheduler, each on an ephemeral
     port.  1,000 hosts announce, 128 seeding and 4,000 concurrent
     downloads go through one ``RemoteScheduler`` per host from 16 client
-    threads, then 256 from one client; 8 probe rounds through
+    threads, then 256 from one client; 4 probe rounds through
     ``sync_probes_start`` / ``sync_probes_finished``; the probe graph is
     snapshotted into the scheduler's records; the Announcer's next round
     uploads the shards and the trainer trains the MLP and the GAT, which
@@ -291,7 +293,7 @@ launch counts are zeroed before each and must read 0 after.
 19. Tracing, telemetry and tenant QoS on the K1 serving path
     (``telemetry_qos``).  ``cli.scheduler.build`` at phase 2's sizes
     (16,384 hosts, 65,536 slots, the 1.5 ms batcher, the seeded K1
-    scorer), 64 tasks warmed with 32 downloads each (phase 2's 256 cut
+    scorer), 64 tasks warmed with 32 downloads each (phase 2's 128 cut
     for time); a three-tenant ``QoSPolicy`` (DRR weights 4 : 2 : 1)
     installed through ``service.on_qos_config``; ``init_telemetry``
     with a metric journal (1 s) and one latency SLO on
@@ -393,8 +395,15 @@ launch counts are zeroed before each and must read 0 after.
     survivors and every daemon hold ring v2 (the reference's daemon fails
     a download whose scheduler dies under it).  Launch counts are zeroed
     just before (b) and read just after; they are this process's, so only
-    the two in-process shards' K1 launches are seen.  Checks: every check
-    of the run's summary (ring v1 of three, v2 of two and newer, adopted
+    the two in-process shards' K1 launches are seen.  The child runs the
+    diagnostics sidecar its ``run`` starts at the reference's defaults
+    (``DRAGONFLY_SCHEDULER_METRICS_PORT=0``: an ephemeral port, read off
+    its boot line); its ``/metrics`` and ``/debug/spans`` are scraped just
+    before the kill.  Checks: every check
+    of the run's summary (the child's scraped
+    ``scheduler_download_records_total`` equal to the Download records
+    read from its storage before the kill, and its ``rpc/register_peer``
+    spans in ``/debug/spans``; ring v1 of three, v2 of two and newer, adopted
     by the survivors through dynconfig and carried on announce answers
     and by every daemon; every sha256 equal; the Download records before
     the kill on each task's v1 owner only, the victim's tasks' after it
@@ -407,6 +416,40 @@ launch counts are zeroed before each and must read 0 after.
     daemon, aggregate MB/s, pieces by source, the victim's files' origin
     bytes, sheds by priority and the most requests in flight, K1
     launches, its time at the phase's flush rows and its error.
+
+23. The push-reschedule path (``push``): phase 2's composition (a fresh
+    ``cli.scheduler.build`` with algorithm ``ml``, the seeded 32→64→64→1
+    K1 scorer, 65,536 host slots, 16,384 synthetic hosts, 64 tasks) with
+    a ``scheduler/push.PeerStreamHub`` at the reference's cooldown (1 s)
+    on the service.  Each task is warmed with 32 finished downloads
+    (phase 2's 128 cut for the phase's time), then 16 running children a
+    task register, each subscribing an enqueue callback to the hub that
+    encodes the pushed schedule as the gRPC stream binding does
+    (``schedule_to_wire``).  Ejection: in each task the warm parent with
+    the most children gets one piece cost past the reference's bad-node
+    rule through ``report_piece_finished`` from one of its children.
+    Stall sweep: a ``StallMonitor`` with its times cut (max idle 10 → 1 s,
+    sweep 2 → 0.25 s) runs for 3 s over the idle children.  Launch counts
+    are zeroed before the warm-up and read after the sweep.  Checks: the
+    bad parent is bad; one push for each of its subscribed children, all
+    inside the cooldown of the report, no pushed parent a bad one and no
+    child's DAG edge to it left; stall pushes = the sum of the sweeps'
+    returns > 0, every stall-pushed child's idle clock restarted at its
+    last push; K1 launches = the batcher's scorer calls > 0, K2 and K3 0;
+    K1 against its plain version on the push path's own flushes (each on
+    its flush-time mirror) and on 2,000 seeded stress flushes
+    (``bench/k1_replay.stress``: 1 to 1,024 rows over every pad boundary,
+    slots over 65,536 store-like rows, the path's edge rows, 3 launches
+    each back to back, each held to plain and to the first launch's
+    bits).  Printed: pushes (ejection, stall), pushes/s, report → callback
+    p50 / p99 ms, K1 launches and the flush rows checked.
+
+Every comparison of K1 with its plain version on a path's flushes holds
+every row finite, the batcher's pad rows included (they read slot 0, a
+zeroed row until a host binds there), and saves a flush past the limit
+or non-finite under ``OUT/k1_flushes/`` (``bench/k1_replay.save_flush``)
+with what it held (``k1_flush_off_plain``); replay one with ``python -m
+dragonfly2_tpu_torch.bench.k1_replay FILE``.
 
 The serve-mode phases (16, 17, 20, 21 and 22(b)) run the shard guard
 with admission at the config's defaults, as the reference's binary does;
@@ -458,7 +501,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 N_HOSTS = 16384
 N_TASKS = 64
-HOSTS_PER_TASK = 256
+HOSTS_PER_TASK = 128       # warm downloads a task (the simulator's 256 cut for the run's time)
 PIECES = 16
 THREADS = 32
 PER_THREAD = 16
@@ -531,11 +574,20 @@ FED_HOSTS = 1000
 FED_ROWS = 10_000
 FED_HELD = 2_000
 FED_F32_TOL = 1e-5        # published scorer vs a float32 twin, scaled by max(1, |score|)
+PUSH_WARM = 32             # phase 23: warm downloads a task (phase 2's 128 cut for time)
+PUSH_CHILDREN = 16         # ... running children a task, each subscribed to the hub
+PUSH_STALL_IDLE_S = 1.0    # ... StallMonitor's max idle (the reference's 10 s cut)
+PUSH_STALL_SWEEP_S = 0.25  # ... its sweep interval (2 s cut)
+PUSH_STALL_RUN_S = 3.0     # ... how long the monitor runs
+K1_STRESS_FLUSHES = 2000   # phase 23: seeded stress flushes ...
+K1_STRESS_REPEATS = 3      # ... each launched this many times back to back
 FED_MEAN_TOL = 1e-6       # the round's aggregate vs a numpy weighted mean
 WIRE_DOWNLOADS = 4000     # the swarm's 10,000 cut for the phase's time
 WIRE_CLIENTS = 16
 WIRE_SEQUENTIAL = 256
-WIRE_TRAIN_INTERVAL = 150.0  # past the downloads and probes (~120 s on the card)
+WIRE_TRAIN_INTERVAL = 150.0  # past the downloads and probes (~110 s on the card)
+WIRE_PROBE_ROUNDS = 4     # the swarm's 8 cut: the snapshot must land before the round
+                          # at 150 s (8 rounds took 60-75 s and missed it once)
 WIRE_K1_FLUSHES = 64      # flushes whose inputs K1 is held to its plain version on
 PS_DAEMONS = 16            # phase 20: daemons in the peer swarm
 PS_SIZE_MIB = 256          # ... the origin file (a layer or shard; GBs cut for time)
@@ -562,7 +614,7 @@ MD_LOSS_RTOL = 1e-3       # node-sharded vs replicated losses (relative)
 MD_MAE_TOL = 5e-3         # node-sharded vs replicated validation MAE
 MD_SECONDS = 150.0        # the phase's time limit
 TQ_TASKS = 64             # phase 19: warm tasks, as phase 2
-TQ_WARM = 32              # ... warm downloads a task (phase 2's 256 cut for the phase's time)
+TQ_WARM = 32              # ... warm downloads a task (phase 2's 128 cut for the phase's time)
 TQ_TENANTS = {"t-gold": ("gold", 4.0), "t-silver": ("silver", 2.0),
               "t-bronze": ("bronze", 1.0)}   # tenant: (class, DRR weight)
 TQ_RATES = {"off": None, "sampled": 0.1, "full": 1.0}  # tracing sample rate by arm
@@ -2400,44 +2452,76 @@ def federated_phase(torch, dev, seed):
     return summary
 
 
+@contextlib.contextmanager
 def keep_k1_flushes(seen):
-    """A tap for ``FusedMLPScorer.score`` that keeps the inputs of the
-    first ``WIRE_K1_FLUSHES`` flushes in ``seen``, with the scorer that
-    made each (``scorers``; a path with several schedulers has one a
+    """Taps ``FusedMLPScorer.score`` inside the block: ``seen`` keeps the
+    inputs of the first ``WIRE_K1_FLUSHES`` flushes, with the scorer
+    that made each (``scorers``; a path with several schedulers has one a
     shard, each gathering from its own slot mirror), the slot mirror the
-    flush gathered from (``mirrors``: a re-sync replaces the tensor, so
-    the reference keeps the flush's rows while later announces rebind
-    slots) and the last scorer."""
-    def keep(fn):
-        def wrapped(self, features, *, src_buckets=None, dst_buckets=None):
-            out = fn(self, features, src_buckets=src_buckets, dst_buckets=dst_buckets)
-            if len(seen["flushes"]) < WIRE_K1_FLUSHES:
-                seen["scorer"] = self
-                seen.setdefault("scorers", []).append(self)
-                seen.setdefault("mirrors", []).append(self._mat_dev)
-                seen["flushes"].append((np.array(features, np.float32, copy=True),
-                                        np.array(src_buckets, copy=True),
-                                        np.array(dst_buckets, copy=True)))
-            return out
-        return wrapped
-    return keep
+    flush itself gathered from (``mirrors``: the tensor its own
+    ``_sync_mirror`` returned, on its thread; a re-sync replaces the
+    tensor, so the kept one holds the flush's rows while later announces
+    rebind slots), whether each gathered slot was bound in the store as
+    the flush began (``bound``) and the last scorer."""
+    from dragonfly2_tpu_torch.ops.fused_score import FusedMLPScorer
+
+    local = threading.local()
+    sync, score = FusedMLPScorer._sync_mirror, FusedMLPScorer.score
+
+    def synced(self):
+        local.mat = sync(self)
+        return local.mat
+
+    def scored(self, features, *, src_buckets=None, dst_buckets=None):
+        keep = len(seen["flushes"]) < WIRE_K1_FLUSHES
+        if keep:
+            store = self._store
+            with store._mu:
+                held = np.fromiter((e[0] for e in store._entries.values()), np.int64)
+            bound = (np.isin(src_buckets, held), np.isin(dst_buckets, held))
+        local.mat = None
+        out = score(self, features, src_buckets=src_buckets, dst_buckets=dst_buckets)
+        if keep and len(seen["flushes"]) < WIRE_K1_FLUSHES:
+            seen.setdefault("live_finite", []).append(bool(np.isfinite(out).all()))
+            seen["scorer"] = self
+            seen.setdefault("scorers", []).append(self)
+            seen.setdefault("mirrors", []).append(local.mat)
+            seen.setdefault("bound", []).append(bound)
+            seen["flushes"].append((np.array(features, np.float32, copy=True),
+                                    np.array(src_buckets, copy=True),
+                                    np.array(dst_buckets, copy=True)))
+        return out
+
+    FusedMLPScorer._sync_mirror, FusedMLPScorer.score = synced, scored
+    try:
+        yield
+    finally:
+        FusedMLPScorer._sync_mirror, FusedMLPScorer.score = sync, score
 
 
-def k1_on_flushes(torch, dev, seen):
-    """K1 against its plain version on a wire path's own flushes, each on
-    the slot mirror it gathered from (its scorer's, as it stood at the
-    flush: the rows its slots held then; another shard's rows, or a slot
-    unbound later, may be uninitialized memory; these launches come after
-    the counts), and K1's, the plain version's and the bound's ms at 128
-    rows (the pad most flushes take) of the first flush's mirror and rows
-    → (max err scaled, ms, plain ms, bound ms)."""
+def k1_save_dir(out_dir):
+    """Where a phase's K1 flushes past the limit are saved."""
+    return os.path.join(out_dir, "k1_flushes")
+
+
+def k1_on_flushes(torch, dev, seen, save_dir=None, phase=""):
+    """K1 against its plain version on a path's own flushes, each on the
+    slot mirror it gathered from (its scorer's, as it stood at the flush:
+    the rows its slots held then; these launches come after the counts),
+    and K1's, the plain version's and the bound's ms at 128 rows (the pad
+    most flushes take) of the first flush's mirror and rows → (max err
+    scaled, ms, plain ms, bound ms).  A flush past ``K1_TOL`` is saved
+    under ``save_dir`` (``bench/k1_replay.save_flush``: its mirror, slots,
+    edges, the scorer's weights and which slots were bound) and replayed
+    there by ``python -m dragonfly2_tpu_torch.bench.k1_replay FILE``."""
+    from dragonfly2_tpu_torch.bench import k1_replay
     from dragonfly2_tpu_torch.ops import fused_score
 
     k1_err = 0.0
     k1_in = []
     first = seen["mirrors"][0]
-    for scorer, mat, (edge, src, dst) in zip(seen["scorers"], seen["mirrors"],
-                                              seen["flushes"]):
+    for i, (scorer, mat, (edge, src, dst)) in enumerate(zip(
+            seen["scorers"], seen["mirrors"], seen["flushes"])):
         mlp = scorer.mlp
         s = torch.from_numpy(src.astype(np.int32)).to(dev)
         d = torch.from_numpy(dst.astype(np.int32)).to(dev)
@@ -2446,15 +2530,39 @@ def k1_on_flushes(torch, dev, seen):
         want = fused_score._fused_score_plain(mat, s, d, e, mlp.w0c, mlp.w0p, mlp.w0e,
                                               mlp.b0, mlp.layers())
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), "K1 non-finite on a wire flush")
+        finite = bool(torch.isfinite(got).all())
         err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
-        if err > K1_TOL:
-            # What the flush held, printed before the caller's check fails.
-            emit({"phase": "k1_flush_off_plain", "err_scaled": err, "rows": int(s.numel()),
-                  "rows_off": int(((got - want).abs() > K1_TOL).sum()),
+        if not finite or not err <= K1_TOL:
+            # What the flush held, saved for the replay and printed before
+            # the caller's check fails.
+            bound_src, bound_dst = seen["bound"][i]
+            bad = ~torch.isfinite(got) | ~((got - want).abs() <= K1_TOL)
+            rows = torch.cat([s[bad], d[bad]]).long()
+            saved = None
+            if save_dir is not None:
+                os.makedirs(save_dir, exist_ok=True)
+                saved = k1_replay.save_flush(
+                    os.path.join(save_dir, f"k1_flush_{phase or 'path'}_{i}.pt"),
+                    mat=mat, slots=s, dslots=d, edge=e, weights=scorer._ref.weights,
+                    post_hoc_masked=scorer._ref.post_hoc_masked, mlp=mlp,
+                    bound_src=bound_src, bound_dst=bound_dst, err=err, phase=phase, flush=i)
+            emit({"phase": "k1_flush_off_plain", "path": phase, "flush": i,
+                  "err_scaled": err, "rows": int(s.numel()), "k1_finite": finite,
+                  "plain_finite": bool(torch.isfinite(want).all()),
+                  "live_scores_finite": seen["live_finite"][i],
+                  "rows_off": int(bad.sum()),
+                  "slots_off": [int(x) for x in s[bad][:8]] + [int(x) for x in d[bad][:8]],
+                  "bound_off": [bool(x) for x in bound_src[bad.cpu().numpy()][:8]]
+                  + [bool(x) for x in bound_dst[bad.cpu().numpy()][:8]],
+                  "rows_off_nonfinite_values": int((~torch.isfinite(mat[rows])).sum()),
+                  "rows_off_max_abs": float(mat[rows].abs().max()) if rows.numel() else None,
+                  "mirror_nonfinite_values": int((~torch.isfinite(mat)).sum()),
                   "slot_rows_max_abs": float(mat[torch.cat([s, d]).long()].abs().max()),
+                  "unbound_slots": int((~bound_src).sum() + (~bound_dst).sum()),
                   "edge_max_abs": float(e.abs().max()),
-                  "want_max_abs": float(want.abs().max())})
+                  "want_max_abs": float(want.abs().max()), "saved": saved})
+        check(finite and bool(torch.isfinite(want).all()),
+              f"K1 or its plain version non-finite on a flush of {phase or 'the path'}")
         k1_err = max(k1_err, err)
         if mat is first:
             k1_in.append((s, d, e))
@@ -2473,7 +2581,7 @@ def wire_loop_phase(torch, dev, seed, out_dir):
     then each binary's boot in serve mode.  Returns (summary, K1's
     launches and flush inputs, K3's launches and tapped input)."""
     from dragonfly2_tpu_torch.bench import wire_loop
-    from dragonfly2_tpu_torch.ops import fused_score, segment
+    from dragonfly2_tpu_torch.ops import segment
     from dragonfly2_tpu_torch.ops.segment import _segment_sum_plain
     from dragonfly2_tpu_torch.trainer import train as train_mod
 
@@ -2503,7 +2611,7 @@ def wire_loop_phase(torch, dev, seed, out_dir):
     shutil.rmtree(work, ignore_errors=True)
     args = wire_loop.parse_args([
         "--hosts", str(SWARM_HOSTS), "--downloads", str(WIRE_DOWNLOADS),
-        "--tasks", str(SWARM_TASKS), "--probe-rounds", str(SWARM_PROBE_ROUNDS),
+        "--tasks", str(SWARM_TASKS), "--probe-rounds", str(WIRE_PROBE_ROUNDS),
         "--clients", str(WIRE_CLIENTS), "--sequential", str(WIRE_SEQUENTIAL),
         "--trials", str(SWARM_TRIALS), "--train-interval", str(WIRE_TRAIN_INTERVAL),
         "--seed", str(seed), "--out", work, "--device", "cuda",
@@ -2511,7 +2619,7 @@ def wire_loop_phase(torch, dev, seed, out_dir):
     reset_kernel_counts()
     sheds0 = shed_counts()
     t0 = time.perf_counter()
-    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)), \
+    with keep_k1_flushes(seen), \
             tapped(segment, "segment_sum_bucketed", keep_first_k3), \
             tapped(segment, "make_neighbor_gather", keep_gather), \
             tapped(train_mod, "train_gat_ranker", keep_steps):
@@ -2521,7 +2629,8 @@ def wire_loop_phase(torch, dev, seed, out_dir):
     launches = kernel_counts()
     shutil.rmtree(work, ignore_errors=True)
 
-    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+        torch, dev, seen, k1_save_dir(out_dir), "wire_loop")
 
     # K3 against its plain version on the GAT run's own first input.
     values, plan, k3_kw = seen["k3"]
@@ -2605,7 +2714,6 @@ def wire_lifecycle_phase(torch, dev, seed, out_dir):
     """Phase 17: the self-driving lifecycle over real sockets
     (``bench/wire_loop --lifecycle``).  Returns (summary, launches)."""
     from dragonfly2_tpu_torch.bench import wire_loop
-    from dragonfly2_tpu_torch.ops import fused_score
 
     seen = {"flushes": []}
     work = os.path.join(out_dir, "wire_lifecycle")
@@ -2621,13 +2729,14 @@ def wire_lifecycle_phase(torch, dev, seed, out_dir):
     reset_kernel_counts()
     sheds0 = shed_counts()
     t0 = time.perf_counter()
-    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+    with keep_k1_flushes(seen):
         summary = wire_loop.run(args, log=lambda line: print(line, flush=True))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = kernel_counts()
     shutil.rmtree(work, ignore_errors=True)
-    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+        torch, dev, seen, k1_save_dir(out_dir), "wire_lifecycle")
 
     walk, install, rows, k1, pc = (summary[k] for k in (
         "walk", "install", "rows", "k1", "parent_choice"))
@@ -2933,7 +3042,6 @@ def telemetry_qos_phase(torch, dev, seed, out_dir):
         init_flight_recorder, init_telemetry, stop_telemetry)
     from dragonfly2_tpu_torch.cli.scheduler import SchedulerConfig, build
     from dragonfly2_tpu_torch.config.schema import TracingSection
-    from dragonfly2_tpu_torch.ops import fused_score
     from dragonfly2_tpu_torch.records.synthetic import SyntheticCluster
     from dragonfly2_tpu_torch.rpc.scheduler_server import SchedulerRPCAdapter, host_to_wire
     from dragonfly2_tpu_torch.scheduler import ScorerBatcher
@@ -3008,7 +3116,7 @@ def telemetry_qos_phase(torch, dev, seed, out_dir):
     try:
         with tapped(ScorerBatcher, "_drain_locked", keep_drains), \
                 tapped(ScorerBatcher, "_dispatch_group", count_groups), \
-                tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+                keep_k1_flushes(seen):
             for i, arm in enumerate(TQ_ORDER):
                 durable = None
                 if TQ_RATES[arm] is None:
@@ -3045,7 +3153,8 @@ def telemetry_qos_phase(torch, dev, seed, out_dir):
     journal_flushes = merge_sketch_states([
         st for _, st in snaps[-1]["metrics"]["scheduler_eval_flush_seconds"]["series"]
     ])["total"] if snaps else -1
-    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+        torch, dev, seen, k1_save_dir(out_dir), "telemetry_qos")
 
     rows_by_tenant = {}
     for run in runs:
@@ -3142,7 +3251,6 @@ def peer_swarm_phase(torch, dev, seed, out_dir):
     Returns (the native arm's summary with the Python arm's under
     ``python_arm``, the launches of both arms)."""
     from dragonfly2_tpu_torch.bench import peer_swarm
-    from dragonfly2_tpu_torch.ops import fused_score
 
     arms, launches = {}, {}
     for arm, extra in (("native", []), ("python", ["--python-engine"])):
@@ -3154,13 +3262,14 @@ def peer_swarm_phase(torch, dev, seed, out_dir):
         reset_kernel_counts()
         sheds0 = shed_counts()
         t0 = time.perf_counter()
-        with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+        with keep_k1_flushes(seen):
             summary = peer_swarm.run(args, log=lambda line: print(line, flush=True))
         torch.cuda.synchronize()
         arm_launches = kernel_counts()
         phase_s = time.perf_counter() - t0
         check(len(seen["flushes"]) > 0, f"no K1 flush on the peer swarm's path ({arm} arm)")
-        k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+        k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+            torch, dev, seen, k1_save_dir(out_dir), f"peer_swarm_{arm}")
         out = {
             **summary, "arm": arm, "phase_seconds": phase_s, "kernel_launches": arm_launches,
             "sheds": sheds_since(sheds0),
@@ -3207,7 +3316,6 @@ def preheat_phase(torch, dev, seed, out_dir):
     ranking seed parents, dynconfig reaching the scheduler live.
     Returns (summary, launches)."""
     from dragonfly2_tpu_torch.bench import preheat_swarm
-    from dragonfly2_tpu_torch.ops import fused_score
 
     seen = {"flushes": []}
     args = preheat_swarm.parse_args([
@@ -3218,7 +3326,7 @@ def preheat_phase(torch, dev, seed, out_dir):
     reset_kernel_counts()
     sheds0 = shed_counts()
     t0 = time.perf_counter()
-    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+    with keep_k1_flushes(seen):
         summary = preheat_swarm.run(args, log=lambda line: print(line, flush=True))
     sheds = sheds_since(sheds0)
     torch.cuda.synchronize()
@@ -3231,7 +3339,8 @@ def preheat_phase(torch, dev, seed, out_dir):
     seed_rows = sum(int(((mat.float().cpu().numpy()[src, 9] == 1)
                          & (np.abs(edge).sum(axis=1) > 0)).sum())
                     for mat, (edge, src, _) in zip(seen["mirrors"], seen["flushes"]))
-    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+        torch, dev, seen, k1_save_dir(out_dir), "preheat")
     out = {
         **summary, "phase_seconds": phase_s, "kernel_launches": launches,
         "sheds": sheds,
@@ -3266,7 +3375,6 @@ def shard_fleet_phase(torch, dev, seed, out_dir):
     in-process shards' launches are seen; the child's are its own.
     Returns (summary, launches of (b))."""
     from dragonfly2_tpu_torch.bench import fleet_swarm, shard_fleet
-    from dragonfly2_tpu_torch.ops import fused_score
 
     # (a) the columnar fleet at BENCH_SW_r01.json's configuration.
     fargs = fleet_swarm.parse_args([f"--{k.replace('_', '-')}={v}" for k, v in SF_FLEET.items()])
@@ -3307,13 +3415,14 @@ def shard_fleet_phase(torch, dev, seed, out_dir):
     reset_kernel_counts()
     sheds0 = shed_counts()
     t0 = time.perf_counter()
-    with tapped(fused_score.FusedMLPScorer, "score", keep_k1_flushes(seen)):
+    with keep_k1_flushes(seen):
         summary = shard_fleet.run(args, log=lambda line: print(line, flush=True))
     torch.cuda.synchronize()
     launches = kernel_counts()
     phase_s = time.perf_counter() - t0
     check(len(seen["flushes"]) > 0, "no K1 flush on the in-process shards")
-    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(torch, dev, seen)
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+        torch, dev, seen, k1_save_dir(out_dir), "shard_fleet")
     out = {
         **summary, "phase_seconds": phase_s, "kernel_launches": launches,
         "sheds": sheds_since(sheds0),
@@ -3335,6 +3444,202 @@ def shard_fleet_phase(torch, dev, seed, out_dir):
     check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the shard "
           "fleet's flushes")
     return {"columnar": fleet_out, **out}, launches
+
+
+def push_phase(torch, dev, seed, out_dir):
+    """Phase 23: the push-reschedule path on the K1 serving path.
+    Returns (summary, launches)."""
+    import queue
+    from collections import Counter
+
+    from dragonfly2_tpu_torch.bench import k1_replay
+    from dragonfly2_tpu_torch.cli.scheduler import SchedulerConfig, build
+    from dragonfly2_tpu_torch.records.synthetic import PIECE_SIZE, SyntheticCluster
+    from dragonfly2_tpu_torch.rpc.scheduler_server import schedule_to_wire
+    from dragonfly2_tpu_torch.scheduler import ScheduleResultKind
+    from dragonfly2_tpu_torch.scheduler.push import PeerStreamHub, StallMonitor
+    from dragonfly2_tpu_torch.sim.swarm import host_from_latent
+    from dragonfly2_tpu_torch.trainer.export import MLPScorer, scorer_to_bytes
+
+    t_phase = time.perf_counter()
+    cfg = SchedulerConfig()
+    cfg.storage.dir = os.path.join(out_dir, "push_records")
+    shutil.rmtree(cfg.storage.dir, ignore_errors=True)
+    cfg.scheduling.algorithm = "ml"
+    cfg.scheduling.eval_feature_cache_hosts = STORE_SLOTS
+    cfg.scheduling.retry_interval_s = 0.0
+    weights = weights_from_seed(seed)
+    service = build(cfg, device=dev, scorer_blob=scorer_to_bytes(MLPScorer(weights=weights)),
+                    rng=random.Random(seed), seed_trigger=False)
+    ev = service.scheduling.evaluator
+    batcher = ev.batcher
+    hub = PeerStreamHub()
+    service.hub = hub
+    cluster = SyntheticCluster(num_hosts=N_HOSTS, seed=seed)
+    hosts = [host_from_latent(lh) for lh in cluster.hosts]
+
+    # The stream binding's writer queue: a push encodes the schedule and
+    # enqueues it, never blocking the scheduler's thread.
+    events = queue.SimpleQueue()
+
+    def subscribe(child_id):
+        def push(result):
+            events.put((child_id, time.perf_counter(), time.time(),
+                        [p.id for p in result.parents], schedule_to_wire(result)))
+        hub.register(child_id, push)
+
+    def drain():
+        out = []
+        while True:
+            try:
+                out.append(events.get_nowait())
+            except queue.Empty:
+                return out
+
+    reset_kernel_counts()
+    calls0 = batcher.scorer_calls
+    for h in hosts:
+        service.announce_host(h)
+    urls = warm_tasks(service, cluster, hosts, n_tasks=N_TASKS, hosts_per_task=PUSH_WARM)
+    warm_s = time.perf_counter() - t_phase
+    children = []
+    base = N_TASKS * PUSH_WARM
+    for t in range(N_TASKS):
+        group = []
+        for i in range(PUSH_CHILDREN):
+            res = service.register_peer(host=hosts[base + t * PUSH_CHILDREN + i], url=urls[t],
+                                        peer_id=f"push-{t}-{i}")
+            check(res.schedule is not None and res.schedule.kind is ScheduleResultKind.PARENTS,
+                  f"push child {t}/{i} got no parents: {res.schedule}")
+            subscribe(res.peer.id)
+            group.append(res.peer)
+        children.append(group)
+    register_s = time.perf_counter() - t_phase - warm_s
+    check(not drain(), "a push before any trigger")
+
+    seen = {"flushes": []}
+    bad_ids, eject_rows, latency_ms = set(), [], []
+    with keep_k1_flushes(seen):
+        # Ejection: each task's warm parent with the most children (of
+        # those with a piece cost on record, so that one more makes the
+        # bad-node test's sample) turns bad.
+        t_eject = time.perf_counter()
+        for group in children:
+            task = group[0].task
+            counts = Counter(p.id for c in group for p in task.load_parents(c.id)
+                             if p.id.startswith("warm-") and p.piece_costs())
+            check(bool(counts), f"task {task.id}: no warm parent with piece costs")
+            bad_id = min(counts, key=lambda k: (-counts[k], k))
+            bad = service.resource.peer_manager.load(bad_id)
+            kids = sorted(c.id for c in group
+                          if bad_id in {p.id for p in task.load_parents(c.id)})
+            reporter = service.resource.peer_manager.load(kids[0])
+            cost = int(100 * max(bad.piece_costs() or [10**6]) + 10**9)
+            t0 = time.perf_counter()
+            service.report_piece_finished(reporter, 0, parent_id=bad_id, length=PIECE_SIZE,
+                                          cost_ns=cost)
+            got = drain()
+            bad_ids.add(bad_id)
+            check(ev.is_bad_node(bad), f"ejected parent {bad_id} is not bad")
+            pushed = sorted(cid for cid, *_ in got)
+            check(pushed == kids, f"task {task.id}: pushes to {pushed}, children {kids}")
+            check(all(tp - t0 < hub.push_cooldown_s for _, tp, *_ in got),
+                  "an ejection push outside the report's cooldown")
+            check(all(parents and not bad_ids & set(parents) for _, _, _, parents, _ in got),
+                  f"an ejection push names a bad parent: {got}")
+            check(all(bad_id not in {p.id for p in task.load_parents(k)} for k in kids),
+                  f"a child kept its edge to the ejected parent {bad_id}")
+            latency_ms += [(tp - t0) * 1e3 for _, tp, *_ in got]
+            eject_rows.append(len(got))
+        eject_s = time.perf_counter() - t_eject
+
+        # The stall sweep over the idle children, its times cut.
+        returns = []
+        sweep = service.reschedule_stalled
+
+        def counted(max_idle_s):
+            n = sweep(max_idle_s)
+            returns.append(n)
+            return n
+
+        service.reschedule_stalled = counted
+        idle_until = max(c.updated_at for g in children for c in g) + PUSH_STALL_IDLE_S
+        time.sleep(max(0.0, idle_until - time.time()))
+        monitor = StallMonitor(service, max_idle_s=PUSH_STALL_IDLE_S,
+                               interval_s=PUSH_STALL_SWEEP_S)
+        t_stall = time.perf_counter()
+        monitor.start()
+        time.sleep(PUSH_STALL_RUN_S)
+        monitor.stop()
+        monitor._thread.join(60.0)
+        check(not monitor._thread.is_alive(), "the stall monitor did not stop")
+        stall_s = time.perf_counter() - t_stall
+        del service.reschedule_stalled
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    scorer_calls = batcher.scorer_calls - calls0
+    stall = drain()
+    last_push = {}
+    for cid, _, wall, _, _ in stall:
+        last_push[cid] = max(wall, last_push.get(cid, 0.0))
+    peers = {c.id: c for g in children for c in g}
+    check(len(stall) == sum(returns) > 0,
+          f"{len(stall)} stall pushes, the sweeps returned {returns}")
+    check(all(peers[cid].updated_at >= wall for cid, wall in last_push.items()),
+          "a stall-pushed child's idle clock did not restart")
+    check(all(parents and not bad_ids & set(parents) for _, _, _, parents, _ in stall),
+          "a stall push names a bad parent")
+    check(launches["fused_gather_mlp_score"] == scorer_calls > 0,
+          f"K1 launches {launches['fused_gather_mlp_score']} != the batcher's scorer calls "
+          f"{scorer_calls} on the push path")
+    check(launches["segment_sum"] == 0 and launches["rule_weighted_sum"] == 0,
+          f"another kernel launched on the push path: {launches}")
+    check(len(seen["flushes"]) > 0, "no K1 flush on the push path")
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+        torch, dev, seen, k1_save_dir(out_dir), "push")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the push "
+          "path's flushes")
+
+    # The stress: seeded flushes over store-like rows and the path's edges.
+    t_stress = time.perf_counter()
+    stress = k1_replay.stress(
+        dev, flushes=K1_STRESS_FLUSHES, repeats=K1_STRESS_REPEATS, seed=seed,
+        weights=weights, rows=k1_replay.store_like_rows(seed),
+        edges=np.concatenate([f[0] for f in seen["flushes"]]),
+        save_dir=k1_save_dir(out_dir))
+    stress["seconds"] = time.perf_counter() - t_stress
+    check(stress["max_err_scaled"] <= K1_TOL and stress["flushes_over_tol"] == 0,
+          f"K1 off its plain version on the stress: {stress}")
+    check(stress["k1_bits_vary"] == 0, f"K1's bits vary across back-to-back launches: {stress}")
+
+    shutil.rmtree(cfg.storage.dir, ignore_errors=True)
+
+    lat = sorted(latency_ms)
+    pushes = sum(eject_rows) + len(stall)
+    out = {
+        "seconds": time.perf_counter() - t_phase, "warm_seconds": warm_s,
+        "register_seconds": register_s, "ejection_seconds": eject_s,
+        "stall_seconds": stall_s, "children": N_TASKS * PUSH_CHILDREN,
+        "pushes": {"ejection": sum(eject_rows), "stall": len(stall), "total": pushes},
+        "pushes_per_s": pushes / (eject_s + stall_s),
+        "ejection_pushes_per_task": {"min": min(eject_rows), "max": max(eject_rows)},
+        "stall_sweeps": returns,
+        "report_to_callback_ms": {"p50": lat[len(lat) // 2],
+                                  "p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))]},
+        "kernel_launches": launches,
+        "k1": {"launches": launches["fused_gather_mlp_score"], "scorer_calls": scorer_calls,
+               "max_err_scaled": k1_err, "tol_scaled": K1_TOL,
+               "flushes_checked": len(seen["flushes"]),
+               "flush_rows_checked": int(sum(len(f[1]) for f in seen["flushes"])),
+               "ms_128": k1_ms, "us_128": k1_ms * 1e3, "plain_ms_128": k1_plain_ms,
+               "bound_ms_128": k1_bound_ms},
+        "k1_stress": stress,
+        "cuts": {"warm_per_task": [HOSTS_PER_TASK, PUSH_WARM],
+                 "stall_max_idle_s": [10.0, PUSH_STALL_IDLE_S],
+                 "stall_sweep_interval_s": [2.0, PUSH_STALL_SWEEP_S]},
+    }
+    emit({"phase": "push", **out})
+    return out, launches
 
 
 def main(argv=None) -> int:
@@ -3640,6 +3945,9 @@ def main(argv=None) -> int:
     # -- 22. the sharded scheduler fleet, K1 in each ml shard ----------------
     loop["shard_fleet"], sf_launches = shard_fleet_phase(torch, dev, args.seed, work_dir)
     sf = loop["shard_fleet"]
+    # -- 23. the push-reschedule path, K1 ranking pushed parents -------------
+    loop["push"], push_launches = push_phase(torch, dev, args.seed, work_dir)
+    pu = loop["push"]
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
@@ -3647,7 +3955,8 @@ def main(argv=None) -> int:
          "launches": launches["fused_gather_mlp_score"]
          + wire_launches["fused_gather_mlp_score"] + lc_launches["fused_gather_mlp_score"]
          + tq_launches["fused_gather_mlp_score"] + ps_launches["fused_gather_mlp_score"]
-         + ph_launches["fused_gather_mlp_score"] + sf_launches["fused_gather_mlp_score"],
+         + ph_launches["fused_gather_mlp_score"] + sf_launches["fused_gather_mlp_score"]
+         + push_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
@@ -3656,12 +3965,16 @@ def main(argv=None) -> int:
          "launches_peer_swarm_python_arm": ps["k1"]["launches_python_arm"],
          "launches_preheat": ph_launches["fused_gather_mlp_score"],
          "launches_shard_fleet": sf_launches["fused_gather_mlp_score"],
+         "launches_push": push_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
          "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
          "max_err_scaled_telemetry_qos": tq["k1"]["max_err_scaled"],
          "max_err_scaled_peer_swarm": ps["k1"]["max_err_scaled"],
          "max_err_scaled_preheat": ph["k1"]["max_err_scaled"],
          "max_err_scaled_shard_fleet": sf["k1"]["max_err_scaled"],
+         "max_err_scaled_push": pu["k1"]["max_err_scaled"],
+         "max_err_scaled_stress": pu["k1_stress"]["max_err_scaled"],
+         "stress_launches": pu["k1_stress"]["launches"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "share_of_bound": k1_bound / k1_ms, "ms_128": k1_times[128][0],
@@ -3670,7 +3983,8 @@ def main(argv=None) -> int:
          "ms_telemetry_qos_128": tq["k1"]["ms_128"],
          "ms_peer_swarm_128": ps["k1"]["ms_128"],
          "ms_preheat_128": ph["k1"]["ms_128"],
-         "ms_shard_fleet_128": sf["k1"]["ms_128"]},
+         "ms_shard_fleet_128": sf["k1"]["ms_128"],
+         "ms_push_128": pu["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

@@ -55,7 +55,12 @@ download is ok and its sha256 equals its origin's; the Download records
 before the kill are on each task's v1 owner only; the victim's tasks'
 records after the kill are on their v2 owners only, one per wave-2
 download; a handoff span on each survivor; the origin served each
-survivor file at most 1.25 x its size; no evaluator degrade and no
+survivor file at most 1.25 x its size; the child's diagnostics sidecar
+(started by its ``run`` at the reference's default, on an ephemeral port
+here), scraped just before the kill, counts in
+``scheduler_download_records_total`` the Download records the run read
+from the child's storage, and its ``/debug/spans`` holds its
+``rpc/register_peer`` spans; no evaluator degrade and no
 batcher fallback in process; every daemon ran the native engine
 (``engine_ran``: its store, ``NativePieceServer``, pieces through the
 native fetch loop) and no native server leaked at teardown.  ``engine``
@@ -99,6 +104,33 @@ from .peer_swarm import (
 SCHEDULERS = 3          # two in this process, one child
 IN_PROCESS = 2
 READY_LINE = "scheduler: serving rpc on "
+DIAG_LINE = "scheduler: diagnostics on "
+
+
+def scrape_diagnostics(base: str) -> dict:
+    """The child's diagnostics sidecar read once: its ``/metrics``
+    counters of the scheduler's records and registrations, and the span
+    names in ``/debug/spans``."""
+    import urllib.request
+
+    with urllib.request.urlopen(base + "/metrics", timeout=10) as resp:
+        text = resp.read().decode()
+    series = {}
+    for line in text.splitlines():
+        if line.startswith("scheduler_") and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            series[name] = float(value)
+    spans = _get_json(base + "/debug/spans")
+    names = [s["name"] for rs in spans.get("resourceSpans", [])
+             for ss in rs.get("scopeSpans", []) for s in ss.get("spans", [])]
+    return {
+        "url": base,
+        "download_records_total": series.get("scheduler_download_records_total", 0.0),
+        "register_peer_total": sum(v for k, v in series.items()
+                                   if k.startswith("scheduler_register_peer_total")),
+        "spans": len(names),
+        "register_spans": names.count("rpc/register_peer"),
+    }
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -307,14 +339,18 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             "DRAGONFLY_SCHEDULER_SCHEDULING_RETRY_INTERVAL_S": "0",
             "DRAGONFLY_SCHEDULER_MANAGER_ADDR": manager.url,
             "DRAGONFLY_SCHEDULER_DYNCONFIG_REFRESH_S": str(args.refresh_s),
+            # The diagnostics sidecar at the reference's default, on an
+            # ephemeral port (its boot line carries the URL).
+            "DRAGONFLY_SCHEDULER_METRICS_PORT": "0",
         })
         child = ChaosProcess(
             ["-m", "dragonfly2_tpu_torch.cli.scheduler", "--device", args.device,
              "--scorer-blob", blob_path],
-            ready_prefixes=[READY_LINE], env=env,
+            ready_prefixes=[READY_LINE, DIAG_LINE], env=env,
         ).start()
-        line = child.wait_ready(120)[READY_LINE]
-        child_url = re.search(r"rpc on (\S+)", line).group(1).rstrip(",")
+        ready = child.wait_ready(120)
+        child_url = re.search(r"rpc on (\S+)", ready[READY_LINE]).group(1).rstrip(",")
+        diag_url = re.search(r"diagnostics on (\S+)/metrics", ready[DIAG_LINE]).group(1)
         urls = [s.url for s in servings] + [child_url]
         port_of = {int(u.rsplit(":", 1)[1]): u for u in urls}
 
@@ -392,6 +428,8 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
             before = {sid: _records_by_task(s.service.storage)
                       for sid, s in zip((id_of[s.url] for s in servings), servings)}
             before[victim_id] = _records_by_task(Storage(child_records))
+            # The child's own counters and spans, read off its sidecar.
+            child_diag = scrape_diagnostics(diag_url)
             in_flight_at_kill = len(wave2_a) < len(threads_a)
             t_kill = time.perf_counter()
             child.sigkill()
@@ -490,6 +528,7 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
                           "max_inflight": guards[0].admission.max_inflight,
                           "p99_budget_s": guards[0].admission.p99_budget_s},
             "child_output_tail": child.lines[-6:],
+            "child_diagnostics": child_diag,
             "engine": engine,
         }
         survivor_ids = [id_of[s.url] for s in servings]
@@ -518,6 +557,10 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
                 marker in line for line in child.lines
                 for marker in ("ranking with rules", "degrading to per-request", "Traceback")),
             "engine_ran": engine_ran(engine, True),
+            # The child's scraped record counter equals the records the
+            # phase read from its storage before the kill.
+            "child_metrics_match_records": child_diag["download_records_total"]
+            == sum(before[victim_id].values()) > 0 and child_diag["register_spans"] > 0,
         }
     finally:
         default_tracer.exporter = saved_exporter

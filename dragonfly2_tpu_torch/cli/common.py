@@ -6,8 +6,11 @@ Port of ``base_parser`` (with the tracing and telemetry flags
 ``init_logging`` (which installs a ``DF_FAULTINJECT`` scenario from the
 environment) and ``init_debug`` of ``dragonfly2_tpu/cli/common.py``.
 New here: ``stop_telemetry``, which both binaries call on shutdown, and
-``wait_for_signal``, the serve modes' wait.  ``init_diagnostics`` (the
-``/metrics`` sidecar) is ROADMAP queue 1 item 14.
+``wait_for_signal``, the serve modes' wait.  ``init_diagnostics`` starts
+the ``/metrics`` sidecar (``utils/diagnostics.DiagnosticsServer``) the
+scheduler's and the daemon's ``run`` start at the reference's defaults;
+the port also stops it on shutdown, where the reference leaves it to the
+process's exit.
 """
 
 from __future__ import annotations
@@ -169,6 +172,50 @@ def stop_telemetry(journal=None, engine=None) -> None:
             slo_mod.install_engine(None)
     if journal is not None:
         journal.close()
+
+
+def init_diagnostics(cfg_metrics, service: str):
+    """The uniform /metrics + /debug/spans + /debug/exemplars sidecar on
+    the scheduler and daemon (the manager serves the same routes on its
+    REST port).  Gated behind config ``metrics.enable``; port conflicts
+    degrade to a warning — diagnostics must never keep a plane down.
+    → the server (its ``stop()`` ends it) or None."""
+    if cfg_metrics is None or not cfg_metrics.enable:
+        return None
+    try:
+        from ..utils.diagnostics import DiagnosticsServer
+
+        srv = DiagnosticsServer(port=cfg_metrics.port)
+        srv.serve()
+        print(
+            f"{service}: diagnostics on {srv.url}/metrics "
+            f"(+ /debug/spans, /debug/exemplars)", flush=True,
+        )
+        return srv
+    except OSError as exc:
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "%s: diagnostics endpoint not started (%s)", service, exc
+        )
+        return None
+
+
+def grpc_transport(what: str):
+    """→ the ``rpc.grpc_transport`` module, imported only when a binary's
+    configuration asks for gRPC (``what`` names that setting).  On a
+    machine without ``grpc`` or ``protobuf`` raises ``ConfigError``
+    naming the missing package, which the binaries turn into exit 2."""
+    try:
+        from ..rpc import grpc_transport as mod
+    except ImportError as exc:
+        from ..config import ConfigError
+
+        raise ConfigError(
+            f"{what} needs the gRPC transport, and its package "
+            f"{exc.name or 'grpc'!r} is not installed ({exc})"
+        ) from exc
+    return mod
 
 
 def init_debug(args):

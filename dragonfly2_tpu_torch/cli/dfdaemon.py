@@ -16,14 +16,19 @@ A comma-separated scheduler list builds the reference's
 ``rpc/steering.SteeringSchedulerClient``: each task's calls go to its
 owner on the consistent-hash ring (the shard ring the schedulers publish
 on announce answers, once one has), announces fan out to every
-scheduler.  What is not ported exits 2 naming its ROADMAP queue 1 item:
-``--pex-port`` (``daemon/pex_net.py``), the config's ``security`` and
-``proxy.sni_*`` keys and ``control_vsock_port`` (all item 14), and a
-``grpc://`` scheduler (item 12c).  At the defaults the piece store, the
-piece server and the fetch loop are the port's native engine, as in the
-reference (``native_fetch`` and the engine's build decide; without a
-library the Python ones run).  ``run`` prints at boot that the diagnostics sidecar
-is not started (item 14), and stops on SIGTERM as on SIGINT.
+scheduler.  A ``grpc://`` scheduler is dialed with
+``rpc/grpc_transport.GRPCStreamingScheduler``: per-peer calls ride the
+bidi ``announce_peer`` stream, and the conductor adopts the reschedules
+the scheduler pushes (on a machine without ``grpc`` or ``protobuf`` it
+exits 2 naming the package).  What is not ported exits 2 naming its
+ROADMAP queue 1 item: ``--pex-port`` (``daemon/pex_net.py``), the
+config's ``security`` and ``proxy.sni_*`` keys and ``control_vsock_port``
+(all item 14).  At the defaults the piece store, the piece server and
+the fetch loop are the port's native engine, as in the reference
+(``native_fetch`` and the engine's build decide; without a library the
+Python ones run).  ``run`` starts the diagnostics sidecar (``metrics``:
+port 8000 by default; a port in use only warns) and stops it on exit,
+and stops on SIGTERM as on SIGINT.
 """
 
 from __future__ import annotations
@@ -38,14 +43,16 @@ from ..config import ConfigError, DaemonConfig, load_config
 from ..daemon import DaemonStorage, UploadManager
 from ..daemon.conductor import Conductor
 from ..daemon.host_announcer import HostAnnouncer
-from ..rpc import HTTPPieceFetcher, RemoteScheduler
+from ..rpc import HTTPPieceFetcher
 from ..scheduler.resource import Host
 from ..source import PieceSourceFetcher
 from ..utils import idgen
 from ..utils.ping import make_host_pinger
 from .common import (
     base_parser,
+    grpc_transport,
     init_debug,
+    init_diagnostics,
     init_flight_recorder,
     init_logging,
     init_telemetry,
@@ -58,7 +65,8 @@ log = logging.getLogger(__name__)
 
 def _scheduler_urls(scheduler_url: str) -> list:
     """The scheduler addresses, split as the reference splits them;
-    raises ``ConfigError`` for what the port does not carry yet."""
+    raises ``ConfigError`` for none, or for a ``grpc://`` one on a
+    machine without the gRPC packages."""
     # Comma-separated scheduler list → consistent-hash steering: each
     # task's swarm state lives on ONE replica (pkg/balancer semantics,
     # the reference's rpc/steering.py).
@@ -66,10 +74,7 @@ def _scheduler_urls(scheduler_url: str) -> list:
     if not scheduler_urls:
         raise ConfigError("dfdaemon: no scheduler address")
     if any(u.startswith("grpc://") for u in scheduler_urls):
-        raise ConfigError(
-            "a grpc:// scheduler needs the gRPC transport, which is not "
-            "ported yet (ROADMAP queue 1 item 12c)"
-        )
+        grpc_transport("a grpc:// scheduler")
     return scheduler_urls
 
 
@@ -113,12 +118,13 @@ def build(cfg: DaemonConfig, scheduler_url: str, *, prefer_native: bool = True):
         download_port=piece_server.port,
         concurrent_upload_limit=cfg.concurrent_upload_limit,
     )
-    if len(scheduler_urls) > 1:
-        from ..rpc.steering import SteeringSchedulerClient
+    from ..rpc.steering import SteeringSchedulerClient, default_scheduler_factory
 
-        client = SteeringSchedulerClient(scheduler_urls, factory=RemoteScheduler)
+    if len(scheduler_urls) > 1:
+        client = SteeringSchedulerClient(scheduler_urls)
     else:
-        client = RemoteScheduler(scheduler_urls[0])
+        # grpc:// → the streaming client (pushed reschedules), else HTTP.
+        client = default_scheduler_factory(scheduler_urls[0])
     # Declared tenant identity (DESIGN.md §26): stamped on announces and
     # registers; the wire client carries it as client state.
     if cfg.tenant and hasattr(client, "tenant"):
@@ -214,7 +220,7 @@ def run(argv=None) -> int:
     init_logging(args, "dfdaemon")
     debug = init_debug(args)
     init_tracing(args)
-    journal = engine = None
+    journal = engine = diagnostics = None
     parts = control = seed = None
     try:
         if args.pex_port >= 0:
@@ -225,12 +231,11 @@ def run(argv=None) -> int:
             cfg = load_config(DaemonConfig, args.config)
             init_flight_recorder(args, cfg.tracing, "dfdaemon")
             journal, engine = init_telemetry(args, cfg.telemetry, "dfdaemon")
+            diagnostics = init_diagnostics(cfg.metrics, "dfdaemon")
             parts = build(cfg, args.scheduler)
         except ConfigError as exc:
             print(f"dfdaemon: {exc}", file=sys.stderr)
             return 2
-        print("dfdaemon: the reference also starts the diagnostics sidecar "
-              "(/metrics); it is not ported (ROADMAP queue 1 item 14)", flush=True)
 
         # Control API (daemon Download RPC analog): loopback by DEFAULT —
         # /download writes local files on behalf of same-machine dfget.
@@ -318,6 +323,8 @@ def run(argv=None) -> int:
             seed["seed_endpoint"].stop()
             seed["seeder"].queue.stop()
         stop_telemetry(journal, engine)
+        if diagnostics is not None:
+            diagnostics.stop()
         if debug is not None:
             debug.stop()
 

@@ -15,9 +15,13 @@ the registry persisted under ``registry.blob_dir``.
 (ctrl-c to stop)``, serves until SIGINT or SIGTERM and exits 0.  What is
 not ported exits 2 naming its ROADMAP queue 1 item: ``--replicate-from``
 and the config's ``ha``, ``token_secret``, ``users_db``,
-``root_password``, ``oauth_providers``, ``ca_dir``, ``objectstorage`` and
-``metrics`` keys (item 14), and ``server.grpc_port >= 0`` (item 12c).
-As in the reference, ``run`` points the process tracer at ``--otlp`` /
+``root_password``, ``oauth_providers``, ``ca_dir`` and ``objectstorage``
+keys (item 14).  ``server.grpc_port >= 0`` also serves
+``ManagerGRPCServer`` over the same registry and clusters (no RBAC and
+no CA: item 14); on a machine without ``grpc`` or ``protobuf`` it exits 2
+naming the package.  The ``metrics`` section parses, as in the
+reference: the manager serves ``/metrics`` and ``/debug/*`` on its REST
+port.  As in the reference, ``run`` points the process tracer at ``--otlp`` /
 ``--trace-file``, attaches the flight recorder and starts the metric
 journal and the SLO engine; it stops the journal and the engine on
 shutdown.
@@ -39,6 +43,7 @@ from ..manager import ClusterManager, ModelRegistry, Searcher
 from ..manager.registry import BlobStore
 from .common import (
     base_parser,
+    grpc_transport,
     init_debug,
     init_flight_recorder,
     init_logging,
@@ -121,11 +126,13 @@ def build(cfg: ManagerConfig):
 
 @dataclass
 class ManagerServing:
-    """What ``serve`` started; ``stop()`` stops the REST server, then the
-    metric journal and the SLO engine when the binary handed them over."""
+    """What ``serve`` started; ``stop()`` stops the REST server and the
+    gRPC server, then the metric journal and the SLO engine when the
+    binary handed them over."""
 
     parts: dict
     rest: object
+    grpc_server: object = None
     journal: object = None
     slo_engine: object = None
 
@@ -135,6 +142,8 @@ class ManagerServing:
 
     def stop(self) -> None:
         self.rest.stop()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
         stop_telemetry(self.journal, self.slo_engine)
 
 
@@ -142,15 +151,16 @@ def serve(cfg: Optional[ManagerConfig] = None) -> ManagerServing:
     """The binary's serve mode (reference cli/manager.py:138-351, single
     node) as a composition: ``ManagerRESTServer`` over ``build(cfg)`` on
     ``server.host:server.port`` (0 binds an ephemeral port), with the
-    config's rate limit and ``jobs_min_requeue_s``.  Raises
-    ``ConfigError`` for a gRPC port, before anything is built."""
+    config's rate limit and ``jobs_min_requeue_s``, and with
+    ``server.grpc_port >= 0`` ``ManagerGRPCServer`` sharing its rate-limit
+    bucket.  Raises ``ConfigError`` naming the package, before anything
+    is built, when gRPC is asked for and ``grpc`` or ``protobuf`` is
+    missing."""
     cfg = cfg or ManagerConfig()
     cfg.validate()
+    grpc_mod = None
     if cfg.server.grpc_port >= 0:
-        raise ConfigError(
-            "server.grpc_port >= 0 asks for the gRPC transport, "
-            "which is not ported yet (ROADMAP queue 1 item 12c)"
-        )
+        grpc_mod = grpc_transport("server.grpc_port >= 0")
     from ..manager.rest import ManagerRESTServer
     from ..rpc.ratelimit import maybe_bucket
 
@@ -166,10 +176,24 @@ def serve(cfg: Optional[ManagerConfig] = None) -> ManagerServing:
         rollout=parts["rollout"],
     )
     rest.serve()
+    grpc_server = None
+    if grpc_mod is not None:
+        # Same SHARED rate-limit bucket as REST (qps bounds the service).
+        grpc_server = grpc_mod.ManagerGRPCServer(
+            parts["registry"], parts["clusters"], parts["searcher"],
+            host=cfg.server.host, port=cfg.server.grpc_port,
+            rate_limit=bucket,
+        )
+        grpc_server.serve()
     # flush: under a pipe (supervisors, e2e harnesses) the ready line must
     # be visible immediately, not at buffer-fill.
-    print(f"manager: serving REST on {rest.url} (ctrl-c to stop)", flush=True)
-    return ManagerServing(parts=parts, rest=rest)
+    print(
+        f"manager: serving REST on {rest.url}"
+        + (f" and grpc on {grpc_server.target}" if grpc_server else "")
+        + " (ctrl-c to stop)",
+        flush=True,
+    )
+    return ManagerServing(parts=parts, rest=rest, grpc_server=grpc_server)
 
 
 def run(argv=None) -> int:

@@ -38,11 +38,16 @@ SIGINT or SIGTERM, then stops what it started in the reference's order
 and exits 0.  ``--scorer-blob PATH`` (the port's own option) reads an
 exported scorer artifact and installs K1's fused scorer as ``serve``'s
 ``scorer_blob`` does, so a scheduler started as a child process ranks
-with the same weights as one composed in process.  A gRPC port
-(``server.grpc_port >= 0``) or a ``grpc://`` trainer address exits 2
-naming ROADMAP queue 1 item 12c; a config key
+with the same weights as one composed in process.  With
+``server.grpc_port >= 0`` serve mode also binds ``SchedulerGRPCServer``
+(the bidi push-reschedule stream and its ``PeerStreamHub``) over the
+same service, and with ``scheduling.stall_max_idle_s > 0`` the
+``StallMonitor`` sweeps idle subscribed peers; a ``grpc://`` trainer
+address uploads over ``GRPCTrainerClient``.  On a machine without the
+``grpc`` or ``protobuf`` package these exit 2 naming it.  A config key
 whose reader is not ported exits 2 naming its item.  As in the
-reference, ``run`` points the process tracer at ``--otlp`` /
+reference, ``run`` starts the diagnostics sidecar (``metrics``: port
+8000 by default; a port in use only warns), points the process tracer at ``--otlp`` /
 ``--trace-file``, attaches the flight recorder (``--trace-log`` or
 ``tracing.log_path``) and starts the metric journal (``--metric-journal``
 or ``telemetry.journal_path``) and the SLO engine (``telemetry.slos``);
@@ -84,7 +89,9 @@ from ..trainer.export import load_scorer
 from ..utils import gc as dfgc
 from .common import (
     base_parser,
+    grpc_transport,
     init_debug,
+    init_diagnostics,
     init_flight_recorder,
     init_logging,
     init_telemetry,
@@ -195,6 +202,8 @@ class SchedulerServing:
     runner: dfgc.GC
     scheduler_id: str
     topology_state_path: Optional[str] = None
+    grpc_server: object = None
+    stall_monitor: object = None
     cluster_link: object = None
     job_worker: object = None
     dynconfig: object = None
@@ -206,6 +215,7 @@ class SchedulerServing:
     qos_autopilot: object = None
     journal: object = None
     slo_engine: object = None
+    diagnostics: object = None
 
     @property
     def url(self) -> str:
@@ -213,6 +223,10 @@ class SchedulerServing:
 
     def stop(self) -> None:
         self.rpc_server.stop()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
+        if self.stall_monitor is not None:
+            self.stall_monitor.stop()
         if self.announcer is not None:
             self.announcer.stop()
         if self.job_worker is not None:
@@ -233,6 +247,8 @@ class SchedulerServing:
             self.service.networktopology.save(self.topology_state_path)
         self.runner.stop()
         stop_telemetry(self.journal, self.slo_engine)
+        if self.diagnostics is not None:
+            self.diagnostics.stop()
 
 
 def _job_worker(service: SchedulerService, manager_endpoints, scheduler_id: str, token):
@@ -361,6 +377,42 @@ def _dynconfig(cfg: SchedulerConfigFile, service: SchedulerService, manager_endp
     return dynconfig
 
 
+def _trainer_link(addr: str, grpc_mod):
+    """The Announcer's trainer: ``RemoteTrainer`` over HTTP, or for a
+    ``grpc://`` address the Train-stream client adapted to the
+    announcer's ``open_train_stream`` session surface (reference
+    cli/scheduler.py:504-538)."""
+    if not addr.startswith("grpc://"):
+        from ..rpc import RemoteTrainer
+
+        return RemoteTrainer(addr)
+    client = grpc_mod.GRPCTrainerClient(addr[len("grpc://"):])
+
+    class _Session:
+        def __init__(self, ip, hostname, scheduler_id):
+            self._ident = dict(ip=ip, hostname=hostname, scheduler_id=scheduler_id)
+            self.downloads = []
+            self.topologies = []
+
+        def send_download_shard(self, path):
+            self.downloads.append(path)
+
+        def send_network_topology_shard(self, path):
+            self.topologies.append(path)
+
+        def close_and_train(self):
+            return client.train(
+                **self._ident, download_shards=self.downloads,
+                topology_shards=self.topologies,
+            )
+
+    class _GRPCTrainerLink:
+        def open_train_stream(self, *, ip, hostname, scheduler_id):
+            return _Session(ip, hostname, scheduler_id)
+
+    return _GRPCTrainerLink()
+
+
 def serve(
     cfg: Optional[SchedulerConfigFile] = None,
     *,
@@ -382,22 +434,20 @@ def serve(
     snapshot it writes (reference cli/scheduler.py:267-304).  A
     ``scorer_blob`` installs K1's fused scorer, so announces arriving
     over HTTP are ranked by K1 until a subscription installs what
-    ``load_scorer`` returns.  Raises ``ConfigError`` for what is not
-    ported (a gRPC port, a ``grpc://`` trainer)."""
+    ``load_scorer`` returns.  With ``server.grpc_port >= 0`` the gRPC
+    server binds the same service (and the stall monitor starts when
+    ``scheduling.stall_max_idle_s > 0``); a ``grpc://`` trainer uploads
+    over gRPC.  Raises ``ConfigError`` naming the package when either
+    needs ``grpc`` or ``protobuf`` and the machine lacks it."""
     cfg = cfg or SchedulerConfigFile()
     cfg.validate()
-    if cfg.server.grpc_port >= 0:
-        raise ConfigError(
-            "server.grpc_port >= 0 asks for the gRPC transport, "
-            "which is not ported yet (ROADMAP queue 1 item 12c)"
-        )
     trainer_link = cfg.trainer.enable and cfg.trainer.addr
+    grpc_mod = None
+    if cfg.server.grpc_port >= 0:
+        grpc_mod = grpc_transport("server.grpc_port >= 0")
     if trainer_link and cfg.trainer.addr.startswith("grpc://"):
-        raise ConfigError(
-            "a grpc:// trainer.addr needs the gRPC transport, "
-            "which is not ported yet (ROADMAP queue 1 item 12c)"
-        )
-    from ..rpc import RemoteTrainer, SchedulerHTTPServer
+        grpc_mod = grpc_transport("a grpc:// trainer.addr")
+    from ..rpc import SchedulerHTTPServer
     from ..rpc.ratelimit import maybe_bucket
 
     service = build(cfg, device=device, scorer_blob=scorer_blob, rng=rng,
@@ -441,6 +491,29 @@ def serve(
         service, host=cfg.server.host, port=cfg.server.port, rate_limit=bucket
     )
     rpc_server.serve()
+    # Both transports bind the SAME service: HTTP/JSON and binary gRPC
+    # (pkg/rpc serves gRPC in the reference; JSON stays for curl/debug).
+    grpc_server = stall_monitor = None
+    if cfg.server.grpc_port >= 0:
+        # ONE shared bucket: the configured qps bounds the SERVICE, not
+        # each transport separately.
+        grpc_server = grpc_mod.SchedulerGRPCServer(
+            service, host=cfg.server.host, port=cfg.server.grpc_port,
+            rate_limit=bucket,
+        )
+        grpc_server.serve()
+        # Stall sweep: server-initiated reschedules for idle peers on the
+        # bidi wire (push.StallMonitor; needs the hub the gRPC server
+        # attached to the service).
+        if cfg.scheduling.stall_max_idle_s > 0:
+            from ..scheduler.push import StallMonitor
+
+            stall_monitor = StallMonitor(
+                service,
+                max_idle_s=cfg.scheduling.stall_max_idle_s,
+                interval_s=cfg.scheduling.stall_sweep_interval_s,
+            )
+            stall_monitor.start()
     # ONE identity for registration and the announcer's keepalive tick;
     # the serving port joins the id so replicas on one host stay
     # distinct in the manager's cluster table.
@@ -448,6 +521,7 @@ def serve(
     serving = SchedulerServing(
         service=service, rpc_server=rpc_server, runner=runner,
         scheduler_id=scheduler_id, topology_state_path=topology_state_path,
+        grpc_server=grpc_server, stall_monitor=stall_monitor,
     )
     # Sharded-fleet guard (DESIGN.md §24): ownership steering + admission
     # control on the task-scoped entry points.  The ring arrives through
@@ -556,7 +630,7 @@ def serve(
         serving.announcer = Announcer(
             scheduler_id=scheduler_id,
             storage=service.storage,
-            trainer=RemoteTrainer(cfg.trainer.addr),
+            trainer=_trainer_link(cfg.trainer.addr, grpc_mod),
             # The Announcer's own loop drives manager liveness over the
             # REST wire when both links are configured (one loop, not
             # two).
@@ -573,6 +647,7 @@ def serve(
         serving.cluster_link.serve()
     print(
         f"scheduler: serving rpc on {rpc_server.url}"
+        + (f" and grpc on {grpc_server.target}" if grpc_server else "")
         + (f", dataset uploads to {cfg.trainer.addr} every "
            f"{cfg.trainer.interval_s:.0f}s" if serving.announcer else "")
         + (f", job queue {serving.job_worker.queue_name} on {cfg.manager_addr}"
@@ -597,12 +672,13 @@ def run(argv=None) -> int:
     init_logging(args, "scheduler")
     debug = init_debug(args)
     init_tracing(args)
-    journal = engine = None
+    journal = engine = diagnostics = None
     try:
         try:
             cfg = load_config(SchedulerConfigFile, args.config)
             init_flight_recorder(args, cfg.tracing, "scheduler")
             journal, engine = init_telemetry(args, cfg.telemetry, "scheduler")
+            diagnostics = init_diagnostics(cfg.metrics, "scheduler")
             if not args.simulate:
                 blob = None
                 if args.scorer_blob:
@@ -611,6 +687,7 @@ def run(argv=None) -> int:
                 serving = serve(cfg, device=args.device, scorer_blob=blob,
                                 journal=journal)
                 serving.journal, serving.slo_engine = journal, engine
+                serving.diagnostics = diagnostics
         except ConfigError as exc:
             print(f"scheduler: {exc}", file=sys.stderr)
             return 2
@@ -646,6 +723,8 @@ def run(argv=None) -> int:
         return 0
     finally:
         stop_telemetry(journal, engine)
+        if diagnostics is not None:
+            diagnostics.stop()
         if debug is not None:
             debug.stop()
 

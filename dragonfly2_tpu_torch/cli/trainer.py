@@ -14,8 +14,11 @@ server and exits 0.  With ``lifecycle.enable`` and a REST manager, every
 ingested download row also streams into a ``LifecycleDaemon`` (its
 ``StreamingTrainer`` on ``--device``) that registers candidates as
 ``--scheduler-id``'s models and begins their rollout through
-``RolloutRESTClient``.  A ``grpc://`` manager and ``server.grpc_port >=
-0`` exit 2 naming ROADMAP queue 1 item 12c (the gRPC half).  As in the
+``RolloutRESTClient``.  A ``grpc://`` manager registers through
+``GRPCRemoteRegistry`` (the lifecycle daemon then stays off, as in the
+reference: it needs the REST rollout routes), and ``server.grpc_port >= 0``
+also serves the gRPC Train stream (``TrainerGRPCServer``); on a machine
+without ``grpc`` or ``protobuf`` either exits 2 naming it.  As in the
 reference, ``run`` wires the tracer, the flight recorder, the metric
 journal and the SLO engine from the flags and the ``tracing`` and
 ``telemetry`` sections, and stops the journal and the engine on shutdown.
@@ -38,6 +41,7 @@ from ..trainer.service import TrainerService
 from ..trainer.train import TrainConfig
 from .common import (
     base_parser,
+    grpc_transport,
     init_debug,
     init_flight_recorder,
     init_logging,
@@ -59,11 +63,11 @@ def train_config(cfg: TrainerConfigFile) -> TrainConfig:
 
 def model_registry(manager_addr: Optional[str], token: Optional[str], registry=None):
     """Where models register: ``RemoteRegistry`` for a REST manager,
-    else ``registry`` (a fresh ``ModelRegistry`` by default)."""
+    ``GRPCRemoteRegistry`` for a ``grpc://`` one, else ``registry`` (a
+    fresh ``ModelRegistry`` by default)."""
     if manager_addr and manager_addr.startswith("grpc://"):
-        raise ConfigError(
-            "a grpc:// manager needs the gRPC registry client, "
-            "which is not ported yet (ROADMAP queue 1 item 12c)"
+        return grpc_transport("a grpc:// manager").GRPCRemoteRegistry(
+            manager_addr[len("grpc://"):], token=token or ""
         )
     if manager_addr:
         from ..rpc import RemoteRegistry
@@ -79,6 +83,7 @@ class TrainerServing:
 
     service: TrainerService
     http_server: object
+    grpc_server: object = None
     lifecycle_daemon: object = None
     journal: object = None
     slo_engine: object = None
@@ -91,6 +96,8 @@ class TrainerServing:
         if self.lifecycle_daemon is not None:
             self.lifecycle_daemon.stop()
         self.http_server.stop()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
         stop_telemetry(self.journal, self.slo_engine)
 
 
@@ -114,17 +121,17 @@ def serve(
     ``scheduler_id`` (the binary's ``--scheduler-id``) is the service's
     online sink and serves on its own thread.  ``gnn_model`` is the
     service's graph branch (``"hop"`` as in the reference binary, or
-    ``"gat"``, whose gather's backward is K3).  Raises ``ConfigError``
-    for what is not ported."""
+    ``"gat"``, whose gather's backward is K3).  With ``server.grpc_port >=
+    0`` the gRPC Train stream serves the same service.  Raises
+    ``ConfigError`` naming the package when gRPC is asked for and
+    ``grpc`` or ``protobuf`` is missing."""
     cfg = cfg or TrainerConfigFile()
     cfg.validate()
     manager_addr = manager or cfg.manager_addr
-    registry = model_registry(manager_addr, manager_token, registry)
+    grpc_mod = None
     if cfg.server.grpc_port >= 0:
-        raise ConfigError(
-            "server.grpc_port >= 0 asks for the gRPC Train stream, "
-            "which is not ported yet (ROADMAP queue 1 item 12c)"
-        )
+        grpc_mod = grpc_transport("server.grpc_port >= 0")
+    registry = model_registry(manager_addr, manager_token, registry)
     from ..rpc import TrainerHTTPServer
 
     service = TrainerService(
@@ -137,12 +144,17 @@ def serve(
     http_server = TrainerHTTPServer(service, host=cfg.server.host, port=cfg.server.port)
     http_server.serve()
     serving = TrainerServing(service=service, http_server=http_server)
+    if grpc_mod is not None:
+        serving.grpc_server = grpc_mod.TrainerGRPCServer(
+            service, host=cfg.server.host, port=cfg.server.grpc_port
+        )
+        serving.grpc_server.serve()
     # Self-driving lifecycle plane (DESIGN.md §29): with a REST manager
     # attached, every ingested record also streams into the continuous
     # train→export→rollout loop — candidates register and walk
     # SHADOW→CANARY→ACTIVE with zero human steps (schedulers' rollout
     # reporters supply the evaluation evidence).
-    if cfg.lifecycle.enable and manager_addr:
+    if cfg.lifecycle.enable and manager_addr and not manager_addr.startswith("grpc://"):
         from ..lifecycle import LifecycleConfig, LifecycleDaemon
         from ..rollout.client import RolloutRESTClient
 
@@ -182,8 +194,9 @@ def serve(
             flush=True,
         )
     print(
-        f"trainer: ingest on {http_server.url}, staging in {cfg.data_dir} "
-        "(ctrl-c to stop)",
+        f"trainer: ingest on {http_server.url}"
+        + (f" and grpc on {serving.grpc_server.target}" if serving.grpc_server else "")
+        + f", staging in {cfg.data_dir} (ctrl-c to stop)",
         flush=True,
     )
     return serving

@@ -37,12 +37,17 @@ validated by ``utils/slo.parse_slos``, as in the reference.
 ``ManagerConfig``, ``ModelRegistrySection`` and ``RolloutSection`` are
 the reference's, with ``DRAGONFLY_MANAGER_*`` overrides, without the keys
 whose readers are item 14's (``ha``, ``token_secret``, ``users_db``,
-``root_password``, ``oauth_providers``, ``ca_dir``, ``objectstorage``,
-``metrics``: refused through ``NOT_PORTED``).
+``root_password``, ``oauth_providers``, ``ca_dir``, ``objectstorage``:
+refused through ``NOT_PORTED``).
 
 ``DaemonConfig``, ``DaemonStorageSection`` and ``ProxySection`` are the
 reference's, without the keys whose readers are item 14's (``security``,
-``metrics``, ``proxy.sni_*``: refused through ``NOT_PORTED``).
+``proxy.sni_*``: refused through ``NOT_PORTED``).
+
+The scheduler's, the manager's and the daemon's ``metrics`` section is
+the reference's ``MetricsConfig`` (on, port 8000): the diagnostics
+sidecar of ``cli/common.init_diagnostics`` on the scheduler and the
+daemon, the same routes on the manager's REST port.
 A ``control_vsock_port`` >= 0 fails validation naming item 14.
 """
 
@@ -238,6 +243,11 @@ class SchedulingSection:
     retry_limit: int = 5
     retry_back_to_source_limit: int = 4
     retry_interval_s: float = 0.5
+    # Server-initiated stall sweep (push.StallMonitor): running peers
+    # idle beyond max_idle get fresh parents pushed down the bidi wire.
+    # 0 disables the monitor.
+    stall_max_idle_s: float = 10.0
+    stall_sweep_interval_s: float = 2.0
     # Serving engine (ml algorithm, DESIGN.md §14): bounded linger the
     # cross-request micro-batcher waits to coalesce concurrent announce
     # evaluations into one padded scorer call (0 = flush immediately),
@@ -320,6 +330,7 @@ class SchedulerConfigFile:
     storage: StorageConfig = field(default_factory=StorageConfig)
     trainer: TrainerLinkSection = field(default_factory=TrainerLinkSection)
     gc: GCSection = field(default_factory=GCSection)
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
     manager_addr: str = ""
     # Bearer credential (PAT or session token) for the manager's RBAC'd
     # registration routes; empty on open managers.
@@ -381,6 +392,7 @@ class ManagerConfig:
     # not duplicate every in-flight job on its queue.  Operators shrink
     # it for recovery drills/tests.
     jobs_min_requeue_s: float = 30.0
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
     tracing: TracingSection = field(default_factory=TracingSection)
     telemetry: TelemetrySection = field(default_factory=TelemetrySection)
     log: LogConfig = field(default_factory=LogConfig)
@@ -450,6 +462,7 @@ class DaemonConfig:
     source: dict = field(default_factory=dict)
     total_rate_limit: float = 1e9
     probe_interval_s: float = 20 * 60.0
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
     tracing: TracingSection = field(default_factory=TracingSection)
     telemetry: TelemetrySection = field(default_factory=TelemetrySection)
     log: LogConfig = field(default_factory=LogConfig)
@@ -478,7 +491,6 @@ class DaemonConfig:
 NOT_PORTED = {
     "SchedulerConfigFile": {
         "security": "14 (the security plane)",
-        "metrics": "14 (the diagnostics server)",
     },
     "ManagerConfig": {
         "ha": "14 (manager replication)",
@@ -488,20 +500,14 @@ NOT_PORTED = {
         "oauth_providers": "14 (manager OAuth)",
         "ca_dir": "14 (the cluster CA)",
         "objectstorage": "14 (object storage)",
-        "metrics": "14 (the diagnostics server)",
     },
     "DaemonConfig": {
         "security": "14 (the security plane)",
-        "metrics": "14 (the diagnostics server)",
     },
     "ProxySection": {
         "sni_enable": "14 (the SNI proxy)",
         "sni_port": "14 (the SNI proxy)",
         "sni_hijack_hosts": "14 (the SNI proxy)",
-    },
-    "SchedulingSection": {
-        "stall_max_idle_s": "12c (the gRPC push stream)",
-        "stall_sweep_interval_s": "12c (the gRPC push stream)",
     },
 }
 

@@ -57,11 +57,14 @@ The rollout routes need a ``RolloutController`` (``rollout=``); without
 one they answer 404, as the reference's do, and ``:candidate`` reports
 ``canary_percent`` 0.  As in the reference, a server given no job queue
 or CRUD store makes its own in memory, and the CRUD store always holds
-the default cluster.  Every other route of the reference (users,
-personal access tokens, OAuth, buckets, certs, replication, the console,
-metrics and debug pages) answers 404 here, as the reference's do when
-their backing object is ``None``; the constructor takes none of those
-objects (ROADMAP queue 1 item 14).  With no token verifier and no user
+the default cluster.  The diagnostics routes ``/metrics``,
+``/debug/spans``, ``/debug/exemplars`` and ``/debug/slo`` need no backing
+object and answer 200, as the reference's do (the same surface the
+scheduler's and the daemon's ``utils/diagnostics`` sidecar serves).
+Every other route of the reference (users, personal access tokens,
+OAuth, buckets, certs, replication, the console) answers 404 here, as
+the reference's do when their backing object is ``None``; the
+constructor takes none of those objects (ROADMAP queue 1 item 14).  With no token verifier and no user
 store, the reference authorizes every request; so does this port, which
 has neither.
 """
@@ -229,6 +232,38 @@ class ManagerRESTServer:
                 path = parsed.path
                 if path == "/api/v1/healthy":
                     self._json(200, {"ok": True})
+                elif path == "/metrics":
+                    # Prometheus text exposition — the same diagnostics
+                    # surface the scheduler/daemon serve via
+                    # utils/diagnostics.py (DESIGN.md §21).
+                    from ..utils.metrics import default_registry
+
+                    body = default_registry.expose_text().encode()
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type", "text/plain; version=0.0.4"
+                    )
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                elif path == "/debug/spans":
+                    # Recent-span ring as one OTLP/JSON request.
+                    from ..utils.tracing import recent_spans_otlp
+
+                    self._json(200, recent_spans_otlp())
+                elif path == "/debug/exemplars":
+                    # Histogram exemplars: last trace id per bucket, so a
+                    # slow-bucket latency joins to its trace.
+                    from ..utils.metrics import default_registry
+
+                    self._json(200, default_registry.exemplars())
+                elif path == "/debug/slo":
+                    # SLO burn rates + breach verdicts (DESIGN.md §23) —
+                    # the same surface the scheduler/daemon diagnostics
+                    # sidecar serves.
+                    from ..utils.slo import debug_state
+
+                    self._json(200, debug_state())
                 elif path == "/api/v1/models":
                     models = server.registry.list(
                         scheduler_id=q.get("scheduler_id") or None,

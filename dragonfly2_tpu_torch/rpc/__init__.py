@@ -25,10 +25,12 @@ Port of the HTTP half of ``dragonfly2_tpu/rpc/``, stdlib only:
 - ``steering`` — the daemon's client over a scheduler list: each task's
   calls go to its owner on the consistent-hash ring.
 
-The gRPC bindings of the same adapters (``SchedulerGRPCServer`` and the
-rest of the reference's ``grpc_transport``) are ROADMAP queue 1 item 12c;
-their names resolve lazily here, as in the reference, and raise until
-then.
+- ``grpc_transport`` — the gRPC bindings of the same adapters
+  (``SchedulerGRPCServer`` with its bidi push-reschedule stream,
+  ``GRPCRemoteScheduler``, ``GRPCStreamingScheduler``, the trainer's and
+  the manager's servers and clients) over ``protos/``.  It imports
+  ``grpc`` and ``google.protobuf``; its names resolve lazily here, as in
+  the reference, so the HTTP half imports without them.
 """
 
 from .balancer import HashRing  # noqa: F401
@@ -51,9 +53,14 @@ _GRPC_EXPORTS = {
 
 
 def __getattr__(name: str):
+    # Lazy: grpc/protobuf are only needed when a gRPC binding is used.
     if name in _GRPC_EXPORTS:
-        raise NotImplementedError(
-            f"{__name__}.{name}: the gRPC half of the transport is not "
-            "ported yet (ROADMAP queue 1 item 12c)"
-        )
+        try:
+            from . import grpc_transport
+        except ImportError as exc:
+            raise ImportError(
+                f"{__name__}.{name} needs the grpc and protobuf packages "
+                f"({exc})", name=exc.name,
+            ) from exc
+        return getattr(grpc_transport, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

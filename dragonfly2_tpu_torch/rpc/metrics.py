@@ -1,17 +1,21 @@
 """Wire-layer metrics (reference: grpc_prometheus interceptors on every
 gRPC server + the rate-limit interceptor, pkg/rpc/interceptor.go).
 
-Port of the part of ``dragonfly2_tpu/rpc/metrics.py`` the HTTP half
-reads: the rate limiter's rejections, the manager endpoints' failovers,
-the circuit breakers' state, the daemon control API's downloads and the
-manager's sync-peers rounds.  The gRPC and manager-HA series come with
-the modules that write them.
+Port of the part of ``dragonfly2_tpu/rpc/metrics.py`` the port writes:
+the gRPC servers' requests, the rate limiter's rejections, the manager
+endpoints' failovers, the circuit breakers' state, the daemon control
+API's downloads and the manager's sync-peers rounds.  The manager-HA
+series come with manager replication (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
 
 from ..utils.metrics import default_registry as _reg
 
+GRPC_REQUESTS_TOTAL = _reg.counter(
+    "rpc_grpc_requests_total", "gRPC requests handled",
+    ["service", "method", "code"],
+)
 RATE_LIMITED_TOTAL = _reg.counter(
     "rpc_rate_limited_total", "Requests rejected by the rate limiter",
     ["transport"],

@@ -1,11 +1,13 @@
 """Server-side rate limiting (reference: pkg/rpc/interceptor.go:69-128 —
 a token-bucket RateLimiterInterceptor on every gRPC server).
 
-Port of ``TokenBucket`` and ``maybe_bucket`` from
-``dragonfly2_tpu/rpc/ratelimit.py``, verbatim: the HTTP wire servers
-check the bucket (429).  The reference's ``RateLimitInterceptor`` plugs
-the same bucket into gRPC servers and imports ``grpc`` at module level;
-it comes with the gRPC half (ROADMAP queue 1 item 12c).
+Port of ``dragonfly2_tpu/rpc/ratelimit.py``: ``TokenBucket`` and
+``maybe_bucket`` verbatim; the HTTP wire servers check the bucket (429).
+``RateLimitInterceptor`` plugs the same bucket into gRPC servers.  The
+reference defines it here and imports ``grpc`` at module level; the port
+keeps this module free of ``grpc`` (the HTTP servers import it on
+machines without the package) and resolves the name lazily from
+``ratelimit_grpc``.
 """
 
 from __future__ import annotations
@@ -57,3 +59,11 @@ def maybe_bucket(qps: Optional[float], burst: Optional[int]) -> Optional[TokenBu
     if not qps:
         return None
     return TokenBucket(qps, burst or max(int(qps), 1))
+
+
+def __getattr__(name: str):
+    if name == "RateLimitInterceptor":
+        from .ratelimit_grpc import RateLimitInterceptor
+
+        return RateLimitInterceptor
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

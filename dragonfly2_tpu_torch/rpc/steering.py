@@ -27,10 +27,9 @@ dialed through the factory on first use.  A ``WrongShardError``
 steering answer (stale ring mid-membership-change) is followed to the
 hinted owner once.
 
-Port of ``dragonfly2_tpu/rpc/steering.py``, verbatim but for
-``default_scheduler_factory``: a ``grpc://`` URL raises ``ConfigError``
-naming ROADMAP queue 1 item 12c (the gRPC transport), and every other URL
-dials the port's ``RemoteScheduler``.
+Port of ``dragonfly2_tpu/rpc/steering.py``, verbatim: a ``grpc://`` URL
+dials ``grpc_transport.GRPCStreamingScheduler`` (imported only then),
+every other URL the port's ``RemoteScheduler``.
 """
 
 from __future__ import annotations
@@ -46,14 +45,11 @@ logger = logging.getLogger(__name__)
 
 
 def default_scheduler_factory(url: str):
-    """URL scheme → client: http(s)://... (grpc:// is item 12c)."""
+    """URL scheme → client: grpc://host:port or http(s)://..."""
     if url.startswith("grpc://"):
-        from ..config import ConfigError
+        from .grpc_transport import GRPCStreamingScheduler
 
-        raise ConfigError(
-            "a grpc:// scheduler needs the gRPC transport, which is not "
-            "ported yet (ROADMAP queue 1 item 12c)"
-        )
+        return GRPCStreamingScheduler(url[len("grpc://"):])
     from .scheduler_client import RemoteScheduler
 
     return RemoteScheduler(url)

@@ -175,7 +175,11 @@ class HostFeatureCache:
         # fast path), else the host's _mut at copy time (foreign entry).
         self._entries: "OrderedDict[str, Tuple[int, Optional[int]]]" = OrderedDict()
         # -- the struct-of-arrays (DF012 contract featcache.hoststate) --
-        self._matrix = np.empty((max_hosts, HOST_FEATURE_DIM), dtype=np.float32)
+        # Zeroed, not left uninitialized as in the reference: the scorer
+        # batcher pads a flush with rows of slot 0, the last slot the free
+        # list hands out, so K1 reads row 0 long before any host is bound
+        # there (an uninitialized row scored NaN on the card).
+        self._matrix = np.zeros((max_hosts, HOST_FEATURE_DIM), dtype=np.float32)
         self._bucket_col = np.empty(max_hosts, dtype=np.int64)
         self._idc_col = np.empty(max_hosts, dtype=np.int64)
         self._idc_ci_col = np.empty(max_hosts, dtype=np.int64)

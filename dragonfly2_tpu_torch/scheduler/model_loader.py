@@ -18,8 +18,9 @@ overlapping polls cannot interleave version bookkeeping.
 Port of ``dragonfly2_tpu/scheduler/model_loader.py`` over the port's
 ``ModelRegistry`` (in process) or ``rpc.RemoteRegistry`` (the manager's
 REST surface), with ``LocalRolloutClient`` or ``RolloutRESTClient`` and
-the shadow replay log on disk (``shadow_log_path``) or in memory.  The
-gRPC registry is ROADMAP queue 1 item 12c.  The installed scorers are what
+the shadow replay log on disk (``shadow_log_path``) or in memory, or
+over ``rpc.grpc_transport.GRPCRemoteRegistry`` (the manager's gRPC port),
+as in the reference.  The installed scorers are what
 ``load_scorer`` returns (the numpy ``MLPScorer`` for the streaming
 trainer's standardized artifacts), as in the reference.
 
@@ -68,6 +69,7 @@ from .evaluator import CanaryRoute, MLEvaluator
 
 if TYPE_CHECKING:  # wiring-time registry/rollout arms (no runtime import cycle)
     from ..rollout.client import LocalRolloutClient, RolloutRESTClient
+    from ..rpc.grpc_transport import GRPCRemoteRegistry
     from ..rpc.registry_client import RemoteRegistry
 
 logger = logging.getLogger(__name__)
@@ -76,7 +78,7 @@ logger = logging.getLogger(__name__)
 class ModelSubscriber:
     def __init__(
         self,
-        registry: "Union[ModelRegistry, RemoteRegistry]",
+        registry: "Union[ModelRegistry, RemoteRegistry, GRPCRemoteRegistry]",
         evaluator: MLEvaluator,
         *,
         scheduler_id: str,

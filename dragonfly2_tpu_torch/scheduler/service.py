@@ -23,10 +23,11 @@ The cold-task seed trigger (``seed_peer_trigger``, any callable
 ``(url, task_id) -> bool``), the tenant QoS policy (``set_qos_policy``,
 ``on_qos_config``) and the shard guard (``shard_guard``: ownership
 checks on the task-scoped entry points, admission on registers and
-announces, the policy's admission accounting) are the reference's.  The
-push hub (ROADMAP queue 1 item 12c) is not part of this package yet: its
-argument keeps its place and takes only None, and the server-push paths
-are absent.  The reference's seed client,
+announces, the policy's admission accounting) are the reference's, and so
+is the push hub (``hub``, a ``scheduler/push.PeerStreamHub``): with one,
+bad-parent ejection, a failed or leaving parent and the stall sweep
+(``reschedule_stalled``) push fresh parents to the subscribed children.
+The reference's seed client,
 ``scheduler/seed_client.RemoteSeedPeerClient``, is the trigger
 ``cli/scheduler.build`` passes.
 """
@@ -90,14 +91,15 @@ class SchedulerService:
         hub=None,
         shard_guard=None,
     ) -> None:
-        # The push hub is not part of this package yet: the argument keeps
-        # its place and takes only None.
-        if hub is not None:
-            raise NotImplementedError("SchedulerService(hub=...) is not ported")
         self.resource = resource
         self.scheduling = scheduling
         self.storage = storage
         self.networktopology = networktopology
+        # Optional PeerStreamHub (push.py): when a peer is connected over
+        # the bidi wire, scheduling decisions made OUTSIDE its own request
+        # cycle (bad-parent ejection, parent death, stalls) are pushed down
+        # its stream (service_v2.go:89-207 stream.Send semantics).
+        self.hub = hub
         # Optional sharding.ShardGuard: ownership + admission checks at
         # the task-scoped entry points (DESIGN.md §24).  The guard needs
         # the resource to sweep live tasks on a membership change.
@@ -403,17 +405,26 @@ class SchedulerService:
             return
         # Serve-side evidence: the observed piece cost describes the PARENT
         # as a server; it feeds the same 3σ/20×-mean bad-node test the
-        # evaluator runs on candidates (evaluator.go:92-129).
+        # evaluator runs on candidates (evaluator.go:92-129).  Appended on
+        # every transport so is_bad_node sees identical inputs whether or
+        # not a push hub is attached.
         parent = self.resource.peer_manager.load(parent_id)
         if parent is None:
             return
         parent.append_piece_cost(cost_ns)
+        # Bad-parent ejection push: the cost just appended may tip the
+        # parent over the test — if so, every *connected* child gets fresh
+        # candidates pushed, before any of them fails a piece.
+        if self.hub is not None and self.scheduling.evaluator.is_bad_node(parent):
+            self._push_reschedule_children(parent)
 
     def report_pieces_finished(self, peer: Peer, pieces) -> None:
         """Batched piece results (the daemon's report batcher coalesces a
         linger window of finished pieces into ONE call).  Each entry is a
         dict with number/parent_id/length/cost_ns; semantics are exactly
-        N report_piece_finished calls."""
+        N report_piece_finished calls — per-piece dedup (Peer.finish_piece)
+        and the bad-parent ejection check run for every entry, so a
+        retried batch is as blind-retry-safe as retried singles."""
         for p in pieces:
             self.report_piece_finished(
                 peer,
@@ -465,6 +476,10 @@ class SchedulerService:
             if self.storage is not None
             else None
         )
+        # A failed peer can no longer serve: its connected children get
+        # fresh candidates pushed (with it blocklisted) instead of burning
+        # piece retries against it.
+        self._push_reschedule_children(peer)
         # peer.go:293-305 (PeerEventDownloadFailed callback).
         peer.task.delete_peer_in_edges(peer.id)
         if self.storage is not None:
@@ -473,6 +488,10 @@ class SchedulerService:
 
     def leave_peer(self, peer: Peer) -> None:
         _try_event(peer.fsm, "Leave")
+        # A leaving parent strands its children: push them fresh candidates
+        # BEFORE the edges disappear (v2 semantics — the child never has to
+        # fail a piece against the dead parent first).
+        self._push_reschedule_children(peer)
         peer.task.delete_peer_in_edges(peer.id)
         peer.task.delete_peer_out_edges(peer.id)
         self._refresh_gauges()
@@ -487,6 +506,77 @@ class SchedulerService:
         if cache is not None:
             cache.invalidate(host.id)
         self._refresh_gauges()
+
+    # -- server push (service_v2.go stream.Send semantics) -------------------
+
+    def _push_reschedule_children(self, parent: Peer) -> None:
+        """Reschedule every *connected* child of ``parent`` away from it and
+        push the fresh candidates down their streams.
+
+        Only hub-subscribed children are touched: rescheduling moves DAG
+        edges, and a child that cannot hear about it must keep its current
+        assignment (it will recover through the report_piece_failed path
+        like the unary wire always did).
+        """
+        if self.hub is None:
+            return
+        try:
+            children = parent.task.load_children(parent.id)
+        except Exception as exc:  # noqa: BLE001 — parent may already be off the DAG
+            logger.debug("load_children(%s): %s", parent.id, exc)
+            return
+        for child in children or []:
+            if child.id == parent.id or child.is_done():
+                continue
+            # Claim the push slot BEFORE touching the DAG; schedule_once
+            # only detaches the child's edges when replacements exist and
+            # never sleeps (this runs on stream handler threads).
+            if not self.hub.claim(child.id):
+                continue
+            result = self.scheduling.schedule_once(child, {parent.id})
+            if result.kind is not ScheduleResultKind.PARENTS:
+                continue
+            if self.hub.push(child.id, result):
+                metrics.SCHEDULE_TOTAL.inc(outcome=f"push_{result.kind.name.lower()}")
+
+    def reschedule_stalled(self, max_idle_s: float) -> int:
+        """Server-initiated stall sweep: running peers with parents that
+        have not finished a piece within ``max_idle_s`` get fresh
+        candidates (current parents blocklisted) pushed.  Returns pushes.
+
+        The unary wire cannot express this — the child would have to fail
+        first.  Driven by push.StallMonitor (or tests) on an interval.
+        """
+        if self.hub is None:
+            return 0
+        now = time.time()
+        pushed = 0
+        for peer in self.resource.peer_manager.items():
+            if peer.is_done() or now - peer.updated_at <= max_idle_s:
+                continue
+            if not self.hub.subscribed(peer.id):
+                continue
+            try:
+                current = peer.task.load_parents(peer.id)
+            except Exception as exc:  # noqa: BLE001 — raced with GC
+                logger.debug("load_parents(%s): %s", peer.id, exc)
+                continue
+            if not current:
+                continue
+            if not self.hub.claim(peer.id):
+                continue
+            result = self.scheduling.schedule_once(
+                peer, {p.id for p in current}
+            )
+            if result.kind is not ScheduleResultKind.PARENTS:
+                continue
+            if self.hub.push(peer.id, result):
+                peer.touch()  # restart the idle clock for the new parents
+                pushed += 1
+                metrics.SCHEDULE_TOTAL.inc(
+                    outcome=f"push_{result.kind.name.lower()}"
+                )
+        return pushed
 
     # -- probes (service_v2.go:721-866 SyncProbes) ---------------------------
 

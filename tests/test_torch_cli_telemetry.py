@@ -86,18 +86,19 @@ def test_sections_load_equal_to_the_references(tmp_path):
                 getattr(j, section))
         if kind == "scheduler":
             assert t.scheduling.qos_autopilot is j.scheduling.qos_autopilot is False
-    # The shard guard's keys load as the reference's; keys whose reader
-    # is still missing keep exiting through ConfigError.
+    # The shard guard's and the stall sweep's keys load as the reference's.
     sharded = tmp_path / "sharded.yaml"
     sharded.write_text("scheduling: {shard_max_inflight: 8, shard_p99_budget_ms: 20.0}\n")
     t = tschema.load_config(tschema.SchedulerConfigFile, str(sharded), env=False)
     j = jschema.load_config(jschema.SchedulerConfigFile, str(sharded), env=False)
     assert (t.scheduling.shard_max_inflight, t.scheduling.shard_p99_budget_ms) == (
         j.scheduling.shard_max_inflight, j.scheduling.shard_p99_budget_ms) == (8, 20.0)
-    bad = tmp_path / "stall.yaml"
-    bad.write_text("scheduling: {stall_max_idle_s: 8.0}\n")
-    with pytest.raises(tschema.ConfigError, match="item 12c"):
-        tschema.load_config(tschema.SchedulerConfigFile, str(bad), env=False)
+    stall = tmp_path / "stall.yaml"
+    stall.write_text("scheduling: {stall_max_idle_s: 8.0}\n")
+    t = tschema.load_config(tschema.SchedulerConfigFile, str(stall), env=False)
+    j = jschema.load_config(jschema.SchedulerConfigFile, str(stall), env=False)
+    assert (t.scheduling.stall_max_idle_s, t.scheduling.stall_sweep_interval_s) == (
+        j.scheduling.stall_max_idle_s, j.scheduling.stall_sweep_interval_s) == (8.0, 2.0)
 
 
 def _exporters(mod):

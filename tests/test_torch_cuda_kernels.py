@@ -83,6 +83,21 @@ def test_k1_scores_an_out_of_range_slot_nan(cuda):
     assert torch.isnan(got[1]) and torch.isfinite(got[[0, 2]]).all()
 
 
+def test_k1_stress_over_store_like_rows(cuda, tmp_path):
+    """2,000 seeded flushes of 1 to 1,024 rows (every pad boundary of K1's
+    4-row blocks), slots over a 65,536-row matrix of the columnar store's
+    rows, each flush launched 3 times back to back: every launch within
+    1e-5 scaled of the plain version and bit-equal to the flush's first.
+    A flush past the limit is saved for ``bench/k1_replay``."""
+    from dragonfly2_tpu_torch.bench import k1_replay
+
+    out = k1_replay.stress(cuda, flushes=2000, repeats=3, seed=0, save_dir=str(tmp_path))
+    assert out["flushes"] == 2000 and out["rows_min"] == 1 and out["rows_max"] == 1024
+    assert out["slots"] == 65536 and out["launches"] == 6000
+    assert out["flushes_over_tol"] == 0 and out["max_err_scaled"] <= k1_replay.K1_TOL, out
+    assert out["k1_bits_vary"] == 0, out
+
+
 @pytest.mark.parametrize("n", [1, 512, 5000])
 def test_k2_matches_its_plain_version(cuda, n):
     import torch

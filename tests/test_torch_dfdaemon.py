@@ -31,7 +31,9 @@ from __future__ import annotations
 
 import os
 import random
+import re
 import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -240,13 +242,19 @@ def test_dfdaemon_run_download(tmp_path, monkeypatch, port_scheduler, origin, ca
     monkeypatch.setenv("DRAGONFLY_DAEMON_SERVER_HOST", "127.0.0.1")
     monkeypatch.setenv("DRAGONFLY_DAEMON_STORAGE_DIR", str(tmp_path / "store"))
     monkeypatch.setenv("DRAGONFLY_DAEMON_PIECE_SIZE", str(PIECE))
+    monkeypatch.setenv("DRAGONFLY_DAEMON_METRICS_PORT", "0")
     out = tmp_path / "out.bin"
     assert dfdaemon.run(["--scheduler", port_scheduler.url, "--download", src_url,
                          "-O", str(out)]) == 0
     assert out.read_bytes() == payload
     text = capsys.readouterr().out
     assert "dfdaemon: 6 pieces via back-to-source" in text
-    assert "diagnostics sidecar" in text and "item 14" in text
+    # The diagnostics sidecar started at boot, as the reference's does,
+    # and the port stopped it when run returned.
+    sidecar = re.search(r"dfdaemon: diagnostics on (http://127\.0\.0\.1:\d+)/metrics", text)
+    assert sidecar, text
+    with pytest.raises(OSError):
+        urllib.request.urlopen(sidecar.group(1) + "/metrics", timeout=2)
 
 
 def test_peer_swarm_small(tmp_path):
@@ -267,11 +275,11 @@ def test_peer_swarm_small(tmp_path):
     (["--pex-port", "0"], {}, None, "item 14"),
     ([], {}, "security: {auto_issue: true}\n", "item 14"),
     ([], {}, "proxy: {sni_enable: true}\n", "item 14"),
-    ([], {}, "metrics: {enable: true}\n", "item 14"),
+    ([], {}, "metrics: {enable: true}\n", "ported"),
     ([], {"DRAGONFLY_DAEMON_NATIVE_FETCH": "true"}, None, "item 14"),
     ([], {"DRAGONFLY_DAEMON_CONTROL_VSOCK_PORT": "0"}, None, "item 14"),
-    ("grpc", {}, None, "item 12c"),
-    ("list", {}, None, "item 12c"),
+    ("grpc", {}, None, "grpc"),
+    ("list", {}, None, "grpc"),
 ])
 def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatch, capsys,
                                                             argv, env, config, item):
@@ -288,6 +296,20 @@ def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatc
     if config is not None:
         (tmp_path / "daemon.yaml").write_text(config)
         argv = [*argv, "--config", str(tmp_path / "daemon.yaml")]
+    if item == "ported":
+        # Ported: the metrics section loads as the reference's.
+        cfg = load_config(DaemonConfig, str(tmp_path / "daemon.yaml"))
+        assert (cfg.metrics.enable, cfg.metrics.port) == (True, 8000)
+        return
+    if item == "grpc":
+        # A grpc:// scheduler on a machine without grpc: exit 2, naming it.
+        from _torch_nogrpc import block_grpc
+
+        block_grpc(monkeypatch)
+        assert dfdaemon.run(["--scheduler", scheduler, *argv]) == 2
+        assert "'grpc' is not installed" in capsys.readouterr().err
+        assert not os.path.exists(tmp_path / "daemon.json")
+        return
     if env.get("DRAGONFLY_DAEMON_NATIVE_FETCH") == "true":
         # Ported: the config loads and validates, and a daemon built from
         # it runs the native store, server and fetch loop.

@@ -5,11 +5,16 @@
 Three checks: a static AST scan of every module's imports, a scan of
 every string constant for a name of a ``dragonfly2_tpu.`` module (a
 ``python -m`` spawn or an ``importlib`` target that no import scan sees),
-and a subprocess that imports the port's entry points with ``jax`` and
-``dragonfly2_tpu`` made unimportable.  Last, the port's native library is
-its own: loaded in such a subprocess, it lies under
-``build/dragonfly2_tpu_torch_native/`` and the JAX package's
-``libdragonfly_native.so`` is never mapped.
+and a subprocess that imports the port's entry points with ``jax``,
+``dragonfly2_tpu``, ``grpc`` and ``google`` made unimportable: the entry
+points and ``chip_smoke.py`` need neither ``grpc`` nor ``protobuf``.  The gRPC half is
+the one exception to the torch/numpy/stdlib rule: ``grpc`` and
+``google.protobuf`` may be imported only by ``rpc/grpc_transport.py``,
+``rpc/protos/*`` and ``rpc/ratelimit_grpc.py`` (the lazy interceptor),
+and ``rpc.SchedulerGRPCServer`` then raises an ``ImportError`` naming
+``grpc``.  Last, the port's native library is its own: loaded in such a
+subprocess, it lies under ``build/dragonfly2_tpu_torch_native/`` and the
+JAX package's ``libdragonfly_native.so`` is never mapped.
 """
 
 from __future__ import annotations
@@ -54,6 +59,32 @@ def test_module_imports_no_jax_and_nothing_of_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+_GRPC_ROOTS = ("grpc", "google")
+_GRPC_MODULES = ("dragonfly2_tpu_torch/rpc/grpc_transport.py",
+                 "dragonfly2_tpu_torch/rpc/ratelimit_grpc.py",
+                 "dragonfly2_tpu_torch/rpc/protos/")
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(REPO)) for p in PORT_FILES]
+)
+def test_grpc_and_protobuf_only_in_the_grpc_modules(path):
+    rel = str(path.relative_to(REPO))
+    tree = ast.parse(path.read_text(), filename=str(path))
+    grpc = sorted({n for n in _imported_roots(tree) if n.split(".")[0] in _GRPC_ROOTS})
+    if rel.startswith(_GRPC_MODULES):
+        return
+    assert not grpc, f"{rel} imports {grpc}"
+
+
 _JAX_MODULE_NAME = re.compile(r"(?<![\w.])dragonfly2_tpu\.[A-Za-z_]")
 
 
@@ -90,6 +121,9 @@ def test_no_string_names_a_jax_package_module(path):
 _BLOCKED_IMPORT = """
 import importlib.abc, sys
 
+# Namespace-package .pth files may have made google.* before this line.
+preloaded = set(sys.modules)
+
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in {roots!r}:
@@ -98,11 +132,13 @@ class Block(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Block())
 sys.modules["jax"] = None
+for name in {grpc_roots!r}:
+    sys.modules[name] = None
 sys.path.insert(0, {repo!r})
 import importlib
 importlib.import_module({module!r})
-leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in {roots!r} and sys.modules[m] is not None)
+leaked = sorted(m for m in sys.modules if m not in preloaded
+                and m.split(".")[0] in {roots!r} and sys.modules[m] is not None)
 assert not leaked, leaked
 print("OK")
 """
@@ -175,11 +211,17 @@ print("OK")
         "dragonfly2_tpu_torch.native",
         "dragonfly2_tpu_torch.utils.dfabi",
         "dragonfly2_tpu_torch.records.abi_contracts",
+        "dragonfly2_tpu_torch.scheduler.push",
+        "dragonfly2_tpu_torch.utils.diagnostics",
+        "dragonfly2_tpu_torch.rpc.ratelimit",
+        "dragonfly2_tpu_torch.cli.common",
+        "dragonfly2_tpu_torch.bench.k1_replay",
         "chip_smoke",
     ],
 )
 def test_entry_points_import_with_the_jax_package_blocked(module):
-    code = _BLOCKED_IMPORT.format(roots=_FORBIDDEN_ROOTS, repo=str(REPO), module=module)
+    code = _BLOCKED_IMPORT.format(roots=_FORBIDDEN_ROOTS + _GRPC_ROOTS, repo=str(REPO),
+                                  module=module, grpc_roots=_GRPC_ROOTS)
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
         cwd=str(REPO),
@@ -200,9 +242,32 @@ print("jax-library-mapped" if "dragonfly2_tpu/native/libdragonfly_native" in map
 """
 
 
+_GRPC_NAMES = """
+from dragonfly2_tpu_torch import rpc
+from dragonfly2_tpu_torch.rpc import ratelimit
+for owner, name in ((rpc, "SchedulerGRPCServer"), (ratelimit, "RateLimitInterceptor")):
+    try:
+        getattr(owner, name)
+    except ImportError as exc:
+        assert "grpc" in str(exc) and exc.name == "grpc", (name, exc, exc.name)
+    else:
+        raise AssertionError(name + " resolved without grpc")
+print("OK")
+"""
+
+
+def test_grpc_names_raise_an_import_error_naming_grpc_without_it():
+    code = _BLOCKED_IMPORT.format(roots=_FORBIDDEN_ROOTS + _GRPC_ROOTS, repo=str(REPO),
+                                  module="dragonfly2_tpu_torch.rpc", grpc_roots=_GRPC_ROOTS)
+    code = code.replace('print("OK")', _GRPC_NAMES)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=str(REPO))
+    assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr
+
+
 def test_the_native_library_is_the_ports_own_build():
     code = _BLOCKED_IMPORT.format(roots=_FORBIDDEN_ROOTS, repo=str(REPO),
-                                  module="dragonfly2_tpu_torch.native")
+                                  module="dragonfly2_tpu_torch.native", grpc_roots=())
     code = code.replace('print("OK")', _NATIVE_LOAD)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=600, cwd=str(REPO))

@@ -194,10 +194,14 @@ def test_rollout_keys_load_and_validate_as_the_reference(tmp_path, text):
 
 
 def test_stall_keys_name_item_12c(tmp_path):
+    """The stall sweep's keys came with item 12c: they load as the
+    reference's, and no message names the item any more."""
     path = tmp_path / "scheduler.yaml"
-    path.write_text("scheduling: {stall_max_idle_s: 5}\n")
-    with pytest.raises(t_config.ConfigError, match="ROADMAP queue 1 item 12c"):
-        t_config.load_config(t_config.SchedulerConfigFile, str(path), env=False)
+    path.write_text("scheduling: {stall_max_idle_s: 5, stall_sweep_interval_s: 0.5}\n")
+    got = t_config.load_config(t_config.SchedulerConfigFile, str(path), env=False)
+    want = j_config.load_config(j_config.SchedulerConfigFile, str(path), env=False)
+    assert (got.scheduling.stall_max_idle_s, got.scheduling.stall_sweep_interval_s) == (
+        want.scheduling.stall_max_idle_s, want.scheduling.stall_sweep_interval_s) == (5, 0.5)
 
 
 # -- the daemon's fault seams -------------------------------------------------

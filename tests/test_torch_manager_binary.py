@@ -466,8 +466,8 @@ def _binary(argv, env, timeout=60):
     ("oauth_providers: [{name: gh}]\n", "item 14"),
     ("ca_dir: ca\n", "item 14"),
     ("objectstorage: {kind: fs}\n", "item 14"),
-    ("metrics: {enable: true}\n", "item 14"),
-    ("server: {grpc_port: 0}\n", "item 12c"),
+    ("metrics: {enable: true}\n", "ported"),
+    ("server: {grpc_port: 0}\n", "grpc"),
     ("--replicate-from", "item 14"),
 ])
 def test_refused_options_exit_2_naming_their_item(tmp_path, text, item):
@@ -478,9 +478,28 @@ def test_refused_options_exit_2_naming_their_item(tmp_path, text, item):
     else:
         (tmp_path / "m.yaml").write_text(text)
         argv = ["--config", str(tmp_path / "m.yaml")]
+    if item == "ported":
+        # The metrics section loads as the reference's: the manager serves
+        # /metrics on its REST port (tests/test_torch_diagnostics.py).
+        from dragonfly2_tpu_torch.config import ManagerConfig, load_config
+
+        cfg = load_config(ManagerConfig, str(tmp_path / "m.yaml"), env=False)
+        assert (cfg.metrics.enable, cfg.metrics.port) == (True, 8000)
+        return
+    if item == "grpc":
+        # A gRPC port on a machine without grpc: exit 2, naming the
+        # package, before anything is built.
+        stub = tmp_path / "nogrpc"
+        stub.mkdir()
+        (stub / "grpc.py").write_text(
+            "raise ModuleNotFoundError(\"No module named 'grpc'\", name='grpc')\n")
+        env = {**env, "PYTHONPATH": f"{stub}{os.pathsep}{REPO}"}
+        item = "'grpc' is not installed"
     out = _binary(argv, env)
     assert out.returncode == 2, out.stderr
-    assert out.stderr.startswith("manager: ") and f"ROADMAP queue 1 {item}" in out.stderr
+    assert out.stderr.startswith("manager: ") and (
+        f"ROADMAP queue 1 {item}" in out.stderr or item.startswith("'grpc'")
+        and item in out.stderr), out.stderr
     assert not (tmp_path / "blobs").exists()
 
 

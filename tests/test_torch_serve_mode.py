@@ -64,28 +64,43 @@ def test_trainer_binary_serves_the_lifecycle_daemon_with_a_manager(tmp_path):
 
 
 @pytest.mark.parametrize("kind,argv,env,item", [
-    ("trainer", ["--manager", "grpc://manager:65003"], {}, "item 12c"),
-    ("trainer", [], {"DRAGONFLY_TRAINER_SERVER_GRPC_PORT": "0"}, "item 12c"),
-    ("trainer", ["--train-once", ".", "--manager", "grpc://manager:65003"], {}, "item 12c"),
-    ("scheduler", [], {"DRAGONFLY_SCHEDULER_SERVER_GRPC_PORT": "0"}, "item 12c"),
+    ("trainer", ["--manager", "grpc://manager:65003"], {}, "grpc"),
+    ("trainer", [], {"DRAGONFLY_TRAINER_SERVER_GRPC_PORT": "0"}, "grpc"),
+    ("trainer", ["--train-once", ".", "--manager", "grpc://manager:65003"], {}, "grpc"),
+    ("scheduler", [], {"DRAGONFLY_SCHEDULER_SERVER_GRPC_PORT": "0"}, "grpc"),
     ("scheduler", [], {"DRAGONFLY_SCHEDULER_TRAINER_ENABLE": "true",
-                       "DRAGONFLY_SCHEDULER_TRAINER_ADDR": "grpc://trainer:9090"}, "item 12c"),
-    ("scheduler", ["--config", "metrics.yaml"], {}, "item 14"),
+                       "DRAGONFLY_SCHEDULER_TRAINER_ADDR": "grpc://trainer:9090"}, "grpc"),
+    ("scheduler", ["--config", "metrics.yaml"], {}, "ported"),
     ("scheduler", ["--config", "secured.yaml"], {}, "item 14"),
 ])
 def test_refused_options_exit_2_naming_their_item(tmp_path, monkeypatch, capsys, kind, argv,
                                                   env, item):
+    """What is not ported exits 2 naming its item; a gRPC setting on a
+    machine without grpc exits 2 naming the package; the metrics section,
+    ported, loads as the reference's."""
     (tmp_path / "metrics.yaml").write_text("metrics: {enable: true}\n")
     (tmp_path / "secured.yaml").write_text("security: {auto_issue: true}\n")
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("DRAGONFLY_SCHEDULER_STORAGE_DIR", str(tmp_path / "records"))
     monkeypatch.setenv("DRAGONFLY_TRAINER_DATA_DIR", str(tmp_path / "staged"))
+    monkeypatch.setenv("DRAGONFLY_SCHEDULER_METRICS_ENABLE", "false")
     for key, value in env.items():
         monkeypatch.setenv(key, value)
+    if item == "ported":
+        from dragonfly2_tpu_torch.config import SchedulerConfigFile, load_config
+
+        cfg = load_config(SchedulerConfigFile, "metrics.yaml", env=False)
+        assert (cfg.metrics.enable, cfg.metrics.port) == (True, 8000)
+        return
+    if item == "grpc":
+        from _torch_nogrpc import block_grpc
+
+        block_grpc(monkeypatch)
     cli = scheduler_cli if kind == "scheduler" else trainer_cli
     assert cli.run(argv + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert err.startswith(f"{kind}: ") and f"ROADMAP queue 1 {item}" in err, err
+    want = "'grpc' is not installed" if item == "grpc" else f"ROADMAP queue 1 {item}"
+    assert err.startswith(f"{kind}: ") and want in err, err
     assert not (tmp_path / "records").exists() and not (tmp_path / "staged").exists()
 
 

@@ -25,8 +25,8 @@ against the port, and the cross-package checks:
 
 Each cross-package check also runs on a planted fault in the port (a
 ``hash()``-placed ring, admission that ignores priority, a handoff that
-marks nothing) and must then fail.  The gRPC steering parity belongs to
-ROADMAP queue 1 item 12c.
+marks nothing) and must then fail.  The gRPC steering parity is in
+``tests/test_torch_grpc.py``.
 """
 
 from __future__ import annotations

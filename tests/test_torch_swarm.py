@@ -128,10 +128,14 @@ def test_simulate_prints_the_reference_line_and_serve_mode_exits_2(tmp_path, mon
     assert got.startswith("scheduler: simulated 50 downloads -> 66 download records")
     assert sorted(p.name for p in (tmp_path / "port").iterdir()) == [
         "download.dfc", "download.jsonl", "networktopology.dfc", "networktopology.jsonl"]
-    # Serve mode with a gRPC port asks for the gRPC half: exit 2, naming it.
+    # Serve mode with a gRPC port on a machine without grpc: exit 2,
+    # naming the package.
+    from _torch_nogrpc import block_grpc
+
+    block_grpc(monkeypatch)
     monkeypatch.setenv("DRAGONFLY_SCHEDULER_SERVER_GRPC_PORT", "0")
     assert cli.run(["--device", "cpu"]) == 2
-    assert "item 12c" in capsys.readouterr().err
+    assert "'grpc' is not installed" in capsys.readouterr().err
 
 
 def test_simulate_reloads_a_saved_probe_graph(tmp_path, monkeypatch, capsys):

@@ -277,10 +277,14 @@ def test_cli_train_once_prints_the_reference_lines(shards, capsys, monkeypatch):
 
 
 def test_cli_serve_mode_and_missing_shards_exit_nonzero(tmp_path, capsys, monkeypatch):
-    # Serve mode with a gRPC port asks for the gRPC half: exit 2, naming it.
+    # Serve mode with a gRPC port on a machine without grpc: exit 2,
+    # naming the package.
+    from _torch_nogrpc import block_grpc
+
+    block_grpc(monkeypatch)
     monkeypatch.setenv("DRAGONFLY_TRAINER_SERVER_GRPC_PORT", "0")
     assert tcli.run(["--device", "cpu"]) == 2
-    assert "item 12c" in capsys.readouterr().err
+    assert "'grpc' is not installed" in capsys.readouterr().err
     assert tcli.run(["--train-once", str(tmp_path), "--device", "cpu"]) == 1
     assert "no download*.dfc shards" in capsys.readouterr().err
 
