@@ -443,6 +443,33 @@ launch counts are zeroed before each and must read 0 after.
     each back to back, each held to plain and to the first launch's
     bits).  Printed: pushes (ejection, stall), pushes/s, report → callback
     p50 / p99 ms, K1 launches and the flush rows checked.
+24. The tenant QoS overload drill and the telemetry drills
+    (``qos_drill``).  (a) ``sim/qos.run_isolation_drill`` at
+    ``QoSDrillConfig()``'s defaults (1,000 tenant-A announces, 6
+    downloads of 8 × 64 KiB pieces, 2 tenant-B flood threads at a 10×
+    burst, B capped at 50 announces/s and 1e6 B/s shaped, admission at
+    256 in flight and a 20 ms p99 budget, seed 7): baseline, unshaped
+    and shaped arms, each ranking parents with an ``MLEvaluator`` over
+    phase 2's seeded K1 scorer on the card (``bench/bench_qos
+    .MLEvaluators``: a fresh 4,096-host store, fused scorer and batcher
+    an arm) and ``extra_parents=7``, so each of A's downloads ranks 8
+    candidates; then one shaped arm with the reference's rule evaluator
+    at the same configuration.  Printed: each arm's report and the four
+    movements of A's announce p99 and TTLB (not checks).  Checks, from
+    the reference's tests: shaped A downloads all complete, unshaped B
+    offered > 100, shaped B shed or throttled > 0, shaped B seed bytes
+    below unshaped, the accounting names ``t-a`` gold and ``t-b``
+    background; K1 launches > 0 and equal to the batchers' scorer calls,
+    K1 held to plain on the phase's flushes (each on its flush-time
+    mirror); the shape witness (``utils/dftrace``, installed for the ml
+    arms) counts at most its budget of padded sizes a scorer; the rule
+    arm launches no kernel.  (b) Host only: ``sim/telemetry
+    .run_kill_drill`` (3 children, 400 samples, a snapshot every 50, the
+    victim SIGKILLed at its 4th journal write, its tail torn, a
+    survivor's frame bit-rotted; fleet quantiles against the exact
+    oracle) and ``run_burnrate_drill``, each raising on the reference's
+    conditions, in a work directory under the out directory; no kernel
+    launches in (b).
 
 Every comparison of K1 with its plain version on a path's flushes holds
 every row finite, the batcher's pad rows included (they read slot 0, a
@@ -579,6 +606,7 @@ PUSH_CHILDREN = 16         # ... running children a task, each subscribed to the
 PUSH_STALL_IDLE_S = 1.0    # ... StallMonitor's max idle (the reference's 10 s cut)
 PUSH_STALL_SWEEP_S = 0.25  # ... its sweep interval (2 s cut)
 PUSH_STALL_RUN_S = 3.0     # ... how long the monitor runs
+QD_EXTRA_PARENTS = 7       # phase 24: more parents a tenant-A task (8 candidates a download)
 K1_STRESS_FLUSHES = 2000   # phase 23: seeded stress flushes ...
 K1_STRESS_REPEATS = 3      # ... each launched this many times back to back
 FED_MEAN_TOL = 1e-6       # the round's aggregate vs a numpy weighted mean
@@ -3642,6 +3670,115 @@ def push_phase(torch, dev, seed, out_dir):
     return out, launches
 
 
+def qos_drill_phase(torch, dev, seed, out_dir):
+    """Phase 24: the tenant QoS overload drill with K1 ranking tenant A's
+    parents, then the telemetry drills on the host.  Returns (summary,
+    launches)."""
+    from dragonfly2_tpu_torch.bench.bench_qos import MLEvaluators
+    from dragonfly2_tpu_torch.sim import qos, telemetry
+    from dragonfly2_tpu_torch.trainer.export import MLPScorer, scorer_to_bytes
+    from dragonfly2_tpu_torch.utils import dftrace
+
+    t_phase = time.perf_counter()
+    cfg = qos.QoSDrillConfig()
+    evaluators = MLEvaluators(scorer_to_bytes(MLPScorer(weights=weights_from_seed(seed))), dev)
+    witness = dftrace.install()
+    seen = {"flushes": []}
+    try:
+        reset_kernel_counts()
+        with keep_k1_flushes(seen):
+            drill = qos.run_isolation_drill(cfg, evaluator=evaluators,
+                                            extra_parents=QD_EXTRA_PARENTS)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        scorer_calls = evaluators.scorer_calls()
+        shapes = [sorted(dftrace.shapes_of(ev._scorer)) for ev in evaluators.built]
+        over_budget = witness.over_budget()
+        witnessed = witness.snapshot()
+    finally:
+        dftrace.uninstall()
+    drill_s = time.perf_counter() - t_phase
+    reset_kernel_counts()
+    rule_shaped = qos._run_arm(cfg, shaped=True, burst=True, extra_parents=QD_EXTRA_PARENTS)
+    rule_launches = kernel_counts()
+    rule_s = time.perf_counter() - t_phase - drill_s
+
+    shaped, unshaped = drill["shaped"], drill["unshaped"]
+    acct = shaped["tenant_accounting"]
+    budget = max(site["budget"] for site in dftrace.SHAPE_SITES.values())
+    check(shaped["a_downloads_ok"] == cfg.a_downloads,
+          f"tenant A's downloads under the shaped burst: {shaped['a_downloads_ok']}"
+          f"/{cfg.a_downloads}")
+    check(unshaped["b_offered"] > 100, f"the unshaped flood offered {unshaped['b_offered']}")
+    check(shaped["b_sheds"] + shaped["b_throttled"] > 0, "the shaped arm never shed or capped B")
+    check(shaped["seed_tenant_bytes"].get("t-b", 0) < unshaped["seed_tenant_bytes"].get("t-b", 0),
+          f"B's seed bytes shaped {shaped['seed_tenant_bytes']} not below unshaped "
+          f"{unshaped['seed_tenant_bytes']}")
+    check(acct.get("t-a", {}).get("tenant_class") == "gold"
+          and acct.get("t-b", {}).get("tenant_class") == "background",
+          f"the accounting's classes: {acct}")
+    check(rule_shaped["a_downloads_ok"] == cfg.a_downloads,
+          f"the rule arm's A downloads: {rule_shaped['a_downloads_ok']}/{cfg.a_downloads}")
+    check(launches["fused_gather_mlp_score"] == scorer_calls > 0,
+          f"K1 launches {launches['fused_gather_mlp_score']} != the batchers' scorer calls "
+          f"{scorer_calls} in the QoS drill")
+    check(launches["segment_sum"] == 0 and launches["rule_weighted_sum"] == 0,
+          f"another kernel launched in the QoS drill: {launches}")
+    check(not any(rule_launches.values()), f"the rule arm launched a kernel: {rule_launches}")
+    check(not over_budget and all(0 < len(x) <= budget for x in shapes),
+          f"padded sizes past the budget of {budget}: {shapes} {over_budget}")
+    check(len(seen["flushes"]) > 0, "no K1 flush in the QoS drill")
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+        torch, dev, seen, k1_save_dir(out_dir), "qos_drill")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the QoS "
+          "drill's flushes")
+
+    # (b) the telemetry drills, host only.
+    t_tele = time.perf_counter()
+    workdir = os.path.join(out_dir, "telemetry_drills")
+    shutil.rmtree(workdir, ignore_errors=True)
+    reset_kernel_counts()
+    kill = telemetry.run_kill_drill(os.path.join(workdir, "kill"))
+    burn = telemetry.run_burnrate_drill(os.path.join(workdir, "burn.dfmj"))
+    tele_launches = kernel_counts()
+    check(kill["ok"] and burn["ok"], f"a telemetry drill failed: {kill} {burn}")
+    check(not any(tele_launches.values()), f"a kernel launched in the telemetry drills: "
+          f"{tele_launches}")
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    keys = ("a_announce_p50_ms", "a_announce_p99_ms", "a_announces", "a_sheds",
+            "a_downloads_ok", "a_ttlb_ms", "a_ttlb_p90_ms", "b_offered", "b_announces",
+            "b_sheds", "b_pulls", "b_throttled", "seed_tenant_bytes", "seed_throttled")
+    out = {
+        "seconds": time.perf_counter() - t_phase, "drill_seconds": drill_s,
+        "rule_arm_seconds": rule_s, "telemetry_seconds": time.perf_counter() - t_tele,
+        "config": drill["config"], "extra_parents": QD_EXTRA_PARENTS,
+        "arms": {arm: {k: drill[arm][k] for k in keys}
+                 for arm in ("baseline", "unshaped", "shaped")},
+        "rule_shaped": {k: rule_shaped[k] for k in keys},
+        "movement": drill["movement"],
+        "tenant_accounting": acct,
+        "kernel_launches": launches,
+        "shape_witness": {"scorer_shapes": shapes, "sites": witnessed, "budget": budget},
+        "k1": {"launches": launches["fused_gather_mlp_score"], "scorer_calls": scorer_calls,
+               "max_err_scaled": k1_err, "tol_scaled": K1_TOL,
+               "flushes_checked": len(seen["flushes"]),
+               "flush_rows_checked": int(sum(len(f[1]) for f in seen["flushes"])),
+               "ms_128": k1_ms, "us_128": k1_ms * 1e3, "plain_ms_128": k1_plain_ms,
+               "bound_ms_128": k1_bound_ms},
+        "telemetry": {
+            "kill": {k: kill[k] for k in ("children", "victim_sigkilled", "frames_admitted",
+                                          "corrupt_rejected", "oracle_samples",
+                                          "per_run_covered", "alpha", "quantile_checks")},
+            "burn": {k: burn[k] for k in ("fired_after_s", "fired_within_fast_window",
+                                          "cleared_after_s", "replay_burn_drift",
+                                          "journal_frames", "final_state")},
+            "kernel_launches": tele_launches},
+    }
+    emit({"phase": "qos_drill", **out})
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3948,6 +4085,9 @@ def main(argv=None) -> int:
     # -- 23. the push-reschedule path, K1 ranking pushed parents -------------
     loop["push"], push_launches = push_phase(torch, dev, args.seed, work_dir)
     pu = loop["push"]
+    # -- 24. the tenant QoS overload drill (K1) and the telemetry drills -----
+    loop["qos_drill"], qd_launches = qos_drill_phase(torch, dev, args.seed, work_dir)
+    qd = loop["qos_drill"]
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
@@ -3956,7 +4096,7 @@ def main(argv=None) -> int:
          + wire_launches["fused_gather_mlp_score"] + lc_launches["fused_gather_mlp_score"]
          + tq_launches["fused_gather_mlp_score"] + ps_launches["fused_gather_mlp_score"]
          + ph_launches["fused_gather_mlp_score"] + sf_launches["fused_gather_mlp_score"]
-         + push_launches["fused_gather_mlp_score"],
+         + push_launches["fused_gather_mlp_score"] + qd_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
@@ -3966,6 +4106,7 @@ def main(argv=None) -> int:
          "launches_preheat": ph_launches["fused_gather_mlp_score"],
          "launches_shard_fleet": sf_launches["fused_gather_mlp_score"],
          "launches_push": push_launches["fused_gather_mlp_score"],
+         "launches_qos_drill": qd_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
          "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
          "max_err_scaled_telemetry_qos": tq["k1"]["max_err_scaled"],
@@ -3973,6 +4114,7 @@ def main(argv=None) -> int:
          "max_err_scaled_preheat": ph["k1"]["max_err_scaled"],
          "max_err_scaled_shard_fleet": sf["k1"]["max_err_scaled"],
          "max_err_scaled_push": pu["k1"]["max_err_scaled"],
+         "max_err_scaled_qos_drill": qd["k1"]["max_err_scaled"],
          "max_err_scaled_stress": pu["k1_stress"]["max_err_scaled"],
          "stress_launches": pu["k1_stress"]["launches"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
@@ -3984,7 +4126,8 @@ def main(argv=None) -> int:
          "ms_peer_swarm_128": ps["k1"]["ms_128"],
          "ms_preheat_128": ph["k1"]["ms_128"],
          "ms_shard_fleet_128": sf["k1"]["ms_128"],
-         "ms_push_128": pu["k1"]["ms_128"]},
+         "ms_push_128": pu["k1"]["ms_128"],
+         "ms_qos_drill_128": qd["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

@@ -158,7 +158,8 @@ def _pool(n_threads: int, items, fn) -> None:
         except Exception as exc:  # re-raised on the calling thread after join
             errors.append(exc)
 
-    threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+    threads = [threading.Thread(target=worker, args=(t,), daemon=False)
+               for t in range(n_threads)]
     for th in threads:
         th.start()
     for th in threads:

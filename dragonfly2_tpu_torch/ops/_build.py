@@ -4,10 +4,11 @@ Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface and loaded with ``ctypes``: no
 PyTorch headers, so the build takes seconds.  Each source compiles in
 its own ``nvcc`` process, all started together, and one more links them.
-The build runs at first use, under a lock (the batcher's leader thread
-and the caller's thread can race on it), into
-``build/dragonfly2_tpu_torch_kernels/`` beside the package, and again
-whenever the sources' hash changes.
+The build runs at first use, under an ``fcntl`` lock beside the target
+(the batcher's leader thread and the caller's thread can race on it, and
+so can processes), into ``build/dragonfly2_tpu_torch_kernels/`` beside
+the package, and again whenever the sources' hash changes.  The thread
+lock guards only the loaded library, never the build.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; ``check``
 turns a non-zero code into an exception.  Pointers and the stream cross
@@ -17,6 +18,7 @@ as ``ctypes.c_void_p``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -138,20 +140,32 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        srcs = sources()
-        h = hashlib.sha256()
-        for src in srcs:
-            h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
-        target = BUILD_DIR / f"libdf_kernels_{h.hexdigest()[:16]}.so"
-        if not target.exists():
-            _compile(target, srcs)
-        lib = ctypes.CDLL(str(target))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
-        return lib
+    srcs = sources()
+    h = hashlib.sha256()
+    for src in srcs:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    target = BUILD_DIR / f"libdf_kernels_{h.hexdigest()[:16]}.so"
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # One build at a time, across threads and processes: each open()
+        # is its own lock holder, and the first holder's build is what
+        # the others find when they get the lock.
+        with open(target.with_suffix(".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                if not target.exists():
+                    _compile(target, srcs)
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+    lib = ctypes.CDLL(str(target))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    with _lock:
+        if _lib is None:
+            _lib = lib
+        return _lib
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

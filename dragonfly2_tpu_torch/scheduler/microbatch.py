@@ -60,10 +60,11 @@ co-batched strangers cannot bleed into each other (trainer/export.py
 ``EdgeScorer`` docstring — the batched-score contract).
 
 Each coalesced scorer call opens one ``scheduler/eval.flush`` span with
-``batch``, ``rows`` and ``jit_compiles``.  The reference reads
-``jit_compiles`` from its recompile witness, which this package does not
-have yet (ROADMAP queue 1 item 11), so it is 0 here.  The span includes
-the device: the flush reads its scores back.
+``batch``, ``rows`` and ``jit_compiles``.  As the reference reads its
+compile witness there, ``jit_compiles`` reads the shape witness
+(``utils/dftrace.py``: the distinct padded shapes the scorers have
+launched, summed over its sites), or 0 when none is installed.  The span
+includes the device: the flush reads its scores back.
 """
 
 from __future__ import annotations
@@ -404,15 +405,20 @@ class ScorerBatcher:
 
     def _dispatch_group(self, batch: List[_Request], scorer) -> None:
         # One ``scheduler/eval.flush`` span per coalesced scorer call
-        # (per flush, never per announce): batch size + the compile
-        # counter ride as attributes (0 until the recompile witness is
-        # part of this package).
+        # (per flush, never per announce): batch size + the shape
+        # witness's counter ride as attributes, so a slow flush in a
+        # trace is attributable to a scorer launching a new padded shape.
+        from ..utils import dftrace
+
+        witness = dftrace.witness()
         t0 = time.perf_counter()
         with default_tracer.span(
             "scheduler/eval.flush",
             batch=len(batch),
             rows=sum(r.features.shape[0] for r in batch),
-            jit_compiles=0,
+            jit_compiles=(
+                witness.total_compiles() if witness is not None else 0
+            ),
         ):
             self._score_group(batch, scorer)
         # Flush latency into the mergeable sketch (DESIGN.md §23): one

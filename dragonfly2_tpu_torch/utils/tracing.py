@@ -15,9 +15,7 @@ handler span with ``remote_span()`` so one trace id follows a download
 through daemon → scheduler → trainer hops.
 
 Port of ``dragonfly2_tpu/utils/tracing.py``, with the logic verbatim.
-Two differences: ``_raw_lock`` is a ``threading.Lock`` (the reference's
-lock witness is not part of this package), and the OTLP scope name is
-this module's own name.  The wire formats (the ``traceparent`` header,
+One difference: the OTLP scope name is this module's own name.  The wire formats (the ``traceparent`` header,
 OTLP/JSON, the DFTL1 frames of the durable log) are the reference's, so
 either package reads the other's logs and links the other's spans.
 """
@@ -63,12 +61,19 @@ TRACEPARENT_HEADER = "traceparent"
 
 
 def _raw_lock():
-    """Exporter bookkeeping locks.  The reference builds them from its
-    lock witness's real factory (``utils/dflock``), so that spans closing
-    under a project lock add no edges to its runtime lock graph; this
-    package has no lock witness, so a plain ``threading.Lock`` is the
-    same lock."""
-    return threading.Lock()
+    """Exporter bookkeeping locks, built from the REAL lock factory
+    (the dfcrash precedent): spans may close while a caller holds a
+    project lock, and a witnessed exporter lock would put
+    caller-lock → exporter-lock edges into the runtime lock graph that
+    the static analyzer — which does not traverse generator
+    contextmanagers — can never corroborate.  Diagnostics must not
+    instrument diagnostics."""
+    try:
+        from .dflock import _REAL_LOCK
+
+        return _REAL_LOCK()
+    except ImportError:  # pragma: no cover — dflock always ships
+        return threading.Lock()
 
 # Process-wide tracing toggle (config `tracing.enable`, DESIGN.md §21).
 # Disabled, span() hands out a shared no-op span: no ids are drawn, no

@@ -1,6 +1,8 @@
 """The port's import boundary: ``dragonfly2_tpu_torch`` and
 ``chip_smoke.py`` import neither JAX nor anything of the JAX package
-``dragonfly2_tpu`` (not even its jax-free modules).
+``dragonfly2_tpu`` (not even its jax-free modules), nor the repo's
+``tools/`` (whose ``fleet_assemble.py`` imports the JAX package: the
+port keeps its own copy under ``bench/``).
 
 Three checks: a static AST scan of every module's imports, a scan of
 every string constant for a name of a ``dragonfly2_tpu.`` module (a
@@ -29,7 +31,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "dragonfly2_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-_FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "dragonfly2_tpu")
+_FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "dragonfly2_tpu", "tools")
 
 
 def _forbidden(name: str) -> bool:
@@ -216,6 +218,18 @@ print("OK")
         "dragonfly2_tpu_torch.rpc.ratelimit",
         "dragonfly2_tpu_torch.cli.common",
         "dragonfly2_tpu_torch.bench.k1_replay",
+        "dragonfly2_tpu_torch.sim.qos",
+        "dragonfly2_tpu_torch.sim.telemetry",
+        "dragonfly2_tpu_torch.bench.fleet_assemble",
+        "dragonfly2_tpu_torch.bench.bench_qos",
+        "dragonfly2_tpu_torch.utils.dflock",
+        "dragonfly2_tpu_torch.utils.dfspan",
+        "dragonfly2_tpu_torch.utils.dfcrash",
+        "dragonfly2_tpu_torch.utils.dfdet",
+        "dragonfly2_tpu_torch.utils.dftrace",
+        "dragonfly2_tpu_torch.records.contracts",
+        "dragonfly2_tpu_torch.records.state_contracts",
+        "dragonfly2_tpu_torch.records.determinism_contracts",
         "chip_smoke",
     ],
 )

@@ -15,7 +15,8 @@ wire with the child's piece window through the native fetch loop, whose
 ``daemon/piece`` spans carry ``native``), the multiset of
 (span name, sorted attribute keys) each package exports is equal.
 Where the values are inputs and not trained weights they are compared
-too.  ``jit_compiles`` is 0 in the port (no recompile witness yet).
+too.  ``jit_compiles`` is 0 in the port here: no shape witness
+(``utils/dftrace.py``) is installed in the test process.
 
 Both packages' default tracers are swapped for in-memory rings and
 restored after.  The port runs on the CPU.
