@@ -20,10 +20,16 @@ scheduler.  A ``grpc://`` scheduler is dialed with
 ``rpc/grpc_transport.GRPCStreamingScheduler``: per-peer calls ride the
 bidi ``announce_peer`` stream, and the conductor adopts the reschedules
 the scheduler pushes (on a machine without ``grpc`` or ``protobuf`` it
-exits 2 naming the package).  What is not ported exits 2 naming its
-ROADMAP queue 1 item: ``--pex-port`` (``daemon/pex_net.py``), the
-config's ``security`` and ``proxy.sni_*`` keys and ``control_vsock_port``
-(all item 14).  At the defaults the piece store, the piece server and
+exits 2 naming the package).  ``--pex-port`` / ``--pex-join`` run the
+networked peer exchange (``daemon/pex_net.NetworkedGossipBus``) as the
+reference wires it: the conductor's ``pex`` falls back to gossip-found
+piece holders, and piece fetches resolve hosts through the scheduler's
+mirror first and the gossip members second.  What is not ported exits 2
+naming its ROADMAP queue 1 item: the config's ``security`` and
+``proxy.sni_*`` keys and ``control_vsock_port`` (all item 14).  As in
+the reference, no binary starts the forward proxy
+(``daemon/proxy.P2PProxy``): ``proxy.enable`` is a key nothing reads.
+At the defaults the piece store, the piece server and
 the fetch loop are the port's native engine, as in the reference
 (``native_fetch`` and the engine's build decide; without a library the
 Python ones run).  ``run`` starts the diagnostics sidecar (``metrics``:
@@ -42,6 +48,7 @@ import threading
 from ..config import ConfigError, DaemonConfig, load_config
 from ..daemon import DaemonStorage, UploadManager
 from ..daemon.conductor import Conductor
+from ..daemon.daemon import Daemon
 from ..daemon.host_announcer import HostAnnouncer
 from ..rpc import HTTPPieceFetcher
 from ..scheduler.resource import Host
@@ -82,7 +89,9 @@ def build(cfg: DaemonConfig, scheduler_url: str, *, prefer_native: bool = True):
     """Daemon composition against a wire scheduler, or a comma-separated
     list of them (daemon.go:118-417).  ``prefer_native=False`` builds the
     Python piece store, and with it the Python piece server (the
-    reference's composition always prefers the native engine)."""
+    reference's composition always prefers the native engine).  The
+    parts' ``daemon`` is ``daemon.daemon.Daemon``'s surface over them, the
+    one a proxy or an object gateway takes."""
     scheduler_urls = _scheduler_urls(scheduler_url)
     if cfg.source:
         from ..source import configure_sources
@@ -174,6 +183,7 @@ def build(cfg: DaemonConfig, scheduler_url: str, *, prefer_native: bool = True):
         "client": client,
         "conductor": conductor,
         "announcer": announcer,
+        "daemon": Daemon.over(host, client, storage, upload, conductor, tenant=cfg.tenant),
     }
 
 
@@ -202,6 +212,63 @@ def seed_peer(parts: dict, cfg: DaemonConfig) -> dict:
     return {"seeder": seeder, "seed_endpoint": seed_endpoint}
 
 
+def start_pex(parts: dict, cfg: DaemonConfig, port: int, join: str = ""):
+    """Networked gossip over ``build``'s parts (reference
+    ``cli/dfdaemon.py:226-273``): a ``NetworkedGossipBus`` on UDP ``port``
+    (0 = ephemeral) joining the ``HOST:PORT`` seeds in ``join``, a
+    ``PeerExchange`` serving on it as the conductor's ``pex``, and the
+    piece fetcher's resolver chained through the gossip members; prints
+    the reference's boot line.  → the ``PeerExchange`` (``stop()`` leaves
+    the bus; ``run`` calls it on exit, where the reference leaves it to the
+    process's exit)."""
+    # Networked gossip (pex memberlist analog): piece-holder discovery
+    # that keeps serving through scheduler outages.
+    from ..daemon.pex import MemberMeta, PeerExchange
+    from ..daemon.pex_net import NetworkedGossipBus
+
+    seeds = []
+    for part in filter(None, join.split(",")):
+        h, _, pp = part.rpartition(":")
+        seeds.append((h or "127.0.0.1", int(pp)))
+    bus = NetworkedGossipBus(
+        host=cfg.server.host, port=port, seeds=seeds,
+        advertise_ip=parts["host"].ip,
+    )
+    pex = PeerExchange(
+        MemberMeta(
+            host_id=parts["host"].id,
+            ip=parts["host"].ip,
+            port=parts["piece_server"].port,
+        ),
+        bus,
+    )
+    pex.serve()
+    parts["conductor"].pex = pex
+
+    # Resolver chain: scheduler mirror first, gossip metadata second —
+    # piece fetches keep resolving when the control plane is down.
+    client = parts["client"]
+
+    def resolve(host_id):
+        try:
+            return client.resolve_host(host_id)
+        except KeyError:
+            m = pex.member(host_id)
+            if m is None:
+                raise
+            return m.ip, m.port
+
+    # Keep the mTLS client identity (and the requester-pays tenant
+    # stamp) through the resolver swap.
+    old_fetcher = parts["conductor"].piece_fetcher
+    parts["conductor"].piece_fetcher = HTTPPieceFetcher(
+        resolve, ssl_context=getattr(old_fetcher, "ssl_context", None),
+        tenant=getattr(old_fetcher, "tenant", ""),
+    )
+    print(f"dfdaemon: pex gossip on udp:{bus.address[1]}", flush=True)
+    return pex
+
+
 def run(argv=None) -> int:
     p = base_parser("dfdaemon", "Peer daemon service")
     p.add_argument("--scheduler", required=True, help="scheduler RPC URL")
@@ -212,21 +279,17 @@ def run(argv=None) -> int:
                    help="announce as a seed peer and serve the ObtainSeeds "
                         "endpoint the scheduler triggers cold tasks through")
     p.add_argument("--pex-port", type=int, default=-1, metavar="PORT",
-                   help="networked peer-exchange gossip on this UDP port "
-                        "(not ported: ROADMAP queue 1 item 14; -1 = disabled)")
+                   help="enable networked peer-exchange gossip on this UDP "
+                        "port (0 = ephemeral, -1 = disabled)")
     p.add_argument("--pex-join", default="", metavar="HOST:PORT[,...]",
-                   help="gossip seed addresses to join (with --pex-port)")
+                   help="gossip seed addresses to join")
     args = p.parse_args(argv)
     init_logging(args, "dfdaemon")
     debug = init_debug(args)
     init_tracing(args)
     journal = engine = diagnostics = None
-    parts = control = seed = None
+    parts = control = seed = pex = None
     try:
-        if args.pex_port >= 0:
-            print("dfdaemon: --pex-port: networked peer exchange (daemon/pex_net.py) "
-                  "is not ported yet (ROADMAP queue 1 item 14)", file=sys.stderr)
-            return 2
         try:
             cfg = load_config(DaemonConfig, args.config)
             init_flight_recorder(args, cfg.tracing, "dfdaemon")
@@ -236,6 +299,9 @@ def run(argv=None) -> int:
         except ConfigError as exc:
             print(f"dfdaemon: {exc}", file=sys.stderr)
             return 2
+
+        if args.pex_port >= 0:
+            pex = start_pex(parts, cfg, args.pex_port, args.pex_join)
 
         # Control API (daemon Download RPC analog): loopback by DEFAULT —
         # /download writes local files on behalf of same-machine dfget.
@@ -314,6 +380,8 @@ def run(argv=None) -> int:
                 signal.signal(s, handler)
         return 0
     finally:
+        if pex is not None:
+            pex.stop()
         if parts is not None:
             parts["announcer"].stop()
             parts["piece_server"].stop()

@@ -18,13 +18,24 @@ ingested download row also streams into a ``LifecycleDaemon`` (its
 ``GRPCRemoteRegistry`` (the lifecycle daemon then stays off, as in the
 reference: it needs the REST rollout routes), and ``server.grpc_port >= 0``
 also serves the gRPC Train stream (``TrainerGRPCServer``); on a machine
-without ``grpc`` or ``protobuf`` either exits 2 naming it.  As in the
+without ``grpc`` or ``protobuf`` either exits 2 naming it.
+
+Both modes train on one rank per visible card, as the reference's
+trainers span every local device (``create_mesh()``): at one card the
+service trains on it alone and makes no process group; at more,
+``parallel.launch.RankGroup`` makes this process rank 0 (the server, the
+registry and the online sink stay here) and spawns the others, NCCL
+between cards.  ``--nproc N`` names the rank count instead; with
+``--device cpu``, or more ranks than cards, the ranks form a gloo group
+(on the CPU, or sharing ``cuda:0``).  The reference's lines print once,
+from rank 0; a round on more than one rank first prints
+``trainer: training on N ranks (BACKEND)``.  As in the
 reference, ``run`` wires the tracer, the flight recorder, the metric
 journal and the SLO engine from the flags and the ``tracing`` and
 ``telemetry`` sections, and stops the journal and the engine on shutdown.
 
     python -m dragonfly2_tpu_torch.cli.trainer [--train-once DIR] [--manager URL] \
-        [--scheduler-id ID] [--device cpu]
+        [--scheduler-id ID] [--device cpu] [--nproc N]
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import Optional
 
 from ..config import ConfigError, TrainerConfigFile, load_config
 from ..manager.registry import ModelRegistry
+from ..parallel.launch import RankGroup, plan_ranks
 from ..trainer.service import TrainerService
 from ..trainer.train import TrainConfig
 from .common import (
@@ -87,6 +99,7 @@ class TrainerServing:
     lifecycle_daemon: object = None
     journal: object = None
     slo_engine: object = None
+    ranks: Optional[RankGroup] = None
 
     @property
     def url(self) -> str:
@@ -98,7 +111,20 @@ class TrainerServing:
         self.http_server.stop()
         if self.grpc_server is not None:
             self.grpc_server.stop()
+        if self.ranks is not None:
+            self.ranks.close()
         stop_telemetry(self.journal, self.slo_engine)
+
+
+def rank_group(device, nproc: Optional[int], store_dir: Optional[str]) -> Optional[RankGroup]:
+    """The service's ranks: ``None`` at one rank (the one-device path, no
+    process group), else a ``RankGroup`` over ``plan_ranks(device,
+    nproc)`` with its store under ``store_dir``."""
+    plan = plan_ranks(device, nproc)
+    if plan.world == 1:
+        return None
+    print(f"trainer: training on {plan.world} ranks ({plan.backend})", flush=True)
+    return RankGroup(plan.world, device=device, store_dir=store_dir)
 
 
 def serve(
@@ -110,6 +136,7 @@ def serve(
     registry=None,
     gnn_model: str = "hop",
     scheduler_id: str = "scheduler-local",
+    nproc: Optional[int] = None,
 ) -> TrainerServing:
     """The binary's serve mode (reference cli/trainer.py:98-176) as a
     composition: ``TrainerHTTPServer`` on ``server.host:server.port`` (0
@@ -122,7 +149,10 @@ def serve(
     online sink and serves on its own thread.  ``gnn_model`` is the
     service's graph branch (``"hop"`` as in the reference binary, or
     ``"gat"``, whose gather's backward is K3).  With ``server.grpc_port >=
-    0`` the gRPC Train stream serves the same service.  Raises
+    0`` the gRPC Train stream serves the same service.  Rounds train on
+    ``nproc`` ranks, by default one per visible card (``rank_group``; the
+    FileStore lives in ``cfg.data_dir``; the helpers start before the
+    server does); ``stop()`` ends them.  Raises
     ``ConfigError`` naming the package when gRPC is asked for and
     ``grpc`` or ``protobuf`` is missing."""
     cfg = cfg or TrainerConfigFile()
@@ -134,16 +164,27 @@ def serve(
     registry = model_registry(manager_addr, manager_token, registry)
     from ..rpc import TrainerHTTPServer
 
+    ranks = rank_group(device, nproc, cfg.data_dir)
     service = TrainerService(
         registry,
         data_dir=cfg.data_dir,
         train_config=train_config(cfg),
         gnn_model=gnn_model,
         device=device,
+        ranks=ranks,
     )
-    http_server = TrainerHTTPServer(service, host=cfg.server.host, port=cfg.server.port)
-    http_server.serve()
-    serving = TrainerServing(service=service, http_server=http_server)
+    if ranks is not None:
+        # Start the helpers now: a rank that cannot start fails the boot,
+        # not the first upload.
+        ranks.start(service.rank_service_kwargs())
+    try:
+        http_server = TrainerHTTPServer(service, host=cfg.server.host, port=cfg.server.port)
+        http_server.serve()
+    except BaseException:
+        if ranks is not None:
+            ranks.close()
+        raise
+    serving = TrainerServing(service=service, http_server=http_server, ranks=ranks)
     if grpc_mod is not None:
         serving.grpc_server = grpc_mod.TrainerGRPCServer(
             service, host=cfg.server.host, port=cfg.server.grpc_port
@@ -215,6 +256,9 @@ def run(argv=None, *, registry=None) -> int:
     p.add_argument("--manager-token", default=None, help="bearer token for the manager")
     p.add_argument("--device", default="cuda",
                    help="torch device the trainer trains on (cuda or cpu)")
+    p.add_argument("--nproc", type=int, default=None, metavar="N",
+                   help="ranks to train on (default: one per visible card; "
+                        "gloo with --device cpu or more ranks than cards)")
     args = p.parse_args(argv)
     init_logging(args, "trainer")
     debug = init_debug(args)
@@ -233,7 +277,7 @@ def run(argv=None, *, registry=None) -> int:
                 serving = serve(
                     cfg, device=args.device, manager=args.manager,
                     manager_token=args.manager_token, registry=registry,
-                    scheduler_id=args.scheduler_id,
+                    scheduler_id=args.scheduler_id, nproc=args.nproc,
                 )
                 serving.journal, serving.slo_engine = journal, engine
         except ConfigError as exc:
@@ -243,43 +287,55 @@ def run(argv=None, *, registry=None) -> int:
             wait_for_signal()
             serving.stop()
             return 0
-        service = TrainerService(
-            registry,
-            # --train-once reads local shards (no staging).
-            data_dir=None,
-            train_config=train_config(cfg),
-            device=args.device,
-        )
-        session = service.open_train_stream(
-            ip="127.0.0.1", hostname=os.uname().nodename, scheduler_id=args.scheduler_id
-        )
-        dl = sorted(glob.glob(os.path.join(args.train_once, "download*.dfc")))
-        topo = sorted(glob.glob(os.path.join(args.train_once, "networktopology*.dfc")))
-        if not dl:
-            print(f"trainer: no download*.dfc shards in {args.train_once}", file=sys.stderr)
-            return 1
-        for path in dl:
-            session.send_download_shard(path)
-        for path in topo:
-            session.send_network_topology_shard(path)
-        key = session.close_and_train()
-        run_rec = service.runs[key]
-        if run_rec.error:
-            print(f"trainer: run failed: {run_rec.error}", file=sys.stderr)
-            return 1
-        for name, metrics in run_rec.metrics.items():
-            print(
-                f"trainer: {name}: mae={metrics.mae:.4f} mse={metrics.mse:.4f} "
-                f"f1={metrics.f1:.3f} ({run_rec.download_rows} rows)"
-            )
-        for mid in run_rec.models:
-            m = registry.get(mid)
-            print(f"trainer: registered {m.name} v{m.version} ({m.type})")
-        return 0
+        ranks = rank_group(args.device, args.nproc, None)
+        try:
+            return _train_once(args, cfg, registry, ranks)
+        finally:
+            if ranks is not None:
+                ranks.close()
     finally:
         stop_telemetry(journal, engine)
         if debug is not None:
             debug.stop()
+
+
+def _train_once(args, cfg: TrainerConfigFile, registry, ranks: Optional[RankGroup]) -> int:
+    """``--train-once``: one synchronous round over the directory's shards
+    (on ``ranks`` when given) and the reference's lines; → exit code."""
+    service = TrainerService(
+        registry,
+        # --train-once reads local shards (no staging).
+        data_dir=None,
+        train_config=train_config(cfg),
+        device=args.device,
+        ranks=ranks,
+    )
+    session = service.open_train_stream(
+        ip="127.0.0.1", hostname=os.uname().nodename, scheduler_id=args.scheduler_id
+    )
+    dl = sorted(glob.glob(os.path.join(args.train_once, "download*.dfc")))
+    topo = sorted(glob.glob(os.path.join(args.train_once, "networktopology*.dfc")))
+    if not dl:
+        print(f"trainer: no download*.dfc shards in {args.train_once}", file=sys.stderr)
+        return 1
+    for path in dl:
+        session.send_download_shard(path)
+    for path in topo:
+        session.send_network_topology_shard(path)
+    key = session.close_and_train()
+    run_rec = service.runs[key]
+    if run_rec.error:
+        print(f"trainer: run failed: {run_rec.error}", file=sys.stderr)
+        return 1
+    for name, metrics in run_rec.metrics.items():
+        print(
+            f"trainer: {name}: mae={metrics.mae:.4f} mse={metrics.mse:.4f} "
+            f"f1={metrics.f1:.3f} ({run_rec.download_rows} rows)"
+        )
+    for mid in run_rec.models:
+        m = registry.get(mid)
+        print(f"trainer: registered {m.name} v{m.version} ({m.type})")
+    return 0
 
 
 if __name__ == "__main__":

@@ -20,9 +20,14 @@ The download engine that turns scheduler decisions into bytes on disk:
 - ``piece_pipeline`` — the commit pipeline, report batcher, hedging and
                        the commit tee the conductor drives.
 
-Port of the download path of ``dragonfly2_tpu/daemon/``.  The seed peer
-(``seeder``), the networked gossip bus (``pex_net``) and the proxies
-(``proxy``, ``relay``, ``sni``, ``gateway``) are ROADMAP queue 1 item 14.
+- ``pex_net``        — the gossip bus over UDP (memberlist analog).
+- ``proxy``, ``relay`` — the forward proxy that diverts matched GETs
+                       (image layers) into P2P, and its tunnel relay.
+- ``gateway``        — the object gateway over ``objectstorage``.
+- ``seeder``         — the seed peer's ``ObtainSeeds`` face.
+
+Port of ``dragonfly2_tpu/daemon/``.  The SNI proxy (``sni``) is ROADMAP
+queue 1 item 14.
 """
 
 from .storage import DaemonStorage  # noqa: F401

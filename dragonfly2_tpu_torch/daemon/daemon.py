@@ -110,19 +110,37 @@ class Daemon:
             concurrent_source_groups=concurrent_source_groups,
             tenant=tenant,
         )
-        self.pex: Optional[PeerExchange] = None
         if gossip_bus is not None:
-            self.pex = PeerExchange(
+            pex = PeerExchange(
                 MemberMeta(host_id=host.id, ip=host.ip, port=host.download_port),
                 gossip_bus,
             )
-            self.pex.serve()
+            pex.serve()
             # The conductor needs the pex handle for its scheduler-down
             # fallback (gossip-discovered holders) — without this wiring
             # the fallback silently never engages (the CLI composition
-            # attaches it the same way).
-            self.conductor.pex = self.pex
+            # attaches it the same way).  ``self.pex`` reads it there.
+            self.conductor.pex = pex
         self.probe_agent: Optional[ProbeAgent] = None
+
+    @classmethod
+    def over(cls, host: Host, scheduler, storage: DaemonStorage, upload: UploadManager,
+             conductor: Conductor, *, tenant: str = "") -> "Daemon":
+        """The daemon surface (downloads, streams, task reads and deletes,
+        the pex) over parts composed elsewhere: ``cli.dfdaemon.build``'s
+        wire composition, whose conductor fetches pieces over HTTP and
+        whose pex ``cli.dfdaemon.start_pex`` attaches to the conductor."""
+        self = cls.__new__(cls)
+        self.host, self.scheduler, self.tenant = host, scheduler, tenant
+        self.storage, self.upload, self.conductor = storage, upload, conductor
+        self.traffic_shaper = conductor.traffic_shaper
+        self._registry = {host.id: self}
+        self.probe_agent = None
+        return self
+
+    @property
+    def pex(self) -> Optional[PeerExchange]:
+        return self.conductor.pex
 
     def enable_probes(self, ping) -> None:
         """Attach the probe agent (client/daemon/networktopology)."""

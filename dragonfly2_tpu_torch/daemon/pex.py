@@ -10,7 +10,7 @@ The pool answers "who has pieces of task T" without a scheduler
 round-trip — the daemon's subtask-reuse and seed-peer discovery path.
 
 Port of ``dragonfly2_tpu/daemon/pex.py``, verbatim (the in-process
-bus; the networked one, ``pex_net``, is ROADMAP queue 1 item 14).
+bus; the networked one is ``pex_net``).
 """
 
 from __future__ import annotations

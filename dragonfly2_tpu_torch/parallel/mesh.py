@@ -13,8 +13,9 @@ call, and writes its collectives out with ``torch.distributed``:
   model coordinate ``r % model`` (the reference's ``reshape(data, model)``
   of the device list), with one process group per row and per column;
 - every collective the port issues goes through ``all_reduce``,
-  ``all_gather_into_tensor``, ``all_to_all_single``, ``broadcast`` and
-  ``barrier`` here, which count what they issue (``COLLECTIVES``).
+  ``all_gather_into_tensor``, ``all_to_all_single``, ``broadcast``,
+  ``broadcast_object``, ``all_gather_object`` and ``barrier`` here, which
+  count what they issue (``COLLECTIVES``).
 
 - ``data`` axis: the batch (each rank of a column takes its rows of every
   global batch) and the gradient average.
@@ -181,6 +182,23 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     COLLECTIVES["broadcast"] += 1
     dist.broadcast(t, src=src, group=group)
     return t
+
+
+def broadcast_object(mesh: Mesh, obj, src: int = 0):
+    """Rank ``src``'s picklable ``obj`` on every rank of the world (other
+    ranks pass anything); → the object."""
+    COLLECTIVES["broadcast"] += 1
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=mesh.world)
+    return box[0]
+
+
+def all_gather_object(mesh: Mesh, obj) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank."""
+    COLLECTIVES["all_gather"] += 1
+    out = [None] * mesh.size
+    dist.all_gather_object(out, obj, group=mesh.world)
+    return out
 
 
 def barrier(mesh: Mesh) -> None:

@@ -26,6 +26,23 @@ CPU).  The GAT branch builds its neighbor gather with
 segment-sum kernel (K3) on the card; the JAX service's GAT branch uses an
 index gather.  The hop features are computed once, on the device, for
 both training and the export.
+
+Across ranks (``mesh=`` or ``ranks=``).  The JAX service's trainers take
+no mesh, so each trains data-parallel over every local device
+(``create_mesh()``).  Here one process drives each device:
+``parallel.launch.RankGroup`` makes the service's process rank 0 and
+spawns the others, and every round then trains on every rank: each rank
+reads the session's shards whole, builds the same permutations (seed 0)
+and takes its slice of every global batch, as the mesh trainers do
+(``trainer/train.py``).  Rank 0 alone calls ``registry.create_model``
+and counts ``MODELS_PUBLISHED`` and ``TRAINING_RECORDS``; every rank's
+``TrainRun`` carries rank 0's metrics (one broadcast a model) and a
+digest of its own trained parameters (``TrainRun.digests``), so that
+the ranks' parameters can be compared bit for bit.  A corpus too small
+for the data axis (batches round down to a multiple of it) raises the trainers'
+``ValueError`` on every rank, and every rank skips the model, as the
+reference does.  The online sink stays on rank 0, fed by the uploads it
+receives.
 """
 
 from __future__ import annotations
@@ -36,7 +53,7 @@ import shutil
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -68,6 +85,27 @@ class TrainRun:
     metrics: Dict[str, EvalMetrics] = field(default_factory=dict)
     error: Optional[str] = None
     done: threading.Event = field(default_factory=threading.Event)
+    # Logged losses by model name (each trainer's history).
+    history: Dict[str, List[dict]] = field(default_factory=dict)
+    # The sha256 of the trained parameters by model name (``params_digest``).
+    digests: Dict[str, str] = field(default_factory=dict)
+    # On rank 0 of a RankGroup: every rank's TrainerService.summary.
+    ranks: List[Dict[str, Any]] = field(default_factory=list)
+
+
+def params_digest(state) -> str:
+    """The sha256 of a trained state's parameters: every leaf of
+    ``full_params`` as float32 bytes, in name order.  Two ranks of a mesh
+    that hold the same parameters give the same digest."""
+    import hashlib
+
+    from .train import full_params
+
+    h = hashlib.sha256()
+    for name, leaf in sorted(full_params(state).items()):
+        h.update(name.encode())
+        h.update(leaf.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 class TrainSession:
@@ -111,7 +149,21 @@ class TrainerService:
         gnn_model: str = "hop",
         online_sink=None,
         device="cuda",
+        mesh=None,
+        ranks=None,
     ) -> None:
+        # ``mesh``: this rank's ``parallel.mesh.Mesh`` when every rank runs
+        # the service and each round itself (rank 0 publishes).  ``ranks``:
+        # a ``parallel.launch.RankGroup`` whose rank 0 is this process; each
+        # round then trains on every rank of it.  Neither: one device.
+        if mesh is not None and ranks is not None:
+            raise ValueError("pass mesh= or ranks=, not both")
+        self.mesh = mesh
+        self.ranks = ranks
+        if mesh is not None:
+            device = mesh.device
+        elif ranks is not None:
+            device = ranks.device
         self.device = resolve_device(device)
         self.registry = registry or ModelRegistry()
         self.data_dir = data_dir
@@ -305,8 +357,10 @@ class TrainerService:
             # Inside the (possibly async) worker: a multi-GB reference-CSV
             # conversion must not hold the ingest RPC handler thread.
             self._normalize_session(session)
-            self._train_mlp(run, session)
-            self._train_gnn(run, session)
+            if self.ranks is not None:
+                self.ranks.run_round(self, run, session)
+            else:
+                self._train_models(run, session, self.mesh)
         except Exception as exc:  # noqa: BLE001 — surfaced on the run record
             logger.exception("training run %s failed", run.key)
             run.error = str(exc)
@@ -323,7 +377,79 @@ class TrainerService:
             trainer_metrics.TRAINING_DURATION.observe(time.perf_counter() - t0)
             run.done.set()
 
-    def _train_mlp(self, run: TrainRun, session: TrainSession) -> None:
+    def _train_models(self, run: TrainRun, session: TrainSession, mesh) -> None:
+        """This rank's share of a round: the MLP, then the graph ranker
+        (the same order on every rank of ``mesh``)."""
+        self._train_mlp(run, session, mesh)
+        self._train_gnn(run, session, mesh)
+
+    @staticmethod
+    def _is_publisher(mesh) -> bool:
+        """Whether this rank registers models and counts them: rank 0 of
+        a mesh, or the one device."""
+        return mesh is None or mesh.rank == 0
+
+    @staticmethod
+    def _one_evaluation(metrics, mesh):
+        """Rank 0's validation metrics on every rank of ``mesh``: the ranks
+        hold the same parameters, but a CUDA kernel's reduction order may
+        differ between their evaluations in the last bits, and the
+        reference's one controller evaluates once."""
+        if mesh is None or mesh.size == 1:
+            return metrics
+        from ..parallel import mesh as pm
+
+        return pm.broadcast_object(mesh, metrics)
+
+    def _keep(self, run: TrainRun, name: str, state, history) -> None:
+        run.history[name] = [dict(h) for h in history]
+        run.digests[name] = params_digest(state)
+
+    # -- ranks ---------------------------------------------------------------
+
+    def rank_service_kwargs(self) -> dict:
+        """What a helper rank's service is made with (its registry, mesh
+        and device are its own)."""
+        return {"train_config": self.train_config, "gnn_model": self.gnn_model}
+
+    def train_session(self, msg: dict) -> TrainRun:
+        """A helper rank's round: the session rank 0 broadcast (its key,
+        scheduler id and staged shards), trained on this rank's mesh.
+        Raises what the round raised.  The kernel launch counts start
+        from 0, so that ``summary`` counts this round's."""
+        from ..ops import segment
+
+        segment.reset_launch_counts()
+        run = TrainRun(key=msg["key"], scheduler_id=msg["scheduler_id"])
+        session = TrainSession(self, msg["host_key"], msg["scheduler_id"])
+        session.download_shards = list(msg["download_shards"])
+        session.topology_shards = list(msg["topology_shards"])
+        self._train_models(run, session, self.mesh)
+        run.done.set()
+        return run
+
+    def summary(self, run: TrainRun, registry_calls: int) -> Dict[str, Any]:
+        """This rank's account of a round, gathered on rank 0 into
+        ``TrainRun.ranks``: rows, metrics, logged losses, the registry
+        calls this rank made, its K3 launches (a helper's: this round's;
+        rank 0's: since its counts were last reset), and the digests of
+        its trained parameters."""
+        from ..ops import segment
+
+        return {
+            "rank": 0 if self.mesh is None else self.mesh.rank,
+            "download_rows": run.download_rows,
+            "topology_rows": run.topology_rows,
+            "metrics": {k: m.to_dict() for k, m in run.metrics.items()},
+            "history": run.history,
+            "registry_calls": registry_calls,
+            "segment_sum_launches": segment.LAUNCHES["segment_sum"],
+            "digests": run.digests,
+        }
+
+    # -- models --------------------------------------------------------------
+
+    def _train_mlp(self, run: TrainRun, session: TrainSession, mesh=None) -> None:
         shards = [p for p in session.download_shards if os.path.getsize(p) > 0]
         if not shards:
             return
@@ -353,13 +479,18 @@ class TrainerService:
             drop_remainder=False,
         )
         try:
-            state, metrics, _ = train_mlp(
-                train, val, config=self.train_config, device=self.device
+            state, metrics, history = train_mlp(
+                train, val, config=self.train_config, device=self.device, mesh=mesh
             )
         except ValueError as exc:
-            # Corpus too small (no full batches) — skip this model
-            # rather than registering untrained weights.
+            # Corpus too small for the mesh (no full batches) — skip this
+            # model rather than registering untrained weights.
             logger.warning("run %s: MLP skipped: %s", run.key, exc)
+            return
+        metrics = self._one_evaluation(metrics, mesh)
+        self._keep(run, MLP_MODEL_NAME, state, history)
+        if not self._is_publisher(mesh):
+            run.metrics[MLP_MODEL_NAME] = metrics
             return
         # Stamp the drift baseline (rollout PSI gate) over the SAME
         # prepared rows the model trained on.
@@ -379,7 +510,7 @@ class TrainerService:
         trainer_metrics.TRAINING_RECORDS.inc(run.download_rows, model="mlp")
         trainer_metrics.MODELS_PUBLISHED.inc(model="mlp")
 
-    def _train_gnn(self, run: TrainRun, session: TrainSession) -> None:
+    def _train_gnn(self, run: TrainRun, session: TrainSession, mesh=None) -> None:
         """GNN over the probe graph; needs both topology and download rows."""
         topo_shards = [p for p in session.topology_shards if os.path.getsize(p) > 0]
         dl_shards = [p for p in session.download_shards if os.path.getsize(p) > 0]
@@ -438,10 +569,10 @@ class TrainerService:
                 export_feats = precompute_hop_features(
                     torch.from_numpy(node_feats), table.to(dev), hops=cfg.hops
                 )
-                state, metrics, _ = train_hop_ranker(
+                state, metrics, history = train_hop_ranker(
                     node_feats, table, d_src, d_dst, target,
                     model_config=cfg, config=self.train_config, device=dev,
-                    batch_size=batch, hop_feats=export_feats,
+                    batch_size=batch, hop_feats=export_feats, mesh=mesh,
                 )
             else:
                 from ..ops.segment import make_neighbor_gather
@@ -450,14 +581,19 @@ class TrainerService:
                     hidden=64, out_dim=32, num_layers=1, num_heads=2, dropout=0.0,
                     gather_fn=make_neighbor_gather(table.indices, n_nodes, device=dev),
                 )
-                state, metrics, _ = train_gat_ranker(
+                state, metrics, history = train_gat_ranker(
                     node_feats, table, d_src, d_dst, target,
                     model_config=cfg, config=self.train_config, device=dev,
-                    batch_size=batch,
+                    batch_size=batch, mesh=mesh,
                 )
                 export_feats = node_feats
         except ValueError as exc:
             logger.warning("run %s: GNN skipped: %s", run.key, exc)
+            return
+        metrics = self._one_evaluation(metrics, mesh)
+        self._keep(run, GNN_MODEL_NAME, state, history)
+        if not self._is_publisher(mesh):
+            run.metrics[GNN_MODEL_NAME] = metrics
             return
         from .export import export_gnn_scorer, gnn_scorer_to_bytes
 

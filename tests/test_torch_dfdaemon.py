@@ -282,12 +282,28 @@ def test_peer_swarm_small(tmp_path):
     ("list", {}, None, "grpc"),
 ])
 def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatch, capsys,
-                                                            argv, env, config, item):
+                                                            request, argv, env, config, item):
     monkeypatch.setenv("DF_DAEMON_STATE", str(tmp_path / "daemon.json"))
     monkeypatch.setenv("DRAGONFLY_DAEMON_SERVER_PORT", "0")
     monkeypatch.setenv("DRAGONFLY_DAEMON_STORAGE_DIR", str(tmp_path / "store"))
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if isinstance(argv, list) and "--pex-port" in argv:
+        # Ported (item 14's daemon half): --pex-port runs the networked
+        # gossip as the reference's daemon does and prints its boot line;
+        # with --download the run returns after the download.
+        sched = request.getfixturevalue("port_scheduler")
+        src_url, payload = request.getfixturevalue("origin")
+        monkeypatch.setenv("DRAGONFLY_DAEMON_SERVER_HOST", "127.0.0.1")
+        monkeypatch.setenv("DRAGONFLY_DAEMON_PIECE_SIZE", str(PIECE))
+        monkeypatch.setenv("DRAGONFLY_DAEMON_METRICS_PORT", "0")
+        out = tmp_path / "out.bin"
+        assert dfdaemon.run(["--scheduler", sched.url, *argv, "--download", src_url,
+                             "-O", str(out)]) == 0
+        text = capsys.readouterr().out
+        assert re.search(r"^dfdaemon: pex gossip on udp:\d+$", text, re.M), text
+        assert out.read_bytes() == payload
+        return
     scheduler = "http://127.0.0.1:9"
     if argv == "grpc":
         argv, scheduler = [], "grpc://127.0.0.1:9"

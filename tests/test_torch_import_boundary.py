@@ -230,6 +230,15 @@ print("OK")
         "dragonfly2_tpu_torch.records.contracts",
         "dragonfly2_tpu_torch.records.state_contracts",
         "dragonfly2_tpu_torch.records.determinism_contracts",
+        "dragonfly2_tpu_torch.daemon.proxy",
+        "dragonfly2_tpu_torch.daemon.relay",
+        "dragonfly2_tpu_torch.daemon.gateway",
+        "dragonfly2_tpu_torch.daemon.pex_net",
+        "dragonfly2_tpu_torch.objectstorage",
+        "dragonfly2_tpu_torch.objectstorage.s3",
+        "dragonfly2_tpu_torch.cli.dfstore",
+        "dragonfly2_tpu_torch.cli.dfcache",
+        "dragonfly2_tpu_torch.parallel.launch",
         "chip_smoke",
     ],
 )
