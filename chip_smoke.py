@@ -528,6 +528,33 @@ launch counts are zeroed before each and must read 0 after.
     within 60 s.  Printed: aggregate MB/s, layer first-byte p50 / p99,
     the registry's byte ratio to the image, daemon 0's share of P2P
     pieces.
+27. The secured cluster (``secure_cluster``, ``bench/secure_cluster.run``):
+    the manager binary's composition as the cluster CA (``ca_dir``) with a
+    32-byte ``token_secret``, ``users_db`` and ``root_password``; root
+    signs in over REST and mints a PEER and an OPERATOR personal access
+    token; the ``ml`` scheduler over phase 2's seeded K1 scorer requests
+    its identity from the manager's CA (``security.auto_issue``, the PEER
+    token) and serves gRPC over mutual TLS (``advertise_ip`` 127.0.0.1);
+    16 daemons at their defaults request theirs, dial ``grpc://`` over
+    mTLS, serve and fetch pieces over mTLS and run an SNI proxy hijacking
+    the registry host.  An in-process origin answering after 20-25 ms
+    serves a 64 MiB file and an image of 4 layers (1, 4, 16 and 32 MiB;
+    the bench's defaults, 128 MiB and a 64 MiB last layer, cut for the
+    phase's time) under the hijacked host's ``https://`` URLs.  All 16 daemons download
+    the file; 16 clients pull every layer over HTTPS through their
+    daemon's SNI proxy, trusting its ``sni-ca.pem``; one client reaches a
+    host no daemon hijacks and gets the upstream's bytes unchanged.
+    Checks: every identity chains to the manager's CA; an anonymous TLS
+    client is refused by a piece server and a channel without a client
+    certificate by the scheduler's gRPC port; REST answers 401 without a
+    token and to the PEER token on an OPERATOR route, 403 to it on an
+    ADMIN route; every sha256; every piece over TLS, none through the
+    native fetch loop; no renewer, proxy or server thread left; K1
+    launches = the scheduler's scorer calls > 0, K2 and K3 none, K1 held
+    to plain on the phase's flushes; the phase within 60 s.  Printed:
+    download MB/s and per-download seconds p50 / p99, pull MB/s and layer
+    first-byte p50 / p99, the piece servers' TLS handshakes, pieces by
+    source, the identity issuance seconds at boot.
 
 Every comparison of K1 with its plain version on a path's flushes holds
 every row finite, the batcher's pad rows included (they read slot 0, a
@@ -683,6 +710,10 @@ RP_LAYERS_MIB = "1,2,4,8,16,32,64,129"  # ... the image's layers (256 MiB)
 RP_OBJECTS = 32            # ... objects daemon 0 puts
 RP_OBJECT_MIB = 4          # ... each object's size
 RP_SECONDS = 60.0          # ... the phase's time limit
+SC_DAEMONS = 16            # phase 27: daemons, each with an auto-issued mTLS identity
+SC_FILE_MIB = 64           # ... the file every daemon downloads (the bench's 128 cut)
+SC_LAYERS_MIB = "1,4,16,32"  # ... the image's layers (the bench's 1,4,16,64 cut)
+SC_SECONDS = 60.0          # ... the phase's time limit
 K1_STRESS_FLUSHES = 2000   # phase 23: seeded stress flushes ...
 K1_STRESS_REPEATS = 3      # ... each launched this many times back to back
 FED_MEAN_TOL = 1e-6       # the round's aggregate vs a numpy weighted mean
@@ -4191,6 +4222,51 @@ def registry_proxy_phase(torch, dev, seed, out_dir):
     return out, launches
 
 
+def secure_cluster_phase(torch, dev, seed, out_dir):
+    """Phase 27: the secured cluster (``bench/secure_cluster``): the
+    manager's CA, users and PATs, auto-issued mTLS on the piece plane and
+    the scheduler's gRPC port, the SNI proxy, K1 ranking the parents.
+    Returns (summary, launches)."""
+    from dragonfly2_tpu_torch.bench import secure_cluster
+
+    seen = {"flushes": []}
+    args = secure_cluster.parse_args([
+        "--daemons", str(SC_DAEMONS), "--file-mib", str(SC_FILE_MIB),
+        "--layers-mib", SC_LAYERS_MIB, "--seed", str(seed), "--out", out_dir,
+        "--device", "cuda",
+    ])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with keep_k1_flushes(seen):
+        summary = secure_cluster.run(args, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    phase_s = time.perf_counter() - t0
+    check(len(seen["flushes"]) > 0, "no K1 flush on the secured cluster's path")
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+        torch, dev, seen, k1_save_dir(out_dir), "secure_cluster")
+    out = {
+        **summary, "phase_seconds": phase_s, "kernel_launches": launches,
+        "k1": {"launches": launches["fused_gather_mlp_score"],
+               "scorer_calls": summary["scorer_calls"], "max_err_scaled": k1_err,
+               "tol_scaled": K1_TOL, "flushes_checked": len(seen["flushes"]),
+               "ms_128": k1_ms, "us_128": k1_ms * 1e3, "plain_ms_128": k1_plain_ms,
+               "bound_ms_128": k1_bound_ms},
+    }
+    emit({"phase": "secure_cluster", **out})
+    for name, ok in summary["checks"].items():
+        check(ok, f"secure cluster check {name} failed: {json.dumps(summary)}")
+    check(launches["fused_gather_mlp_score"] == summary["scorer_calls"] > 0,
+          f"K1 launches {launches['fused_gather_mlp_score']} != the batcher's scorer calls "
+          f"{summary['scorer_calls']} on the secured cluster")
+    check(launches["segment_sum"] == 0 and launches["rule_weighted_sum"] == 0,
+          f"another kernel launched on the secured cluster: {launches}")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the "
+          "secured cluster's flushes")
+    check(phase_s <= SC_SECONDS, f"phase 27 took {phase_s:.1f} s (limit {SC_SECONDS})")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4511,6 +4587,10 @@ def main(argv=None) -> int:
     # -- 26. image pulls through the registry proxy and the object gateway --
     loop["registry_proxy"], rp_launches = registry_proxy_phase(torch, dev, args.seed, work_dir)
     rp = loop["registry_proxy"]
+    # -- 27. the secured cluster: CA, PATs, mTLS, the SNI proxy (K1) ---------
+    loop["secure_cluster"], sc_launches = secure_cluster_phase(
+        torch, dev, args.seed, work_dir)
+    sc = loop["secure_cluster"]
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
@@ -4520,7 +4600,7 @@ def main(argv=None) -> int:
          + tq_launches["fused_gather_mlp_score"] + ps_launches["fused_gather_mlp_score"]
          + ph_launches["fused_gather_mlp_score"] + sf_launches["fused_gather_mlp_score"]
          + push_launches["fused_gather_mlp_score"] + qd_launches["fused_gather_mlp_score"]
-         + rp_launches["fused_gather_mlp_score"],
+         + rp_launches["fused_gather_mlp_score"] + sc_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
@@ -4532,6 +4612,7 @@ def main(argv=None) -> int:
          "launches_push": push_launches["fused_gather_mlp_score"],
          "launches_qos_drill": qd_launches["fused_gather_mlp_score"],
          "launches_registry_proxy": rp_launches["fused_gather_mlp_score"],
+         "launches_secure_cluster": sc_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
          "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
          "max_err_scaled_telemetry_qos": tq["k1"]["max_err_scaled"],
@@ -4541,6 +4622,7 @@ def main(argv=None) -> int:
          "max_err_scaled_push": pu["k1"]["max_err_scaled"],
          "max_err_scaled_qos_drill": qd["k1"]["max_err_scaled"],
          "max_err_scaled_registry_proxy": rp["k1"]["max_err_scaled"],
+         "max_err_scaled_secure_cluster": sc["k1"]["max_err_scaled"],
          "max_err_scaled_stress": pu["k1_stress"]["max_err_scaled"],
          "stress_launches": pu["k1_stress"]["launches"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
@@ -4554,7 +4636,8 @@ def main(argv=None) -> int:
          "ms_shard_fleet_128": sf["k1"]["ms_128"],
          "ms_push_128": pu["k1"]["ms_128"],
          "ms_qos_drill_128": qd["k1"]["ms_128"],
-         "ms_registry_proxy_128": rp["k1"]["ms_128"]},
+         "ms_registry_proxy_128": rp["k1"]["ms_128"],
+         "ms_secure_cluster_128": sc["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

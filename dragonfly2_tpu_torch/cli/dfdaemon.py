@@ -24,9 +24,16 @@ exits 2 naming the package).  ``--pex-port`` / ``--pex-join`` run the
 networked peer exchange (``daemon/pex_net.NetworkedGossipBus``) as the
 reference wires it: the conductor's ``pex`` falls back to gossip-found
 piece holders, and piece fetches resolve hosts through the scheduler's
-mirror first and the gossip members second.  What is not ported exits 2
-naming its ROADMAP queue 1 item: the config's ``security`` and
-``proxy.sni_*`` keys and ``control_vsock_port`` (all item 14).  As in
+mirror first and the gossip members second.  As in the reference,
+``security.auto_issue`` requests the daemon's identity from the
+manager's CA at boot (``manager_addr``, with ``manager_token``): the
+piece server and fetcher then speak mutual TLS (the Python server: the
+native one speaks plain HTTP, and the native fetch loop cannot dial TLS),
+an ``IdentityRenewer`` reloads both contexts at half validity, and a
+``grpc://`` scheduler is dialed over mTLS when
+``security.scheduler_grpc_tls`` holds.  ``proxy.sni_enable`` starts the
+SNI proxy (``start_sni``) and ``control_vsock_port >= 0`` binds the
+control surface on vsock, or warns where vsock is unusable.  As in
 the reference, no binary starts the forward proxy
 (``daemon/proxy.P2PProxy``): ``proxy.enable`` is a key nothing reads.
 At the defaults the piece store, the piece server and
@@ -40,6 +47,7 @@ and stops on SIGTERM as on SIGINT.
 from __future__ import annotations
 
 import logging
+import os
 import signal
 import socket
 import sys
@@ -51,6 +59,7 @@ from ..daemon.conductor import Conductor
 from ..daemon.daemon import Daemon
 from ..daemon.host_announcer import HostAnnouncer
 from ..rpc import HTTPPieceFetcher
+from ..rpc.steering import SteeringSchedulerClient, default_scheduler_factory
 from ..scheduler.resource import Host
 from ..source import PieceSourceFetcher
 from ..utils import idgen
@@ -107,6 +116,40 @@ def build(cfg: DaemonConfig, scheduler_url: str, *, prefer_native: bool = True):
     # Advertise a routable address — peers on OTHER machines dial it.
     ip = cfg.server.advertise_ip or local_ip()
 
+    # Auto-issued mTLS (certify analog, scheduler.go:186-222): request
+    # this daemon's identity from the manager's cluster CA at boot; the
+    # piece plane then serves AND fetches over mutual TLS.
+    identity = None
+    serve_ssl = fetch_ssl = None
+    renewer = None
+    if cfg.security.auto_issue:
+        if not cfg.manager_addr:
+            raise ConfigError("dfdaemon: security.auto_issue needs manager_addr")
+        from ..security.ca import IdentityRenewer, PeerIdentity
+        from ..security.tls import client_context, server_context
+
+        def _issue_identity():
+            ident = PeerIdentity.request_from_manager(
+                cfg.manager_addr,
+                common_name=f"daemon-{hostname}",
+                hostnames=[hostname],
+                ips=[ip],
+                token=cfg.manager_token or None,
+                ttl_hours=cfg.security.cert_ttl_hours,
+            )
+            if cfg.security.identity_dir:
+                ident.write(cfg.security.identity_dir)
+            return ident
+
+        identity = _issue_identity()
+        serve_ssl = server_context(identity)
+        fetch_ssl = client_context(identity)
+        # Short-TTL certs stay alive: re-issue at half validity and
+        # reload both piece-plane contexts in place.
+        renewer = IdentityRenewer(
+            identity, _issue_identity, [serve_ssl, fetch_ssl]
+        ).start()
+
     # Native-engine stores serve pieces from the C++ server (sendfile hot
     # path); Python HTTP remains the fallback/TLS server.
     from ..rpc.piece_transport import make_piece_server
@@ -114,8 +157,38 @@ def build(cfg: DaemonConfig, scheduler_url: str, *, prefer_native: bool = True):
     # Bind the CONFIGURED piece port (0 = ephemeral): deployments pin it
     # (k8s containerPort / NetworkPolicies key on it) while test
     # clusters pass 0.
-    piece_server = make_piece_server(upload, host=cfg.server.host, port=cfg.server.port)
+    piece_server = make_piece_server(
+        upload, host=cfg.server.host, port=cfg.server.port,
+        ssl_context=serve_ssl,
+    )
     piece_server.serve()
+    channel_creds = None
+    if identity is not None and cfg.security.scheduler_grpc_tls and any(
+        u.startswith("grpc://") for u in scheduler_urls
+    ):
+        # The scheduler's gRPC port runs mTLS when the cluster
+        # auto-issues — dial with this daemon's issued identity.
+        # (security.scheduler_grpc_tls: false covers mixed clusters
+        # whose scheduler port is still plaintext.)
+        channel_creds = grpc_transport("a grpc:// scheduler").grpc.ssl_channel_credentials(
+            root_certificates=identity.ca_pem,
+            private_key=identity.key_pem,
+            certificate_chain=identity.cert_pem,
+        )
+
+    def scheduler_client_cls(url: str):
+        if url.startswith("grpc://"):
+            # Streaming variant: per-peer calls ride the bidi
+            # announce_peer stream so the scheduler can push
+            # mid-download reschedules (unary fallback on stream
+            # failure).
+            from ..rpc.grpc_transport import GRPCStreamingScheduler
+
+            return GRPCStreamingScheduler(
+                url[len("grpc://"):], channel_credentials=channel_creds
+            )
+        return default_scheduler_factory(url)
+
     host = Host(
         # The piece port joins the identity so multiple daemons on one
         # machine are distinct hosts (reference: hostname-port host ids,
@@ -127,13 +200,13 @@ def build(cfg: DaemonConfig, scheduler_url: str, *, prefer_native: bool = True):
         download_port=piece_server.port,
         concurrent_upload_limit=cfg.concurrent_upload_limit,
     )
-    from ..rpc.steering import SteeringSchedulerClient, default_scheduler_factory
-
     if len(scheduler_urls) > 1:
-        client = SteeringSchedulerClient(scheduler_urls)
+        client = SteeringSchedulerClient(
+            scheduler_urls, factory=scheduler_client_cls
+        )
     else:
         # grpc:// → the streaming client (pushed reschedules), else HTTP.
-        client = default_scheduler_factory(scheduler_urls[0])
+        client = scheduler_client_cls(scheduler_urls[0])
     # Declared tenant identity (DESIGN.md §26): stamped on announces and
     # registers; the wire client carries it as client state.
     if cfg.tenant and hasattr(client, "tenant"):
@@ -143,7 +216,7 @@ def build(cfg: DaemonConfig, scheduler_url: str, *, prefer_native: bool = True):
         storage,
         client,
         piece_fetcher=HTTPPieceFetcher(
-            client.resolve_host, tenant=cfg.tenant
+            client.resolve_host, ssl_context=fetch_ssl, tenant=cfg.tenant
         ),
         source_fetcher=PieceSourceFetcher(),
         concurrent_source_groups=cfg.concurrent_source_groups,
@@ -184,6 +257,8 @@ def build(cfg: DaemonConfig, scheduler_url: str, *, prefer_native: bool = True):
         "conductor": conductor,
         "announcer": announcer,
         "daemon": Daemon.over(host, client, storage, upload, conductor, tenant=cfg.tenant),
+        "identity": identity,
+        "renewer": renewer,
     }
 
 
@@ -269,6 +344,52 @@ def start_pex(parts: dict, cfg: DaemonConfig, port: int, join: str = ""):
     return pex
 
 
+def start_sni(parts: dict, cfg: DaemonConfig):
+    """The SNI-hijack proxy over ``build``'s parts (reference
+    ``cli/dfdaemon.py:357-394``): the persistent daemon CA under
+    ``storage.dir/sni-ca`` (restarts keep the trust anchor clients
+    installed), its certificate written to ``storage.dir/sni-ca.pem``, and
+    a ``daemon.sni.SNIProxy`` on ``server.host:proxy.sni_port`` hijacking
+    ``proxy.sni_hijack_hosts`` into P2P; prints the reference's boot line.
+    → ``(proxy, ca_path)``; ``proxy.stop()`` closes its listener."""
+    from ..daemon.sni import SNIProxy
+    from ..security.ca import CertificateAuthority
+
+    class _DaemonShim:
+        """SNIProxy's daemon surface over the CLI's parts."""
+
+        def __init__(self, conductor, storage):
+            self.conductor = conductor
+            self._storage = storage
+
+        def download(self, url, piece_size, content_length=None):
+            return self.conductor.download(
+                url, piece_size=piece_size, content_length=content_length
+            )
+
+        def read_task_bytes(self, task_id):
+            return self._storage.read_task_bytes(task_id)
+
+    # Persistent: restarts keep the same trust anchor, so clients that
+    # installed sni-ca.pem don't break on every deploy.
+    ca = CertificateAuthority.persistent(os.path.join(cfg.storage.dir, "sni-ca"))
+    ca_path = os.path.join(cfg.storage.dir, "sni-ca.pem")
+    os.makedirs(cfg.storage.dir, exist_ok=True)
+    with open(ca_path, "wb") as f:
+        f.write(ca.cert_pem)
+    sni = SNIProxy(
+        _DaemonShim(parts["conductor"], parts["storage"]),
+        ca=ca,
+        hijack=cfg.proxy.sni_hijack_hosts,
+        host=cfg.server.host,
+        port=cfg.proxy.sni_port,
+        piece_size=cfg.piece_size,
+    )
+    sni.serve()
+    print(f"dfdaemon: SNI proxy on :{sni.port}, trust anchor {ca_path}", flush=True)
+    return sni, ca_path
+
+
 def run(argv=None) -> int:
     p = base_parser("dfdaemon", "Peer daemon service")
     p.add_argument("--scheduler", required=True, help="scheduler RPC URL")
@@ -288,7 +409,7 @@ def run(argv=None) -> int:
     debug = init_debug(args)
     init_tracing(args)
     journal = engine = diagnostics = None
-    parts = control = seed = pex = None
+    parts = control = seed = pex = sni = None
     try:
         try:
             cfg = load_config(DaemonConfig, args.config)
@@ -324,6 +445,21 @@ def run(argv=None) -> int:
             seeder=seed["seeder"] if seed is not None else None,
         )
         control.serve()
+        if cfg.control_vsock_port >= 0:
+            # VM-guest wire (pkg/rpc/vsock.go): same control handler, vsock
+            # listener — guests dial vsock://2:<port> with no network stack.
+            from ..rpc.vsock import vsock_available
+
+            try:
+                if not vsock_available():
+                    raise OSError("AF_VSOCK unavailable")
+                vport = control.serve_vsock(cfg.control_vsock_port)
+                print(f"dfdaemon: control also on vsock:{vport}", flush=True)
+            except OSError as exc:
+                # socket() succeeding does not guarantee bind() does (module
+                # loaded, no transport registered) — degrade to TCP-only
+                # rather than crashing the daemon.
+                log.warning("control_vsock_port set but vsock is unusable: %s", exc)
         parts["announcer"].serve()
 
         if args.download:
@@ -344,6 +480,9 @@ def run(argv=None) -> int:
             print(f"dfdaemon: {result.pieces} pieces via {mode} in {result.cost_s:.2f}s")
             return 0
 
+        if cfg.proxy.sni_enable:
+            sni, _ = start_sni(parts, cfg)
+
         # Discovery state file so dfget finds or spawns this daemon
         # (root.go:234-260).  write_state uses state_path() — the SAME
         # resolution dfget reads, so writer and reader can never disagree.
@@ -351,17 +490,19 @@ def run(argv=None) -> int:
 
         # Probe loop against the remote scheduler, until SIGINT or SIGTERM.
         ping = make_host_pinger()
+        # The handlers go in before the ready line: a supervisor may
+        # signal as soon as it reads it.
+        stop = threading.Event()
+        previous = {
+            s: signal.signal(s, lambda signum, frame: stop.set())
+            for s in (signal.SIGINT, signal.SIGTERM)
+        }
         print(
             f"dfdaemon: serving pieces on :{parts['piece_server'].port}, "
             f"control {control.url} (state {state_file}), "
             f"scheduler {args.scheduler} (ctrl-c to stop)",
             flush=True,
         )
-        stop = threading.Event()
-        previous = {
-            s: signal.signal(s, lambda signum, frame: stop.set())
-            for s in (signal.SIGINT, signal.SIGTERM)
-        }
         try:
             while not stop.wait(cfg.probe_interval_s):
                 try:
@@ -380,11 +521,15 @@ def run(argv=None) -> int:
                 signal.signal(s, handler)
         return 0
     finally:
+        if sni is not None:
+            sni.stop()
         if pex is not None:
             pex.stop()
         if parts is not None:
             parts["announcer"].stop()
             parts["piece_server"].stop()
+            if parts["renewer"] is not None:
+                parts["renewer"].stop()
         if control is not None:
             control.stop()
         if seed is not None:

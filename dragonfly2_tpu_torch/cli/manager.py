@@ -6,20 +6,24 @@ at ``registry.blob_dir/manager-state.db`` (the legacy per-store files
 migrated into it once), the model registry over a ``BlobStore`` in the
 blob directory, the CRUD rows with the default cluster, the rollout
 controller under the config's guardrails, the job broker, the cluster
-manager with keepalive TTLs and the searcher.  ``serve`` puts
+manager with keepalive TTLs, the searcher and, with ``objectstorage``,
+the backend the bucket routes drive.  ``serve`` puts
 ``ManagerRESTServer`` over it and returns a handle (``.url``,
-``.stop()``), as the port's other binaries do.  ``--list-models`` prints
+``.stop()``), as the port's other binaries do.  As in the reference,
+``token_secret`` turns on the token verifier and issuer and a
+``UserStore`` (on the state backend, or in ``users_db`` with its legacy
+tables migrated once) with ``root_password`` seeding the ``root`` admin
+and ``oauth_providers`` the OAuth sign-in, and ``ca_dir`` the
+persistent cluster CA that signs ``certs:issue`` on both ports.  ``--list-models`` prints
 the registry persisted under ``registry.blob_dir``.
 
 ``run(argv)`` is the binary: it prints ``manager: serving REST on <url>
 (ctrl-c to stop)``, serves until SIGINT or SIGTERM and exits 0.  What is
 not ported exits 2 naming its ROADMAP queue 1 item: ``--replicate-from``
-and the config's ``ha``, ``token_secret``, ``users_db``,
-``root_password``, ``oauth_providers``, ``ca_dir`` and ``objectstorage``
-keys (item 14).  ``server.grpc_port >= 0`` also serves
-``ManagerGRPCServer`` over the same registry and clusters (no RBAC and
-no CA: item 14); on a machine without ``grpc`` or ``protobuf`` it exits 2
-naming the package.  The ``metrics`` section parses, as in the
+and the config's ``ha`` key (manager replication, item 14).
+``server.grpc_port >= 0`` also serves ``ManagerGRPCServer`` over the same
+registry, clusters, credentials and CA; on a machine without ``grpc`` or
+``protobuf`` it exits 2 naming the package.  The ``metrics`` section parses, as in the
 reference: the manager serves ``/metrics`` and ``/debug/*`` on its REST
 port.  As in the reference, ``run`` points the process tracer at ``--otlp`` /
 ``--trace-file``, attaches the flight recorder and starts the metric
@@ -103,6 +107,12 @@ def build(cfg: ManagerConfig):
     if migrated:
         print(f"manager: migrated legacy state {migrated}", flush=True)
     blob_store = BlobStore(cfg.registry.blob_dir)
+    objectstorage = None
+    if cfg.objectstorage:
+        from ..objectstorage import make_backend
+
+        kwargs = dict(cfg.objectstorage)
+        objectstorage = make_backend(kwargs.pop("kind", "fs"), **kwargs)
     clusters = ClusterManager(keepalive_ttl=cfg.keepalive_ttl_s)
     # Rollout controller (rollout/controller.py): evidence-gated
     # SHADOW→CANARY→ACTIVE promotion with auto-rollback; its rows ride
@@ -118,6 +128,7 @@ def build(cfg: ManagerConfig):
         "searcher": Searcher(),
         "jobs": consumers["jobs"],
         "crud": consumers["crud"],
+        "objectstorage": objectstorage,
         "state_backend": backend,
         "rollout": consumers["rollout"],
         "blob_store": blob_store,
@@ -165,15 +176,64 @@ def serve(cfg: Optional[ManagerConfig] = None) -> ManagerServing:
     from ..rpc.ratelimit import maybe_bucket
 
     parts = build(cfg)
+    auth = {}
+    if cfg.token_secret:
+        from ..manager.users import UserStore
+        from ..security.tokens import TokenIssuer, TokenVerifier
+
+        secret = cfg.token_secret.encode()
+        # users_db (if set) keeps its own file for operators who isolate
+        # credentials; default shares the one state backend.  Legacy
+        # users/pats tables in that file import once.
+        if cfg.users_db:
+            from ..manager.state import SQLiteBackend, migrate_legacy_sqlite
+
+            user_backend = SQLiteBackend(cfg.users_db)
+            migrate_legacy_sqlite(user_backend, users_db=cfg.users_db)
+            users = UserStore(backend=user_backend)
+        else:
+            users = UserStore(backend=parts["state_backend"])
+        if cfg.root_password:
+            users.ensure_root(cfg.root_password)
+        auth = {
+            "token_verifier": TokenVerifier(secret),
+            "token_issuer": TokenIssuer(secret),
+            "users": users,
+        }
+        if cfg.oauth_providers:
+            from ..manager.oauth import OAuthProvider, OAuthSignin
+
+            oauth = OAuthSignin(users)
+            for p in cfg.oauth_providers:
+                oauth.register(OAuthProvider(**p))
+            auth["oauth"] = oauth
+    ca = None
+    if cfg.ca_dir:
+        try:
+            from ..security.ca import CertificateAuthority
+        except ImportError:
+            # `cryptography` absent: serve without the CA surface rather
+            # than dying at boot — identity issuance degrades to 404,
+            # everything else (registry, jobs, topology) keeps working.
+            print("manager: ca_dir set but `cryptography` unavailable; "
+                  "serving without CA", flush=True)
+        else:
+            # Persistent: restarts keep the cluster trust root, so issued
+            # peer identities stay valid across a manager bounce.
+            ca = CertificateAuthority.persistent(cfg.ca_dir)
+    parts["auth"], parts["ca"] = auth, ca
     bucket = maybe_bucket(cfg.server.rate_limit_qps, cfg.server.rate_limit_burst)
     rest = ManagerRESTServer(
         parts["registry"], parts["clusters"], parts["searcher"],
         host=cfg.server.host, port=cfg.server.port,
         jobqueue=parts["jobs"], crud=parts["crud"],
+        objectstorage=parts["objectstorage"],
         rate_limit=bucket,
+        ca=ca,
         state_backend=parts["state_backend"],
         jobs_min_requeue_s=cfg.jobs_min_requeue_s,
         rollout=parts["rollout"],
+        **auth,
     )
     rest.serve()
     grpc_server = None
@@ -182,7 +242,11 @@ def serve(cfg: Optional[ManagerConfig] = None) -> ManagerServing:
         grpc_server = grpc_mod.ManagerGRPCServer(
             parts["registry"], parts["clusters"], parts["searcher"],
             host=cfg.server.host, port=cfg.server.grpc_port,
+            # Same RBAC as REST, same credentials: session tokens AND PATs.
+            token_verifier=auth.get("token_verifier"),
+            users=auth.get("users"),
             rate_limit=bucket,
+            ca=ca,
         )
         grpc_server.serve()
     # flush: under a pipe (supervisors, e2e harnesses) the ready line must
@@ -203,7 +267,7 @@ def run(argv=None) -> int:
     p.add_argument(
         "--replicate-from", default="", metavar="URL",
         help="boot as a hot standby tailing this leader's replication log "
-             "(not ported: ROADMAP queue 1 item 14)",
+             "(manager replication is not ported: ROADMAP queue 1 item 14)",
     )
     args = p.parse_args(argv)
     init_logging(args, "manager")

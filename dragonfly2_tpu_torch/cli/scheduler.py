@@ -216,6 +216,7 @@ class SchedulerServing:
     journal: object = None
     slo_engine: object = None
     diagnostics: object = None
+    identity: object = None
 
     @property
     def url(self) -> str:
@@ -413,6 +414,45 @@ def _trainer_link(addr: str, grpc_mod):
     return _GRPCTrainerLink()
 
 
+def _issue_identity(cfg: SchedulerConfigFile):
+    """Auto-issued mTLS (certify analog, reference cli/scheduler.py:
+    176-217): this scheduler's identity from the manager's cluster CA;
+    the gRPC port then requires CA-issued client certificates."""
+    import ipaddress as _ipa
+
+    from ..security.ca import PeerIdentity
+    from ..utils.hostinfo import local_ip
+
+    # The SAN must carry the address clients DIAL (gRPC verifies the
+    # target against it) — the advertise address, never the bind host
+    # (0.0.0.0 would fail every handshake).  A non-IP dial address is a
+    # DNS name and belongs in the DNS SANs.
+    dial = cfg.server.advertise_ip or (
+        cfg.server.host
+        if cfg.server.host not in ("0.0.0.0", "::")
+        else local_ip()
+    )
+    try:
+        _ipa.ip_address(dial)
+        san_ips, san_names = [dial], [socket.gethostname()]
+    except ValueError:
+        san_ips, san_names = [local_ip()], [dial, socket.gethostname()]
+    identity = PeerIdentity.request_from_manager(
+        # One-shot bootstrap: the first replica in a comma-separated
+        # manager_addr list.
+        cfg.manager_addr.split(",")[0].strip(),
+        common_name=f"sched-{socket.gethostname()}",
+        hostnames=san_names,
+        ips=san_ips,
+        token=cfg.manager_token or None,
+        ttl_hours=cfg.security.cert_ttl_hours,
+    )
+    if cfg.security.identity_dir:
+        identity.write(cfg.security.identity_dir)
+    print("scheduler: mTLS identity issued by manager CA", flush=True)
+    return identity
+
+
 def serve(
     cfg: Optional[SchedulerConfigFile] = None,
     *,
@@ -438,7 +478,11 @@ def serve(
     server binds the same service (and the stall monitor starts when
     ``scheduling.stall_max_idle_s > 0``); a ``grpc://`` trainer uploads
     over gRPC.  Raises ``ConfigError`` naming the package when either
-    needs ``grpc`` or ``protobuf`` and the machine lacks it."""
+    needs ``grpc`` or ``protobuf`` and the machine lacks it.  With
+    ``security.auto_issue`` the scheduler requests its identity from the
+    manager's CA first (``manager_token`` authenticates the request; no
+    ``manager_addr`` raises ``ConfigError``), and its gRPC port requires
+    CA-issued client certificates."""
     cfg = cfg or SchedulerConfigFile()
     cfg.validate()
     trainer_link = cfg.trainer.enable and cfg.trainer.addr
@@ -447,6 +491,11 @@ def serve(
         grpc_mod = grpc_transport("server.grpc_port >= 0")
     if trainer_link and cfg.trainer.addr.startswith("grpc://"):
         grpc_mod = grpc_transport("a grpc:// trainer.addr")
+    identity = None
+    if cfg.security.auto_issue:
+        if not cfg.manager_addr:
+            raise ConfigError("security.auto_issue needs manager_addr")
+        identity = _issue_identity(cfg)
     from ..rpc import SchedulerHTTPServer
     from ..rpc.ratelimit import maybe_bucket
 
@@ -495,11 +544,19 @@ def serve(
     # (pkg/rpc serves gRPC in the reference; JSON stays for curl/debug).
     grpc_server = stall_monitor = None
     if cfg.server.grpc_port >= 0:
+        grpc_creds = None
+        if identity is not None:
+            grpc_creds = grpc_mod.grpc.ssl_server_credentials(
+                [(identity.key_pem, identity.cert_pem)],
+                root_certificates=identity.ca_pem,
+                require_client_auth=True,
+            )
         # ONE shared bucket: the configured qps bounds the SERVICE, not
         # each transport separately.
         grpc_server = grpc_mod.SchedulerGRPCServer(
             service, host=cfg.server.host, port=cfg.server.grpc_port,
             rate_limit=bucket,
+            server_credentials=grpc_creds,
         )
         grpc_server.serve()
         # Stall sweep: server-initiated reschedules for idle peers on the
@@ -521,7 +578,7 @@ def serve(
     serving = SchedulerServing(
         service=service, rpc_server=rpc_server, runner=runner,
         scheduler_id=scheduler_id, topology_state_path=topology_state_path,
-        grpc_server=grpc_server, stall_monitor=stall_monitor,
+        grpc_server=grpc_server, stall_monitor=stall_monitor, identity=identity,
     )
     # Sharded-fleet guard (DESIGN.md §24): ownership steering + admission
     # control on the task-scoped entry points.  The ring arrives through

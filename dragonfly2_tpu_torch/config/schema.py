@@ -35,20 +35,19 @@ lists what reads them in the reference).  ``telemetry.slos`` is
 validated by ``utils/slo.parse_slos``, as in the reference.
 
 ``ManagerConfig``, ``ModelRegistrySection`` and ``RolloutSection`` are
-the reference's, with ``DRAGONFLY_MANAGER_*`` overrides, without the keys
-whose readers are item 14's (``ha``, ``token_secret``, ``users_db``,
-``root_password``, ``oauth_providers``, ``ca_dir``, ``objectstorage``:
-refused through ``NOT_PORTED``).
+the reference's, with ``DRAGONFLY_MANAGER_*`` overrides (``token_secret``,
+``users_db``, ``root_password``, ``oauth_providers``, ``ca_dir`` and
+``objectstorage`` included), without ``ha``, whose reader is manager
+replication (item 14: refused through ``NOT_PORTED``).
 
-``DaemonConfig``, ``DaemonStorageSection`` and ``ProxySection`` are the
-reference's, without the keys whose readers are item 14's (``security``,
-``proxy.sni_*``: refused through ``NOT_PORTED``).
+``DaemonConfig``, ``DaemonStorageSection``, ``ProxySection`` (with the
+SNI proxy's ``sni_*`` keys) and ``SecuritySection`` (the daemon's and the
+scheduler's ``security``) are the reference's.
 
 The scheduler's, the manager's and the daemon's ``metrics`` section is
 the reference's ``MetricsConfig`` (on, port 8000): the diagnostics
 sidecar of ``cli/common.init_diagnostics`` on the scheduler and the
 daemon, the same routes on the manager's REST port.
-A ``control_vsock_port`` >= 0 fails validation naming item 14.
 """
 
 from __future__ import annotations
@@ -323,6 +322,28 @@ class GCSection:
 
 
 @dataclass
+class SecuritySection:
+    """Auto-issued mTLS (the reference certify flow, pkg/rpc/security):
+    with ``auto_issue`` on and a manager address configured, the service
+    requests its identity from the manager's cluster CA at boot
+    (security/ca.py request_from_manager) — the key never leaves the
+    process; only the CSR travels."""
+
+    auto_issue: bool = False
+    identity_dir: str = ""     # persist key/cert/ca here (empty = memory only)
+    # 0 = manager default (24h); server-capped at 7d.  The daemon's
+    # piece-plane contexts auto-renew in place at half validity
+    # (security.ca.IdentityRenewer); gRPC credentials are immutable once
+    # built — clusters running mTLS gRPC restart services within the TTL.
+    cert_ttl_hours: int = 0
+    # Daemon-side: dial the scheduler's gRPC port with TLS when this
+    # daemon holds an issued identity.  True assumes a uniformly mTLS'd
+    # cluster (the scheduler auto-issued too); set False for mixed
+    # deployments where the scheduler's gRPC port is still plaintext.
+    scheduler_grpc_tls: bool = True
+
+
+@dataclass
 class SchedulerConfigFile:
     server: ServerConfig = field(default_factory=ServerConfig)
     scheduling: SchedulingSection = field(default_factory=SchedulingSection)
@@ -335,6 +356,7 @@ class SchedulerConfigFile:
     # Bearer credential (PAT or session token) for the manager's RBAC'd
     # registration routes; empty on open managers.
     manager_token: str = ""
+    security: SecuritySection = field(default_factory=SecuritySection)
     cluster_id: str = "default"
     # How often to poll the manager for cluster-scoped scheduling config
     # (dynconfig.go refresh interval; the reference defaults to 10s for
@@ -386,6 +408,23 @@ class ManagerConfig:
     registry: ModelRegistrySection = field(default_factory=ModelRegistrySection)
     rollout: RolloutSection = field(default_factory=RolloutSection)
     keepalive_ttl_s: float = 60.0
+    # RBAC (manager users + PATs): token_secret (>=16 bytes) turns auth
+    # on; users_db persists accounts; root_password seeds the first admin.
+    token_secret: str = ""
+    users_db: str = ""
+    root_password: str = ""
+    # OAuth2 providers (manager/models/oauth.go rows):
+    # [{name, client_id, client_secret, auth_url, token_url, profile_url}]
+    oauth_providers: list = field(default_factory=list)
+    # Object-storage backend the bucket routes manage (handlers/bucket.go
+    # proxies to the configured backend): {"kind": "fs"|"s3"|"oss", ...}
+    # — empty disables the bucket surface.
+    objectstorage: dict = field(default_factory=dict)
+    # Cluster CA directory (pkg/issuer analog): non-empty turns on the
+    # certificate-issuance surface (POST /api/v1/certs:issue + gRPC twin)
+    # with a persistent CA under this path; peers self-provision mTLS
+    # identities at boot (security/ca.py request_from_manager).
+    ca_dir: str = ""
     # Floor for the job broker's wire-supplied visibility window: a
     # worker's poll may request faster redelivery of popped-but-
     # unreported jobs, but never below this — an impatient worker must
@@ -403,6 +442,11 @@ class ManagerConfig:
         self.tracing.validate()
         self.telemetry.validate()
         self.rollout.validate()
+        if self.token_secret and len(self.token_secret.encode()) < 16:
+            raise ConfigError("token_secret must be >= 16 bytes")
+        for p in self.oauth_providers:
+            if not isinstance(p, dict) or "name" not in p:
+                raise ConfigError(f"oauth provider needs a name: {p!r}")
 
 
 @dataclass
@@ -415,6 +459,13 @@ class DaemonStorageSection:
 class ProxySection:
     enable: bool = False
     port: int = 65001
+    # SNI hijack (client/daemon/proxy hijackHTTPS): TLS listener that
+    # terminates matched SNI hosts with CA-minted leaf certs and serves
+    # them from P2P; unmatched hosts relay untouched.
+    sni_enable: bool = False
+    sni_port: int = 65443
+    sni_hijack_hosts: list = field(default_factory=list)  # regexes
+
 
 
 @dataclass
@@ -429,7 +480,7 @@ class DaemonConfig:
     control_host: str = "127.0.0.1"
     control_port: int = 0
     # AF_VSOCK control listener for VM guests (pkg/rpc/vsock.go analog);
-    # -1 = disabled, 0 = OS-assigned.  Only -1 is ported (item 14).
+    # -1 = disabled, 0 = OS-assigned.
     control_vsock_port: int = -1
     scheduler_addr: str = ""
     # Declared tenant identity (DESIGN.md §26): stamped on registers and
@@ -442,6 +493,7 @@ class DaemonConfig:
     # only talk to the scheduler); required when security.auto_issue is on.
     manager_addr: str = ""
     manager_token: str = ""
+    security: SecuritySection = field(default_factory=SecuritySection)
     piece_size: int = 4 << 20
     concurrent_upload_limit: int = 50
     # Concurrent back-to-source range groups (peerhost.go ConcurrentOption
@@ -478,36 +530,14 @@ class DaemonConfig:
             raise ConfigError(
                 f"stream_tee_depth {self.stream_tee_depth} must be >= 0"
             )
-        if self.control_vsock_port >= 0:
-            raise ConfigError(
-                "control_vsock_port >= 0 asks for the vsock transport, which "
-                "is not ported yet (ROADMAP queue 1 item 14)"
-            )
 
 
 # Keys of the reference's config files whose readers are not ported yet,
 # by the config class that would hold them: a file that sets one is
 # refused, and the message names the item that brings the reader.
 NOT_PORTED = {
-    "SchedulerConfigFile": {
-        "security": "14 (the security plane)",
-    },
     "ManagerConfig": {
         "ha": "14 (manager replication)",
-        "token_secret": "14 (manager users and tokens)",
-        "users_db": "14 (manager users and tokens)",
-        "root_password": "14 (manager users and tokens)",
-        "oauth_providers": "14 (manager OAuth)",
-        "ca_dir": "14 (the cluster CA)",
-        "objectstorage": "14 (object storage)",
-    },
-    "DaemonConfig": {
-        "security": "14 (the security plane)",
-    },
-    "ProxySection": {
-        "sni_enable": "14 (the SNI proxy)",
-        "sni_port": "14 (the SNI proxy)",
-        "sni_hijack_hosts": "14 (the SNI proxy)",
     },
 }
 

@@ -25,9 +25,9 @@ The download engine that turns scheduler decisions into bytes on disk:
                        (image layers) into P2P, and its tunnel relay.
 - ``gateway``        — the object gateway over ``objectstorage``.
 - ``seeder``         — the seed peer's ``ObtainSeeds`` face.
+- ``sni``            — the SNI-hijack proxy on the HTTPS port.
 
-Port of ``dragonfly2_tpu/daemon/``.  The SNI proxy (``sni``) is ROADMAP
-queue 1 item 14.
+Port of ``dragonfly2_tpu/daemon/``.
 """
 
 from .storage import DaemonStorage  # noqa: F401

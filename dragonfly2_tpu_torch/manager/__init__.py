@@ -6,7 +6,9 @@ CreateModel, manager/service/model.go:103-190 activation) — the
 durable-state seam its rows ride (``state.MemoryBackend``), scheduler
 membership with keepalive (``cluster``), the scheduler-cluster searcher
 (``searcher``), the CRUD rows whose cluster config feeds the schedulers'
-dynconfig (``crud``), the dynconfig client (``dynconfig``) and the REST
+dynconfig (``crud``), the dynconfig client (``dynconfig``), user
+accounts with pbkdf2 passwords and personal access tokens (``users``),
+the OAuth2 authorization-code sign-in seam (``oauth``) and the REST
 surface over them (``rest.ManagerRESTServer``, imported from its module).
 """
 
@@ -23,3 +25,5 @@ from .registry import (  # noqa: F401
     ModelState,
 )
 from .state import KVTable, MemoryBackend, StateBackend  # noqa: F401
+from .users import PersonalAccessToken, User, UserStore  # noqa: F401
+from .oauth import OAuthProvider, OAuthSignin  # noqa: F401

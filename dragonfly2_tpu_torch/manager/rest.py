@@ -1,72 +1,64 @@
 """Manager REST API (reference: manager/router + handlers — the gin REST
 surface the console drives; swagger'd CRUD for models/clusters/schedulers).
 
-Port of the routes of ``dragonfly2_tpu/manager/rest.py`` that the
-learned-scheduling loop and the preheat path cross, with the reference's
-paths, JSON and status codes:
+Minimal JSON binding over stdlib HTTP:
 
-  GET    /api/v1/healthy                         liveness
   GET    /api/v1/models?scheduler_id=&name=      list models
-  POST   /api/v1/models                          create (artifact_b64)
-  GET    /api/v1/models:active?scheduler_id=&name=
-  GET    /api/v1/models:candidate?scheduler_id=&name=   the SHADOW/CANARY candidate
-  GET    /api/v1/models:artifact?id=             {artifact_b64}
-  GET    /api/v1/models:get?id=
   POST   /api/v1/models/<id>:activate            single-active activation
   POST   /api/v1/models/<id>:deactivate
-  POST   /api/v1/models/<id>:rollout             begin evidence-gated rollout
-  POST   /api/v1/models/<id>:delete              guarded delete (rollout rows first)
+  POST   /api/v1/models/<id>:rollout             begin evidence-gated rollout (OPERATOR)
+  GET    /api/v1/models:candidate?scheduler_id=&name=   the SHADOW/CANARY candidate
   GET    /api/v1/rollouts                        rollout state machines
   GET    /api/v1/rollouts:get?scheduler_id=&name=
-  POST   /api/v1/rollouts:report                 scheduler evaluation report
+  POST   /api/v1/rollouts:report                 scheduler evaluation report (PEER)
   GET    /api/v1/schedulers                      active scheduler instances
   POST   /api/v1/schedulers                      register a scheduler instance
   POST   /api/v1/schedulers/<id>:keepalive       liveness tick → {known}
-  GET    /api/v1/topology?exclude=<id>           the other replicas' probe edges
-  POST   /api/v1/topology                        push this scheduler's edges
   GET    /api/v1/clusters:search?ip=&hostname=&idc=&location=
-
-The job broker wire (jobs/remote.py contract; the broker is
-``jobs/queue.JobQueue``):
-
-  POST   /api/v1/jobs                            {type, args, queues} → group
-  GET    /api/v1/jobs                            recent group jobs
-  GET    /api/v1/jobs/<gid>                      group + per-job states
-  POST   /api/v1/jobs:poll                       {queue, timeout_s?} → job | {}
-  POST   /api/v1/jobs/<id>:result                {state, result?, error?}
+  GET    /api/v1/healthy                         liveness
 
 CRUD resources (manager/handlers/application.go, scheduler_cluster.go;
-rows in manager/crud.py CrudStore, write-through to the state backend):
+rows in manager/crud.py CrudStore, sqlite write-through):
 
   GET    /api/v1/applications                    list
-  POST   /api/v1/applications                    create
-  POST   /api/v1/applications/<id>:update        partial update
-  POST   /api/v1/applications/<id>:delete
-  GET    /api/v1/configs                         list operator settings
-  POST   /api/v1/configs                         create
-  POST   /api/v1/configs/<id>:update             partial update
-  POST   /api/v1/configs/<id>:delete
+  POST   /api/v1/applications                    create        (OPERATOR)
+  POST   /api/v1/applications/<id>:update        partial update (OPERATOR)
+  POST   /api/v1/applications/<id>:delete                       (OPERATOR)
   GET    /api/v1/clusters                        list scheduler clusters
-  POST   /api/v1/clusters                        create
-  POST   /api/v1/clusters/<id>:update            partial update
-  POST   /api/v1/clusters/<id>:delete
+  POST   /api/v1/clusters                        create        (OPERATOR)
+  POST   /api/v1/clusters/<id>:update            partial update (OPERATOR)
+  POST   /api/v1/clusters/<id>:delete                           (OPERATOR)
   GET    /api/v1/clusters/<id>:config            the dynconfig payload a
          scheduler polls (scheduling.go:404-410 limit consumption)
+  GET    /api/v1/buckets                         list (needs a configured
+  POST   /api/v1/buckets                          object-storage backend —
+  POST   /api/v1/buckets/<name>:delete            handlers/bucket.go proxy)
 
-The rollout routes need a ``RolloutController`` (``rollout=``); without
-one they answer 404, as the reference's do, and ``:candidate`` reports
-``canary_percent`` 0.  As in the reference, a server given no job queue
-or CRUD store makes its own in memory, and the CRUD store always holds
-the default cluster.  The diagnostics routes ``/metrics``,
-``/debug/spans``, ``/debug/exemplars`` and ``/debug/slo`` need no backing
-object and answer 200, as the reference's do (the same surface the
-scheduler's and the daemon's ``utils/diagnostics`` sidecar serves).
-Every other route of the reference (users, personal access tokens,
-OAuth, buckets, certs, replication, the console) answers 404 here, as
-the reference's do when their backing object is ``None``; the
-constructor takes none of those objects (ROADMAP queue 1 item 14).  With no token verifier and no user
-store, the reference authorizes every request; so does this port, which
-has neither.
+User/RBAC surface (manager/handlers/user.go + personal access tokens):
+
+  POST   /api/v1/users:signup                    open signup (READONLY)
+  POST   /api/v1/users:signin                    {name,password} → token
+  GET    /api/v1/users                           ADMIN
+  POST   /api/v1/users/<id>:role                 ADMIN
+  POST   /api/v1/users/<id>:state                ADMIN enable/disable
+  POST   /api/v1/users/<id>:reset-password       self or ADMIN
+  POST   /api/v1/pats                            create PAT (raw shown once)
+  GET    /api/v1/pats                            own tokens (ADMIN: ?user_id=)
+  POST   /api/v1/pats/<id>:revoke                owner or ADMIN
+  GET    /api/v1/oauth:providers
+  GET    /api/v1/oauth/<name>:authorize-url?redirect_uri=
+  POST   /api/v1/oauth/<name>:signin             {code,state,redirect_uri} → token
+
+Authorization accepts EITHER a manager-issued HMAC session token or a
+raw personal access token in ``Authorization: Bearer ...``.
+
+Port of ``dragonfly2_tpu/manager/rest.py``: the same routes, JSON bodies,
+status codes and role tiers, without manager replication.  The
+replication routes (``/api/v1/replication:status``, ``:log``,
+``:snapshot``) answer 404 ``replication not configured``, as the
+reference's do with no replication holder, and no route answers 503 for a
+standby (ROADMAP queue 1 item 14).  With no token verifier and no user
+store every request is authorized, as in the reference.
 """
 
 from __future__ import annotations
@@ -74,17 +66,38 @@ from __future__ import annotations
 import base64
 import json
 import threading
-import time
 import urllib.parse
-from dataclasses import asdict
 from http.server import BaseHTTPRequestHandler
 from typing import List, Optional, Tuple
 
 from ..rpc._server import ThreadedHTTPService
-from .cluster import ClusterManager, SchedulerInstance
+from ..security.tokens import Role
+
+from .cluster import ClusterManager
 from .crud import CrudStore
 from .registry import Model, ModelRegistry
 from .searcher import SchedulerCluster, Searcher
+
+
+def _user_to_json(u) -> dict:
+    return {
+        "id": u.id,
+        "name": u.name,
+        "email": u.email,
+        "role": u.role.name.lower(),
+        "state": u.state,
+    }
+
+
+def _pat_to_json(p) -> dict:
+    return {
+        "id": p.id,
+        "user_id": p.user_id,
+        "name": p.name,
+        "role": p.role.name.lower(),
+        "expires_at": p.expires_at,
+        "revoked": p.revoked,
+    }
 
 
 def _model_to_json(m: Model) -> dict:
@@ -110,9 +123,15 @@ class ManagerRESTServer:
         *,
         host: str = "127.0.0.1",
         port: int = 0,
+        token_verifier=None,
+        token_issuer=None,
+        users=None,
+        oauth=None,
         jobqueue=None,
         crud: Optional[CrudStore] = None,
+        objectstorage=None,
         rate_limit=None,
+        ca=None,
         state_backend=None,
         jobs_min_requeue_s: float = 30.0,
         rollout=None,
@@ -122,6 +141,11 @@ class ManagerRESTServer:
         # Rollout controller (rollout/controller.py): serves the
         # candidate poll + evaluation-report routes; None → 404s.
         self.rollout = rollout
+        # Cluster CA (security/ca.py CertificateAuthority): with one
+        # attached, peers self-provision their mTLS identity over the
+        # wire at boot — POST /api/v1/certs:issue (the reference's
+        # certify flow, pkg/issuer + scheduler.go:186-222).  None → 404.
+        self.ca = ca
         self.searcher = searcher or Searcher()
         self.scheduler_clusters = scheduler_clusters or []
         # CRUD resources (applications + scheduler-cluster records whose
@@ -129,6 +153,9 @@ class ManagerRESTServer:
         # cluster always exists — dynconfig consumers need one to poll.
         self.crud = crud or CrudStore()
         self.crud.ensure_default_cluster()
+        # Optional ObjectStorageBackend the bucket routes proxy to
+        # (manager/handlers/bucket.go semantics); None → 404s.
+        self.objectstorage = objectstorage
         # Token-bucket middleware (manager/middlewares rate limiter): one
         # bucket bounds the whole REST surface; None = off.
         self.rate_limit = rate_limit
@@ -171,7 +198,16 @@ class ManagerRESTServer:
 
             jobqueue = JobQueue()
         self.jobqueue = jobqueue
+        # Optional RBAC: with a verifier configured, mutations require a
+        # bearer token of sufficient role (security/tokens.py); reads stay
+        # open (matching the reference's authenticated-writes posture).
+        # With a UserStore attached, PATs authenticate too and the user/
+        # PAT/oauth routes come alive.
         self.jobs_min_requeue_s = jobs_min_requeue_s
+        self.token_verifier = token_verifier
+        self.token_issuer = token_issuer
+        self.users = users
+        self.oauth = oauth
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -205,10 +241,6 @@ class ManagerRESTServer:
                     return True
                 return False
 
-            def _body(self) -> dict:
-                length = int(self.headers.get("Content-Length", 0))
-                return json.loads(self.rfile.read(length) or b"{}")
-
             def do_GET(self):
                 # Request span linked to the caller's trace (otelgrpc
                 # server-interceptor analog for the REST plane): the
@@ -230,7 +262,17 @@ class ManagerRESTServer:
                 parsed = urllib.parse.urlsplit(self.path)
                 q = dict(urllib.parse.parse_qsl(parsed.query))
                 path = parsed.path
-                if path == "/api/v1/healthy":
+                if path in ("/", "/console", "/console/"):
+                    # Embedded console SPA (manager.go:61-62 analog).
+                    from .console import CONSOLE_HTML
+
+                    body = CONSOLE_HTML.encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/html; charset=utf-8")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                elif path == "/api/v1/healthy":
                     self._json(200, {"ok": True})
                 elif path == "/metrics":
                     # Prometheus text exposition — the same diagnostics
@@ -264,6 +306,26 @@ class ManagerRESTServer:
                     from ..utils.slo import debug_state
 
                     self._json(200, debug_state())
+                elif path in (
+                    "/api/v1/replication:status",
+                    "/api/v1/replication:log",
+                    "/api/v1/replication:snapshot",
+                ):
+                    # No replication holder in this package (ROADMAP
+                    # queue 1 item 14): the reference's answer without one.
+                    self._json(404, {"error": "replication not configured"})
+                elif path == "/api/v1/certs:ca":
+                    # Trust-root fetch (open read: peers need the root
+                    # BEFORE they can build a verified TLS context).
+                    if server.ca is None:
+                        self._json(404, {"error": "no cluster CA configured"})
+                    else:
+                        self._json(200, {"ca_pem": server.ca.cert_pem.decode()})
+                elif path in ("/swagger.json", "/api/v1/openapi"):
+                    # The swagger export (api/manager/swagger.json analog).
+                    from .openapi import spec
+
+                    self._json(200, spec())
                 elif path == "/api/v1/models":
                     models = server.registry.list(
                         scheduler_id=q.get("scheduler_id") or None,
@@ -358,11 +420,57 @@ class ManagerRESTServer:
                             for s in server.clusters.active_schedulers()
                         ],
                     )
+                elif path == "/api/v1/users" and server.users is not None:
+                    if not self._authorized(Role.ADMIN):
+                        self._json(403, {"error": "forbidden"})
+                        return
+                    self._json(200, [_user_to_json(u) for u in server.users.list_users()])
+                elif path == "/api/v1/pats" and server.users is not None:
+                    ident = self._identity()
+                    if ident is None:
+                        self._json(401, {"error": "unauthorized"})
+                        return
+                    subject, role, _kind = ident
+                    target = q.get("user_id") or subject
+                    if target != subject and role < Role.ADMIN:
+                        self._json(403, {"error": "forbidden"})
+                        return
+                    self._json(
+                        200, [_pat_to_json(p) for p in server.users.list_pats(target)]
+                    )
+                elif path == "/api/v1/oauth:providers" and server.oauth is not None:
+                    self._json(200, server.oauth.providers())
+                elif (
+                    path.startswith("/api/v1/oauth/")
+                    and path.endswith(":authorize-url")
+                    and server.oauth is not None
+                ):
+                    name = path[len("/api/v1/oauth/") : -len(":authorize-url")]
+                    try:
+                        self._json(
+                            200,
+                            {"url": server.oauth.authorize_url(
+                                name, q.get("redirect_uri", "")
+                            )},
+                        )
+                    except KeyError:
+                        self._json(404, {"error": f"no provider {name!r}"})
+                elif path == "/api/v1/jobs":
+                    # Recent group jobs (console view; handlers/job.go list).
+                    self._json(200, server.jobqueue.list_groups())
+                elif path.startswith("/api/v1/jobs/"):
+                    gid = path[len("/api/v1/jobs/"):]
+                    try:
+                        self._json(200, server.jobqueue.group_snapshot(gid))
+                    except KeyError:
+                        self._json(404, {"error": f"no group {gid!r}"})
                 elif path == "/api/v1/topology":
                     # Cross-replica pull: every LIVE pusher's edges EXCEPT
                     # the caller's own (it already has those, fresher).
+                    import time as _time
+
                     exclude = q.get("exclude", "")
-                    now = time.time()
+                    now = _time.time()
                     with server._topology_mu:
                         dead = [
                             sid
@@ -380,22 +488,31 @@ class ManagerRESTServer:
                             for e in entry["edges"]
                         ]
                     self._json(200, {"edges": edges})
-                elif path == "/api/v1/jobs":
-                    # Recent group jobs (console view; handlers/job.go list).
-                    self._json(200, server.jobqueue.list_groups())
-                elif path.startswith("/api/v1/jobs/"):
-                    gid = path[len("/api/v1/jobs/"):]
+                elif path == "/api/v1/buckets":
+                    # handlers/bucket.go GetBuckets: list through the
+                    # configured object-storage backend.
+                    if server.objectstorage is None:
+                        self._json(404, {"error": "object storage not configured"})
+                        return
                     try:
-                        self._json(200, server.jobqueue.group_snapshot(gid))
-                    except KeyError:
-                        self._json(404, {"error": f"no group {gid!r}"})
+                        names = server.objectstorage.list_buckets()
+                    except Exception as exc:  # noqa: BLE001 — backend boundary
+                        self._json(502, {"error": str(exc)})
+                        return
+                    self._json(200, [{"name": n} for n in names])
                 elif path == "/api/v1/applications":
+                    from dataclasses import asdict
+
                     self._json(
                         200, [asdict(a) for a in server.crud.list("application")]
                     )
                 elif path == "/api/v1/configs":
+                    from dataclasses import asdict
+
                     self._json(200, [asdict(c) for c in server.crud.list("config")])
                 elif path == "/api/v1/clusters":
+                    from dataclasses import asdict
+
                     self._json(200, [asdict(c) for c in server.crud.list("cluster")])
                 elif path.startswith("/api/v1/clusters/") and path.endswith(
                     ":config"
@@ -405,9 +522,18 @@ class ManagerRESTServer:
                     cid = path[len("/api/v1/clusters/"):-len(":config")]
                     try:
                         payload = server.crud.cluster_config(cid)
-                        # The reference derives tenant_id from an
-                        # authenticated poll's credential; with no token
-                        # verifier and no user store no poll carries one.
+                        # Tenant identity derivation (DESIGN.md §26): an
+                        # authenticated poll (PAT or session token) gets
+                        # its tenant id derived from the credential's
+                        # subject — the SAME derivation every service
+                        # applies, so one identity maps to one tenant
+                        # fleet-wide.  Unauthenticated clusters fall back
+                        # to their declared DaemonConfig.tenant.
+                        ident = self._identity()
+                        if ident is not None:
+                            from ..qos.policy import derive_tenant
+
+                            payload["tenant_id"] = derive_tenant(ident[0])
                         # The shard ring rides the cluster dynconfig
                         # (DESIGN.md §24): membership is the ACTIVE
                         # scheduler set; a set change bumps the durable
@@ -439,6 +565,31 @@ class ManagerRESTServer:
                 else:
                     self._json(404, {"error": "not found"})
 
+            def _identity(self):
+                """→ (subject, Role, kind) from a session token OR a PAT;
+                None when unauthenticated.  kind ∈ {"session", "pat"} —
+                credential-management routes require a session.  One
+                shared resolver with the gRPC port (tokens.
+                resolve_credential): disables/demotions bite everywhere
+                immediately."""
+                from ..security.tokens import resolve_credential
+
+                auth = self.headers.get("Authorization", "")
+                token = auth[len("Bearer ") :] if auth.startswith("Bearer ") else None
+                return resolve_credential(
+                    token, server.token_verifier, server.users
+                )
+
+            def _authorized(self, required_role) -> bool:
+                if server.token_verifier is None and server.users is None:
+                    return True
+                ident = self._identity()
+                return ident is not None and ident[1] >= required_role
+
+            def _body(self) -> dict:
+                length = int(self.headers.get("Content-Length", 0))
+                return json.loads(self.rfile.read(length) or b"{}")
+
             def do_POST(self):
                 from ..utils.tracing import TRACEPARENT_HEADER, default_tracer
 
@@ -454,9 +605,67 @@ class ManagerRESTServer:
                 if self._rate_limited():
                     return
                 path = urllib.parse.urlsplit(self.path).path
-                # The reference checks a role per route here; with no
-                # token verifier and no user store every request is
-                # authorized, and this port has neither.
+                if (
+                    path.startswith("/api/v1/users")
+                    or path.startswith("/api/v1/pats")
+                    or path.startswith("/api/v1/oauth/")
+                    or path == "/api/v1/oauth:refresh"
+                ):
+                    self._user_routes(path)
+                    return
+                # Role per route, declared at the route (tokens.py tiers):
+                # model CREATION is the trainer's automated flow → PEER;
+                # activation/deactivation are operator decisions; job
+                # CREATION is an operator action while poll/result are the
+                # scheduler workers' automated flow → PEER.
+                if path == "/api/v1/models":
+                    required = Role.PEER
+                elif path == "/api/v1/rollouts:report":
+                    # Shadow/canary evaluation reports are the scheduler's
+                    # automated flow (like keepalive/job-poll) → PEER.
+                    required = Role.PEER
+                elif (
+                    path.endswith(":activate")
+                    or path.endswith(":deactivate")
+                    or path.endswith(":rollout")
+                    or (path.startswith("/api/v1/models/")
+                        and path.endswith(":delete"))
+                ):
+                    required = Role.OPERATOR
+                elif path == "/api/v1/jobs":
+                    required = Role.OPERATOR
+                elif path == "/api/v1/jobs:poll" or (
+                    path.startswith("/api/v1/jobs/") and path.endswith(":result")
+                ):
+                    required = Role.PEER
+                elif path == "/api/v1/schedulers" or (
+                    path.startswith("/api/v1/schedulers/")
+                    and path.endswith(":keepalive")
+                ):
+                    # Scheduler instances self-register and tick liveness —
+                    # the automated service flow (UpdateScheduler /
+                    # KeepAlive in manager_server_v1.go run on mTLS'd
+                    # service identities) → PEER.
+                    required = Role.PEER
+                elif path == "/api/v1/topology":
+                    required = Role.PEER  # scheduler service flow
+                elif path == "/api/v1/certs:issue":
+                    # Service-identity bootstrap (certify analog) — the
+                    # automated peer flow, like registration/keepalive.
+                    required = Role.PEER
+                elif (
+                    path.startswith("/api/v1/applications")
+                    or path.startswith("/api/v1/clusters")
+                    or path.startswith("/api/v1/buckets")
+                    or path.startswith("/api/v1/configs")
+                ):
+                    # CRUD mutations are operator console actions.
+                    required = Role.OPERATOR
+                else:
+                    required = Role.ADMIN  # unknown mutations: locked down
+                if not self._authorized(required):
+                    self._json(401, {"error": "unauthorized"})
+                    return
                 if path.startswith("/api/v1/jobs"):
                     self._job_routes(path)
                     return
@@ -469,6 +678,28 @@ class ManagerRESTServer:
                     )
                 ):
                     self._crud_routes(path)
+                    return
+                if path == "/api/v1/certs:issue":
+                    # CSR in, cluster-CA-signed cert out (pkg/issuer /
+                    # security_server.go IssueCertificate analog).
+                    if server.ca is None:
+                        self._json(404, {"error": "no cluster CA configured"})
+                        return
+                    try:
+                        from ..security.ca import clamp_ttl
+
+                        req = self._body()
+                        csr_pem = req["csr_pem"].encode()
+                        ttl = clamp_ttl(int(req.get("ttl_hours") or 0))
+                        cert_pem = server.ca.sign_csr(csr_pem, ttl=ttl)
+                        self._json(200, {
+                            "cert_pem": cert_pem.decode(),
+                            "ca_pem": server.ca.cert_pem.decode(),
+                        })
+                    except (KeyError, ValueError, TypeError) as exc:
+                        self._json(400, {"error": str(exc)})
+                    except Exception as exc:  # noqa: BLE001 — x509 parse
+                        self._json(400, {"error": f"bad csr: {exc}"})
                     return
                 if path == "/api/v1/topology":
                     # Scheduler push: replace this scheduler's edge set.
@@ -484,9 +715,11 @@ class ManagerRESTServer:
                             and e.get("src") and e.get("dst")
                             and isinstance(e.get("average_rtt_ns"), int)
                         ]
+                        import time as _time
+
                         with server._topology_mu:
                             server.topology_shared[sid] = {
-                                "edges": edges, "pushed_at": time.time(),
+                                "edges": edges, "pushed_at": _time.time(),
                             }
                             if server._topology_table is not None:
                                 server._topology_table.put(
@@ -496,10 +729,39 @@ class ManagerRESTServer:
                     except (KeyError, ValueError, TypeError) as exc:
                         self._json(400, {"error": str(exc)})
                     return
+                if path.startswith("/api/v1/buckets"):
+                    # handlers/bucket.go CreateBucket / DestroyBucket —
+                    # proxied to the configured backend.
+                    if server.objectstorage is None:
+                        self._json(404, {"error": "object storage not configured"})
+                        return
+                    try:
+                        if path == "/api/v1/buckets":
+                            name = self._body()["name"]
+                            if not name or not isinstance(name, str):
+                                raise ValueError("bucket name required")
+                            server.objectstorage.create_bucket(name)
+                            self._json(200, {"name": name})
+                        elif path.endswith(":delete"):
+                            name = path[len("/api/v1/buckets/"):-len(":delete")]
+                            if not name:
+                                raise ValueError("bucket name required")
+                            server.objectstorage.delete_bucket(name)
+                            self._json(200, {"ok": True})
+                        else:
+                            self._json(404, {"error": "not found"})
+                    except (KeyError, ValueError, TypeError) as exc:
+                        self._json(400, {"error": str(exc)})
+                    except Exception as exc:  # noqa: BLE001 — backend boundary
+                        self._json(502, {"error": str(exc)})
+                    return
                 if path == "/api/v1/schedulers":
                     # Scheduler instance registration over REST — the wire
-                    # the scheduler binary uses to join the manager's
-                    # cluster table.
+                    # the CLI uses so sync_peers fan-out (jobs/sync_peers.py
+                    # enqueues to f"scheduler:{sched.id}" for every ACTIVE
+                    # registered scheduler) reaches the instance's job queue.
+                    from .cluster import SchedulerInstance
+
                     try:
                         req = self._body()
                         inst = server.clusters.register_scheduler(
@@ -586,8 +848,8 @@ class ManagerRESTServer:
                             return
                         elif action == "delete":
                             # Model deletes flow through the rollout
-                            # controller's guarded cleanup (foreign key
-                            # models→rollouts): rollout rows must not
+                            # controller's guarded cleanup (DF014 foreign
+                            # key models→rollouts): rollout rows must not
                             # outlive the model row they reference.  An ad
                             # hoc controller covers managers without a
                             # rollout plane configured (no rows to strand,
@@ -622,6 +884,8 @@ class ManagerRESTServer:
             def _crud_routes(self, path: str) -> None:
                 """Applications + scheduler-cluster CRUD
                 (manager/handlers/application.go, scheduler_cluster.go)."""
+                from dataclasses import asdict
+
                 if path.startswith("/api/v1/applications"):
                     kind, base = "application", "/api/v1/applications"
                 elif path.startswith("/api/v1/configs"):
@@ -710,6 +974,157 @@ class ManagerRESTServer:
                     self._json(404, {"error": str(exc)})
                 except ValueError as exc:
                     self._json(400, {"error": str(exc)})
+
+            def _user_routes(self, path: str) -> None:
+                """User / PAT / oauth mutations (handlers/user.go)."""
+                if server.users is None:
+                    self._json(404, {"error": "user store not configured"})
+                    return
+                try:
+                    if path == "/api/v1/users:signup":
+                        req = self._body()
+                        u = server.users.create_user(
+                            req["name"], req["password"],
+                            email=req.get("email", ""),
+                        )
+                        self._json(200, _user_to_json(u))
+                    elif path == "/api/v1/users:signin":
+                        req = self._body()
+                        u = server.users.verify_password(
+                            req.get("name", ""), req.get("password", "")
+                        )
+                        if u is None or server.token_issuer is None:
+                            self._json(401, {"error": "bad credentials"})
+                            return
+                        token = server.token_issuer.issue(u.id, u.role)
+                        self._json(200, {"token": token, "role": u.role.name.lower()})
+                    elif path.startswith("/api/v1/users/") and ":" in path:
+                        user_id, _, action = path[len("/api/v1/users/") :].rpartition(":")
+                        ident = self._identity()
+                        if ident is None:
+                            self._json(401, {"error": "unauthorized"})
+                            return
+                        subject, role, kind = ident
+                        if action == "reset-password":
+                            # Sessions only: a leaked low-role PAT must not
+                            # be able to rotate its owner's password and
+                            # re-signin at the owner's full role.
+                            if kind != "session":
+                                self._json(403, {"error": "session token required"})
+                                return
+                            if subject != user_id and role < Role.ADMIN:
+                                self._json(403, {"error": "forbidden"})
+                                return
+                            server.users.reset_password(
+                                user_id, self._body()["password"]
+                            )
+                            self._json(200, {"ok": True})
+                        elif action in ("role", "state"):
+                            if role < Role.ADMIN:
+                                self._json(403, {"error": "forbidden"})
+                                return
+                            if action == "role":
+                                u = server.users.set_role(
+                                    user_id, Role[self._body()["role"].upper()]
+                                )
+                            else:
+                                u = server.users.set_state(
+                                    user_id, self._body()["state"]
+                                )
+                            self._json(200, _user_to_json(u))
+                        else:
+                            self._json(404, {"error": f"unknown action {action}"})
+                    elif path == "/api/v1/pats":
+                        ident = self._identity()
+                        if ident is None:
+                            self._json(401, {"error": "unauthorized"})
+                            return
+                        subject, effective, _kind = ident
+                        req = self._body()
+                        requested = (
+                            Role[req["role"].upper()] if req.get("role")
+                            else effective
+                        )
+                        # Cap at the CALLER's effective role (a READONLY-
+                        # capped PAT must not mint tokens at its owner's
+                        # full role), on top of create_pat's owner cap.
+                        kwargs = {"role": min(requested, effective)}
+                        if req.get("ttl_s"):
+                            kwargs["ttl_s"] = float(req["ttl_s"])
+                        pat, raw = server.users.create_pat(
+                            subject, req.get("name", ""), **kwargs
+                        )
+                        payload = _pat_to_json(pat)
+                        payload["token"] = raw  # shown exactly once
+                        self._json(200, payload)
+                    elif path.startswith("/api/v1/pats/") and path.endswith(":revoke"):
+                        pat_id = path[len("/api/v1/pats/") : -len(":revoke")]
+                        ident = self._identity()
+                        if ident is None:
+                            self._json(401, {"error": "unauthorized"})
+                            return
+                        subject, role, _kind = ident
+                        owned = {p.id for p in server.users.list_pats(subject)}
+                        if pat_id not in owned and role < Role.ADMIN:
+                            self._json(403, {"error": "forbidden"})
+                            return
+                        server.users.revoke_pat(pat_id)
+                        self._json(200, {"ok": True})
+                    elif (
+                        path.startswith("/api/v1/oauth/")
+                        and path.endswith(":signin")
+                        and server.oauth is not None
+                    ):
+                        name = path[len("/api/v1/oauth/") : -len(":signin")]
+                        # Issuer check FIRST: consuming the single-use
+                        # code/grant and then 500ing would strand it.
+                        if server.token_issuer is None:
+                            self._json(500, {"error": "no token issuer"})
+                            return
+                        req = self._body()
+                        u, refresh_id = server.oauth.signin_with_refresh(
+                            name, req.get("code", ""), req.get("state", ""),
+                            req.get("redirect_uri", ""),
+                        )
+                        token = server.token_issuer.issue(u.id, u.role)
+                        self._json(200, {
+                            "token": token, "role": u.role.name.lower(),
+                            "user": u.name, "refresh_id": refresh_id,
+                        })
+                    elif (
+                        path == "/api/v1/oauth:refresh"
+                        and server.oauth is not None
+                    ):
+                        # Session renewal WITHOUT an interactive authorize
+                        # round-trip; a provider-revoked refresh token
+                        # 403s here and the console re-authenticates.
+                        if server.token_issuer is None:
+                            self._json(500, {"error": "no token issuer"})
+                            return
+                        req = self._body()
+                        u, refresh_id = server.oauth.refresh(
+                            req.get("refresh_id", "")
+                        )
+                        token = server.token_issuer.issue(u.id, u.role)
+                        self._json(200, {
+                            "token": token, "role": u.role.name.lower(),
+                            "user": u.name, "refresh_id": refresh_id,
+                        })
+                    else:
+                        self._json(404, {"error": "not found"})
+                except PermissionError as exc:
+                    self._json(403, {"error": str(exc)})
+                except (KeyError, ValueError) as exc:
+                    self._json(400, {"error": str(exc)})
+                except Exception as exc:  # noqa: BLE001 — IdP outage etc.
+                    from .oauth import OAuthUnavailable
+
+                    if isinstance(exc, OAuthUnavailable):
+                        # Transient provider failure: the grant is
+                        # intact server-side; the console retries.
+                        self._json(503, {"error": str(exc)})
+                    else:
+                        raise
 
         self._svc = ThreadedHTTPService(Handler, host, port, "manager-rest")
         self.address: Tuple[str, int] = self._svc.address

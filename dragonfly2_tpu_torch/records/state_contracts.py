@@ -12,11 +12,11 @@
   index built from this file.
 
 Entry for entry with the reference's ``persistence`` section, keyed by
-the port's relpaths, for the namespaces the port writes.  The reference's
-``users``/``pats`` (``manager/users.py``) and ``replication_log``/
-``replication_meta`` (``manager/replication.py``) have no port module yet
-(ROADMAP item 14), so they have no entry, and neither has the replicated
-table's wildcard writers.  The FSM (DF013) and RPC (DF015) sections are
+the port's relpaths, for the namespaces the port writes (``users`` and
+``pats`` of ``manager/users.py`` among them).  The reference's
+``replication_log``/``replication_meta`` (``manager/replication.py``)
+have no port module yet (ROADMAP item 14), so they have no entry, and
+neither has the replicated table's wildcard writers.  The FSM (DF013) and RPC (DF015) sections are
 not ported: no port rule reads them.
 
 Keep this a PURE LITERAL: one dict, no names, calls or comprehensions.
@@ -63,6 +63,22 @@ STATE_CONTRACTS = {
                 "multi_row": [],
                 "unlocked_ok": [],
                 "invariant": "jobs_absent_or_complete",
+            },
+            "users": {
+                "owner": "dragonfly2_tpu_torch/manager/users.py",
+                "lock": ["dragonfly2_tpu_torch/manager/users.py", "UserStore", "_mu"],
+                "loader": "_BackendUserStore.load_all",
+                "multi_row": [],
+                "unlocked_ok": ["migrate_legacy_sqlite"],
+                "invariant": "rows_load",
+            },
+            "pats": {
+                "owner": "dragonfly2_tpu_torch/manager/users.py",
+                "lock": ["dragonfly2_tpu_torch/manager/users.py", "UserStore", "_mu"],
+                "loader": "_BackendUserStore.load_all",
+                "multi_row": [],
+                "unlocked_ok": ["migrate_legacy_sqlite"],
+                "invariant": "rows_load",
             },
             "crud": {
                 "owner": "dragonfly2_tpu_torch/manager/crud.py",

@@ -14,9 +14,9 @@ running daemon or know to spawn one.
 
 Port of ``dragonfly2_tpu/rpc/daemon_control.py``: the same routes, JSON
 bodies and state file.  ``ensure_daemon`` spawns the port's own
-``dragonfly2_tpu_torch.cli.dfdaemon``.  The vsock listener
-(``serve_vsock``, the reference's ``rpc/vsock.py``) is ROADMAP queue 1
-item 14 and raises.  The state file's default path is the reference's,
+``dragonfly2_tpu_torch.cli.dfdaemon``.  ``serve_vsock`` binds the
+guest-safe surface on an AF_VSOCK listener (``rpc/vsock.py``), as the
+reference's does.  The state file's default path is the reference's,
 so a deployment running both packages sets ``$DF_DAEMON_STATE`` apart.
 """
 
@@ -277,15 +277,37 @@ class DaemonControlServer:
 
         self._svc = ThreadedHTTPService(Handler, host, port, "daemon-control")
         self.address: Tuple[str, int] = self._svc.address
+        # VM-guest surface (pkg/rpc/vsock.go): the SAME handler can also
+        # bind an AF_VSOCK listener so guests without a network stack
+        # drive the daemon over vsock://2:<port>.
+        self._handler_cls = Handler
+        self._vsock = None
 
     def serve_vsock(self, port: int, *, cid=None):
-        """The reference binds the guest-safe surface on an AF_VSOCK
-        listener here (pkg/rpc/vsock.go); the port's vsock transport is
-        not ported yet (ROADMAP queue 1 item 14)."""
-        raise NotImplementedError(
-            "DaemonControlServer.serve_vsock: the vsock transport is not "
-            "ported yet (ROADMAP queue 1 item 14)"
+        """Bind the GUEST-SAFE surface on an AF_VSOCK listener; returns
+        the bound port (vsock.go listener analog).
+
+        /download is NOT exposed: it writes HOST-side files at caller-
+        chosen paths (a same-machine contract), and any guest CID can
+        dial the listener.  Guests get /healthy and /obtain_seeds — the
+        piece/seed plane, which is what the reference serves them."""
+        from .vsock import VMADDR_CID_ANY, VsockService
+
+        base = self._handler_cls
+
+        class VsockHandler(base):
+            def do_POST(self):
+                if self.path == "/download":
+                    self._json(404, {"error": "not on the vsock surface"})
+                    return
+                base.do_POST(self)
+
+        self._vsock = VsockService(
+            VsockHandler, port,
+            cid=VMADDR_CID_ANY if cid is None else cid,
         )
+        self._vsock.serve()
+        return self._vsock.port
 
     @property
     def url(self) -> str:
@@ -296,6 +318,8 @@ class DaemonControlServer:
 
     def stop(self) -> None:
         self._svc.stop()
+        if self._vsock is not None:
+            self._vsock.stop()
 
 
 # -- dfget side (checkAndSpawnDaemon) ----------------------------------------

@@ -24,17 +24,18 @@ reference's (``protos/`` holds byte-identical descriptors in package
 equal and either package's client talks to either package's server.
 This module, ``protos/`` and ``rpc/ratelimit_grpc.py`` are the only
 places of the port that import ``grpc`` or ``google.protobuf``; nothing
-a binary runs at its defaults imports them.  One difference:
-``ManagerGRPCServer`` has no RBAC and no CA (ROADMAP queue 1 item 14):
-it authorizes every call, as the reference does with no verifier, its
-``issue_certificate`` answers NOT_FOUND, as the reference's does with no
-CA, and a ``token_verifier``, ``users``, ``ca`` or ``server_credentials``
-other than None raises naming item 14.
+a binary runs at its defaults imports them.  ``ManagerGRPCServer``
+takes the reference's ``token_verifier`` and ``users`` (bearer tokens
+and personal access tokens at the REST surface's role tiers), ``ca``
+(certificate issuance) and ``server_credentials`` (TLS).  One repair:
+``SchedulerGRPCServer`` budgets ``STREAM_THREADS`` threads for announce
+streams on top of its ``max_workers``; the reference's pool of 16 is
+taken whole by 16 daemons' streams, and every unary call then waits out
+its deadline.
 """
 
 from __future__ import annotations
 
-import enum
 import json
 import logging
 from concurrent.futures import ThreadPoolExecutor
@@ -49,6 +50,10 @@ from .protos.batch import ReportPiecesFinishedRequest
 from .scheduler_client import RemoteScheduler, RPCError
 
 SCHEDULER_SERVICE = "dragonfly2tpu.Scheduler"
+# Threads the scheduler's gRPC server keeps for open announce streams
+# (one a connected daemon), beside its unary workers; the server makes
+# them as streams open.
+STREAM_THREADS = 256
 TRAINER_SERVICE = "dragonfly2tpu.Trainer"
 
 # gRPC status → wire-stable dfcode (utils/dferrors.Code), so client-side
@@ -294,6 +299,8 @@ class SchedulerGRPCServer:
         server_credentials: Optional[grpc.ServerCredentials] = None,
         rate_limit=None,
     ) -> None:
+        import threading
+
         from ..scheduler.push import PeerStreamHub
         from .scheduler_server import SchedulerRPCAdapter
 
@@ -312,8 +319,13 @@ class SchedulerGRPCServer:
             from .ratelimit import RateLimitInterceptor
 
             interceptors = (RateLimitInterceptor(rate_limit),)
+        # An open announce stream holds one of the server's threads for
+        # its whole life (one stream a daemon): STREAM_THREADS threads are
+        # budgeted for streams on top of the ``max_workers`` that serve
+        # unary calls, so connected daemons cannot starve them.
+        self._stream_slots = threading.BoundedSemaphore(STREAM_THREADS)
         self._server = grpc.server(
-            ThreadPoolExecutor(max_workers=max_workers),
+            ThreadPoolExecutor(max_workers=max_workers + STREAM_THREADS),
             interceptors=interceptors,
         )
 
@@ -353,6 +365,18 @@ class SchedulerGRPCServer:
     }
 
     def _announce_peer(self, request_iterator, context):
+        """The stream's thread budget: a stream past ``STREAM_THREADS`` is
+        refused RESOURCE_EXHAUSTED (its client falls back to unary calls)
+        rather than left to take a thread the unary calls need."""
+        if not self._stream_slots.acquire(blocking=False):
+            context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                          "announce stream budget spent")
+        try:
+            yield from self._announce_stream(request_iterator, context)
+        finally:
+            self._stream_slots.release()
+
+    def _announce_stream(self, request_iterator, context):
         """One generator per connected daemon: requests demux to the same
         adapter the unary wire uses; a writer queue serializes the
         request-paired responses with hub pushes."""
@@ -997,16 +1021,6 @@ class TrainerGRPCServer:
 MANAGER_SERVICE = "dragonfly2tpu.Manager"
 
 
-class Role(enum.IntEnum):
-    """The reference's ordered roles (``security/tokens.Role``): the tier
-    each manager call would require once tokens are ported."""
-
-    READONLY = 0
-    PEER = 1       # daemons/schedulers: announce, register, report
-    OPERATOR = 2   # model activation, preheat
-    ADMIN = 3
-
-
 def _model_to_proto(m) -> "pb.WireModel":
     return pb.WireModel(
         id=m.id, name=m.name, type=m.type, version=m.version,
@@ -1020,11 +1034,10 @@ class ManagerGRPCServer:
     model registry RPCs incl. CreateModel, scheduler registration +
     keepalive, cluster search.
 
-    The reference's ``token_verifier`` / ``users`` (bearer tokens at the
-    REST surface's role tiers), ``ca`` (certificate issuance) and
-    ``server_credentials`` (TLS) come with ROADMAP queue 1 item 14; until
-    then each must be None and every call is authorized, as in the
-    reference with no verifier."""
+    With a ``token_verifier``, mutations require a bearer token in call
+    metadata at the SAME role tiers as the REST surface (reads stay
+    open, matching the reference's authenticated-writes posture) — the
+    gRPC port must not be an RBAC bypass."""
 
     def __init__(
         self,
@@ -1043,20 +1056,20 @@ class ManagerGRPCServer:
         ca=None,
     ) -> None:
         from ..manager.searcher import Searcher
+        from ..security.tokens import Role
 
-        for name, value in (
-            ("token_verifier", token_verifier), ("users", users), ("ca", ca),
-            ("server_credentials", server_credentials),
-        ):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ManagerGRPCServer({name}=...): the manager's RBAC, CA and "
-                    "TLS are not ported yet (ROADMAP queue 1 item 14)"
-                )
         self.registry = registry
         self.clusters = clusters
+        # Cluster CA for wire certificate issuance (certify analog) —
+        # same instance as the REST surface's so both ports sign with
+        # one trust root.  None → NOT_FOUND.
+        self.ca = ca
         self.searcher = searcher or Searcher()
         self.scheduler_clusters = scheduler_clusters or []
+        self.token_verifier = token_verifier
+        # With a UserStore, personal access tokens authenticate here
+        # exactly like on REST — both ports accept the same credentials.
+        self.users = users
         # ONE bucket with the REST surface (cli/manager wires the same
         # instance): the configured qps bounds the SERVICE, not each
         # transport separately (scheduler CLI precedent).
@@ -1094,13 +1107,33 @@ class ManagerGRPCServer:
         self._server.add_generic_rpc_handlers(
             (grpc.method_handlers_generic_handler(MANAGER_SERVICE, handlers),)
         )
-        bound = self._server.add_insecure_port(f"{host}:{port}")
+        addr = f"{host}:{port}"
+        if server_credentials is not None:
+            bound = self._server.add_secure_port(addr, server_credentials)
+        else:
+            bound = self._server.add_insecure_port(addr)
         self.address: Tuple[str, int] = (host, bound)
 
+    def _authorized(self, token, required_role) -> bool:
+        from ..security.tokens import resolve_credential
+
+        ident = resolve_credential(token, self.token_verifier, self.users)
+        return ident is not None and ident[1] >= required_role
+
     def _wrap(self, fn, required_role):
-        # required_role is the reference's tier for the call; with no
-        # verifier (the only configuration here) every call passes.
         def handle(request, context):
+            if required_role is not None and (
+                self.token_verifier is not None or self.users is not None
+            ):
+                token = None
+                for key, value in context.invocation_metadata():
+                    if key == "authorization" and value.startswith("Bearer "):
+                        token = value[len("Bearer "):]
+                if not self._authorized(token, required_role):
+                    context.abort(
+                        grpc.StatusCode.PERMISSION_DENIED,
+                        f"requires role >= {required_role.name}",
+                    )
             try:
                 return fn(request, context)
             except KeyError as exc:
@@ -1160,9 +1193,18 @@ class ManagerGRPCServer:
     # -- certificate issuance (pkg/issuer, security_server.go) --------------
 
     def _issue_certificate(self, req, context):
-        # No cluster CA in this package (item 14): the reference's answer
-        # with ca=None.
-        context.abort(grpc.StatusCode.NOT_FOUND, "no cluster CA configured")
+        if self.ca is None:
+            context.abort(grpc.StatusCode.NOT_FOUND, "no cluster CA configured")
+        from ..security.ca import clamp_ttl
+
+        ttl = clamp_ttl(req.ttl_hours)
+        try:
+            cert_pem = self.ca.sign_csr(bytes(req.csr_pem), ttl=ttl)
+        except ValueError:
+            raise
+        except Exception as exc:  # noqa: BLE001 — x509 parse errors
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"bad csr: {exc}")
+        return pb.CertificateReply(cert_pem=cert_pem, ca_pem=self.ca.cert_pem)
 
     # -- clusters (manager_server_v2.go keepalive, searcher) ----------------
 

@@ -16,9 +16,11 @@ parents (the counterpart of ``tests/test_rpc.py``'s
 - ``bench/peer_swarm.run`` (the smoke's phase 20) at a small size: six
   daemons, a 12 MiB file in 512 KiB pieces; every one of its checks
   holds.
-- Every option the port does not carry yet exits 2 (or raises) naming
-  its ROADMAP item; ``native_fetch: true`` and the native store, server
-  and fetch loop, which once did, now build a native daemon.
+- A ``grpc://`` scheduler on a machine without grpc exits 2 naming the
+  package; the options that once exited 2 now run as the reference's:
+  ``native_fetch: true`` and the native store, server and fetch loop,
+  ``--pex-port``, ``security.auto_issue`` (an identity from the
+  manager's CA), the SNI proxy and ``control_vsock_port``.
 
 The port's daemons run its native engine (the defaults); the JAX
 daemons run their Python piece store, so a mixed swarm has each package's
@@ -273,16 +275,23 @@ def test_peer_swarm_small(tmp_path):
 @pytest.mark.parametrize("argv,env,config,item", [
     (["--seed-peer", "--pex-port", "0"], {}, None, "item 14"),
     (["--pex-port", "0"], {}, None, "item 14"),
-    ([], {}, "security: {auto_issue: true}\n", "item 14"),
-    ([], {}, "proxy: {sni_enable: true}\n", "item 14"),
+    ([], {}, "security: {auto_issue: true, identity_dir: {tmp}/id}\n", "security"),
+    ([], {}, "proxy: {sni_enable: true, sni_hijack_hosts: ['\\.hijack\\.test$']}\n",
+     "sni"),
     ([], {}, "metrics: {enable: true}\n", "ported"),
     ([], {"DRAGONFLY_DAEMON_NATIVE_FETCH": "true"}, None, "item 14"),
-    ([], {"DRAGONFLY_DAEMON_CONTROL_VSOCK_PORT": "0"}, None, "item 14"),
+    ([], {"DRAGONFLY_DAEMON_CONTROL_VSOCK_PORT": "0"}, None, "vsock"),
     ("grpc", {}, None, "grpc"),
     ("list", {}, None, "grpc"),
 ])
 def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatch, capsys,
-                                                            request, argv, env, config, item):
+                                                            caplog, request, argv, env,
+                                                            config, item):
+    """A ``grpc://`` scheduler on a machine without grpc exits 2 naming the
+    package; every other option, once outside the slice, now runs as the
+    reference's: ``--pex-port``, ``security.auto_issue`` and
+    ``control_vsock_port`` through a ``--download`` run, the SNI proxy in
+    serve mode (its boot line, then SIGTERM)."""
     monkeypatch.setenv("DF_DAEMON_STATE", str(tmp_path / "daemon.json"))
     monkeypatch.setenv("DRAGONFLY_DAEMON_SERVER_PORT", "0")
     monkeypatch.setenv("DRAGONFLY_DAEMON_STORAGE_DIR", str(tmp_path / "store"))
@@ -303,6 +312,96 @@ def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatc
         text = capsys.readouterr().out
         assert re.search(r"^dfdaemon: pex gossip on udp:\d+$", text, re.M), text
         assert out.read_bytes() == payload
+        return
+    if item in ("security", "vsock"):
+        # Ported: the daemon requests its identity from the manager's CA
+        # (its piece plane then serves and fetches over mTLS), or binds
+        # the control surface on vsock, or warns that vsock is unusable.
+        sched = request.getfixturevalue("port_scheduler")
+        src_url, payload = request.getfixturevalue("origin")
+        monkeypatch.setenv("DRAGONFLY_DAEMON_SERVER_HOST", "127.0.0.1")
+        monkeypatch.setenv("DRAGONFLY_DAEMON_PIECE_SIZE", str(PIECE))
+        monkeypatch.setenv("DRAGONFLY_DAEMON_METRICS_PORT", "0")
+        mgr = None
+        if item == "security":
+            from dragonfly2_tpu_torch.cli import manager as manager_cli
+            from dragonfly2_tpu_torch.config import ManagerConfig
+
+            mc = ManagerConfig()
+            mc.server.host, mc.server.port = "127.0.0.1", 0
+            mc.registry.blob_dir = str(tmp_path / "manager")
+            mc.ca_dir = str(tmp_path / "manager" / "ca")
+            mgr = manager_cli.serve(mc)
+            monkeypatch.setenv("DRAGONFLY_DAEMON_MANAGER_ADDR", mgr.url)
+            (tmp_path / "daemon.yaml").write_text(config.replace("{tmp}", str(tmp_path)))
+            argv = ["--config", str(tmp_path / "daemon.yaml")]
+        out = tmp_path / "out.bin"
+        try:
+            with caplog.at_level("WARNING", logger="dragonfly2_tpu_torch.cli.dfdaemon"):
+                assert dfdaemon.run(["--scheduler", sched.url, *argv, "--download", src_url,
+                                     "-O", str(out)]) == 0
+        finally:
+            if mgr is not None:
+                mgr.stop()
+        text = capsys.readouterr().out
+        assert out.read_bytes() == payload
+        if item == "vsock":
+            assert (re.search(r"^dfdaemon: control also on vsock:\d+$", text, re.M)
+                    or "control_vsock_port set but vsock is unusable" in caplog.text), text
+            return
+        from cryptography import x509
+        from cryptography.hazmat.primitives.asymmetric import ec
+
+        cert = x509.load_pem_x509_certificate((tmp_path / "id" / "cert.pem").read_bytes())
+        ca = x509.load_pem_x509_certificate(
+            (tmp_path / "manager" / "ca" / "ca-cert.pem").read_bytes())
+        ca.public_key().verify(cert.signature, cert.tbs_certificate_bytes,
+                               ec.ECDSA(cert.signature_hash_algorithm))
+        return
+    if item == "sni":
+        # Ported: the SNI proxy starts in serve mode with its persistent CA
+        # under storage.dir and prints the reference's boot line.
+        import queue
+        import signal
+        import subprocess
+        import sys
+        import threading
+
+        sched = request.getfixturevalue("port_scheduler")
+        (tmp_path / "daemon.yaml").write_text(config)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dragonfly2_tpu_torch.cli.dfdaemon", "--scheduler",
+             sched.url, "--config", str(tmp_path / "daemon.yaml")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=repo,
+            env={**os.environ, "PYTHONPATH": repo, "DF_DAEMON_STATE": str(tmp_path / "d.json"),
+                 "DRAGONFLY_DAEMON_SERVER_PORT": "0",
+                 "DRAGONFLY_DAEMON_SERVER_HOST": "127.0.0.1",
+                 "DRAGONFLY_DAEMON_PROXY_SNI_PORT": "0",
+                 "DRAGONFLY_DAEMON_METRICS_PORT": "0",
+                 "DRAGONFLY_DAEMON_STORAGE_DIR": str(tmp_path / "store")})
+        try:
+            # Up to the ready line (the diagnostics sidecar's and the SNI
+            # proxy's come before it); signal only then: the handlers are in.
+            # A reader thread, not select(): one read of the pipe may buffer
+            # several lines at once.
+            out: queue.Queue = queue.Queue()
+            threading.Thread(target=lambda: [out.put(x) for x in iter(
+                proc.stdout.readline, "")] + [out.put("")], daemon=True).start()
+            lines = []
+            while not (lines and lines[-1].startswith("dfdaemon: serving pieces on :")):
+                assert len(lines) < 10, f"dfdaemon printed {lines}"
+                lines.append(out.get(timeout=60))
+                assert lines[-1], f"dfdaemon exited after {lines}: {proc.stderr.read()}"
+            m = next(filter(None, (re.fullmatch(
+                r"dfdaemon: SNI proxy on :(\d+), trust anchor (\S+)\n", x) for x in lines)), None)
+            assert m, lines
+            assert m.group(2) == str(tmp_path / "store" / "sni-ca.pem")
+            assert open(m.group(2), "rb").read().startswith(b"-----BEGIN CERTIFICATE")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+        assert rc == 0, proc.stderr.read()
         return
     scheduler = "http://127.0.0.1:9"
     if argv == "grpc":
@@ -347,7 +446,8 @@ def test_options_outside_the_slice_exit_2_naming_their_item(tmp_path, monkeypatc
 
 def test_native_paths_raise_naming_item_14(tmp_path):
     """The native paths are ported and are the defaults, as in the
-    reference; only the vsock transport still raises naming item 14."""
+    reference; so is the vsock transport: ``serve_vsock`` binds the guest
+    surface where the host can, and raises ``OSError`` where it cannot."""
     assert DaemonStorage(str(tmp_path / "n"), prefer_native=True).is_native
     storage = DaemonStorage(str(tmp_path / "s"))
     assert storage.is_native
@@ -361,10 +461,16 @@ def test_native_paths_raise_naming_item_14(tmp_path):
         server.stop()
     DaemonConfig(native_fetch=True).validate()
     assert DaemonConfig().native_fetch
+    from dragonfly2_tpu_torch.rpc.vsock import vsock_available
+
     control = DaemonControlServer(conductor=None)
     control.serve()
     try:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            control.serve_vsock(0)
+        try:
+            port = control.serve_vsock(0)
+        except OSError:
+            assert not vsock_available() or control._vsock is None
+        else:
+            assert port > 0 and control._vsock is not None
     finally:
         control.stop()

@@ -689,3 +689,28 @@ def test_grpc_steering_follows_one_wrong_shard_answer(tmp_path):
     finally:
         for s in servings:
             s.stop()
+
+
+def test_connected_daemons_leave_unary_calls_served(tmp_path):
+    """The port's repair: each daemon's announce stream holds one of the
+    server's threads for its life, so with as many daemons connected as
+    the pool has workers (16 daemons against the reference's 16) every
+    unary call waits out its deadline.  Streams get a thread budget of
+    their own: with twice as many streams open as unary workers, every
+    stream answers and a unary call is served at once."""
+    service = _service(tmp_path)
+    server = SchedulerGRPCServer(service, max_workers=4)
+    server.serve()
+    clients = [GRPCStreamingScheduler(server.target, timeout=3) for _ in range(8)]
+    try:
+        for c in clients:
+            with pytest.raises(RPCError, match="report_peer_finished"):
+                c._stream_call("report_peer_finished", {"peer_id": "ghost"})
+        host = Host(id="h-unary", hostname="h-unary", ip="127.0.0.1", download_port=1)
+        t0 = time.monotonic()
+        clients[0].announce_host(host)
+        assert time.monotonic() - t0 < 3
+    finally:
+        for c in clients:
+            c.close()
+        server.stop()

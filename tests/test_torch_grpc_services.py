@@ -4,9 +4,9 @@
 ``TestFullGRPCLoop`` and ``TestTrainerGRPC``, with every trainer on the
 CPU.  The reference's three RBAC / PAT tests (``TestManagerGRPC``'s
 ``test_rbac_enforced_on_grpc_port``, ``test_disable_bites_grpc_sessions_
-immediately``, ``test_pats_authenticate_on_grpc_port``) wait for the
-manager's tokens and users (ROADMAP queue 1 item 14): here the manager's
-RBAC, CA and TLS arguments raise naming that item.  Each binary given a
+immediately``, ``test_pats_authenticate_on_grpc_port``) run in
+``tests/test_torch_security.py``; here each of the manager's RBAC, CA
+and TLS arguments takes effect, as the reference's.  Each binary given a
 gRPC setting on a machine without ``grpc`` exits 2 naming the package.
 Every server binds port 0.
 """
@@ -119,7 +119,7 @@ class TestManagerGRPC:
             assert len(client.list(scheduler_id="s1")) == 2
             assert client.get("ghost") is None
             assert client.active_model("s1", "nope") is None
-            # No cluster CA in the port: the reference's answer with ca=None.
+            # No cluster CA given: the reference's answer with ca=None.
             with pytest.raises(KeyError, match="no cluster CA"):
                 client.issue_certificate(b"csr")
             client.close()
@@ -143,8 +143,58 @@ class TestManagerGRPC:
 
     @pytest.mark.parametrize("arg", ["token_verifier", "users", "ca", "server_credentials"])
     def test_rbac_ca_and_tls_arguments_name_item_14(self, arg):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-            ManagerGRPCServer(ModelRegistry(), ClusterManager(), **{arg: object()})
+        """Each argument takes effect as in the reference: a verifier or a
+        user store refuses an anonymous mutation, a CA signs a CSR, server
+        credentials serve TLS (a plaintext channel cannot call)."""
+        from dragonfly2_tpu_torch.manager import UserStore
+        from dragonfly2_tpu_torch.rpc import grpc_transport as gt
+        from dragonfly2_tpu_torch.security import CertificateAuthority, PeerIdentity
+        from dragonfly2_tpu_torch.security.tokens import TokenVerifier
+
+        ca = CertificateAuthority()
+        ident = PeerIdentity.issue(ca, common_name="m", hostnames=["localhost"],
+                                   ips=["127.0.0.1"])
+        value = {
+            "token_verifier": TokenVerifier(b"grpc-arg-secret-0123456789"),
+            "users": UserStore(),
+            "ca": ca,
+            "server_credentials": gt.grpc.ssl_server_credentials(
+                [(ident.key_pem, ident.cert_pem)]),
+        }[arg]
+        server = ManagerGRPCServer(ModelRegistry(), ClusterManager(), **{arg: value})
+        server.serve()
+        try:
+            if arg == "server_credentials":
+                plain = GRPCRemoteRegistry(server.target, timeout=2)
+                with pytest.raises((RPCError, ConnectionError, OSError)):
+                    plain.list()
+                plain.close()
+                client = GRPCRemoteRegistry(
+                    server.target,
+                    channel_credentials=gt.grpc.ssl_channel_credentials(ca.cert_pem))
+                assert client.list() == []
+                client.close()
+                return
+            client = GRPCRemoteRegistry(server.target)
+            if arg == "ca":
+                from cryptography import x509
+                from cryptography.hazmat.primitives import hashes, serialization
+                from cryptography.hazmat.primitives.asymmetric import ec
+                from cryptography.x509.oid import NameOID
+
+                csr = (x509.CertificateSigningRequestBuilder()
+                       .subject_name(x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "s")]))
+                       .sign(ec.generate_private_key(ec.SECP256R1()), hashes.SHA256()))
+                cert_pem, ca_pem = client.issue_certificate(
+                    csr.public_bytes(serialization.Encoding.PEM))
+                assert ca_pem == ca.cert_pem and b"BEGIN CERTIFICATE" in cert_pem
+            else:
+                with pytest.raises(RPCError, match="PERMISSION_DENIED"):
+                    client.create_model(name="m", type="mlp", scheduler_id="s")
+                assert client.list() == []  # reads stay open
+            client.close()
+        finally:
+            server.stop()
 
     def test_jax_registry_client_against_the_ports_manager(self):
         """Either package's client talks to either package's server: the

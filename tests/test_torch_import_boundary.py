@@ -14,7 +14,10 @@ the one exception to the torch/numpy/stdlib rule: ``grpc`` and
 ``google.protobuf`` may be imported only by ``rpc/grpc_transport.py``,
 ``rpc/protos/*`` and ``rpc/ratelimit_grpc.py`` (the lazy interceptor),
 and ``rpc.SchedulerGRPCServer`` then raises an ``ImportError`` naming
-``grpc``.  Last, the port's native library is its own: loaded in such a
+``grpc``.  ``cryptography`` is imported only by ``security/ca.py``, as in
+the reference, and ``security/__init__`` gates it: with the package
+unimportable the token half, the manager and the binaries still import,
+and the CA surface is ``None``.  Last, the port's native library is its own: loaded in such a
 subprocess, it lies under ``build/dragonfly2_tpu_torch_native/`` and the
 JAX package's ``libdragonfly_native.so`` is never mapped.
 """
@@ -239,6 +242,17 @@ print("OK")
         "dragonfly2_tpu_torch.cli.dfstore",
         "dragonfly2_tpu_torch.cli.dfcache",
         "dragonfly2_tpu_torch.parallel.launch",
+        "dragonfly2_tpu_torch.security",
+        "dragonfly2_tpu_torch.security.tokens",
+        "dragonfly2_tpu_torch.security.ca",
+        "dragonfly2_tpu_torch.security.tls",
+        "dragonfly2_tpu_torch.daemon.sni",
+        "dragonfly2_tpu_torch.rpc.vsock",
+        "dragonfly2_tpu_torch.manager.users",
+        "dragonfly2_tpu_torch.manager.oauth",
+        "dragonfly2_tpu_torch.manager.console",
+        "dragonfly2_tpu_torch.manager.openapi",
+        "dragonfly2_tpu_torch.bench.secure_cluster",
         "chip_smoke",
     ],
 )
@@ -248,6 +262,44 @@ def test_entry_points_import_with_the_jax_package_blocked(module):
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
         cwd=str(REPO),
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(REPO)) for p in PORT_FILES]
+)
+def test_cryptography_only_in_the_ca_module(path):
+    rel = str(path.relative_to(REPO))
+    tree = ast.parse(path.read_text(), filename=str(path))
+    crypto = sorted({n for n in _imported_roots(tree) if n.split(".")[0] == "cryptography"})
+    if rel == "dragonfly2_tpu_torch/security/ca.py":
+        assert crypto
+        return
+    assert not crypto, f"{rel} imports {crypto}"
+
+
+_NO_CRYPTOGRAPHY = """
+import sys
+sys.modules["cryptography"] = None
+sys.path.insert(0, {repo!r})
+import dragonfly2_tpu_torch.security as sec
+assert sec.CertificateAuthority is None and sec.PeerIdentity is None
+assert sec.client_context is None and sec.server_context is None
+tok = sec.TokenIssuer(b"0123456789abcdef0123").issue("d", sec.Role.PEER)
+assert sec.TokenVerifier(b"0123456789abcdef0123").verify(tok).subject == "d"
+import dragonfly2_tpu_torch.manager.rest
+import dragonfly2_tpu_torch.cli.manager
+import dragonfly2_tpu_torch.cli.scheduler
+import dragonfly2_tpu_torch.cli.dfdaemon
+print("OK")
+"""
+
+
+def test_token_half_and_binaries_import_without_cryptography():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_CRYPTOGRAPHY.format(repo=str(REPO))],
+        capture_output=True, text=True, timeout=120, cwd=str(REPO),
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr
 

@@ -9,9 +9,10 @@ packages (``pkg``).  Then the two against each other:
   JAX ``ManagerRESTServer`` and the port's: status codes and bodies are
   equal byte for byte once generated ids are replaced by their order of
   appearance;
-- the port's manager binary runs as a subprocess: each config key whose
-  reader is not ported, a gRPC port and ``--replicate-from`` exit 2
-  naming their ROADMAP item, ``--list-models`` prints what the JAX
+- the port's manager binary runs as a subprocess: the ``ha`` key, a gRPC
+  port on a machine without ``grpc`` and ``--replicate-from`` exit 2
+  naming their ROADMAP item or the package, each security-plane key boots
+  it, ``--list-models`` prints what the JAX
   binary prints on the same blob directory, and in serve mode it prints
   its URL line, answers REST and exits 0 on SIGTERM.
 """
@@ -458,25 +459,39 @@ def _binary(argv, env, timeout=60):
         env={**os.environ, "PYTHONPATH": str(REPO), **env})
 
 
+SECRET_LINE = "token_secret: 0123456789abcdef0123\n"
+OAUTH_LINE = ("oauth_providers: [{name: gh, client_id: c, client_secret: s, "
+              "auth_url: 'https://gh/a', token_url: 'https://gh/t', "
+              "profile_url: 'https://gh/p'}]\n")
+
+
 @pytest.mark.parametrize("text,item", [
     ("ha: {enable: true}\n", "item 14"),
-    ("token_secret: 0123456789abcdef0123\n", "item 14"),
-    ("users_db: users.db\n", "item 14"),
-    ("root_password: hunter2\n", "item 14"),
-    ("oauth_providers: [{name: gh}]\n", "item 14"),
-    ("ca_dir: ca\n", "item 14"),
-    ("objectstorage: {kind: fs}\n", "item 14"),
+    (SECRET_LINE, ("POST", "/api/v1/models", {"name": "m"}, 401, None)),
+    (SECRET_LINE + "users_db: {tmp}/users.db\n",
+     ("POST", "/api/v1/users:signup", {"name": "ada", "password": "password123"}, 200,
+      "users.db")),
+    (SECRET_LINE + "root_password: hunter2hunter2\n",
+     ("POST", "/api/v1/users:signin", {"name": "root", "password": "hunter2hunter2"}, 200,
+      None)),
+    (SECRET_LINE + OAUTH_LINE, ("GET", "/api/v1/oauth:providers", None, 200, None)),
+    ("ca_dir: {tmp}/ca\n", ("GET", "/api/v1/certs:ca", None, 200, "ca/ca-cert.pem")),
+    ("objectstorage: {kind: fs, root: {tmp}/objects}\n",
+     ("GET", "/api/v1/buckets", None, 200, None)),
     ("metrics: {enable: true}\n", "ported"),
     ("server: {grpc_port: 0}\n", "grpc"),
     ("--replicate-from", "item 14"),
 ])
 def test_refused_options_exit_2_naming_their_item(tmp_path, text, item):
+    """Manager replication (``ha``, ``--replicate-from``) exits 2 naming its
+    item; the security plane's keys, ported, boot the binary as they boot
+    the reference's, and a route shows each took effect."""
     env = {"DRAGONFLY_MANAGER_REGISTRY_BLOB_DIR": str(tmp_path / "blobs"),
            "DRAGONFLY_MANAGER_SERVER_PORT": "0"}
     if text == "--replicate-from":
         argv = ["--replicate-from", "http://127.0.0.1:9"]
     else:
-        (tmp_path / "m.yaml").write_text(text)
+        (tmp_path / "m.yaml").write_text(text.replace("{tmp}", str(tmp_path)))
         argv = ["--config", str(tmp_path / "m.yaml")]
     if item == "ported":
         # The metrics section loads as the reference's: the manager serves
@@ -485,6 +500,37 @@ def test_refused_options_exit_2_naming_their_item(tmp_path, text, item):
 
         cfg = load_config(ManagerConfig, str(tmp_path / "m.yaml"), env=False)
         assert (cfg.metrics.enable, cfg.metrics.port) == (True, 8000)
+        return
+    if isinstance(item, tuple):
+        method, path, body, status, made = item
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dragonfly2_tpu_torch.cli.manager", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(REPO),
+            env={**os.environ, "PYTHONPATH": str(REPO),
+                 "DRAGONFLY_MANAGER_SERVER_HOST": "127.0.0.1", **env})
+        try:
+            ready, _, _ = select.select([proc.stdout], [], [], 60)
+            assert ready, "the manager binary printed nothing"
+            m = re.fullmatch(r"manager: serving REST on (http://127\.0\.0\.1:\d+) "
+                             r"\(ctrl-c to stop\)\n", proc.stdout.readline())
+            assert m
+            data = json.dumps(body).encode() if body is not None else None
+            req = urllib.request.Request(m.group(1) + path, data=data, method=method,
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=10) as resp:
+                    got, payload = resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as exc:
+                got, payload = exc.code, json.loads(exc.read())
+            assert got == status, payload
+            if path.endswith(":providers"):
+                assert payload == ["gh"]
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+        assert rc == 0, proc.stderr.read()
+        if made is not None:
+            assert (tmp_path / made).exists()
         return
     if item == "grpc":
         # A gRPC port on a machine without grpc: exit 2, naming the

@@ -6,9 +6,9 @@ The cases of ``tests/test_jobs_remote.py`` (``TestJobsAPI``,
 ``TestBrokerWireSemantics``, ``TestSchedulerRegistration``,
 ``TestLiveClusterConfig``, ``TestCrossProcessPreheat``) and of
 ``tests/test_jobs_extended.py`` (``TestSyncPeers``, ``TestImageResolver``)
-run on both packages (``pkg``), the port on the CPU.  The port's manager
-has no token verifier (ROADMAP queue 1 item 14): the unauthorized-poll
-case runs both workers against a stub that answers 401.  The live cluster
+run on both packages (``pkg``), the port on the CPU.  The
+unauthorized-poll case runs both workers against a stub that answers
+401.  The live cluster
 config runs the port's scheduler in process; the cross-process preheat
 runs the port's three binaries, each its own process.
 
@@ -167,7 +167,7 @@ class TestJobsAPI:
 
     def test_list_groups_feeds_console(self, pkg, broker_server):
         """GET /api/v1/jobs: recent group snapshots, newest first (the
-        console's jobs view; the console itself is ROADMAP item 14)."""
+        console's jobs view)."""
         server, jq = broker_server
         client = pkg.RemoteJobClient(server.url)
         g1 = client.create_group("preheat", {"urls": ["u"]}, ["q-1"])

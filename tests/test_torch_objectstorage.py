@@ -10,7 +10,8 @@
   recomputes every signature (``tests/fake_s3.py``: SigV4 and OBS; OSS
   through ``source/oss.sign_oss`` with the ``x-oss-`` prefix), and the
   port counterparts of ``tests/test_objectstorage_s3.py:47-227`` run on
-  it.  The manager's bucket routes (``:238``) wait for the manager half.
+  it.  The manager's bucket routes (``:238``) drive the port's S3
+  backend on the fake, and 404 on a manager with none.
 - The gateway: a put seeds P2P, a peer's get comes from the swarm, a
   delete evicts the pieces, and the same over the S3 backend.
 - ``dfstore`` and ``dfcache`` print the reference's lines for the same
@@ -379,3 +380,54 @@ def test_dfcache_prints_the_reference_lines(tmp_path, capsys):
         assert restored.read_bytes() == payload
     assert got["port"] == got["jax"]
     assert [g[0] for g in got["port"]] == [0, 0, 0, 1]
+
+
+# -- the manager's bucket routes (tests/test_objectstorage_s3.py:238) -------
+
+
+def test_manager_bucket_routes_proxy_backend():
+    """handlers/bucket.go parity: the manager's bucket routes drive
+    the configured object-storage backend."""
+    import json
+    import urllib.error
+
+    from dragonfly2_tpu_torch.manager import ClusterManager, ModelRegistry
+    from dragonfly2_tpu_torch.manager.rest import ManagerRESTServer
+
+    def call(base, method, path, body=None):
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(
+            base + path, data=data,
+            headers={"Content-Type": "application/json"}, method=method,
+        )
+        with urllib.request.urlopen(req, timeout=5) as resp:
+            return json.loads(resp.read() or b"{}")
+
+    fake_s3 = FakeS3()
+    s3 = tos.S3Backend(fake_s3.endpoint, access_key=ACCESS_KEY, secret_key=SECRET_KEY,
+                       region=REGION)
+    try:
+        server = ManagerRESTServer(
+            ModelRegistry(), ClusterManager(), objectstorage=s3
+        )
+        server.serve()
+        try:
+            call(server.url, "POST", "/api/v1/buckets", {"name": "blobs"})
+            assert s3.bucket_exists("blobs")
+            got = call(server.url, "GET", "/api/v1/buckets")
+            assert {"name": "blobs"} in got
+            call(server.url, "POST", "/api/v1/buckets/blobs:delete", {})
+            assert not s3.bucket_exists("blobs")
+        finally:
+            server.stop()
+        # Unconfigured manager: the surface 404s cleanly.
+        bare = ManagerRESTServer(ModelRegistry(), ClusterManager())
+        bare.serve()
+        try:
+            with pytest.raises(urllib.error.HTTPError) as exc:
+                call(bare.url, "GET", "/api/v1/buckets")
+            assert exc.value.code == 404
+        finally:
+            bare.stop()
+    finally:
+        fake_s3.stop()

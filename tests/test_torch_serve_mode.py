@@ -71,13 +71,14 @@ def test_trainer_binary_serves_the_lifecycle_daemon_with_a_manager(tmp_path):
     ("scheduler", [], {"DRAGONFLY_SCHEDULER_TRAINER_ENABLE": "true",
                        "DRAGONFLY_SCHEDULER_TRAINER_ADDR": "grpc://trainer:9090"}, "grpc"),
     ("scheduler", ["--config", "metrics.yaml"], {}, "ported"),
-    ("scheduler", ["--config", "secured.yaml"], {}, "item 14"),
+    ("scheduler", ["--config", "secured.yaml"], {}, "manager_addr"),
 ])
 def test_refused_options_exit_2_naming_their_item(tmp_path, monkeypatch, capsys, kind, argv,
                                                   env, item):
-    """What is not ported exits 2 naming its item; a gRPC setting on a
-    machine without grpc exits 2 naming the package; the metrics section,
-    ported, loads as the reference's."""
+    """A gRPC setting on a machine without grpc exits 2 naming the package;
+    ``security.auto_issue`` without a ``manager_addr`` exits naming the
+    missing key (the reference's message, through exit 2); the metrics
+    section, ported, loads as the reference's."""
     (tmp_path / "metrics.yaml").write_text("metrics: {enable: true}\n")
     (tmp_path / "secured.yaml").write_text("security: {auto_issue: true}\n")
     monkeypatch.chdir(tmp_path)
@@ -99,7 +100,8 @@ def test_refused_options_exit_2_naming_their_item(tmp_path, monkeypatch, capsys,
     cli = scheduler_cli if kind == "scheduler" else trainer_cli
     assert cli.run(argv + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
-    want = "'grpc' is not installed" if item == "grpc" else f"ROADMAP queue 1 {item}"
+    want = ("'grpc' is not installed" if item == "grpc"
+            else "security.auto_issue needs manager_addr")
     assert err.startswith(f"{kind}: ") and want in err, err
     assert not (tmp_path / "records").exists() and not (tmp_path / "staged").exists()
 

@@ -178,6 +178,12 @@ def test_manager_rest_spans_equal(rings):
                     assert exc.code == 404
         finally:
             srv.stop()
+        # A handler's span ends after its answer is on the wire: on a loaded
+        # host the client can read the 404 before the last one ends.
+        deadline = time.monotonic() + 10
+        while (sum(s.name.startswith("manager/") for s in rings[name].spans) < 3
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         # In start order: the ring holds spans as they end, and a loaded
         # host can end one handler's span after the next request's.
         spans = sorted((s for s in rings[name].spans if s.name.startswith("manager/")),

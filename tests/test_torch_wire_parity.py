@@ -389,7 +389,8 @@ def test_manager_rest_across_packages(client, server):
                                   "/api/v1/oauth:providers", "/api/v1/pats"])
 def test_unported_routes_answer_404_as_the_reference_without_them(path):
     """Routes whose backing object the reference's server was not given
-    answer 404 there; the port's server, which takes none, answers 404."""
+    answer 404 there; the port's server, given none, answers 404 too
+    (``tests/test_torch_users.py`` compares them with their objects)."""
     codes = []
     for srv in (ManagerRESTServer(ModelRegistry(), ClusterManager()),
                 JManagerRESTServer(JModelRegistry(), JClusterManager())):
