@@ -486,7 +486,7 @@ launch counts are zeroed before each and must read 0 after.
     rank), and a second float32 one-device round, the control.  Checks:
     each model registered once, by rank 0 (registry calls by rank
     ``[2, 0]``); every rank's parameters equal (the sha256 digests of
-    its trained leaves, ``TrainRun.digests``), in both dtypes; the
+    its trained leaves, ``TrainRun.leaf_digests``), in both dtypes; the
     2-rank MLP losses within 1e-3 relative of the one-device losses at
     every step (1e-4 in float32); the GAT's within 5e-3 (the bound
     ``tests/test_torch_multidevice_train.py`` holds bf16 losses to) and
@@ -555,6 +555,30 @@ launch counts are zeroed before each and must read 0 after.
     download MB/s and per-download seconds p50 / p99, pull MB/s and layer
     first-byte p50 / p99, the piece servers' TLS handshakes, pieces by
     source, the identity issuance seconds at boot.
+28. Manager HA (``manager_failover``, ``bench/manager_failover.run``):
+    two manager binaries as child processes (``ha.enable``, a private
+    32-byte lease secret, the reference's lease of 10 s and 1 s polls),
+    the second booted with ``--replicate-from`` the first; the ``ml``
+    scheduler with ``manager_addr`` the pair, its subscription polling
+    every 1 s and installing models A and B through K1 (``serve``'s
+    ``k1_installs``); a seed daemon and 8
+    daemons at their defaults; an origin answering after 20-25 ms with 4
+    files of 64 MiB.  Model A activated at the leader, wave 1 (every
+    daemon downloads A through ``tools/stress.run_stress``), a preheat of
+    B queued with the job worker detached, the leader SIGKILLed once the
+    standby applied every row, wave 2 during the outage, the standby
+    promoted, model B activated at the survivor, wave 3.  Checks: the
+    leader's return code -9; the survivor leads at term >= 2 with
+    ``manager_failovers_total`` 1; the standby answered a write 503 with
+    ``Retry-After`` before its promotion; the preheat reached SUCCESS at
+    the survivor with the seed holding B; every download sha256-equal to
+    its file, none failed; ``subscriber.pinned`` never true; K1 launches =
+    the scheduler's scorer calls > 0, every flush held to plain on its own
+    mirror, the flushes scoring with A's weights and, after B's install,
+    B's; no manager child alive and no native server leaked; the phase
+    within 60 s.  Printed: replication lag p50 / p99, kill → promotion and
+    → first accepted write, each wave's MB/s and latency percentiles,
+    activation → installed.
 
 Every comparison of K1 with its plain version on a path's flushes holds
 every row finite, the batcher's pad rows included (they read slot 0, a
@@ -714,6 +738,9 @@ SC_DAEMONS = 16            # phase 27: daemons, each with an auto-issued mTLS id
 SC_FILE_MIB = 64           # ... the file every daemon downloads (the bench's 128 cut)
 SC_LAYERS_MIB = "1,4,16,32"  # ... the image's layers (the bench's 1,4,16,64 cut)
 SC_SECONDS = 60.0          # ... the phase's time limit
+MF_DAEMONS = 8             # phase 28: daemons downloading through the manager failover
+MF_FILE_MIB = 64           # ... each of files A-D
+MF_SECONDS = 60.0          # ... the phase's time limit
 K1_STRESS_FLUSHES = 2000   # phase 23: seeded stress flushes ...
 K1_STRESS_REPEATS = 3      # ... each launched this many times back to back
 FED_MEAN_TOL = 1e-6       # the round's aggregate vs a numpy weighted mean
@@ -2589,9 +2616,9 @@ def federated_phase(torch, dev, seed):
 
 
 @contextlib.contextmanager
-def keep_k1_flushes(seen):
+def keep_k1_flushes(seen, cap=None):
     """Taps ``FusedMLPScorer.score`` inside the block: ``seen`` keeps the
-    inputs of the first ``WIRE_K1_FLUSHES`` flushes, with the scorer
+    inputs of the first ``cap`` (``WIRE_K1_FLUSHES``) flushes, with the scorer
     that made each (``scorers``; a path with several schedulers has one a
     shard, each gathering from its own slot mirror), the slot mirror the
     flush itself gathered from (``mirrors``: the tensor its own
@@ -2608,8 +2635,10 @@ def keep_k1_flushes(seen):
         local.mat = sync(self)
         return local.mat
 
+    limit = WIRE_K1_FLUSHES if cap is None else cap
+
     def scored(self, features, *, src_buckets=None, dst_buckets=None):
-        keep = len(seen["flushes"]) < WIRE_K1_FLUSHES
+        keep = len(seen["flushes"]) < limit
         if keep:
             store = self._store
             with store._mu:
@@ -2617,7 +2646,7 @@ def keep_k1_flushes(seen):
             bound = (np.isin(src_buckets, held), np.isin(dst_buckets, held))
         local.mat = None
         out = score(self, features, src_buckets=src_buckets, dst_buckets=dst_buckets)
-        if keep and len(seen["flushes"]) < WIRE_K1_FLUSHES:
+        if keep and len(seen["flushes"]) < limit:
             seen.setdefault("live_finite", []).append(bool(np.isfinite(out).all()))
             seen["scorer"] = self
             seen.setdefault("scorers", []).append(self)
@@ -2813,7 +2842,11 @@ def wire_loop_phase(torch, dev, seed, out_dir):
     check(k1["launches"] == k1["fused_flushes"] == launches["fused_gather_mlp_score"],
           f"K1 launches {k1['launches']} / {launches['fused_gather_mlp_score']} != the "
           f"batcher's fused flushes {k1['fused_flushes']} before the swap")
-    check(k1["launches_after_swap"] == 0, "K1 launched after the swap to the trained MLP")
+    # The round's MLP is standardized, which K1 does not run: the
+    # subscription serves it on the host (cli.scheduler.k1_installs).
+    check(pc["installed_standardized"] and k1["launches_after_swap"] == 0,
+          f"the trained MLP (standardized: {pc['installed_standardized']}) launched K1 "
+          f"{k1['launches_after_swap']} times after the swap")
     check(k1["batcher_fallbacks"] == 0 and k1["rule_degrades"] == 0,
           f"batcher fallbacks {k1['batcher_fallbacks']}, degrades {k1['rule_degrades']}")
     check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on wire flushes")
@@ -2914,8 +2947,12 @@ def wire_lifecycle_phase(torch, dev, seed, out_dir):
     check(launches["fused_gather_mlp_score"] == k1["launches"] == k1["fused_flushes"] > 0,
           f"K1 launches {launches['fused_gather_mlp_score']} / {k1['launches']} != the "
           f"fused flushes before the install {k1['fused_flushes']}")
-    check(k1["launches_after_swap"] == k1["fused_flushes_after_swap"] == 0,
-          "K1 launched after the install")
+    # The daemon's artifacts are standardized, which K1 does not run: the
+    # subscription serves them on the host (cli.scheduler.k1_installs).
+    check(install["installed_standardized"]
+          and k1["launches_after_swap"] == k1["fused_flushes_after_swap"] == 0,
+          f"the daemon's model (standardized: {install['installed_standardized']}) "
+          f"launched K1 {k1['launches_after_swap']} times after the install")
     check(k1["batcher_fallbacks"] == 0 and k1["rule_degrades"] == 0,
           f"batcher fallbacks {k1['batcher_fallbacks']}, degrades {k1['rule_degrades']}")
     check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on wire flushes")
@@ -3914,11 +3951,74 @@ def f32_models():
             cls.__init__.__defaults__ = d
 
 
+def _keep_leaves(keep):
+    """``TrainerService._keep``, and each trained leaf as float32 numpy on
+    ``run.leaves``, so that a difference between ranks has a size."""
+    def wrapped(self, run, name, state, history):
+        from dragonfly2_tpu_torch.trainer.train import full_params
+
+        keep(self, run, name, state, history)
+        run.__dict__.setdefault("leaves", {})[name] = {
+            k: v.detach().float().cpu().numpy() for k, v in full_params(state).items()}
+    return wrapped
+
+
+def _summary_leaves(summary):
+    """``TrainerService.summary`` with the leaves ``_keep_leaves`` kept."""
+    def wrapped(self, run, registry_calls):
+        return {**summary(self, run, registry_calls), "leaves": run.__dict__.get("leaves", {})}
+    return wrapped
+
+
+@contextlib.contextmanager
+def leaves_kept():
+    """Every ``TrainerService`` in this process keeps its trained leaves
+    inside the block and ships them in its summary (phase 25's witness)."""
+    from dragonfly2_tpu_torch.trainer.service import TrainerService
+
+    with tapped(TrainerService, "_keep", _keep_leaves), \
+            tapped(TrainerService, "summary", _summary_leaves):
+        yield
+
+
+def rank_leaves(rank):
+    """A spawned rank's ``rank_init`` for phase 25: keep the leaves."""
+    from dragonfly2_tpu_torch.trainer.service import TrainerService
+
+    TrainerService._keep = _keep_leaves(TrainerService._keep)
+    TrainerService.summary = _summary_leaves(TrainerService.summary)
+
+
 def rank_f32(rank):
     """A spawned rank's ``rank_init`` for phase 25's float32 witness."""
     import torch
 
     _model_dtypes(torch.float32)
+
+
+def rank_f32_leaves(rank):
+    rank_f32(rank)
+    rank_leaves(rank)
+
+
+def rank_leaf_diff(ranks):
+    """The first leaf (model, leaf, in name order) whose digest on some rank
+    differs from rank 0's, with that rank and the max abs difference of
+    the leaves (``None`` where a rank shipped no leaves); ``None`` when
+    every rank's ``leaf_digests`` equal rank 0's."""
+    ref = ranks[0]
+    for r in ranks[1:]:
+        for model in sorted(set(ref["leaf_digests"]) | set(r["leaf_digests"])):
+            mine, theirs = ref["leaf_digests"].get(model, {}), r["leaf_digests"].get(model, {})
+            for leaf in sorted(set(mine) | set(theirs)):
+                if mine.get(leaf) == theirs.get(leaf):
+                    continue
+                a = ref.get("leaves", {}).get(model, {}).get(leaf)
+                b = r.get("leaves", {}).get(model, {}).get(leaf)
+                diff = (float(np.max(np.abs(a - b))) if a is not None and b is not None
+                        and a.shape == b.shape else None)
+                return {"rank": r["rank"], "model": model, "leaf": leaf, "max_abs_diff": diff}
+    return None
 
 
 def trainer_ranks_phase(torch, dev, seed, out_dir):
@@ -3990,8 +4090,8 @@ def trainer_ranks_phase(torch, dev, seed, out_dir):
 
     registry = ModelRegistry()
     reset_kernel_counts()
-    with tapped(segment, "segment_sum_bucketed", keep_first_k3):
-        ranked, round_s, plan = train_ranked(registry)
+    with tapped(segment, "segment_sum_bucketed", keep_first_k3), leaves_kept():
+        ranked, round_s, plan = train_ranked(registry, rank_init=rank_leaves)
     rank0_launches = kernel_counts()
 
     reset_kernel_counts()
@@ -4024,7 +4124,8 @@ def trainer_ranks_phase(torch, dev, seed, out_dir):
     # with every model config in float32, and the control.
     t2 = time.perf_counter()
     with f32_models():
-        ranked32, round32_s, _ = train_ranked(ModelRegistry(), rank_init=rank_f32)
+        with leaves_kept():
+            ranked32, round32_s, _ = train_ranked(ModelRegistry(), rank_init=rank_f32_leaves)
         one32, control = (train(TrainerService(ModelRegistry(), gnn_model="gat",
                                                train_config=cfg, device=dev))
                           for _ in range(2))
@@ -4097,9 +4198,8 @@ def trainer_ranks_phase(torch, dev, seed, out_dir):
         "registered": models, "registry_calls": [r["registry_calls"] for r in ranked.ranks],
         "metrics": {"world2": {k: m.to_dict() for k, m in ranked.metrics.items()},
                     "world1": {k: m.to_dict() for k, m in one.metrics.items()}},
-        "rank_digests_equal": all(r["digests"] == ranked.ranks[0]["digests"]
-                                  and sorted(r["digests"]) == sorted([GNN_MODEL_NAME, MLP_MODEL_NAME])
-                                  for r in ranked.ranks),
+        "rank_models": [sorted(r["leaf_digests"]) for r in ranked.ranks],
+        "rank_leaf_diff": rank_leaf_diff(ranked.ranks),
         "mean_predictor_mae": mean_mae, "loss_rel_err": loss_err,
         "gat_loss_rel_err": {"max": float(gnn_curve.max()),
                              "first_step_over_tol": int(over[0]) + 1 if len(over) else None,
@@ -4118,8 +4218,9 @@ def trainer_ranks_phase(torch, dev, seed, out_dir):
             "gat_curves": {"bf16": [float(v) for v in gnn_curve],
                            "f32": [float(v) for v in f32_curve[GNN_MODEL_NAME]],
                            "control": [float(v) for v in control_curve[GNN_MODEL_NAME]]},
-            "rank_digests_equal": all(r["digests"] == ranked32.ranks[0]["digests"]
-                                      for r in ranked32.ranks),
+            "rank_models": [sorted(r["leaf_digests"]) for r in ranked32.ranks],
+            "rank_leaf_diff": rank_leaf_diff(ranked32.ranks),
+            "leaves": {m: len(v) for m, v in ranked32.ranks[0]["leaf_digests"].items()},
             "gat_steps": len(ranked32.history.get(GNN_MODEL_NAME, [])),
             "round_seconds": round32_s, "seconds": witness_s,
             "mae": {"world2": {k: m.mae for k, m in ranked32.metrics.items()},
@@ -4136,10 +4237,14 @@ def trainer_ranks_phase(torch, dev, seed, out_dir):
           f"the {TR_RANKS}-rank round registered {models}")
     check(summary["registry_calls"] == [2] + [0] * (TR_RANKS - 1),
           f"registry calls by rank {summary['registry_calls']}")
-    check(summary["rank_digests_equal"], "the ranks' trained parameters differ: "
-          f"{[r['digests'] for r in ranked.ranks]}")
-    check(summary["f32_witness"]["rank_digests_equal"],
-          "the float32 witness's ranks hold different parameters")
+    both = sorted([GNN_MODEL_NAME, MLP_MODEL_NAME])
+    check(summary["rank_models"] == [both] * TR_RANKS and summary["rank_leaf_diff"] is None,
+          f"the ranks' trained parameters differ, first at {summary['rank_leaf_diff']} "
+          f"(models by rank {summary['rank_models']})")
+    check(summary["f32_witness"]["rank_models"] == [both] * TR_RANKS
+          and summary["f32_witness"]["rank_leaf_diff"] is None,
+          "the float32 witness's ranks hold different parameters, first at "
+          f"{summary['f32_witness']['rank_leaf_diff']}")
     check(summary["f32_witness"]["gat_steps"] == len(ranked.history[GNN_MODEL_NAME])
           and max(f32_err.values()) <= TR_F32_LOSS_RTOL,
           f"float32 {TR_RANKS}-rank losses off the one-device losses: {f32_err}")
@@ -4264,6 +4369,71 @@ def secure_cluster_phase(torch, dev, seed, out_dir):
     check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the "
           "secured cluster's flushes")
     check(phase_s <= SC_SECONDS, f"phase 27 took {phase_s:.1f} s (limit {SC_SECONDS})")
+    return out, launches
+
+
+def manager_failover_phase(torch, dev, seed, out_dir):
+    """Phase 28: manager HA (``bench/manager_failover``): two manager
+    binaries, the leader SIGKILLed with a preheat queued, the standby
+    promoted on its lease's expiry, K1 ranking the parents of three waves
+    of downloads throughout, model B activated at the survivor.  Every
+    flush is kept and held to K1's plain version on its own mirror.
+    Returns (summary, launches)."""
+    from dragonfly2_tpu_torch.bench import manager_failover
+    from dragonfly2_tpu_torch.bench.wire_loop import seeded_k1_blob
+    from dragonfly2_tpu_torch.trainer.export import load_scorer
+
+    seen = {"flushes": []}
+    args = manager_failover.parse_args([
+        "--daemons", str(MF_DAEMONS), "--file-mib", str(MF_FILE_MIB),
+        "--seed", str(seed), "--out", out_dir, "--device", "cuda",
+    ])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with keep_k1_flushes(seen, cap=1 << 30):
+        summary = manager_failover.run(args, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    phase_s = time.perf_counter() - t0
+    check(len(seen["flushes"]) > 0, "no K1 flush on the manager failover's path")
+    k1_err, k1_ms, k1_plain_ms, k1_bound_ms = k1_on_flushes(
+        torch, dev, seen, k1_save_dir(out_dir), "manager_failover")
+    # Which model's weights each kept flush scored with, in flush order.
+    weights = {k: load_scorer(seeded_k1_blob(seed + i)).weights for i, k in enumerate("AB")}
+
+    def model_of(scorer):
+        w = scorer._ref.weights
+        return next((k for k, ref in weights.items() if all(
+            np.array_equal(a, b) and np.array_equal(c, d) for (a, c), (b, d) in zip(ref, w))),
+            "other")
+
+    order = [model_of(sc) for sc in seen["scorers"]]
+    by_model = {k: order.count(k) for k in ("A", "B", "other")}
+    out = {
+        **summary, "phase_seconds": phase_s, "kernel_launches": launches,
+        "k1": {"launches": launches["fused_gather_mlp_score"],
+               "scorer_calls": summary["scorer_calls"], "max_err_scaled": k1_err,
+               "tol_scaled": K1_TOL, "flushes_checked": len(seen["flushes"]),
+               "flushes_by_model": by_model,
+               "ms_128": k1_ms, "us_128": k1_ms * 1e3, "plain_ms_128": k1_plain_ms,
+               "bound_ms_128": k1_bound_ms},
+    }
+    emit({"phase": "manager_failover", **out})
+    for name, ok in summary["checks"].items():
+        check(ok, f"manager failover check {name} failed: {json.dumps(summary)}")
+    check(launches["fused_gather_mlp_score"] == summary["scorer_calls"] == len(order) > 0,
+          f"K1 launches {launches['fused_gather_mlp_score']} != the batcher's scorer calls "
+          f"{summary['scorer_calls']} (flushes kept {len(order)}) through the failover")
+    check(launches["segment_sum"] == 0 and launches["rule_weighted_sum"] == 0,
+          f"another kernel launched through the failover: {launches}")
+    check(by_model["other"] == 0 and by_model["A"] == summary["scorer_calls_by_model"]["A"]
+          and by_model["B"] == summary["scorer_calls_by_model"]["B"] > 0
+          and order == sorted(order),
+          f"the flushes' weights {by_model} are not model A's, then model B's after "
+          f"its install ({summary['scorer_calls_by_model']})")
+    check(k1_err <= K1_TOL, f"K1 off its plain version by {k1_err} (scaled) on the "
+          "manager failover's flushes")
+    check(phase_s <= MF_SECONDS, f"phase 28 took {phase_s:.1f} s (limit {MF_SECONDS})")
     return out, launches
 
 
@@ -4591,6 +4761,10 @@ def main(argv=None) -> int:
     loop["secure_cluster"], sc_launches = secure_cluster_phase(
         torch, dev, args.seed, work_dir)
     sc = loop["secure_cluster"]
+    # -- 28. manager HA: the leader SIGKILLed, K1 serving through it --------
+    loop["manager_failover"], mf_launches = manager_failover_phase(
+        torch, dev, args.seed, work_dir)
+    mf = loop["manager_failover"]
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
@@ -4600,7 +4774,8 @@ def main(argv=None) -> int:
          + tq_launches["fused_gather_mlp_score"] + ps_launches["fused_gather_mlp_score"]
          + ph_launches["fused_gather_mlp_score"] + sf_launches["fused_gather_mlp_score"]
          + push_launches["fused_gather_mlp_score"] + qd_launches["fused_gather_mlp_score"]
-         + rp_launches["fused_gather_mlp_score"] + sc_launches["fused_gather_mlp_score"],
+         + rp_launches["fused_gather_mlp_score"] + sc_launches["fused_gather_mlp_score"]
+         + mf_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
@@ -4613,6 +4788,7 @@ def main(argv=None) -> int:
          "launches_qos_drill": qd_launches["fused_gather_mlp_score"],
          "launches_registry_proxy": rp_launches["fused_gather_mlp_score"],
          "launches_secure_cluster": sc_launches["fused_gather_mlp_score"],
+         "launches_manager_failover": mf_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
          "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
          "max_err_scaled_telemetry_qos": tq["k1"]["max_err_scaled"],
@@ -4623,6 +4799,7 @@ def main(argv=None) -> int:
          "max_err_scaled_qos_drill": qd["k1"]["max_err_scaled"],
          "max_err_scaled_registry_proxy": rp["k1"]["max_err_scaled"],
          "max_err_scaled_secure_cluster": sc["k1"]["max_err_scaled"],
+         "max_err_scaled_manager_failover": mf["k1"]["max_err_scaled"],
          "max_err_scaled_stress": pu["k1_stress"]["max_err_scaled"],
          "stress_launches": pu["k1_stress"]["launches"],
          "ms": k1_ms, "plain_ms": k1_plain_ms,
@@ -4637,7 +4814,8 @@ def main(argv=None) -> int:
          "ms_push_128": pu["k1"]["ms_128"],
          "ms_qos_drill_128": qd["k1"]["ms_128"],
          "ms_registry_proxy_128": rp["k1"]["ms_128"],
-         "ms_secure_cluster_128": sc["k1"]["ms_128"]},
+         "ms_secure_cluster_128": sc["k1"]["ms_128"],
+         "ms_manager_failover_128": mf["k1"]["ms_128"]},
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",

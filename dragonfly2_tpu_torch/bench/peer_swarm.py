@@ -162,16 +162,22 @@ def finish_engine(summary: dict) -> None:
 
 
 class Origin:
-    """A stdlib HTTP origin for one file: ``HEAD`` answers its length,
-    ``GET`` with ``Range: bytes=a-b`` answers 206 with the span.  Counts
-    the body bytes and the GETs it served."""
+    """A stdlib HTTP origin for one file (``path``), answered at any path
+    (``url`` is ``/blob.bin``), or for files by name (``path`` a dict
+    name → file), each at ``/<name>.bin`` (``url_of``; another path
+    answers 404): ``HEAD`` answers the length, ``GET`` with ``Range:
+    bytes=a-b`` answers 206 with the span.  With ``delay`` (lo, hi) every
+    request first sleeps a time drawn from that span with ``seed``.
+    Counts the body bytes and the GETs it served."""
 
-    def __init__(self, path: str) -> None:
-        self.path = path
-        self.size = os.path.getsize(path)
+    def __init__(self, path, *, delay=None, seed: int = 0) -> None:
+        self.paths = dict(path) if isinstance(path, dict) else {"blob": path}
+        self.sizes = {k: os.path.getsize(p) for k, p in self.paths.items()}
         self.bytes_served = 0
         self.requests = 0
         mu = threading.Lock()
+        rng = random.Random(seed)
+        single = not isinstance(path, dict)
         origin = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -180,32 +186,53 @@ class Origin:
             def log_message(self, *args):
                 pass
 
+            def _file(self):
+                """The name of the file asked for, after the delay; None
+                once a 404 has answered."""
+                if delay is not None:
+                    with mu:
+                        wait = rng.uniform(*delay)
+                    time.sleep(wait)
+                name = "blob" if single else self.path.strip("/").removesuffix(".bin")
+                if name in origin.sizes:
+                    return name
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return None
+
             def do_HEAD(self):
+                name = self._file()
+                if name is None:
+                    return
                 self.send_response(200)
-                self.send_header("Content-Length", str(origin.size))
+                self.send_header("Content-Length", str(origin.sizes[name]))
                 self.send_header("Accept-Ranges", "bytes")
                 self.end_headers()
 
             def do_GET(self):
-                start, end = 0, origin.size - 1
+                name = self._file()
+                if name is None:
+                    return
+                size = origin.sizes[name]
+                start, end = 0, size - 1
                 spec = self.headers.get("Range", "")
                 if spec.startswith("bytes="):
                     a, _, b = spec[len("bytes="):].partition("-")
                     start = int(a)
-                    end = min(int(b), origin.size - 1) if b else origin.size - 1
+                    end = min(int(b), size - 1) if b else size - 1
                 if start > end:
                     self.send_response(416)
                     self.send_header("Content-Length", "0")
                     self.end_headers()
                     return
-                with open(origin.path, "rb") as f:
+                with open(origin.paths[name], "rb") as f:
                     f.seek(start)
                     body = f.read(end - start + 1)
                 self.send_response(206 if spec else 200)
                 self.send_header("Content-Length", str(len(body)))
                 if spec:
-                    self.send_header("Content-Range",
-                                     f"bytes {start}-{end}/{origin.size}")
+                    self.send_header("Content-Range", f"bytes {start}-{end}/{size}")
                 self.end_headers()
                 self.wfile.write(body)
                 with mu:
@@ -214,9 +241,13 @@ class Origin:
 
         self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         self._server.daemon_threads = True
-        self.url = f"http://127.0.0.1:{self._server.server_address[1]}/blob.bin"
+        self.base = f"http://127.0.0.1:{self._server.server_address[1]}"
+        self.url = self.url_of("blob")
         self._thread = threading.Thread(target=self._server.serve_forever,
                                         name="origin", daemon=True)
+
+    def url_of(self, name: str) -> str:
+        return f"{self.base}/{name}.bin"
 
     def serve(self) -> None:
         self._thread.start()

@@ -800,11 +800,14 @@ def run(args: argparse.Namespace, *, log=print) -> dict:
         _wait(lambda: ev._scorer is not k1_scorer, args.timeout, "the subscription's swap")
         swap_s = time.perf_counter() - t_act
         installed = type(ev._scorer).__name__
+        # The round's MLP is standardized: K1 does not run it (k1_installs).
+        standardized = getattr(ev._scorer, "feat_mean", None) is not None
         post = swarm.parent_choice(sched.url, "installed", args.trials, clients=args.clients)
         rule_q = swarm.parent_choice(rule.url, "rule", args.trials, clients=args.clients)
         summary["parent_choice"] = {
             "k1_seed_scorer": pre, "installed": post, "rule": rule_q,
-            "installed_scorer": installed, "activation_to_installed_s": swap_s,
+            "installed_scorer": installed, "installed_standardized": standardized,
+            "activation_to_installed_s": swap_s,
         }
         summary["k1"] = {"launches": k1_launches, "fused_flushes": fused_flushes,
                          "launches_after_swap": fused_score.LAUNCHES["fused_gather_mlp_score"]
@@ -966,6 +969,8 @@ def _lifecycle(args, swarm: Swarm, plan, *, sched, trainer, manager, controller,
             },
             "install": {"installed_version": sub._loaded_version,
                         "installed_scorer": type(ev._scorer).__name__,
+                        "installed_standardized":
+                            getattr(ev._scorer, "feat_mean", None) is not None,
                         "active_version": active.version, "active_id": active.id,
                         "active_is_daemons": active.id in daemon_ids,
                         "flushes_checked": len(flushes),

@@ -1,11 +1,13 @@
 """manager service binary (reference: cmd/manager + manager/manager.go).
 
-Port of the single-node form of ``dragonfly2_tpu/cli/manager.py``.
+Port of ``dragonfly2_tpu/cli/manager.py``.
 ``build`` boots the control-plane composition: ONE SQLite state backend
 at ``registry.blob_dir/manager-state.db`` (the legacy per-store files
 migrated into it once), the model registry over a ``BlobStore`` in the
-blob directory, the CRUD rows with the default cluster, the rollout
-controller under the config's guardrails, the job broker, the cluster
+blob directory (with HA, over a ``KVBlobStore`` on the replicated
+backend, so artifacts ride the op log with their rows), the CRUD rows
+with the default cluster, the rollout controller under the config's
+guardrails, the job broker, the cluster
 manager with keepalive TTLs, the searcher and, with ``objectstorage``,
 the backend the bucket routes drive.  ``serve`` puts
 ``ManagerRESTServer`` over it and returns a handle (``.url``,
@@ -18,9 +20,17 @@ persistent cluster CA that signs ``certs:issue`` on both ports.  ``--list-models
 the registry persisted under ``registry.blob_dir``.
 
 ``run(argv)`` is the binary: it prints ``manager: serving REST on <url>
-(ctrl-c to stop)``, serves until SIGINT or SIGTERM and exits 0.  What is
-not ported exits 2 naming its ROADMAP queue 1 item: ``--replicate-from``
-and the config's ``ha`` key (manager replication, item 14).
+(ctrl-c to stop)``, serves until SIGINT or SIGTERM and exits 0.
+
+Manager HA (``manager/replication.py``), as in the reference: with
+``ha.enable`` the node is a leader over a ``ReplicatedStateBackend`` and
+renews its lease (``LeaseKeeper``); with ``--replicate-from URL`` (or
+``ha.replicate_from``) it boots as a hot standby whose consumers are
+built under ``applying()``, tails the leader (``LogFollower``), rebuilds
+the REST surface's consumers after every applied batch and promotes
+itself when the leader's lease lapses.  A node booting as leader first
+probes ``ha.peers`` and joins as a standby when one holds a higher term.
+With HA the boot line carries ``as <role> (term N)``.
 ``server.grpc_port >= 0`` also serves ``ManagerGRPCServer`` over the same
 registry, clusters, credentials and CA; on a machine without ``grpc`` or
 ``protobuf`` it exits 2 naming the package.  The ``metrics`` section parses, as in the
@@ -31,7 +41,8 @@ journal and the SLO engine; it stops the journal and the engine on
 shutdown.
 
     DRAGONFLY_MANAGER_REGISTRY_BLOB_DIR=DIR DRAGONFLY_MANAGER_SERVER_PORT=0 \\
-        python -m dragonfly2_tpu_torch.cli.manager [--config m.yaml] [--list-models]
+        python -m dragonfly2_tpu_torch.cli.manager [--config m.yaml] [--list-models] \\
+        [--replicate-from URL]
 """
 
 from __future__ import annotations
@@ -59,8 +70,9 @@ from .common import (
 
 
 def _build_consumers(cfg: ManagerConfig, backend, blob_store):
-    """The backend-fed composition pieces (the reference rebuilds them on
-    a standby after every replicated batch; here they are built once)."""
+    """The backend-fed composition pieces: rebuilt wholesale by the
+    standby every time the replication follower applies a batch (their
+    in-memory caches must track the replicated rows)."""
     from ..manager.crud import CrudStore
     from ..rollout import RolloutController, RolloutGuardrails
 
@@ -87,26 +99,55 @@ def _build_consumers(cfg: ManagerConfig, backend, blob_store):
     }
 
 
-def build(cfg: ManagerConfig):
-    """Composition root (manager.go New, single node) → its parts."""
+def build(cfg: ManagerConfig, *, replicate_from: str = ""):
+    """Composition root (manager.go New) → its parts."""
+    import socket as _socket
+
     # ONE durable state backend for every manager surface (manager/
     # state.py seam): registry rows, CRUD rows, the job broker, the
-    # shared topology cache — a restart reloads all of it from one place.
+    # shared topology cache, users — a restart reloads all of it from
+    # one place, and the HA story swaps one backend, not five files.
     from ..manager.state import make_state_backend, migrate_legacy_sqlite
 
+    replicate_from = replicate_from or cfg.ha.replicate_from
+    ha_enabled = bool(cfg.ha.enable or replicate_from)
     backend = make_state_backend(
         os.path.join(cfg.registry.blob_dir, "manager-state.db")
     )
-    # Pre-seam deployments kept per-store files; import them once so an
-    # upgrade never silently drops models/CRUD rows.
-    migrated = migrate_legacy_sqlite(
-        backend,
-        models_db=os.path.join(cfg.registry.blob_dir, "manager.db"),
-        crud_db=os.path.join(cfg.registry.blob_dir, "crud.db"),
-    )
-    if migrated:
-        print(f"manager: migrated legacy state {migrated}", flush=True)
-    blob_store = BlobStore(cfg.registry.blob_dir)
+    ha = None
+    if ha_enabled:
+        from ..manager.replication import ReplicatedStateBackend
+
+        role = "standby" if replicate_from else "leader"
+        node_id = cfg.ha.node_id or (
+            f"mgr-{_socket.gethostname()}-{cfg.server.port}"
+        )
+        ha = backend = ReplicatedStateBackend(
+            backend,
+            node_id=node_id,
+            role=role,
+            lease_ttl_s=cfg.ha.lease_ttl_s,
+            lease_secret=cfg.ha.lease_secret,
+        )
+    if not replicate_from:
+        # Pre-seam deployments kept per-store files; import them once so
+        # an upgrade never silently drops models/CRUD rows.  A standby
+        # never migrates — its state comes from the leader's snapshot.
+        migrated = migrate_legacy_sqlite(
+            backend,
+            models_db=os.path.join(cfg.registry.blob_dir, "manager.db"),
+            crud_db=os.path.join(cfg.registry.blob_dir, "crud.db"),
+        )
+        if migrated:
+            print(f"manager: migrated legacy state {migrated}", flush=True)
+    # HA replicates artifacts WITH their registry rows (KVBlobStore rides
+    # the same log); the single-node form keeps the blob directory.
+    if ha_enabled:
+        from ..manager.registry import KVBlobStore
+
+        blob_store = KVBlobStore(backend)
+    else:
+        blob_store = BlobStore(cfg.registry.blob_dir)
     objectstorage = None
     if cfg.objectstorage:
         from ..objectstorage import make_backend
@@ -117,8 +158,14 @@ def build(cfg: ManagerConfig):
     # Rollout controller (rollout/controller.py): evidence-gated
     # SHADOW→CANARY→ACTIVE promotion with auto-rollback; its rows ride
     # the same state backend, so in-flight rollouts survive a bounce.
-    consumers = _build_consumers(cfg, backend, blob_store)
-    consumers["crud"].ensure_default_cluster()
+    # On a standby the boot-time reconciliation runs under applying()
+    # (derived state, not new client mutations).
+    if ha is not None and ha.role == "standby":
+        with ha.applying():
+            consumers = _build_consumers(cfg, backend, blob_store)
+    else:
+        consumers = _build_consumers(cfg, backend, blob_store)
+        consumers["crud"].ensure_default_cluster()
     # NOTE: no DynconfigServer here — the dynconfig payload schedulers
     # poll is served straight from the CrudStore's cluster rows
     # (/api/v1/clusters/<id>:config), one source of truth.
@@ -131,6 +178,7 @@ def build(cfg: ManagerConfig):
         "objectstorage": objectstorage,
         "state_backend": backend,
         "rollout": consumers["rollout"],
+        "ha": ha,
         "blob_store": blob_store,
     }
 
@@ -138,14 +186,17 @@ def build(cfg: ManagerConfig):
 @dataclass
 class ManagerServing:
     """What ``serve`` started; ``stop()`` stops the REST server and the
-    gRPC server, then the metric journal and the SLO engine when the
-    binary handed them over."""
+    gRPC server, the lease keeper or the log follower (and the keeper a
+    promotion started), then the metric journal and the SLO engine when
+    the binary handed them over."""
 
     parts: dict
     rest: object
     grpc_server: object = None
     journal: object = None
     slo_engine: object = None
+    lease_keeper: object = None
+    follower: object = None
 
     @property
     def url(self) -> str:
@@ -155,18 +206,24 @@ class ManagerServing:
         self.rest.stop()
         if self.grpc_server is not None:
             self.grpc_server.stop()
+        if self.lease_keeper is not None:
+            self.lease_keeper.stop()
+        if self.follower is not None:
+            self.follower.stop()
         stop_telemetry(self.journal, self.slo_engine)
 
 
-def serve(cfg: Optional[ManagerConfig] = None) -> ManagerServing:
-    """The binary's serve mode (reference cli/manager.py:138-351, single
-    node) as a composition: ``ManagerRESTServer`` over ``build(cfg)`` on
+def serve(cfg: Optional[ManagerConfig] = None, *,
+          replicate_from: str = "") -> ManagerServing:
+    """The binary's serve mode (reference cli/manager.py:138-351) as a
+    composition: ``ManagerRESTServer`` over ``build(cfg, replicate_from=)`` on
     ``server.host:server.port`` (0 binds an ephemeral port), with the
     config's rate limit and ``jobs_min_requeue_s``, and with
     ``server.grpc_port >= 0`` ``ManagerGRPCServer`` sharing its rate-limit
-    bucket.  Raises ``ConfigError`` naming the package, before anything
-    is built, when gRPC is asked for and ``grpc`` or ``protobuf`` is
-    missing."""
+    bucket, and the replication role: the leader's ``LeaseKeeper`` or the
+    standby's ``LogFollower``.  Raises ``ConfigError`` naming the package,
+    before anything is built, when gRPC is asked for and ``grpc`` or
+    ``protobuf`` is missing."""
     cfg = cfg or ManagerConfig()
     cfg.validate()
     grpc_mod = None
@@ -175,7 +232,25 @@ def serve(cfg: Optional[ManagerConfig] = None) -> ManagerServing:
     from ..manager.rest import ManagerRESTServer
     from ..rpc.ratelimit import maybe_bucket
 
-    parts = build(cfg)
+    parts = build(cfg, replicate_from=replicate_from)
+    # A node configured as leader first asks its peers (if any) whether
+    # a higher term already exists: followers PULL, so nothing would
+    # otherwise deliver a successor's term to a restarted fenced leader
+    # — it would boot at its stale term and accept writes again.  With a
+    # higher term observed it demotes itself and tails that peer.
+    replicate_from = replicate_from or cfg.ha.replicate_from
+    ha = parts["ha"]
+    if ha is not None and ha.role == "leader" and cfg.ha.peers:
+        from ..manager.replication import probe_peer_term
+
+        peer_term, peer_url = probe_peer_term(cfg.ha.peers)
+        if peer_term > ha.term:
+            ha.observe_term(peer_term)
+            replicate_from = peer_url
+            print(
+                f"manager: peer {peer_url} holds term {peer_term}; "
+                "joining as standby", flush=True,
+            )
     auth = {}
     if cfg.token_secret:
         from ..manager.users import UserStore
@@ -193,7 +268,11 @@ def serve(cfg: Optional[ManagerConfig] = None) -> ManagerServing:
             users = UserStore(backend=user_backend)
         else:
             users = UserStore(backend=parts["state_backend"])
-        if cfg.root_password:
+        if cfg.root_password and not (
+            parts["ha"] is not None and parts["ha"].role == "standby"
+        ):
+            # A standby never seeds accounts — the root user replicates
+            # from the leader like every other row.
             users.ensure_root(cfg.root_password)
         auth = {
             "token_verifier": TokenVerifier(secret),
@@ -233,9 +312,61 @@ def serve(cfg: Optional[ManagerConfig] = None) -> ManagerServing:
         state_backend=parts["state_backend"],
         jobs_min_requeue_s=cfg.jobs_min_requeue_s,
         rollout=parts["rollout"],
+        ha=parts["ha"],
         **auth,
     )
     rest.serve()
+    # -- replication role (manager/replication.py, DESIGN.md §20) -------
+    lease_keeper = None
+    follower = None
+    if ha is not None and ha.role == "leader":
+        from ..manager.replication import LeaseKeeper
+
+        lease_keeper = LeaseKeeper(ha)
+        lease_keeper.serve()
+    elif ha is not None and replicate_from:
+        from ..manager.replication import LeaseKeeper, LogFollower
+
+        def _rebuild(_touched) -> None:
+            # Replicated rows changed: swap the REST surface onto fresh
+            # consumers (their in-memory caches reload from the backend).
+            with ha.applying():
+                fresh = _build_consumers(
+                    cfg, parts["state_backend"], parts["blob_store"]
+                )
+            rest.registry = fresh["registry"]
+            rest.rollout = fresh["rollout"]
+            rest.crud = fresh["crud"]
+            rest.jobqueue = fresh["jobs"]
+            if rest._topology_table is not None:
+                with rest._topology_mu:
+                    rest.topology_shared = rest._topology_table.load_all()
+
+        def _on_promote() -> None:
+            # Now the leader: reconcile as a leader would at boot, start
+            # renewing the lease, and let the standing 503 gate fall
+            # away (the REST handler reads ha.role per request).
+            fresh = _build_consumers(
+                cfg, parts["state_backend"], parts["blob_store"]
+            )
+            fresh["crud"].ensure_default_cluster()
+            rest.registry = fresh["registry"]
+            rest.rollout = fresh["rollout"]
+            rest.crud = fresh["crud"]
+            rest.jobqueue = fresh["jobs"]
+            keeper = LeaseKeeper(ha)
+            keeper.serve()
+            serving.lease_keeper = keeper
+            print(
+                f"manager: promoted to leader (term {ha.term})", flush=True
+            )
+
+        follower = LogFollower(
+            ha, replicate_from,
+            poll_interval_s=cfg.ha.poll_interval_s,
+            on_apply=_rebuild,
+            on_promote=_on_promote,
+        )
     grpc_server = None
     if grpc_mod is not None:
         # Same SHARED rate-limit bucket as REST (qps bounds the service).
@@ -254,10 +385,18 @@ def serve(cfg: Optional[ManagerConfig] = None) -> ManagerServing:
     print(
         f"manager: serving REST on {rest.url}"
         + (f" and grpc on {grpc_server.target}" if grpc_server else "")
+        + (
+            f" as {parts['ha'].role} (term {parts['ha'].term})"
+            if parts["ha"] is not None else ""
+        )
         + " (ctrl-c to stop)",
         flush=True,
     )
-    return ManagerServing(parts=parts, rest=rest, grpc_server=grpc_server)
+    serving = ManagerServing(parts=parts, rest=rest, grpc_server=grpc_server,
+                             lease_keeper=lease_keeper, follower=follower)
+    if follower is not None:
+        follower.serve()
+    return serving
 
 
 def run(argv=None) -> int:
@@ -266,8 +405,8 @@ def run(argv=None) -> int:
     p.add_argument("--list-models", action="store_true")
     p.add_argument(
         "--replicate-from", default="", metavar="URL",
-        help="boot as a hot standby tailing this leader's replication log "
-             "(manager replication is not ported: ROADMAP queue 1 item 14)",
+        help="boot as a hot standby tailing this leader's replication "
+             "log; promotes itself when the leader's lease expires",
     )
     args = p.parse_args(argv)
     init_logging(args, "manager")
@@ -275,21 +414,17 @@ def run(argv=None) -> int:
     init_tracing(args)
     journal = engine = None
     try:
-        if args.replicate_from:
-            print("manager: --replicate-from: manager replication is not ported yet "
-                  "(ROADMAP queue 1 item 14)", file=sys.stderr)
-            return 2
         try:
             cfg = load_config(ManagerConfig, args.config)
             init_flight_recorder(args, cfg.tracing, "manager")
             journal, engine = init_telemetry(args, cfg.telemetry, "manager")
             if not args.list_models:
-                serving = serve(cfg)
+                serving = serve(cfg, replicate_from=args.replicate_from)
         except ConfigError as exc:
             print(f"manager: {exc}", file=sys.stderr)
             return 2
         if args.list_models:
-            models = build(cfg)["registry"].list()
+            models = build(cfg, replicate_from=args.replicate_from)["registry"].list()
             if not models:
                 print("manager: registry empty")
             for m in models:

@@ -16,7 +16,8 @@ the GC runner, the probe graph reloaded from and saved to
 ``TenantAccounting``, and the SLO autopilot on the metric journal when
 ``telemetry.slos`` is declared), and with ``manager_addr`` the
 registration (``RemoteClusterClient``), ``TopologySync`` and, for
-``ml``, a ``ModelSubscriber`` over ``RemoteRegistry`` and
+``ml``, a ``ModelSubscriber`` over ``RemoteRegistry`` (its active
+models served through K1 where K1 runs them: ``k1_installs``) and
 ``RolloutRESTClient`` that shadow-scores ``scheduling.shadow_sample_rate``
 of the announces into ``storage.dir/shadow_replay.dfc``, with a
 ``RolloutReporter`` reporting every
@@ -453,6 +454,21 @@ def _issue_identity(cfg: SchedulerConfigFile):
     return identity
 
 
+def k1_installs(feature_cache: HostFeatureCache, device):
+    """The subscription's ``serve_as`` (the port's own): an active model
+    that K1 runs (``FusedMLPScorer.runs_k1``) is served as
+    ``FusedMLPScorer`` over the host store on ``device``, as a
+    ``scorer_blob`` is; any other scorer (the trainers' standardized
+    artifacts) serves as ``load_scorer`` returned it, on the host."""
+
+    def serve_as(scorer):
+        if FusedMLPScorer.runs_k1(scorer):
+            return FusedMLPScorer.from_scorer(feature_cache, scorer, device=device)
+        return scorer
+
+    return serve_as
+
+
 def serve(
     cfg: Optional[SchedulerConfigFile] = None,
     *,
@@ -473,8 +489,9 @@ def serve(
     ``telemetry.slos`` declared, the SLO autopilot ingests every
     snapshot it writes (reference cli/scheduler.py:267-304).  A
     ``scorer_blob`` installs K1's fused scorer, so announces arriving
-    over HTTP are ranked by K1 until a subscription installs what
-    ``load_scorer`` returns.  With ``server.grpc_port >= 0`` the gRPC
+    over HTTP are ranked by K1; the subscription installs each active
+    model through ``k1_installs``, so a model K1 runs is ranked by K1
+    too, and a standardized one on the host.  With ``server.grpc_port >= 0`` the gRPC
     server binds the same service (and the stall monitor starts when
     ``scheduling.stall_max_idle_s > 0``); a ``grpc://`` trainer uploads
     over gRPC.  Raises ``ConfigError`` naming the package when either
@@ -671,6 +688,7 @@ def serve(
                 rollout_client=RolloutRESTClient(manager_endpoints, token=token),
                 shadow_sample_rate=cfg.scheduling.shadow_sample_rate,
                 shadow_log_path=os.path.join(cfg.storage.dir, "shadow_replay.dfc"),
+                serve_as=k1_installs(service.scheduling.evaluator.feature_cache, device),
             )
             serving.model_subscriber.serve()
             serving.rollout_reporter = RolloutReporter(

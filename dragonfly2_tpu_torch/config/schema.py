@@ -17,8 +17,7 @@ their slices.
 link, the dynconfig and topology sync cadences), with the reference's names,
 defaults and validation.  The reference's other scheduler keys come
 with the slices that read them, and until then a file that sets one is
-refused as an unknown key; for the keys in ``NOT_PORTED`` the message
-names the ROADMAP queue 1 item that brings their reader.
+refused as an unknown key.
 
 ``SchedulerConfigFile`` also holds the ``tracing`` and ``telemetry``
 sections, and the shard guard's settings: ``scheduling.shard_max_inflight``
@@ -30,15 +29,16 @@ present), as in the reference.
 The trainer binary reads ``training.epochs``, ``training.learning_rate``,
 ``training.warmup_steps``, ``server``, ``data_dir``, ``manager_addr``,
 the ``lifecycle`` section and the ``tracing`` and ``telemetry``
-sections; every other key parses and is ignored (ROADMAP queue 1 item 14
-lists what reads them in the reference).  ``telemetry.slos`` is
+sections; every other key parses and is ignored, as in the reference's
+trainer binary.  ``telemetry.slos`` is
 validated by ``utils/slo.parse_slos``, as in the reference.
 
 ``ManagerConfig``, ``ModelRegistrySection`` and ``RolloutSection`` are
 the reference's, with ``DRAGONFLY_MANAGER_*`` overrides (``token_secret``,
-``users_db``, ``root_password``, ``oauth_providers``, ``ca_dir`` and
-``objectstorage`` included), without ``ha``, whose reader is manager
-replication (item 14: refused through ``NOT_PORTED``).
+``users_db``, ``root_password``, ``oauth_providers``, ``ca_dir``,
+``objectstorage`` and ``ha`` included).  ``HASection`` (manager
+replication) refuses the public default ``lease_secret`` and secrets
+under 16 bytes once HA is on, as the reference's does.
 
 ``DaemonConfig``, ``DaemonStorageSection``, ``ProxySection`` (with the
 SNI proxy's ``sni_*`` keys) and ``SecuritySection`` (the daemon's and the
@@ -402,6 +402,52 @@ class RolloutSection:
             raise ConfigError("rollout sample floors must be >= 1")
 
 
+# Placeholder default for HASection.lease_secret (kept in sync with the
+# ReplicatedStateBackend constructor default in manager/replication.py).
+# It is PUBLIC CODE: validate() refuses to enable HA with it in place —
+# anyone holding it can forge leases (fence a live leader via a fake
+# high term, keep a dead one looking alive) and fetch the replication
+# log/snapshot, credential rows included.
+DEFAULT_LEASE_SECRET = "dragonfly-manager-lease"
+
+
+@dataclass
+class HASection:
+    """Manager control-plane replication (manager/replication.py,
+    DESIGN.md §20).  ``enable`` turns on log-shipping + the
+    /api/v1/replication:* surface on a leader; ``replicate_from`` boots
+    this process as a hot standby tailing that leader (implies enable).
+    ``lease_secret`` must match across the pair — it signs the leader
+    lease followers defer to and authenticates log/snapshot fetches.
+    ``peers`` lists the other replicas' base URLs: a node booting as
+    leader probes them for a higher term first, so a restarted fenced
+    leader rejoins as a standby instead of resurrecting a stale term."""
+
+    enable: bool = False
+    replicate_from: str = ""
+    node_id: str = ""
+    lease_ttl_s: float = 10.0
+    lease_secret: str = DEFAULT_LEASE_SECRET
+    poll_interval_s: float = 1.0
+    peers: list = field(default_factory=list)
+
+    def validate(self) -> None:
+        if self.lease_ttl_s <= 0:
+            raise ConfigError("ha.lease_ttl_s must be > 0")
+        if self.poll_interval_s <= 0:
+            raise ConfigError("ha.poll_interval_s must be > 0")
+        if self.enable or self.replicate_from:
+            if self.lease_secret == DEFAULT_LEASE_SECRET:
+                raise ConfigError(
+                    "ha.lease_secret must be set to a private value when "
+                    "HA is enabled — the default is public code, so any "
+                    "peer could forge leases and fetch the replicated "
+                    "state (users/PATs rows included)"
+                )
+            if len(self.lease_secret.encode()) < 16:
+                raise ConfigError("ha.lease_secret must be >= 16 bytes")
+
+
 @dataclass
 class ManagerConfig:
     server: ServerConfig = field(default_factory=lambda: ServerConfig(port=65003))
@@ -431,6 +477,7 @@ class ManagerConfig:
     # not duplicate every in-flight job on its queue.  Operators shrink
     # it for recovery drills/tests.
     jobs_min_requeue_s: float = 30.0
+    ha: HASection = field(default_factory=HASection)
     metrics: MetricsConfig = field(default_factory=MetricsConfig)
     tracing: TracingSection = field(default_factory=TracingSection)
     telemetry: TelemetrySection = field(default_factory=TelemetrySection)
@@ -442,6 +489,7 @@ class ManagerConfig:
         self.tracing.validate()
         self.telemetry.validate()
         self.rollout.validate()
+        self.ha.validate()
         if self.token_secret and len(self.token_secret.encode()) < 16:
             raise ConfigError("token_secret must be >= 16 bytes")
         for p in self.oauth_providers:
@@ -532,16 +580,6 @@ class DaemonConfig:
             )
 
 
-# Keys of the reference's config files whose readers are not ported yet,
-# by the config class that would hold them: a file that sets one is
-# refused, and the message names the item that brings the reader.
-NOT_PORTED = {
-    "ManagerConfig": {
-        "ha": "14 (manager replication)",
-    },
-}
-
-
 # ---------------------------------------------------------------------------
 # loading
 # ---------------------------------------------------------------------------
@@ -555,12 +593,6 @@ def _from_dict(cls: Type[T], data: dict) -> T:
     resolved = typing.get_type_hints(cls)
     for name, value in (data or {}).items():
         if name not in hints:
-            item = NOT_PORTED.get(cls.__name__, {}).get(name)
-            if item is not None:
-                raise ConfigError(
-                    f"{cls.__name__}: key {name!r} is not ported yet "
-                    f"(ROADMAP queue 1 item {item})"
-                )
             raise ConfigError(f"{cls.__name__}: unknown key {name!r}")
         ftype = resolved[name]
         if dataclasses.is_dataclass(ftype) and isinstance(value, dict):

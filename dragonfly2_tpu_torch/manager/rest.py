@@ -53,12 +53,18 @@ Authorization accepts EITHER a manager-issued HMAC session token or a
 raw personal access token in ``Authorization: Bearer ...``.
 
 Port of ``dragonfly2_tpu/manager/rest.py``: the same routes, JSON bodies,
-status codes and role tiers, without manager replication.  The
-replication routes (``/api/v1/replication:status``, ``:log``,
-``:snapshot``) answer 404 ``replication not configured``, as the
-reference's do with no replication holder, and no route answers 503 for a
-standby (ROADMAP queue 1 item 14).  With no token verifier and no user
-store every request is authorized, as in the reference.
+status codes and role tiers.  With a replication holder (``ha=``, a
+``manager/replication.ReplicatedStateBackend``) the server answers
+``/api/v1/replication:status``, ``:log`` and ``:snapshot`` (the last two
+only to a request signed with the shared lease secret), puts the role and
+term in ``/api/v1/healthy``, and while the node is a standby answers every
+write 503 with ``Retry-After`` and never seeds the default cluster row;
+without one the replication routes answer 404 ``replication not
+configured``, as the reference's do.  The handler reads ``registry``,
+``crud``, ``rollout`` and ``jobqueue`` off the server on every request, so
+a standby that rebuilds them after each replicated batch serves the fresh
+ones.  With no token verifier and no user store every request is
+authorized, as in the reference.
 """
 
 from __future__ import annotations
@@ -135,9 +141,15 @@ class ManagerRESTServer:
         state_backend=None,
         jobs_min_requeue_s: float = 30.0,
         rollout=None,
+        ha=None,
     ):
         self.registry = registry
         self.clusters = clusters
+        # Replication role holder (manager/replication.py
+        # ReplicatedStateBackend): serves /api/v1/replication:* and, in
+        # the standby role, 503+Retry-After's every write until
+        # promotion (clients fail over via rpc/resolver.ManagerEndpoints).
+        self.ha = ha
         # Rollout controller (rollout/controller.py): serves the
         # candidate poll + evaluation-report routes; None → 404s.
         self.rollout = rollout
@@ -151,8 +163,11 @@ class ManagerRESTServer:
         # CRUD resources (applications + scheduler-cluster records whose
         # config blobs feed the schedulers' dynconfig).  The default
         # cluster always exists — dynconfig consumers need one to poll.
+        # A STANDBY never seeds it: the row replicates from the leader
+        # (writes are gated until promotion).
         self.crud = crud or CrudStore()
-        self.crud.ensure_default_cluster()
+        if ha is None or ha.role == "leader":
+            self.crud.ensure_default_cluster()
         # Optional ObjectStorageBackend the bucket routes proxy to
         # (manager/handlers/bucket.go semantics); None → 404s.
         self.objectstorage = objectstorage
@@ -180,10 +195,10 @@ class ManagerRESTServer:
             self.topology_shared = self._topology_table.load_all()
         # Sharded-fleet membership directory (scheduler/sharding.py,
         # DESIGN.md §24): the ACTIVE scheduler set per cluster, versioned
-        # and persisted, published with the cluster dynconfig so every
-        # client converges on the same ring.  Without a state seam the
-        # ring is still published, from an in-memory backend (versions
-        # restart).
+        # and persisted (on the replicated backend it survives a leader
+        # bounce), published with the cluster dynconfig so every client
+        # converges on the same ring.  Without a state seam the ring is
+        # still published, from an in-memory backend (versions restart).
         from ..manager.state import MemoryBackend
         from ..scheduler.sharding import ShardDirectory
 
@@ -223,6 +238,47 @@ class ManagerRESTServer:
                     self.send_header(name, value)
                 self.end_headers()
                 self.wfile.write(body)
+
+            def _replication_auth_rejected(self, path: str) -> bool:
+                """The :log/:snapshot routes dump every namespace —
+                users/PATs credential rows included on default
+                deployments — so they demand proof of the shared
+                lease_secret (the follower signs each fetch); anything
+                else 403s instead of bypassing the ADMIN-gated user
+                routes."""
+                from .replication import (
+                    REPLICATION_AUTH_HEADER,
+                    verify_replication_request,
+                )
+
+                token = self.headers.get(REPLICATION_AUTH_HEADER, "")
+                if verify_replication_request(
+                    server.ha.lease_secret, path, token
+                ):
+                    return False
+                self._json(403, {
+                    "error": "replication fetch requires the shared "
+                    "lease_secret (X-DF-Replication-Auth)",
+                })
+                return True
+
+            def _standby_rejected(self) -> bool:
+                """Standby role: every mutation 503s with Retry-After
+                until promotion — a client that cannot fail over knows
+                exactly when to knock again (one follower poll)."""
+                ha = server.ha
+                if ha is None or ha.role == "leader":
+                    return False
+                self._json(
+                    503,
+                    {
+                        "error": "manager is a standby replica "
+                        f"(term {ha.term}); writes go to the leader",
+                        "role": ha.role,
+                    },
+                    headers={"Retry-After": "1"},
+                )
+                return True
 
             def _rate_limited(self) -> bool:
                 # Liveness-class routes stay exempt: the limiter must not
@@ -273,7 +329,11 @@ class ManagerRESTServer:
                     self.end_headers()
                     self.wfile.write(body)
                 elif path == "/api/v1/healthy":
-                    self._json(200, {"ok": True})
+                    payload = {"ok": True}
+                    if server.ha is not None:
+                        payload["role"] = server.ha.role
+                        payload["term"] = server.ha.term
+                    self._json(200, payload)
                 elif path == "/metrics":
                     # Prometheus text exposition — the same diagnostics
                     # surface the scheduler/daemon serve via
@@ -306,14 +366,39 @@ class ManagerRESTServer:
                     from ..utils.slo import debug_state
 
                     self._json(200, debug_state())
-                elif path in (
-                    "/api/v1/replication:status",
-                    "/api/v1/replication:log",
-                    "/api/v1/replication:snapshot",
-                ):
-                    # No replication holder in this package (ROADMAP
-                    # queue 1 item 14): the reference's answer without one.
-                    self._json(404, {"error": "replication not configured"})
+                elif path == "/api/v1/replication:status":
+                    # Follower poll target: log frontier + the signed
+                    # lease (manager/replication.py LogFollower).
+                    if server.ha is None:
+                        self._json(404, {"error": "replication not configured"})
+                    else:
+                        status = server.ha.status()
+                        if server.ha.role == "leader":
+                            status["lease"] = server.ha.lease_payload()
+                        self._json(200, status)
+                elif path == "/api/v1/replication:log":
+                    if server.ha is None:
+                        self._json(404, {"error": "replication not configured"})
+                    elif not self._replication_auth_rejected(path):
+                        try:
+                            from_seq = int(q.get("from_seq", 0))
+                            limit = min(int(q.get("limit", 500)), 2000)
+                        except ValueError as exc:
+                            self._json(400, {"error": str(exc)})
+                            return
+                        # Read under the commit lock (log_entries): a
+                        # concurrent append-then-discard must never ship.
+                        self._json(
+                            200, server.ha.log_entries(from_seq, limit)
+                        )
+                elif path == "/api/v1/replication:snapshot":
+                    # Follower bootstrap: full data-state snapshot for
+                    # rows that predate the log (legacy migrations,
+                    # pre-HA deployments) or that compacted out of it.
+                    if server.ha is None:
+                        self._json(404, {"error": "replication not configured"})
+                    elif not self._replication_auth_rejected(path):
+                        self._json(200, server.ha.snapshot())
                 elif path == "/api/v1/certs:ca":
                     # Trust-root fetch (open read: peers need the root
                     # BEFORE they can build a verified TLS context).
@@ -480,7 +565,15 @@ class ManagerRESTServer:
                         for sid in dead:
                             del server.topology_shared[sid]
                             if server._topology_table is not None:
-                                server._topology_table.delete(sid)
+                                from .replication import NotLeaderError
+
+                                try:
+                                    server._topology_table.delete(sid)
+                                except NotLeaderError:
+                                    # Standby: evict from memory only —
+                                    # the leader's replicated delete is
+                                    # the durable one.
+                                    pass
                         edges = [
                             e
                             for sid, entry in server.topology_shared.items()
@@ -603,6 +696,8 @@ class ManagerRESTServer:
 
             def _handle_POST(self):
                 if self._rate_limited():
+                    return
+                if self._standby_rejected():
                     return
                 path = urllib.parse.urlsplit(self.path).path
                 if (

@@ -391,6 +391,16 @@ class FusedMLPScorer:
         self.uploads = 0
         self.downloads = 0
 
+    @staticmethod
+    def runs_k1(scorer) -> bool:
+        """Whether K1 serves ``scorer``: an exported ``MLPScorer`` at the
+        kernel's depth, without standardization (``from_scorer`` refuses
+        a standardized one; another depth takes the torch path)."""
+        from ..trainer.export import MLPScorer
+
+        return (isinstance(scorer, MLPScorer) and scorer.feat_mean is None
+                and len(scorer.weights) == _KERNEL_LAYERS)
+
     @classmethod
     def from_scorer(cls, store, scorer, **kw) -> "FusedMLPScorer":
         """Build from an exported ``MLPScorer`` artifact."""

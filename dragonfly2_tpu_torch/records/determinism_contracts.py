@@ -7,7 +7,8 @@ observability sinks and canonical-serialization writers the port has.
 The reference's roots and writers in ``tools/`` map to the port's copies
 under ``bench/`` (``fleet_assemble``); those with no port module
 (``tools/trace_assemble.py``, ``tools/bench_sched.py``,
-``tools/bench_download.py``: ROADMAP item 14) have no entry.  One root is
+``tools/bench_download.py``: measuring harnesses, which come with the
+port's benchmark) have no entry.  One root is
 the port's own: ``sim/qos.deterministic_summary``, the projection the
 QoS hash-seed sweep holds byte for byte.
 

@@ -13,10 +13,10 @@
 
 Entry for entry with the reference's ``persistence`` section, keyed by
 the port's relpaths, for the namespaces the port writes (``users`` and
-``pats`` of ``manager/users.py`` among them).  The reference's
-``replication_log``/``replication_meta`` (``manager/replication.py``)
-have no port module yet (ROADMAP item 14), so they have no entry, and
-neither has the replicated table's wildcard writers.  The FSM (DF013) and RPC (DF015) sections are
+``pats`` of ``manager/users.py``, and the replication machinery's
+``replication_log`` / ``replication_meta`` of ``manager/replication.py``
+among them), with the replicated table's wildcard writers under
+``replicators``.  The FSM (DF013) and RPC (DF015) sections are
 not ported: no port rule reads them.
 
 Keep this a PURE LITERAL: one dict, no names, calls or comprehensions.
@@ -108,6 +108,27 @@ STATE_CONTRACTS = {
                 "unlocked_ok": ["KVBlobStore.put"],
                 "invariant": "rows_load",
             },
+            # The write-ahead op log and its (term, applied) watermark:
+            # ReplicationLog is owned by ONE ReplicatedStateBackend and
+            # every mutator runs under that backend's commit lock.
+            "replication_log": {
+                "owner": "dragonfly2_tpu_torch/manager/replication.py",
+                "lock": ["dragonfly2_tpu_torch/manager/replication.py",
+                         "ReplicatedStateBackend", "_mu"],
+                "loader": "ReplicationLog.__init__",
+                "multi_row": [],
+                "unlocked_ok": [],
+                "invariant": "log_monotonic",
+            },
+            "replication_meta": {
+                "owner": "dragonfly2_tpu_torch/manager/replication.py",
+                "lock": ["dragonfly2_tpu_torch/manager/replication.py",
+                         "ReplicatedStateBackend", "_mu"],
+                "loader": "ReplicationLog.__init__",
+                "multi_row": [],
+                "unlocked_ok": [],
+                "invariant": "rows_load",
+            },
             "shard_membership": {
                 "owner": "dragonfly2_tpu_torch/scheduler/sharding.py",
                 "lock": ["dragonfly2_tpu_torch/scheduler/sharding.py",
@@ -128,6 +149,13 @@ STATE_CONTRACTS = {
             },
         },
         "replicators": {
+            "dragonfly2_tpu_torch/manager/replication.py": [
+                "_ReplicatedTable.put",
+                "_ReplicatedTable.put_many",
+                "_ReplicatedTable.delete",
+                "ReplicatedStateBackend._apply_entry_locked",
+                "ReplicatedStateBackend.apply_snapshot",
+            ],
             "dragonfly2_tpu_torch/manager/state.py": [
                 "StateBackend.put_namespaces",
             ],

@@ -15,59 +15,21 @@ client's own ``serve()`` otherwise.  ``keepalive`` self-heals: a manager
 that answers ``known=False`` (restart lost its in-memory cluster table)
 gets an immediate re-registration, whichever loop is ticking.
 
-Port of ``dragonfly2_tpu/rpc/cluster_client.py``, verbatim.  The
-reference shares its JSON wrapper with the job wire
-(``jobs/remote.RemoteJobClient.call``); the job wire is ROADMAP queue 1
-item 14, so ``_ManagerJSON`` here is a copy of that one method.
+Port of ``dragonfly2_tpu/rpc/cluster_client.py``, verbatim.
 """
 
 from __future__ import annotations
 
-import json
 import logging
 import random
 import threading
 import urllib.error
-import urllib.request
 from typing import Optional
 
+from ..jobs.remote import RemoteJobClient
 from .retry import DecorrelatedJitterBackoff
 
 logger = logging.getLogger(__name__)
-
-
-class _ManagerJSON:
-    """Bearer-authed JSON requests against the manager REST surface over
-    a shared ``ManagerEndpoints`` (``jobs/remote.RemoteJobClient.call``
-    of the reference)."""
-
-    def __init__(self, manager_url, *, token: Optional[str] = None,
-                 timeout: float = 10.0) -> None:
-        from .resolver import ManagerEndpoints
-
-        self.endpoints = ManagerEndpoints.of(manager_url, client="jobs")
-        self.token = token
-        self.timeout = timeout
-
-    def call(self, method: str, path: str, body: Optional[dict] = None) -> dict:
-        data = json.dumps(body).encode() if body is not None else None
-        headers = {"Content-Type": "application/json"}
-        if self.token:
-            headers["Authorization"] = f"Bearer {self.token}"
-
-        def once(base: str) -> dict:
-            from ..utils import faultinject
-
-            faultinject.fire("jobs.remote.call")
-            req = urllib.request.Request(
-                base + path, data=data, headers=headers, method=method
-            )
-            with urllib.request.urlopen(req, timeout=self.timeout) as resp:
-                if resp.status == 204:
-                    return {}
-                return json.loads(resp.read() or b"{}")
-
-        return self.endpoints.call(once)
 
 
 class RemoteClusterClient:
@@ -83,7 +45,7 @@ class RemoteClusterClient:
         # One shared bearer-authed JSON wrapper with the job wire —
         # manager_url may be a replica list / shared ManagerEndpoints
         # (rpc/resolver), so keepalives fail over with everything else.
-        self._http = _ManagerJSON(manager_url, token=token, timeout=timeout)
+        self._http = RemoteJobClient(manager_url, token=token, timeout=timeout)
         self.keepalive_interval_s = keepalive_interval_s
         # Failed keepalives back off with capped decorrelated jitter: a
         # manager bounce must not get the whole fleet's keepalives back

@@ -22,7 +22,10 @@ the shadow replay log on disk (``shadow_log_path``) or in memory, or
 over ``rpc.grpc_transport.GRPCRemoteRegistry`` (the manager's gRPC port),
 as in the reference.  The installed scorers are what
 ``load_scorer`` returns (the numpy ``MLPScorer`` for the streaming
-trainer's standardized artifacts), as in the reference.
+trainer's standardized artifacts), as in the reference, unless the caller
+passes ``serve_as`` (the port's own): each loaded ACTIVE scorer is
+installed as what ``serve_as`` maps it to (``cli.scheduler.serve`` puts
+an MLP that K1 runs on its device); candidates install as loaded.
 
 Rollout plane (DESIGN.md §15), when a ``rollout_client`` is attached:
 
@@ -61,7 +64,7 @@ from __future__ import annotations
 import logging
 import random
 import threading
-from typing import TYPE_CHECKING, Optional, Union
+from typing import TYPE_CHECKING, Callable, Optional, Union
 
 from ..manager.registry import ModelRegistry
 from . import metrics
@@ -89,6 +92,7 @@ class ModelSubscriber:
         rollout_client: "Optional[Union[LocalRolloutClient, RolloutRESTClient]]" = None,
         shadow_sample_rate: float = 0.1,
         shadow_log_path: Optional[str] = None,
+        serve_as: Optional[Callable] = None,
     ) -> None:
         from ..lifecycle.arbiter import regional_model_name
 
@@ -108,6 +112,7 @@ class ModelSubscriber:
         self.rollout_client = rollout_client
         self.shadow_sample_rate = shadow_sample_rate
         self.shadow_log_path = shadow_log_path
+        self.serve_as = serve_as
         self._loaded_version: Optional[int] = None
         self._loaded_key: Optional[str] = None
         self._candidate_version: Optional[int] = None
@@ -220,6 +225,8 @@ class ModelSubscriber:
             # on mismatch): a corrupted/swapped blob is REFUSED here and the
             # current scorer keeps serving.
             scorer = load_scorer(self.registry.load_artifact(model))
+            if self.serve_as is not None:
+                scorer = self.serve_as(scorer)
         except Exception:  # noqa: BLE001 — a bad artifact must not break scheduling
             logger.exception("loading model %s failed; keeping current scorer", model.id)
             return ("load_failed", model, None)

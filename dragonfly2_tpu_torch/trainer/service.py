@@ -36,9 +36,10 @@ reads the session's shards whole, builds the same permutations (seed 0)
 and takes its slice of every global batch, as the mesh trainers do
 (``trainer/train.py``).  Rank 0 alone calls ``registry.create_model``
 and counts ``MODELS_PUBLISHED`` and ``TRAINING_RECORDS``; every rank's
-``TrainRun`` carries rank 0's metrics (one broadcast a model) and a
-digest of its own trained parameters (``TrainRun.digests``), so that
-the ranks' parameters can be compared bit for bit.  A corpus too small
+``TrainRun`` carries rank 0's metrics (one broadcast a model) and the
+digest of each leaf of its own trained parameters
+(``TrainRun.leaf_digests``), so that the ranks' parameters can be
+compared bit for bit and a difference named by its leaf.  A corpus too small
 for the data axis (batches round down to a multiple of it) raises the trainers'
 ``ValueError`` on every rank, and every rank skips the model, as the
 reference does.  The online sink stays on rank 0, fed by the uploads it
@@ -87,25 +88,23 @@ class TrainRun:
     done: threading.Event = field(default_factory=threading.Event)
     # Logged losses by model name (each trainer's history).
     history: Dict[str, List[dict]] = field(default_factory=dict)
-    # The sha256 of the trained parameters by model name (``params_digest``).
-    digests: Dict[str, str] = field(default_factory=dict)
+    # By model name, each leaf's sha256 (``leaf_digests``).
+    leaf_digests: Dict[str, Dict[str, str]] = field(default_factory=dict)
     # On rank 0 of a RankGroup: every rank's TrainerService.summary.
     ranks: List[Dict[str, Any]] = field(default_factory=list)
 
 
-def params_digest(state) -> str:
-    """The sha256 of a trained state's parameters: every leaf of
-    ``full_params`` as float32 bytes, in name order.  Two ranks of a mesh
-    that hold the same parameters give the same digest."""
+def leaf_digests(state) -> Dict[str, str]:
+    """Each leaf of ``full_params`` → the sha256 of its float32 bytes: two
+    ranks that hold the same parameters give the same digests, and two
+    that differ differ in the leaves whose digests differ."""
     import hashlib
 
     from .train import full_params
 
-    h = hashlib.sha256()
-    for name, leaf in sorted(full_params(state).items()):
-        h.update(name.encode())
-        h.update(leaf.detach().float().cpu().contiguous().numpy().tobytes())
-    return h.hexdigest()
+    return {name: hashlib.sha256(leaf.detach().float().cpu().contiguous().numpy()
+                                 .tobytes()).hexdigest()
+            for name, leaf in sorted(full_params(state).items())}
 
 
 class TrainSession:
@@ -403,7 +402,7 @@ class TrainerService:
 
     def _keep(self, run: TrainRun, name: str, state, history) -> None:
         run.history[name] = [dict(h) for h in history]
-        run.digests[name] = params_digest(state)
+        run.leaf_digests[name] = leaf_digests(state)
 
     # -- ranks ---------------------------------------------------------------
 
@@ -433,7 +432,7 @@ class TrainerService:
         ``TrainRun.ranks``: rows, metrics, logged losses, the registry
         calls this rank made, its K3 launches (a helper's: this round's;
         rank 0's: since its counts were last reset), and the digests of
-        its trained parameters."""
+        its trained parameters, leaf by leaf."""
         from ..ops import segment
 
         return {
@@ -444,7 +443,7 @@ class TrainerService:
             "history": run.history,
             "registry_calls": registry_calls,
             "segment_sum_launches": segment.LAUNCHES["segment_sum"],
-            "digests": run.digests,
+            "leaf_digests": run.leaf_digests,
         }
 
     # -- models --------------------------------------------------------------

@@ -146,8 +146,7 @@ def install(package_dir: Optional[str] = None) -> SpanWitness:
 
 # DF016's inventory, entry for entry, keyed by the port's relpaths: each
 # instrumented module and the span names it must open (f-string sites
-# match on their constant prefix as ``prefix*``).  The reference's
-# modules that the port does not have (ROADMAP item 14) have no entry.
+# match on their constant prefix as ``prefix*``).
 REQUIRED_SPANS = {
     "dragonfly2_tpu_torch/rpc/scheduler_server.py": ("rpc/*",),
     "dragonfly2_tpu_torch/rpc/grpc_transport.py": ("rpc/*",),
@@ -157,6 +156,7 @@ REQUIRED_SPANS = {
     ),
     "dragonfly2_tpu_torch/daemon/piece_pipeline.py": ("daemon/report.flush",),
     "dragonfly2_tpu_torch/manager/rest.py": ("manager/GET", "manager/POST"),
+    "dragonfly2_tpu_torch/manager/replication.py": ("manager/replicate.commit",),
     "dragonfly2_tpu_torch/jobs/preheat.py": (
         "jobs/preheat", "jobs/preheat.execute",
     ),

@@ -253,6 +253,12 @@ print("OK")
         "dragonfly2_tpu_torch.manager.console",
         "dragonfly2_tpu_torch.manager.openapi",
         "dragonfly2_tpu_torch.bench.secure_cluster",
+        "dragonfly2_tpu_torch.manager.replication",
+        "dragonfly2_tpu_torch.utils.cache",
+        "dragonfly2_tpu_torch.utils.plugin",
+        "dragonfly2_tpu_torch.tools.stress",
+        "dragonfly2_tpu_torch.version",
+        "dragonfly2_tpu_torch.bench.manager_failover",
         "chip_smoke",
     ],
 )

@@ -9,10 +9,11 @@ packages (``pkg``).  Then the two against each other:
   JAX ``ManagerRESTServer`` and the port's: status codes and bodies are
   equal byte for byte once generated ids are replaced by their order of
   appearance;
-- the port's manager binary runs as a subprocess: the ``ha`` key, a gRPC
-  port on a machine without ``grpc`` and ``--replicate-from`` exit 2
-  naming their ROADMAP item or the package, each security-plane key boots
-  it, ``--list-models`` prints what the JAX
+- the port's manager binary runs as a subprocess: a gRPC port on a
+  machine without ``grpc`` exits 2 naming the package; the ``ha`` key
+  refuses the public lease secret and with a private one boots a leader,
+  ``--replicate-from`` boots a standby that answers writes 503; each
+  security-plane key boots it, ``--list-models`` prints what the JAX
   binary prints on the same blob directory, and in serve mode it prints
   its URL line, answers REST and exits 0 on SIGTERM.
 """
@@ -483,9 +484,12 @@ OAUTH_LINE = ("oauth_providers: [{name: gh, client_id: c, client_secret: s, "
     ("--replicate-from", "item 14"),
 ])
 def test_refused_options_exit_2_naming_their_item(tmp_path, text, item):
-    """Manager replication (``ha``, ``--replicate-from``) exits 2 naming its
-    item; the security plane's keys, ported, boot the binary as they boot
-    the reference's, and a route shows each took effect."""
+    """Manager replication, ported (``ha``, ``--replicate-from``): the ``ha``
+    key with the public lease secret exits 2 naming it, as the reference's
+    ``HASection.validate`` refuses it, and with a private secret boots a
+    leader; ``--replicate-from`` boots a standby whose writes answer 503.
+    The security plane's keys boot the binary as they boot the
+    reference's, and a route shows each took effect."""
     env = {"DRAGONFLY_MANAGER_REGISTRY_BLOB_DIR": str(tmp_path / "blobs"),
            "DRAGONFLY_MANAGER_SERVER_PORT": "0"}
     if text == "--replicate-from":
@@ -493,6 +497,9 @@ def test_refused_options_exit_2_naming_their_item(tmp_path, text, item):
     else:
         (tmp_path / "m.yaml").write_text(text.replace("{tmp}", str(tmp_path)))
         argv = ["--config", str(tmp_path / "m.yaml")]
+    if item == "item 14":
+        _replication_boots(tmp_path, text, argv, env)
+        return
     if item == "ported":
         # The metrics section loads as the reference's: the manager serves
         # /metrics on its REST port (tests/test_torch_diagnostics.py).
@@ -547,6 +554,53 @@ def test_refused_options_exit_2_naming_their_item(tmp_path, text, item):
         f"ROADMAP queue 1 {item}" in out.stderr or item.startswith("'grpc'")
         and item in out.stderr), out.stderr
     assert not (tmp_path / "blobs").exists()
+
+
+def _replication_boots(tmp_path, text, argv, env):
+    """The two replication options, once refused, as the reference runs
+    them."""
+    if text != "--replicate-from":
+        out = _binary(argv, env)
+        assert out.returncode == 2, out.stderr
+        assert out.stderr.startswith("manager: ha.lease_secret must be set to a private "
+                                     "value"), out.stderr
+        assert not (tmp_path / "blobs").exists()
+        (tmp_path / "m.yaml").write_text(
+            "ha: {enable: true, lease_secret: binary-test-secret-0123}\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dragonfly2_tpu_torch.cli.manager", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(REPO),
+        env={**os.environ, "PYTHONPATH": str(REPO),
+             "DRAGONFLY_MANAGER_SERVER_HOST": "127.0.0.1", **env})
+    role = "standby" if text == "--replicate-from" else "leader"
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 60)
+        assert ready, "the manager binary printed nothing"
+        m = re.fullmatch(r"manager: serving REST on (http://127\.0\.0\.1:\d+) "
+                         rf"as {role} \(term 1\) \(ctrl-c to stop\)\n",
+                         proc.stdout.readline())
+        assert m
+        with urllib.request.urlopen(m.group(1) + "/api/v1/replication:status",
+                                    timeout=10) as resp:
+            status = json.loads(resp.read())
+        assert (status["role"], status["term"]) == (role, 1)
+        assert ("lease" in status) == (role == "leader")
+        req = urllib.request.Request(m.group(1) + "/api/v1/models", method="POST",
+                                     data=json.dumps({"name": "m"}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                got = resp.status
+        except urllib.error.HTTPError as exc:
+            got = exc.code
+            assert exc.headers.get("Retry-After") == ("1" if role == "standby" else None)
+        # A leader takes the write to its validation (400: no artifact); a
+        # standby refuses every write until it promotes.
+        assert got == (503 if role == "standby" else 400)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+    assert rc == 0, proc.stderr.read()
 
 
 def test_list_models_prints_what_the_jax_binary_prints(tmp_path):

@@ -23,7 +23,7 @@ Tolerances, stated (those of ``tests/test_torch_multidevice_train.py``):
   arithmetic (the softmax cancels them), so both runs move them by Adam's
   reading of rounding noise: held to 3 × the run's summed learning
   rates, absolute.  Every rank holds the same bits (equal leaves, and
-  equal ``TrainRun.digests``);
+  equal ``TrainRun.leaf_digests``);
 - losses at every logged step: 5e-3 (bfloat16) and 1e-4 (float32)
   relative;
 - planted faults read above twice the limit: rank 1 takes the all-reduce
@@ -39,6 +39,7 @@ in this process).
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 
 import numpy as np
@@ -258,8 +259,12 @@ def test_every_rank_holds_the_one_device_leaves(ranked, one):
         for name, leaves in r["leaves"].items():
             for k, v in leaves.items():
                 assert np.array_equal(v, run.ranks[0]["leaves"][name][k]), (r["rank"], name, k)
-        assert r["digests"] == run.ranks[0]["digests"] == run.digests
-        assert sorted(r["digests"]) == sorted([MLP, GNN])
+        assert sorted(r["leaf_digests"]) == sorted([MLP, GNN])
+        assert r["leaf_digests"] == run.ranks[0]["leaf_digests"] == run.leaf_digests
+        for name, leaves in r["leaves"].items():
+            assert r["leaf_digests"][name] == {
+                k: hashlib.sha256(np.ascontiguousarray(v, np.float32).tobytes()).hexdigest()
+                for k, v in leaves.items()}, name
 
 
 def test_losses_match_the_one_device_run_at_every_logged_step(ranked, one):
@@ -314,7 +319,7 @@ def test_a_rank_stepping_on_its_own_gradients_reads_above_twice_the_limit(faulty
     with pytest.raises(AssertionError):
         _held(rank1, one["bf16"], one["start"], "bf16")
     # The digests the smoke compares across ranks read it too.
-    assert all(run.ranks[1]["digests"][name] != run.ranks[0]["digests"][name]
+    assert all(run.ranks[1]["leaf_digests"][name] != run.ranks[0]["leaf_digests"][name]
                for name in (MLP, GNN))
 
 
