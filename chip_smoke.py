@@ -33,8 +33,12 @@ Phases:
    path's padded sizes (128, 256, 512 rows) and at 4,096 rows over the
    full 65,536-row mirror, K2 at [512, 6].
 5. Times from CUDA events (median of 25): K1 at 128 rows (the pad most
-   flushes take) and 512, K2 at 512, and the launch floor (an empty
-   launch, ``torch.cuda._sleep(1)``, timed the same way).  The announce
+   flushes take) and 512, and the launch floor (an empty launch,
+   ``torch.cuda._sleep(1)``, timed the same way).  K2 on its row ladder
+   (``bench/k2_ladder.py``): 512 rows, 65,536 (in L2) and 16,777,216 (470
+   MB, cold on every launch), each tiled from the rule arm's components,
+   held to its plain version (and on the view one row in), timed beside
+   its plain version and ``torch.mv``, with its bound and share.  The announce
    rate and register_peer p50/p99 are those of the 512 concurrent
    requests (a closed loop of 32 clients); evaluate_parents and the
    scorer flush are timed per call around the same requests.
@@ -233,7 +237,7 @@ launch counts are zeroed before each and must read 0 after.
     ``sync_probes_start`` / ``sync_probes_finished``; the probe graph is
     snapshotted into the scheduler's records; the Announcer's next round
     uploads the shards and the trainer trains the MLP and the GAT, which
-    register in the manager; 60 parent-choice trials (``WIRE_TRIALS``)
+    register in the manager; 40 parent-choice trials (``WIRE_TRIALS``)
     run on the seed-made K1 scorer, then the MLP is activated over REST
     and, once the subscription has installed it, 60 more, and 60 on the
     rule scheduler.  Launch counts are zeroed just before and read just after.
@@ -255,8 +259,8 @@ launch counts are zeroed before each and must read 0 after.
     but the drift ceiling, which is off), and the ``ml`` scheduler
     shadow-scores every announce into ``shadow_replay.dfc`` and reports
     every 5 s; the Announcer runs every 45 s.  After the seed scorer's
-    60 parent-choice trials, downloads run until a daemon candidate is
-    ACTIVE and installed; then 60 trials on the installed model and 60
+    40 parent-choice trials, downloads run until a daemon candidate is
+    ACTIVE and installed; then 40 trials on the installed model and 40
     on the rules.  Launch counts are zeroed just before and read just
     after.  Checks: the candidate's rollout row read over REST goes
     SHADOW, CANARY, ACTIVE, after the seed scorer's parent choice, with 0
@@ -628,12 +632,14 @@ import time
 
 import numpy as np
 
+from dragonfly2_tpu_torch.bench.k2_ladder import K2_TOL, ladder as k2_ladder
 from dragonfly2_tpu_torch.bench.shard_fleet import shed_counts
 from dragonfly2_tpu_torch.bench.timing import (
-    bound, device_ms, k1_cost, k2_cost, k3_cost,
+    bound, device_ms, k1_cost, k3_cost,
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 N_HOSTS = 16384
 N_TASKS = 64
@@ -645,7 +651,6 @@ SEQUENTIAL = 64
 STORE_SLOTS = 65536
 SCORE_TOL = 1e-4          # path vs numpy MLPScorer (scores and ties)
 K1_TOL = 1e-5             # K1 vs plain, scaled by max(1, max |score|)
-K2_TOL = 1e-6             # K2 vs plain
 # The training phase (BASELINE configs[2], the bench's batch).
 GAT_NODES = 100_000
 GAT_NEIGHBORS = 16
@@ -747,17 +752,19 @@ FED_MEAN_TOL = 1e-6       # the round's aggregate vs a numpy weighted mean
 WIRE_DOWNLOADS = 3000     # the swarm's 10,000 cut for the phase's time
 WIRE_CLIENTS = 16
 WIRE_SEQUENTIAL = 256
-WIRE_TRIALS = 60          # parent-choice trials an arm in phases 16-17 (200 cut for the smoke's time)
-WIRE_TRAIN_INTERVAL = 125.0  # past the downloads and probes (~100-110 s on the card)
+WIRE_TRIALS = 40          # parent-choice trials an arm in phases 16-17 (200 cut for the smoke's time)
+WIRE_TRAIN_INTERVAL = 165.0  # past the downloads and probes: 100-140 s after the boot on
+                             # the card's hosts; a first round before the probe snapshot
+                             # makes the phase wait one more whole interval
 WIRE_PROBE_ROUNDS = 4     # the swarm's 8 cut: the snapshot must land before the round
-                          # at 125 s (8 rounds took 60-75 s and missed the 150 s one once)
+                          # (8 rounds took 60-75 s and missed a 150 s one once)
 WIRE_K1_FLUSHES = 64      # flushes whose inputs K1 is held to its plain version on
 PS_DAEMONS = 16            # phase 20: daemons in the peer swarm
 PS_SIZE_MIB = 256          # ... the origin file (a layer or shard; GBs cut for time)
 PH_DAEMONS = 15            # phase 21: normal daemons beside the one seed peer
 PH_SIZE_MIB = 256          # ... file A, preheated (as phase 20's file)
 PH_COLD_MIB = 64           # ... file B, the cold task
-SF_FLEET = {"peers": 128_000, "shards": 4, "ticks": 4, "rounds": 2,  # phase 22(a):
+SF_FLEET = {"peers": 128_000, "shards": 4, "ticks": 4, "rounds": 1,  # phase 22(a):
             "announce_rate": 0.5, "download_rate": 0.0005,        # BENCH_SW_r01.json's
             "cache_hosts": 65_536, "seed": 7}                     # configuration
 SK_DAEMONS = 16            # phase 22(b): daemons steering across the three shards
@@ -771,7 +778,7 @@ LC_REPORT_INTERVAL = 5.0  # the rollout reporter's cycle (60 s cut)
 LC_DOWNLOAD_CAP = 20_000  # downloads the phase may take before the walk ends
 LC_TIMEOUT = 360.0        # seconds the walk may take
 MD_RANKS = 4              # phase 18(b): gloo ranks on the one card
-MD_STEPS_B = 6            # ... flagship steps per mode
+MD_STEPS_B = 4            # ... flagship steps per mode
 MD_PRE_TOL = 1e-5         # sharded vs replicated precompute, scaled by max(1, |x|)
 MD_LOSS_RTOL = 1e-3       # node-sharded vs replicated losses (relative)
 MD_MAE_TOL = 5e-3         # node-sharded vs replicated validation MAE
@@ -862,6 +869,10 @@ def check_native_daemons(summary, where):
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the script
+    started (``smoke_s``), so each phase's wall time reads off the log."""
+    if "phase" in obj:
+        obj = {**obj, "smoke_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -4437,10 +4448,34 @@ def manager_failover_phase(torch, dev, seed, out_dir):
     return out, launches
 
 
+def repeat_trainer_ranks(torch, dev, seed, work_dir, times) -> int:
+    """Phase 25 alone, ``times`` runs in one process: each run's rank
+    witness (``rank_leaf_diff`` in bf16 and in float32, None when every
+    rank's leaves are equal) or the check it failed.  No contract line:
+    this is not the smoke."""
+    held = 0
+    for i in range(times):
+        t0 = time.perf_counter()
+        try:
+            summary, _, _ = trainer_ranks_phase(torch, dev, seed, work_dir)
+            run = {"ok": True, "rank_leaf_diff": summary["rank_leaf_diff"],
+                   "f32_rank_leaf_diff": summary["f32_witness"]["rank_leaf_diff"]}
+            held += 1
+        except SmokeFailure as exc:
+            run = {"ok": False, "failed": str(exc)}
+        emit({"phase": "trainer_ranks_repeat", "run": i + 1, "seconds": time.perf_counter() - t0,
+              **run})
+    emit({"phase": "trainer_ranks_repeat", "runs": times, "held": held})
+    return 0 if held == times else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="", help="directory for the nvcc report and a JSON summary")
+    ap.add_argument("--repeat-trainer-ranks", type=int, default=0, metavar="N",
+                    help="after the build, run phase 25 alone N times, print each run's "
+                         "rank witness, and stop (exit 0 if every run held)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4499,9 +4534,12 @@ def main(argv=None) -> int:
     check(native.build_error() is None,
           f"the native host engine did not build: {native.build_error()}")
 
-    # -- 2. serving path ----------------------------------------------------
     work_dir = args.out or os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work_dir, exist_ok=True)
+    if args.repeat_trainer_ranks:
+        return repeat_trainer_ranks(torch, dev, args.seed, work_dir, args.repeat_trainer_ranks)
+
+    # -- 2. serving path ----------------------------------------------------
     cfg = SchedulerConfig()
     # The warm-up's finished downloads are written as Download records.
     cfg.storage.dir = os.path.join(work_dir, "serving_records")
@@ -4645,7 +4683,6 @@ def main(argv=None) -> int:
 
     # -- 5. times -----------------------------------------------------------
     d1, d2 = mlp.w0c.shape[1], mlp.w1.shape[1]
-    w_t = torch.tensor(RULE_COMPONENT_WEIGHTS, dtype=torch.float32, device=dev)
     # Timing launches are not path launches: counted apart.
     floor_ms = device_ms(lambda: torch.cuda._sleep(1))
     k1_times = {}
@@ -4655,10 +4692,15 @@ def main(argv=None) -> int:
                        device_ms(lambda: k1_plain(s, d, e)),
                        bound(*k1_cost(n, d1, d2, mlp.k1_blob.numel())))
     k1_ms, k1_plain_ms, (k1_bound, k1_by) = k1_times[512]
-    k2_ms = device_ms(lambda: rule_sum(c512))
-    k2_plain_ms = device_ms(lambda: _rule_sum_plain(c512, RULE_COMPONENT_WEIGHTS))
-    k2_lib_ms = device_ms(lambda: torch.mv(c512, w_t))
-    k2_bound, k2_by = bound(*k2_cost(512))
+    # K2 on its row ladder, each rung tiled from the rule arm's components
+    # and held to its plain version (also on the view one row in).
+    k2_rungs = k2_ladder(comps, dev, floor_ms=floor_ms)["rungs"]
+    for n, r in k2_rungs.items():
+        err = max(r["max_abs_err"], r["max_abs_err_offset_view"])
+        check(err <= K2_TOL, f"K2 off its plain version by {err} at {n} rows")
+    k2_512 = k2_rungs[512]
+    k2_ms, k2_plain_ms, k2_lib_ms = k2_512["ms"], k2_512["plain_ms"], k2_512["library_ms"]
+    k2_bound, k2_by = k2_512["bound_ms"], k2_512["bound_by"]
     # The card's busy share of the concurrent phase, from K1's device time
     # at 128 rows (the pad most flushes take).
     busy_s = concurrent["k1_launches"] * k1_times[128][0] / 1e3
@@ -4668,7 +4710,7 @@ def main(argv=None) -> int:
           "k1": {n: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
                      "share_of_bound": t[2][0] / t[0], "over_launch_floor": t[0] / floor_ms}
                  for n, t in k1_times.items()},
-          "k2": {"ms": k2_ms, "over_launch_floor": k2_ms / floor_ms}})
+          "k2": {"ms": k2_ms, "over_launch_floor": k2_ms / floor_ms, "ladder": k2_rungs}})
 
     # -- 6. training path ---------------------------------------------------
     k3_entry, training, work = train_phase(torch, dev, args.seed)
@@ -4822,7 +4864,10 @@ def main(argv=None) -> int:
          "launches": launches["rule_weighted_sum"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
-         "share_of_bound": k2_bound / k2_ms},
+         "share_of_bound": k2_bound / k2_ms,
+         "ladder": {n: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                          "share_of_bound", "max_abs_err")}
+                    for n, r in k2_rungs.items()}},
         k3_entry,
     ]}
     for entry in kernels["kernels"]:

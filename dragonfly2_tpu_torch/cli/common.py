@@ -6,7 +6,7 @@ Port of ``base_parser`` (with the tracing and telemetry flags
 ``init_logging`` (which installs a ``DF_FAULTINJECT`` scenario from the
 environment) and ``init_debug`` of ``dragonfly2_tpu/cli/common.py``.
 New here: ``stop_telemetry``, which both binaries call on shutdown, and
-``wait_for_signal``, the serve modes' wait.  ``init_diagnostics`` starts
+``SignalWait``, the serve modes' wait.  ``init_diagnostics`` starts
 the ``/metrics`` sidecar (``utils/diagnostics.DiagnosticsServer``) the
 scheduler's and the daemon's ``run`` start at the reference's defaults;
 the port also stops it on shutdown, where the reference leaves it to the
@@ -248,25 +248,31 @@ def init_logging(args, service: str) -> None:
     faultinject.install_from_env()
 
 
-def wait_for_signal() -> int:
-    """Block until SIGINT or SIGTERM; → the signal's number.  The serve
-    modes' wait (the reference waits for KeyboardInterrupt only; a
-    supervisor's SIGTERM stops the port's binaries as cleanly).  Call
-    from the main thread."""
-    got = []
-    done = threading.Event()
+class SignalWait:
+    """SIGINT and SIGTERM caught from construction on: a serve mode builds
+    one before it prints its ready line, so a supervisor may signal as soon
+    as it reads the line (the reference waits for KeyboardInterrupt only; a
+    supervisor's SIGTERM stops the port's binaries as cleanly).  ``wait()``
+    blocks until one arrives, → its number; ``close()`` puts the previous
+    handlers back.  Use from the main thread."""
 
-    def on_signal(signum, frame):
-        got.append(signum)
-        done.set()
+    def __init__(self) -> None:
+        self._got: list = []
+        self._done = threading.Event()
+        self._previous = {
+            s: signal.signal(s, self._on_signal) for s in (signal.SIGINT, signal.SIGTERM)
+        }
 
-    previous = {
-        s: signal.signal(s, on_signal) for s in (signal.SIGINT, signal.SIGTERM)
-    }
-    try:
-        while not done.wait(1.0):
+    def _on_signal(self, signum, frame) -> None:
+        self._got.append(signum)
+        self._done.set()
+
+    def wait(self) -> int:
+        while not self._done.wait(1.0):
             pass
-    finally:
-        for s, handler in previous.items():
+        return self._got[0]
+
+    def close(self) -> None:
+        for s, handler in self._previous.items():
             signal.signal(s, handler)
-    return got[0]
+        self._previous = {}

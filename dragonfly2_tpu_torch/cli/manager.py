@@ -57,6 +57,7 @@ from ..jobs import JobQueue
 from ..manager import ClusterManager, ModelRegistry, Searcher
 from ..manager.registry import BlobStore
 from .common import (
+    SignalWait,
     base_parser,
     grpc_transport,
     init_debug,
@@ -65,7 +66,6 @@ from .common import (
     init_telemetry,
     init_tracing,
     stop_telemetry,
-    wait_for_signal,
 )
 
 
@@ -412,13 +412,14 @@ def run(argv=None) -> int:
     init_logging(args, "manager")
     debug = init_debug(args)
     init_tracing(args)
-    journal = engine = None
+    journal = engine = signals = None
     try:
         try:
             cfg = load_config(ManagerConfig, args.config)
             init_flight_recorder(args, cfg.tracing, "manager")
             journal, engine = init_telemetry(args, cfg.telemetry, "manager")
             if not args.list_models:
+                signals = SignalWait()
                 serving = serve(cfg, replicate_from=args.replicate_from)
         except ConfigError as exc:
             print(f"manager: {exc}", file=sys.stderr)
@@ -434,10 +435,12 @@ def run(argv=None) -> int:
                 )
             return 0
         serving.journal, serving.slo_engine = journal, engine
-        wait_for_signal()
+        signals.wait()
         serving.stop()
         return 0
     finally:
+        if signals is not None:
+            signals.close()
         stop_telemetry(journal, engine)
         if debug is not None:
             debug.stop()

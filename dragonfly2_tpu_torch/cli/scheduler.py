@@ -45,8 +45,9 @@ with the same weights as one composed in process.  With
 same service, and with ``scheduling.stall_max_idle_s > 0`` the
 ``StallMonitor`` sweeps idle subscribed peers; a ``grpc://`` trainer
 address uploads over ``GRPCTrainerClient``.  On a machine without the
-``grpc`` or ``protobuf`` package these exit 2 naming it.  A config key
-whose reader is not ported exits 2 naming its item.  As in the
+``grpc`` or ``protobuf`` package these exit 2 naming it.  A config
+file loads as the reference's does: a key neither package knows, or a
+value its validation refuses, exits 2 with the loader's message.  As in the
 reference, ``run`` starts the diagnostics sidecar (``metrics``: port
 8000 by default; a port in use only warns), points the process tracer at ``--otlp`` /
 ``--trace-file``, attaches the flight recorder (``--trace-log`` or
@@ -89,6 +90,7 @@ from ..scheduler import (
 from ..trainer.export import load_scorer
 from ..utils import gc as dfgc
 from .common import (
+    SignalWait,
     base_parser,
     grpc_transport,
     init_debug,
@@ -98,7 +100,6 @@ from .common import (
     init_telemetry,
     init_tracing,
     stop_telemetry,
-    wait_for_signal,
 )
 
 # The name the serving slice gave the scheduler's config.
@@ -747,7 +748,7 @@ def run(argv=None) -> int:
     init_logging(args, "scheduler")
     debug = init_debug(args)
     init_tracing(args)
-    journal = engine = diagnostics = None
+    journal = engine = diagnostics = signals = None
     try:
         try:
             cfg = load_config(SchedulerConfigFile, args.config)
@@ -755,6 +756,7 @@ def run(argv=None) -> int:
             journal, engine = init_telemetry(args, cfg.telemetry, "scheduler")
             diagnostics = init_diagnostics(cfg.metrics, "scheduler")
             if not args.simulate:
+                signals = SignalWait()
                 blob = None
                 if args.scorer_blob:
                     with open(args.scorer_blob, "rb") as f:
@@ -767,7 +769,7 @@ def run(argv=None) -> int:
             print(f"scheduler: {exc}", file=sys.stderr)
             return 2
         if not args.simulate:
-            wait_for_signal()
+            signals.wait()
             serving.stop()
             return 0
         rng = random.Random()
@@ -797,6 +799,8 @@ def run(argv=None) -> int:
         )
         return 0
     finally:
+        if signals is not None:
+            signals.close()
         stop_telemetry(journal, engine)
         if diagnostics is not None:
             diagnostics.stop()

@@ -52,6 +52,7 @@ from ..parallel.launch import RankGroup, plan_ranks
 from ..trainer.service import TrainerService
 from ..trainer.train import TrainConfig
 from .common import (
+    SignalWait,
     base_parser,
     grpc_transport,
     init_debug,
@@ -60,7 +61,6 @@ from .common import (
     init_telemetry,
     init_tracing,
     stop_telemetry,
-    wait_for_signal,
 )
 
 
@@ -263,7 +263,7 @@ def run(argv=None, *, registry=None) -> int:
     init_logging(args, "trainer")
     debug = init_debug(args)
     init_tracing(args)
-    journal = engine = None
+    journal = engine = signals = None
     try:
         try:
             cfg = load_config(TrainerConfigFile, args.config)
@@ -274,6 +274,7 @@ def run(argv=None, *, registry=None) -> int:
                     args.manager or cfg.manager_addr, args.manager_token, registry
                 )
             else:
+                signals = SignalWait()
                 serving = serve(
                     cfg, device=args.device, manager=args.manager,
                     manager_token=args.manager_token, registry=registry,
@@ -284,7 +285,7 @@ def run(argv=None, *, registry=None) -> int:
             print(f"trainer: {exc}", file=sys.stderr)
             return 2
         if not args.train_once:
-            wait_for_signal()
+            signals.wait()
             serving.stop()
             return 0
         ranks = rank_group(args.device, args.nproc, None)
@@ -294,6 +295,8 @@ def run(argv=None, *, registry=None) -> int:
             if ranks is not None:
                 ranks.close()
     finally:
+        if signals is not None:
+            signals.close()
         stop_telemetry(journal, engine)
         if debug is not None:
             debug.stop()

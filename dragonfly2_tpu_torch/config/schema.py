@@ -11,13 +11,14 @@ trainer files load.  ``yaml`` is imported
 only when a path is given.  The other binaries' config files come with
 their slices.
 
-``SchedulerConfigFile`` holds only the sections and fields the port's
-``cli/scheduler`` reads (``server``, ``scheduling``,
-``network_topology``, ``storage``, ``trainer``, ``gc``, the manager
-link, the dynconfig and topology sync cadences), with the reference's names,
-defaults and validation.  The reference's other scheduler keys come
-with the slices that read them, and until then a file that sets one is
-refused as an unknown key.
+``SchedulerConfigFile`` holds the reference's sections and fields
+(``server``, ``scheduling``, ``network_topology``, ``storage``,
+``trainer``, ``gc``, ``metrics``, ``log``, ``security``, the manager
+link, the dynconfig and topology sync cadences), with its names,
+defaults and validation, so every file the reference's scheduler loads
+loads here and a key neither knows is refused as unknown.  As in the
+reference, ``log`` and ``scheduling.back_to_source_count`` are
+validated and read by nothing else.
 
 ``SchedulerConfigFile`` also holds the ``tracing`` and ``telemetry``
 sections, and the shard guard's settings: ``scheduling.shard_max_inflight``
@@ -234,7 +235,7 @@ class StorageConfig:
 
 @dataclass
 class SchedulingSection:
-    """The ``scheduling`` fields ``cli/scheduler.build`` reads."""
+    """The scheduler's ``scheduling`` section, the reference's fields."""
 
     algorithm: str = "default"        # default | nt | ml (evaluator.go:28-46)
     candidate_parent_limit: int = 4
@@ -242,6 +243,7 @@ class SchedulingSection:
     retry_limit: int = 5
     retry_back_to_source_limit: int = 4
     retry_interval_s: float = 0.5
+    back_to_source_count: int = 3
     # Server-initiated stall sweep (push.StallMonitor): running peers
     # idle beyond max_idle get fresh parents pushed down the bidi wire.
     # 0 disables the monitor.
@@ -367,10 +369,12 @@ class SchedulerConfigFile:
     topology_sync_interval_s: float = 30.0
     tracing: TracingSection = field(default_factory=TracingSection)
     telemetry: TelemetrySection = field(default_factory=TelemetrySection)
+    log: LogConfig = field(default_factory=LogConfig)
 
     def validate(self) -> None:
         self.server.validate()
         self.scheduling.validate()
+        self.log.validate()
         self.tracing.validate()
         self.telemetry.validate()
 

@@ -51,8 +51,30 @@
 //
 // K2 rule_weighted_sum replaces dragonfly2_tpu/ops/pallas_score.py:364
 //    _rule_sum_kernel (launched at :375): out[r] = components[r, :] . w for
-//    the six rule-component weights.  One thread per row; bound by launch
-//    latency at every serving size (24 B in, 4 B out a row).
+//    the six rule-component weights, [n, 6] f32 row-major -> [n] f32.
+//
+//    What bounds it on this card: bytes, 24 in and 4 out a row, against 11
+//    operations.  Where the bytes are few the launch sets the time:
+//    - 512 rows (the rule arm's candidate sets) and 65,536 rows (the
+//      serving slot table, 1.8 MB, which stays in L2): the bound is 4 ns
+//      and 0.55 us, under the launch floor (~2 us).  A call is the launch
+//      plus one round trip, which the design keeps to one pass in which
+//      every block of the grid is resident at once, spread over every SM;
+//    - 16,777,216 rows (470 MB, nine times L2, cold on every launch): HBM
+//      sets the pace, 0.140 ms at 3.35 TB/s.  It takes enough rows in
+//      flight on every SM, read in whole sectors.
+//    The design: a thread takes two rows, 48 bytes from a 16-byte
+//    boundary, as three 16-byte loads and one 8-byte store, over a grid of
+//    one thread a pair, so every SM holds as many pairs in flight as its
+//    threads allow.  (A grid-stride loop over a few blocks an SM, with two
+//    pairs a thread a step, read HBM slower: fewer rows in flight.)  Each
+//    row's sum is one fmaf chain in term order, so the tolerance to the
+//    plain version stands.  The weights are kernel arguments.  Alignment
+//    and edges are the kernel's: a base 8 bytes off 16 (a view that starts
+//    at an odd row, e.g. comp[1:]) takes its first row alone, a base 4 or
+//    12 bytes off (a view from inside a row) takes every row alone, an odd
+//    row left at the end is taken alone, and pairs whose outputs are not
+//    8-byte aligned store two floats.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -309,19 +331,58 @@ fused_gather_mlp_score_kernel(
   if (lane == 0) out[row] = head + s_b2[0];
 }
 
-__global__ void rule_weighted_sum_kernel(
-    const float* __restrict__ comp, float* __restrict__ out, int n,
-    float w0, float w1, float w2, float w3, float w4, float w5) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* c = comp + static_cast<long long>(i) * 6;
-  float acc = c[0] * w0;
-  acc = fmaf(c[1], w1, acc);
-  acc = fmaf(c[2], w2, acc);
-  acc = fmaf(c[3], w3, acc);
-  acc = fmaf(c[4], w4, acc);
-  acc = fmaf(c[5], w5, acc);
-  out[i] = acc;
+constexpr int kRuleThreads = 256;
+
+struct RuleWeights {
+  float w0, w1, w2, w3, w4, w5;
+};
+
+__device__ __forceinline__ float rule_dot(float c0, float c1, float c2, float c3, float c4,
+                                          float c5, const RuleWeights& w) {
+  float acc = c0 * w.w0;
+  acc = fmaf(c1, w.w1, acc);
+  acc = fmaf(c2, w.w2, acc);
+  acc = fmaf(c3, w.w3, acc);
+  acc = fmaf(c4, w.w4, acc);
+  acc = fmaf(c5, w.w5, acc);
+  return acc;
+}
+
+__device__ __forceinline__ float rule_row(const float* __restrict__ c, const RuleWeights& w) {
+  return rule_dot(__ldg(c), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3), __ldg(c + 4),
+                  __ldg(c + 5), w);
+}
+
+// Thread t takes row t while t < head, then pair p = t - head (rows
+// head + 2p and head + 2p + 1, 48 bytes from a 16-byte boundary), then
+// the last row alone when the rows after the head are odd.
+__global__ void __launch_bounds__(kRuleThreads) rule_weighted_sum_kernel(
+    const float* __restrict__ comp, float* __restrict__ out, long long n, long long head,
+    RuleWeights w) {
+  const long long t = static_cast<long long>(blockIdx.x) * kRuleThreads + threadIdx.x;
+  if (t < head) {
+    out[t] = rule_row(comp + 6 * t, w);
+    return;
+  }
+  const long long p = t - head;
+  const long long pairs = (n - head) >> 1;
+  if (p < pairs) {
+    const float4* src = reinterpret_cast<const float4*>(comp + 6 * head) + 3 * p;
+    const float4 a0 = __ldg(src);
+    const float4 a1 = __ldg(src + 1);
+    const float4 a2 = __ldg(src + 2);
+    const float ra = rule_dot(a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, w);
+    const float rb = rule_dot(a1.z, a1.w, a2.x, a2.y, a2.z, a2.w, w);
+    float* dst = out + head + 2 * p;
+    if ((reinterpret_cast<uintptr_t>(out + head) & 7) == 0) {
+      *reinterpret_cast<float2*>(dst) = make_float2(ra, rb);
+    } else {
+      dst[0] = ra;
+      dst[1] = rb;
+    }
+  } else if (p == pairs && ((n - head) & 1) != 0) {
+    out[n - 1] = rule_row(comp + 6 * (n - 1), w);
+  }
 }
 
 }  // namespace
@@ -363,15 +424,19 @@ int df_fused_gather_mlp_score(
   return static_cast<int>(cudaGetLastError());
 }
 
-int df_rule_weighted_sum(const float* comp, float* out, int n, float w0,
+int df_rule_weighted_sum(const float* comp, float* out, long long n, float w0,
                          float w1, float w2, float w3, float w4, float w5,
                          void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  rule_weighted_sum_kernel<<<blocks, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      comp, out, n, w0, w1, w2, w3, w4, w5);
+  // Rows taken alone before the first pair on a 16-byte boundary: none,
+  // one (a base 8 bytes off), or all (no row starts on one).
+  const uintptr_t off = reinterpret_cast<uintptr_t>(comp) & 15;
+  const long long head = off == 0 ? 0 : (off == 8 ? 1 : n);
+  const long long threads = head + ((n - head) >> 1) + ((n - head) & 1);
+  const long long blocks = (threads + kRuleThreads - 1) / kRuleThreads;
+  const RuleWeights w{w0, w1, w2, w3, w4, w5};
+  rule_weighted_sum_kernel<<<static_cast<unsigned>(blocks), kRuleThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(comp, out, n, head, w);
   return static_cast<int>(cudaGetLastError());
 }
 

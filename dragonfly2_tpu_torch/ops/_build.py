@@ -55,7 +55,9 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     # components, out, n, w0..w5, stream
-    "df_rule_weighted_sum": ([_P, _P, _I, _F, _F, _F, _F, _F, _F, _P], ctypes.c_int),
+    "df_rule_weighted_sum": (
+        [_P, _P, ctypes.c_longlong, _F, _F, _F, _F, _F, _F, _P], ctypes.c_int,
+    ),
     "df_fused_score_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "df_fused_score_blob_floats": ([_I, _I], ctypes.c_int),
     # values, values_bf16, round_bf16, edge_row, edge_seg, chunk_lo,

@@ -98,18 +98,31 @@ def test_k1_stress_over_store_like_rows(cuda, tmp_path):
     assert out["k1_bits_vary"] == 0, out
 
 
-@pytest.mark.parametrize("n", [1, 512, 5000])
-def test_k2_matches_its_plain_version(cuda, n):
+# K2's views: the tensor itself (16-byte aligned, pairs of rows as three
+# float4 loads); one row in, 24 bytes off (the first row alone, then
+# pairs); one float in, 4 bytes off (no row on a 16-byte boundary: every
+# row alone).
+K2_VIEWS = ("whole", "from_row_1", "from_float_1")
+
+
+@pytest.mark.parametrize("view", K2_VIEWS)
+@pytest.mark.parametrize("n", [1, 2, 3, 129, 512, 5000, 65537])
+def test_k2_matches_its_plain_version(cuda, n, view):
     import torch
 
     from dragonfly2_tpu_torch.ops import fused_score as ops
 
-    comp = torch.from_numpy(
-        np.random.default_rng(n).standard_normal((n, 6)).astype(np.float32)
-    ).to(cuda)
+    rows = np.random.default_rng(n).standard_normal((n + 2, 6)).astype(np.float32)
+    full = torch.from_numpy(rows).to(cuda)
+    comp = {"whole": full[:n], "from_row_1": full[1:n + 1],
+            "from_float_1": full.view(-1)[1:1 + 6 * n].view(n, 6)}[view]
+    assert comp.is_contiguous() and comp.shape == (n, 6)
+    before = ops.LAUNCHES["rule_weighted_sum"]
     got = ops.rule_sum(comp)
     torch.cuda.synchronize()
+    assert ops.LAUNCHES["rule_weighted_sum"] == before + 1
     want = ops._rule_sum_plain(comp, ops.RULE_COMPONENT_WEIGHTS)
+    assert got.shape == (n,)
     assert float((got - want).abs().max()) <= 1e-6
 
 

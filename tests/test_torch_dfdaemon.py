@@ -46,7 +46,7 @@ from dragonfly2_tpu.cli import scheduler as j_scheduler_cli
 from dragonfly2_tpu.config import DaemonConfig as JDaemonConfig
 from dragonfly2_tpu.config import SchedulerConfigFile as JSchedulerConfigFile
 from dragonfly2_tpu.rpc import SchedulerHTTPServer as JSchedulerHTTPServer
-from dragonfly2_tpu_torch.bench.peer_swarm import served
+from dragonfly2_tpu_torch.bench.peer_swarm import Origin, served
 from dragonfly2_tpu_torch.cli import dfdaemon, dfget
 from dragonfly2_tpu_torch.cli import scheduler as scheduler_cli
 from dragonfly2_tpu_torch.config import ConfigError, DaemonConfig, SchedulerConfigFile, load_config
@@ -74,6 +74,22 @@ def origin(tmp_path):
     path = tmp_path / "origin.bin"
     path.write_bytes(payload)
     return f"file://{path}", payload
+
+
+@pytest.fixture()
+def slow_origin(origin):
+    """The ``origin`` file over HTTP, every request answered after 20-25 ms,
+    as a remote origin answers.  A ``file://`` piece costs ~0.3 ms, so one
+    piece stalled a few ms by a loaded box makes the only parent a bad node
+    (its last cost over 20 times its mean) and the next download goes back
+    to source."""
+    src_url, payload = origin
+    srv = Origin(src_url[len("file://"):], delay=(0.020, 0.025), seed=7)
+    srv.serve()
+    try:
+        yield srv.url, payload
+    finally:
+        srv.stop()
 
 
 @pytest.fixture()
@@ -185,9 +201,9 @@ def test_port_daemons_k1_ranks_the_parents(tmp_path, monkeypatch, port_scheduler
 
 @pytest.mark.parametrize("sched", ["port", "jax"])
 @pytest.mark.parametrize("first", ["jax", "port"])
-def test_mixed_swarm_is_p2p_across_packages(tmp_path, monkeypatch, request, origin, sched,
-                                            first):
-    src_url, payload = origin
+def test_mixed_swarm_is_p2p_across_packages(tmp_path, monkeypatch, request, slow_origin,
+                                            sched, first):
+    src_url, payload = slow_origin
     url = request.getfixturevalue(f"{sched}_scheduler").url
     builders = {"port": lambda root: build_port(root, url),
                 "jax": lambda root: build_jax(root, url, monkeypatch)}

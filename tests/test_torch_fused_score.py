@@ -293,6 +293,29 @@ def test_rule_weighted_sum_matches_jax_and_numpy(n):
     assert ops.RULE_COMPONENT_WEIGHTS == jax_ops.RULE_COMPONENT_WEIGHTS
 
 
+def test_k2_ladder_inputs_are_the_rule_evaluators_columns():
+    """``bench/k2_ladder``'s rows: the port's rule evaluator's six columns
+    over the seeded announce swarm equal the JAX package's, tiled in row
+    order; K2's plain version over 128 of them, and over the view one row
+    in, equals the JAX kernel in interpret mode."""
+    from dragonfly2_tpu.scheduler.evaluator import Evaluator as JaxEvaluator
+    from dragonfly2_tpu_torch.bench import k2_ladder
+
+    comps = k2_ladder.swarm_components(seed=3, hosts=200)
+    task, peers = jax_swarm(200, seed=3)
+    want = np.stack(JaxEvaluator()._component_arrays(peers[1:], peers[0],
+                                                     task.total_piece_count), axis=1)
+    assert comps.shape == (199, 6) and comps.dtype == np.float32
+    np.testing.assert_array_equal(comps, want.astype(np.float32))
+    tiled = k2_ladder.tiled(comps, 400, "cpu")
+    assert tiled.is_contiguous() and tiled.shape == (400, 6)
+    np.testing.assert_array_equal(tiled.numpy(), comps[np.arange(400) % 199])
+    for view in (tiled[:128], tiled[1:129]):
+        got = ops.rule_sum(view).numpy()
+        np.testing.assert_allclose(got, jax_ops.rule_weighted_sum(view.numpy(), interpret=True),
+                                   rtol=1e-6, atol=1e-6)
+
+
 def test_wrappers_check_their_inputs():
     weights, _, (peers, cache, ml) = _serving(20)
     mlp = ops.ServingMLP(weights, device="cpu")

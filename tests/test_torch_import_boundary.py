@@ -160,6 +160,7 @@ print("OK")
         "dragonfly2_tpu_torch.trainer.train",
         "dragonfly2_tpu_torch.trainer.export",
         "dragonfly2_tpu_torch.bench.k1_stamps",
+        "dragonfly2_tpu_torch.bench.k2_ladder",
         "dragonfly2_tpu_torch.bench.timing",
         "dragonfly2_tpu_torch.trainer.streaming",
         "dragonfly2_tpu_torch.lifecycle.daemon",
