@@ -231,7 +231,7 @@ launch counts are zeroed before each and must read 0 after.
     (``cli.scheduler.serve``: ``ml``, the probe store, the seed-made
     32→64→64→1 blob, the manager link with a 1 s model poll, the trainer
     link every 60 s) and a rule-ranking scheduler, each on an ephemeral
-    port.  1,000 hosts announce, 128 seeding and 3,000 concurrent
+    port.  1,000 hosts announce, 128 seeding and 1,500 concurrent
     downloads go through one ``RemoteScheduler`` per host from 16 client
     threads, then 256 from one client; 4 probe rounds through
     ``sync_probes_start`` / ``sync_probes_finished``; the probe graph is
@@ -318,7 +318,11 @@ launch counts are zeroed before each and must read 0 after.
     announce answer carries ``tenant_qos``.  Printed: announces/s and
     register p50 / p99 per arm (both runs pooled) and per run, each
     tenant's share of the rows drained, and the flushes that drained
-    two or more tenant lanes.
+    two or more tenant lanes.  The flight-recorder reader
+    (``bench/trace_assemble``) then reads each traced run's log:
+    ``build_report``'s traces and frames, the anomalies over every
+    assembled trace, and the ``scheduler/eval.flush`` spans assembled,
+    which must equal the spans replayed, with 0 corrupt frames.
 20. The peer daemon's download path (``peer_swarm``):
     ``bench/peer_swarm.run`` in this process, under the out directory: an
     origin (a stdlib HTTP server with ``Range``) serving a 256 MiB file
@@ -425,7 +429,7 @@ launch counts are zeroed before each and must read 0 after.
     ``cli.scheduler.build`` with algorithm ``ml``, the seeded 32→64→64→1
     K1 scorer, 65,536 host slots, 16,384 synthetic hosts, 64 tasks) with
     a ``scheduler/push.PeerStreamHub`` at the reference's cooldown (1 s)
-    on the service.  Each task is warmed with 32 finished downloads
+    on the service.  Each task is warmed with 16 finished downloads
     (phase 2's 64 cut for the phase's time), then 16 running children a
     task register, each subscribing an enqueue callback to the hub that
     encodes the pushed schedule as the gRPC stream binding does
@@ -520,8 +524,8 @@ launch counts are zeroed before each and must read 0 after.
     to 129 MiB, 256 MiB).  (a) 16 clients start together, one a daemon:
     the manifest (direct), then the 8 layers through the proxy; one Range
     request a layer, one unsatisfiable Range, one CONNECT to the
-    registry, one to a closed port.  (b) Daemon 0 puts 32 objects of 4
-    MiB; daemons 1-15 get them all.  Checks: every layer's and object's
+    registry, one to a closed port.  (b) Daemon 0 puts 16 objects of 4
+    MiB (the bench's 32 cut for the smoke's time); daemons 1-15 get them all.  Checks: every layer's and object's
     sha256; the proxies' stats summed 136 / 16 / 1 (p2p / direct /
     tunnel); 206 exact, 416, tunnel bytes, 502; the registry's layer
     bytes equal the daemons' back-to-source bytes; daemon 0 uploaded and
@@ -542,7 +546,7 @@ launch counts are zeroed before each and must read 0 after.
     16 daemons at their defaults request theirs, dial ``grpc://`` over
     mTLS, serve and fetch pieces over mTLS and run an SNI proxy hijacking
     the registry host.  An in-process origin answering after 20-25 ms
-    serves a 64 MiB file and an image of 4 layers (1, 4, 16 and 32 MiB;
+    serves a 32 MiB file and an image of 4 layers (1, 4, 16 and 32 MiB;
     the bench's defaults, 128 MiB and a 64 MiB last layer, cut for the
     phase's time) under the hijacked host's ``https://`` URLs.  All 16 daemons download
     the file; 16 clients pull every layer over HTTPS through their
@@ -583,6 +587,26 @@ launch counts are zeroed before each and must read 0 after.
     within 60 s.  Printed: replication lag p50 / p99, kill → promotion and
     → first accepted write, each wave's MB/s and latency percentiles,
     activation → installed.
+29. The port's own deployment (``deploy``): ``python -m
+    dragonfly2_tpu_torch.deploy.run_local`` at its defaults (``--device
+    cuda``) as a child process in a session of its own, under a 90 s
+    limit: a manager; the trainer and the scheduler on ``--device``
+    (``cuda``; the trainer is the one that works on the card, the rule
+    scheduler launches nothing); a seed daemon and two daemons; each a
+    binary of its own; then the port's e2e loop (back-to-source and P2P,
+    preheat, a training round of 2,000 rows on the trainer's device with
+    its model activated and installed, a live cluster-config change).
+    Each binary counts its own kernel launches and prints them as its
+    last line, which ``run_local`` echoes (``cli/common.report_launches``;
+    ``{}`` from the manager and the daemons, which never import the
+    kernel wrappers).  Checks: exit 0, ``ALL STAGES PASSED``, the six
+    services booted, the round trained on ``cuda``, every service's
+    launch line read, and 0 launches of K1, K2 and K3 in them: the
+    deployment's scheduler ranks by the rules and the e2e trains only
+    the MLP.  Printed: each
+    service's boot seconds, each stage's seconds, the round's seconds
+    and device, each service's launches.  Their sums join the kernels
+    line as ``launches_deploy``.
 
 Every comparison of K1 with its plain version on a path's flushes holds
 every row finite, the batcher's pad rows included (they read slot 0, a
@@ -603,9 +627,9 @@ must write through ``NativeColumnarWriter`` (a tap on
 ``records.storage._make_columnar_writer``), and ``dfc_rows`` must read
 exactly the rows appended.  Phase 14's run A runs the native ingest
 engine at the defaults (the adapter native, its ``rows_in`` = the rows
-sent); a second wire run on the same records with ``--python-ingest``
-prints its records/s through the service beside run A's and the
-device's.  Phases 20, 21 and 22(b) run every daemon on the native engine
+sent); a second wire run on the first half of the same records (8
+dispatches) with ``--python-ingest`` prints its records/s through the
+service beside run A's and the device's.  Phases 20, 21 and 22(b) run every daemon on the native engine
 at the defaults (``engine_ran``: every store native,
 ``NativePieceServer`` the server, > 0 pieces through ``pf_*``) and check
 ``native.leaked_servers() == (0, 0)`` after teardown; phase 20 runs a
@@ -625,6 +649,7 @@ import json
 import os
 import random
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -704,6 +729,8 @@ OG_HIDDEN = 1024
 OG_BATCH = 131_072
 OG_SUPER = 8              # the wire soak's dispatch: 8 steps
 OG_DISPATCHES = 16        # run A: 16.8 M records, refreshes after 4, 8, 12
+OG_PY_DISPATCHES = 8      # the Python-ingest arm: run A's first half (16 cut for the
+                          # smoke's time when phase 29 came)
 OG_REFRESH = 4
 OG_WARMUP = 50
 OG_RESUME_TOTAL = 8       # runs B and C
@@ -715,7 +742,8 @@ FED_HOSTS = 1000
 FED_ROWS = 10_000
 FED_HELD = 2_000
 FED_F32_TOL = 1e-5        # published scorer vs a float32 twin, scaled by max(1, |score|)
-PUSH_WARM = 32             # phase 23: warm downloads a task (phase 2's 64 cut for time)
+PUSH_WARM = 16             # phase 23: warm downloads a task (phase 2's 64 cut for time;
+                           # 32 until the deployment phase came)
 PUSH_CHILDREN = 16         # ... running children a task, each subscribed to the hub
 PUSH_STALL_IDLE_S = 1.0    # ... StallMonitor's max idle (the reference's 10 s cut)
 PUSH_STALL_SWEEP_S = 0.25  # ... its sweep interval (2 s cut)
@@ -736,26 +764,30 @@ TR_SECONDS = 60.0          # ... the phase's time limit, the float32 witness asi
 TR_WITNESS_SECONDS = 45.0  # ... the witness's (three rounds, a helper's start among them)
 RP_DAEMONS = 16            # phase 26: daemons, each fronted by a P2PProxy and a gateway
 RP_LAYERS_MIB = "1,2,4,8,16,32,64,129"  # ... the image's layers (256 MiB)
-RP_OBJECTS = 32            # ... objects daemon 0 puts
+RP_OBJECTS = 16            # ... objects daemon 0 puts (32 cut for the smoke's time)
 RP_OBJECT_MIB = 4          # ... each object's size
 RP_SECONDS = 60.0          # ... the phase's time limit
 SC_DAEMONS = 16            # phase 27: daemons, each with an auto-issued mTLS identity
-SC_FILE_MIB = 64           # ... the file every daemon downloads (the bench's 128 cut)
+SC_FILE_MIB = 32           # ... the file every daemon downloads (the bench's 128 cut;
+                           # 64 until the deployment phase came)
 SC_LAYERS_MIB = "1,4,16,32"  # ... the image's layers (the bench's 1,4,16,64 cut)
 SC_SECONDS = 60.0          # ... the phase's time limit
 MF_DAEMONS = 8             # phase 28: daemons downloading through the manager failover
 MF_FILE_MIB = 64           # ... each of files A-D
 MF_SECONDS = 60.0          # ... the phase's time limit
+DEPLOY_SECONDS = 90.0      # phase 29: run_local's time limit
 K1_STRESS_FLUSHES = 2000   # phase 23: seeded stress flushes ...
 K1_STRESS_REPEATS = 3      # ... each launched this many times back to back
 FED_MEAN_TOL = 1e-6       # the round's aggregate vs a numpy weighted mean
-WIRE_DOWNLOADS = 3000     # the swarm's 10,000 cut for the phase's time
+WIRE_DOWNLOADS = 1500     # the swarm's 10,000 cut for the phase's time (3,000 until the
+                          # deployment phase came: 39-62 s of downloads on the card's hosts)
 WIRE_CLIENTS = 16
 WIRE_SEQUENTIAL = 256
 WIRE_TRIALS = 40          # parent-choice trials an arm in phases 16-17 (200 cut for the smoke's time)
-WIRE_TRAIN_INTERVAL = 165.0  # past the downloads and probes: 100-140 s after the boot on
-                             # the card's hosts; a first round before the probe snapshot
-                             # makes the phase wait one more whole interval
+WIRE_TRAIN_INTERVAL = 115.0  # past the downloads and probes: 75-118 s after the boot on
+                             # the card's hosts at 3,000 downloads, 60-90 s at 2,000; a
+                             # first round before the probe snapshot makes the phase wait
+                             # one more whole interval
 WIRE_PROBE_ROUNDS = 4     # the swarm's 8 cut: the snapshot must land before the round
                           # (8 rounds took 60-75 s and missed a 150 s one once)
 WIRE_K1_FLUSHES = 64      # flushes whose inputs K1 is held to its plain version on
@@ -886,9 +918,9 @@ def reset_kernel_counts():
 
 def kernel_counts():
     """Every kernel wrapper's launch count since the last reset."""
-    from dragonfly2_tpu_torch.ops import fused_score, segment
+    from dragonfly2_tpu_torch.ops import launch_counts
 
-    return {**fused_score.LAUNCHES, **segment.LAUNCHES}
+    return launch_counts()
 
 
 def sheds_since(before):
@@ -2455,8 +2487,9 @@ def online_graph_phase(torch, dev, seed, out_dir):
 
     # -- run A again on the same records, the adapter's Python path -------
     reset_kernel_counts()
+    py_sent = OG_PY_DISPATCHES * rows_per_dispatch
     py = bench.run(bench.parse_args(common + [
-        "--wire", "--python-ingest", "--records", str(OG_DISPATCHES * rows_per_dispatch),
+        "--wire", "--python-ingest", "--records", str(py_sent),
         "--ckpt-dir", os.path.join(root, "a_python")]), log=log)
     torch.cuda.synchronize()
     py_launches = kernel_counts()
@@ -2471,10 +2504,10 @@ def online_graph_phase(torch, dev, seed, out_dir):
     }
     emit({"phase": "online_graph_ingest_arms", **summary["ingest_arms"]})
     check(not py["ingest"]["native"] and py["records_seen"] == py["rows_sent"]
-          == py["rows_off_the_wire"] == sent and py["overflow_edges"] == 0,
+          == py["rows_off_the_wire"] == py_sent and py["overflow_edges"] == 0,
           f"online graph Python-ingest arm: native {py['ingest']['native']}, sent "
           f"{py['rows_sent']}, off the wire {py['rows_off_the_wire']}, trained "
-          f"{py['records_seen']} (want {sent})")
+          f"{py['records_seen']} (want {py_sent})")
     check(bool(np.isfinite(py["losses"]).all()), "online graph Python-ingest arm: a "
           "non-finite loss")
     check(not any(py_launches.values()),
@@ -3359,7 +3392,7 @@ def telemetry_qos_phase(torch, dev, seed, out_dir):
                 if a["key"] == "rows"]
         run.update({"log": stats, "exported": durable.exported,
                     "sampled_out": durable.sampled_out, "flush_spans_replayed": len(spans),
-                    "span_rows": sum(rows)})
+                    "span_rows": sum(rows), "reader": read_trace_log(durable.path)})
     arms = {}
     for arm, rate in TQ_RATES.items():
         mine = [r for r in runs if r["arm"] == arm]
@@ -3409,6 +3442,11 @@ def telemetry_qos_phase(torch, dev, seed, out_dir):
             check(run["span_rows"] == run["rows_drained"],
                   f"{what}: span rows {run['span_rows']} != rows drained "
                   f"{run['rows_drained']}")
+        reader = run["reader"]
+        check(reader["flush_spans"] == run["flush_spans_replayed"] and reader["corrupt"] == 0
+              and reader["frames"] == run["log"]["frames"],
+              f"{what}: the reader assembled {reader['flush_spans']} flush spans of "
+              f"{run['flush_spans_replayed']} replayed ({reader})")
     check(launches["fused_gather_mlp_score"] == calls > 0,
           f"K1 launches {launches['fused_gather_mlp_score']} != the batcher's scorer calls "
           f"{calls}")
@@ -4448,6 +4486,96 @@ def manager_failover_phase(torch, dev, seed, out_dir):
     return out, launches
 
 
+def read_trace_log(path):
+    """The flight-recorder reader (``bench/trace_assemble``) on one
+    durable log: its traces, frames admitted and rejected, the anomalies
+    of every assembled trace, and the ``scheduler/eval.flush`` spans in
+    them."""
+    from dragonfly2_tpu_torch.bench import trace_assemble
+
+    spans, (stats,) = trace_assemble.load_logs([path])
+    traces = trace_assemble.assemble(spans)
+    return {"traces": len(traces), "frames": stats["frames"], "corrupt": stats["corrupt"],
+            "anomalies": sum(len(trace_assemble.anomalies_of(t)) for t in traces.values()),
+            "flush_spans": sum(sp["name"] == "scheduler/eval.flush"
+                               for t in traces.values() for sp in t),
+            "largest_trace_spans": max(map(len, traces.values()), default=0)}
+
+
+DEPLOY_SERVICES = ("manager", "trainer", "scheduler", "seed", "daemon-a", "daemon-b")
+
+
+def deploy_phase(out_dir):
+    """Phase 29: ``python -m dragonfly2_tpu_torch.deploy.run_local`` as a
+    child at its defaults, in a session of its own so that a run past the
+    limit is killed with every process it started.  Its output goes to
+    ``OUT/deploy/run_local.log``.  Returns (summary, launches): the
+    launches are the sums of the services' own counts, each read from
+    the launch line its binary prints as it stops."""
+    import re
+
+    work = os.path.join(out_dir, "deploy")
+    os.makedirs(work, exist_ok=True)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dragonfly2_tpu_torch.deploy.run_local"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO}, start_new_session=True,
+    )
+    timed_out = False
+    try:
+        out, _ = proc.communicate(timeout=DEPLOY_SECONDS)
+    except subprocess.TimeoutExpired:
+        timed_out = True
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
+    try:  # anything of the cluster still alive
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    own = kernel_counts()
+    with open(os.path.join(work, "run_local.log"), "w") as f:
+        f.write(out)
+    boots = {m[1]: float(m[2]) for m in re.finditer(
+        r"^run_local: (\S+) up in ([\d.]+) s$", out, re.M)}
+    stages = {}
+    for m in re.finditer(r"^e2e: .* \[stage (\d+): ([\d.]+) s\]$", out, re.M):
+        stages[int(m[1])] = max(stages.get(int(m[1]), 0.0), float(m[2]))
+    rnd = re.search(r"^e2e: trainer run (\S+) finished on (\S+) in ([\d.]+) s", out, re.M)
+    passed = re.search(r"^e2e: ALL STAGES PASSED", out, re.M) is not None
+    services = {m[1]: json.loads(m[2]) for m in re.finditer(
+        r"^run_local: (\S+) kernel launches (\{.*\})$", out, re.M)}
+    launches = {name: sum(counts.get(name, 0) for counts in services.values())
+                for name in own}
+    summary = {
+        "seconds": seconds, "returncode": proc.returncode, "timed_out": timed_out,
+        "boot_seconds": boots, "stage_seconds": stages,
+        "trainer_round": ({"run": rnd[1], "device": rnd[2], "seconds": float(rnd[3])}
+                          if rnd else None),
+        "all_stages_passed": passed, "service_kernel_launches": services,
+        "kernel_launches": launches, "smoke_process_launches": own,
+        "launch_note": "each binary counts its own launches and prints them as it stops; "
+                       "the rule scheduler and an MLP-only round reach none of K1-K3",
+    }
+    emit({"phase": "deploy", **summary})
+    tail = out[-3000:]
+    check(not timed_out and proc.returncode == 0 and passed,
+          f"run_local exited {proc.returncode} (timed out: {timed_out}), all stages "
+          f"passed: {passed}:\n{tail}")
+    check(tuple(boots) == DEPLOY_SERVICES, f"services booted {list(boots)}:\n{tail}")
+    check(sorted(stages) == [1, 2, 3, 4, 5], f"stages {sorted(stages)}:\n{tail}")
+    check(rnd is not None and rnd[2].split(":")[0] == "cuda",
+          f"the trainer's round did not train on cuda: {summary['trainer_round']}")
+    check(sorted(services) == sorted(DEPLOY_SERVICES),
+          f"launch lines read from {sorted(services)}, not from every service")
+    check(not any(launches.values()) and not any(own.values()),
+          f"a kernel was launched: services {services}, this process {own}")
+    check(seconds <= DEPLOY_SECONDS, f"phase 29 took {seconds:.1f} s (limit {DEPLOY_SECONDS})")
+    return summary, launches
+
+
 def repeat_trainer_ranks(torch, dev, seed, work_dir, times) -> int:
     """Phase 25 alone, ``times`` runs in one process: each run's rank
     witness (``rank_leaf_diff`` in bf16 and in float32, None when every
@@ -4807,6 +4935,8 @@ def main(argv=None) -> int:
     loop["manager_failover"], mf_launches = manager_failover_phase(
         torch, dev, args.seed, work_dir)
     mf = loop["manager_failover"]
+    # -- 29. the port's own deployment: run_local at its defaults -----------
+    loop["deploy"], dp_launches = deploy_phase(work_dir)
     kernels = {"kernels": [
         {"name": "fused_gather_mlp_score", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
@@ -4817,7 +4947,7 @@ def main(argv=None) -> int:
          + ph_launches["fused_gather_mlp_score"] + sf_launches["fused_gather_mlp_score"]
          + push_launches["fused_gather_mlp_score"] + qd_launches["fused_gather_mlp_score"]
          + rp_launches["fused_gather_mlp_score"] + sc_launches["fused_gather_mlp_score"]
-         + mf_launches["fused_gather_mlp_score"],
+         + mf_launches["fused_gather_mlp_score"] + dp_launches["fused_gather_mlp_score"],
          "launches_serving": launches["fused_gather_mlp_score"],
          "launches_wire": wire_launches["fused_gather_mlp_score"],
          "launches_wire_lifecycle": lc_launches["fused_gather_mlp_score"],
@@ -4831,6 +4961,7 @@ def main(argv=None) -> int:
          "launches_registry_proxy": rp_launches["fused_gather_mlp_score"],
          "launches_secure_cluster": sc_launches["fused_gather_mlp_score"],
          "launches_manager_failover": mf_launches["fused_gather_mlp_score"],
+         "launches_deploy": dp_launches["fused_gather_mlp_score"],
          "max_abs_err": max(k1_err.values()), "max_err_scaled_wire": wire["k1"]["max_err_scaled"],
          "max_err_scaled_wire_lifecycle": lc["k1"]["max_err_scaled"],
          "max_err_scaled_telemetry_qos": tq["k1"]["max_err_scaled"],
@@ -4861,7 +4992,8 @@ def main(argv=None) -> int:
         {"name": "rule_weighted_sum", "route": "cuda",
          "source": "dragonfly2_tpu_torch/csrc/fused_score.cu",
          "replaces": "dragonfly2_tpu/ops/pallas_score.py:364",
-         "launches": launches["rule_weighted_sum"],
+         "launches": launches["rule_weighted_sum"] + dp_launches["rule_weighted_sum"],
+         "launches_deploy": dp_launches["rule_weighted_sum"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
          "share_of_bound": k2_bound / k2_ms,
@@ -4870,6 +5002,8 @@ def main(argv=None) -> int:
                     for n, r in k2_rungs.items()}},
         k3_entry,
     ]}
+    k3_entry["launches_deploy"] = dp_launches["segment_sum"]
+    k3_entry["launches"] += dp_launches["segment_sum"]
     for entry in kernels["kernels"]:
         entry["launch_floor_ms"] = floor_ms
     if args.out:

@@ -3,7 +3,7 @@
 Every plane appends crash-safe DFMJ1 snapshot frames to its own metric
 journal (``--metric-journal`` / config ``telemetry.journal_path`` —
 utils/metric_journal.py).  This tool is the metric twin of
-``tools/trace_assemble.py``: it replays N processes' journals (torn
+``bench/trace_assemble.py``: it replays N processes' journals (torn
 tails tolerated, digest-bad frames NEVER admitted) and answers the
 operator's question the per-process ``/metrics`` scrape cannot — *what
 is the swarm-wide piece-fetch p99 right now, and is it burning the SLO?*

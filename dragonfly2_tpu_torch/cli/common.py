@@ -6,7 +6,8 @@ Port of ``base_parser`` (with the tracing and telemetry flags
 ``init_logging`` (which installs a ``DF_FAULTINJECT`` scenario from the
 environment) and ``init_debug`` of ``dragonfly2_tpu/cli/common.py``.
 New here: ``stop_telemetry``, which both binaries call on shutdown, and
-``SignalWait``, the serve modes' wait.  ``init_diagnostics`` starts
+``SignalWait``, the serve modes' wait, and ``report_launches``, the
+serve modes' last line.  ``init_diagnostics`` starts
 the ``/metrics`` sidecar (``utils/diagnostics.DiagnosticsServer``) the
 scheduler's and the daemon's ``run`` start at the reference's defaults;
 the port also stops it on shutdown, where the reference leaves it to the
@@ -16,7 +17,9 @@ process's exit.
 from __future__ import annotations
 
 import argparse
+import json
 import signal
+import sys
 import threading
 from typing import Optional
 
@@ -56,7 +59,8 @@ def base_parser(prog: str, description: str) -> argparse.ArgumentParser:
         help="flight recorder: append-only crash-safe trace log "
              "(length-prefixed, digest-checked OTLP/JSON frames; "
              "head-sampled by trace id per config tracing.sample_rate) — "
-             "feed per-process logs to tools/trace_assemble.py; "
+             "feed per-process logs to "
+             "python -m dragonfly2_tpu_torch.bench.trace_assemble; "
              "overrides config tracing.log_path",
     )
     p.add_argument(
@@ -64,7 +68,8 @@ def base_parser(prog: str, description: str) -> argparse.ArgumentParser:
         help="fleet telemetry: append-only crash-safe metric journal "
              "(length-prefixed, digest-checked DFMJ1 frames of periodic "
              "counter/gauge/sketch snapshots + run identity) — feed "
-             "per-process journals to tools/fleet_assemble.py; overrides "
+             "per-process journals to "
+             "python -m dragonfly2_tpu_torch.bench.fleet_assemble; overrides "
              "config telemetry.journal_path",
     )
     p.add_argument(
@@ -276,3 +281,14 @@ class SignalWait:
         for s, handler in self._previous.items():
             signal.signal(s, handler)
         self._previous = {}
+
+
+def report_launches(binary: str) -> None:
+    """Print ``BINARY: kernel launches {...}``: the launches of every
+    kernel wrapper in this process since it started (``ops.launch_counts``),
+    so that a supervisor reads what the binary ran on its device.  A
+    process that never imported the wrappers launched none and prints
+    ``{}``.  Each serve mode prints it once it has stopped."""
+    ops = sys.modules.get(__name__.rsplit(".", 2)[0] + ".ops")
+    counts = ops.launch_counts() if ops is not None else {}
+    print(f"{binary}: kernel launches {json.dumps(counts, sort_keys=True)}", flush=True)

@@ -73,6 +73,7 @@ from .common import (
     init_logging,
     init_telemetry,
     init_tracing,
+    report_launches,
     stop_telemetry,
 )
 
@@ -519,6 +520,7 @@ def run(argv=None) -> int:
         finally:
             for s, handler in previous.items():
                 signal.signal(s, handler)
+        report_launches("dfdaemon")
         return 0
     finally:
         if sni is not None:

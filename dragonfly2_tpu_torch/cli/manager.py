@@ -65,6 +65,7 @@ from .common import (
     init_logging,
     init_telemetry,
     init_tracing,
+    report_launches,
     stop_telemetry,
 )
 
@@ -437,6 +438,7 @@ def run(argv=None) -> int:
         serving.journal, serving.slo_engine = journal, engine
         signals.wait()
         serving.stop()
+        report_launches("manager")
         return 0
     finally:
         if signals is not None:

@@ -99,6 +99,7 @@ from .common import (
     init_logging,
     init_telemetry,
     init_tracing,
+    report_launches,
     stop_telemetry,
 )
 
@@ -771,6 +772,7 @@ def run(argv=None) -> int:
         if not args.simulate:
             signals.wait()
             serving.stop()
+            report_launches("scheduler")
             return 0
         rng = random.Random()
         service = build(cfg, device=args.device, rng=rng)

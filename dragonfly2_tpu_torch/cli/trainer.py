@@ -60,6 +60,7 @@ from .common import (
     init_logging,
     init_telemetry,
     init_tracing,
+    report_launches,
     stop_telemetry,
 )
 
@@ -287,6 +288,7 @@ def run(argv=None, *, registry=None) -> int:
         if not args.train_once:
             signals.wait()
             serving.stop()
+            report_launches("trainer")
             return 0
         ranks = rank_group(args.device, args.nproc, None)
         try:

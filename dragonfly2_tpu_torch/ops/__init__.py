@@ -26,3 +26,10 @@ from .fused_score import (  # noqa: F401
     split_first_layer,
 )
 from .segment import make_neighbor_gather, segment_sum  # noqa: F401
+from . import fused_score, segment
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches in this process (K1, K2 and K3)
+    since it started or since the wrappers' ``reset_launch_counts``."""
+    return {**fused_score.LAUNCHES, **segment.LAUNCHES}

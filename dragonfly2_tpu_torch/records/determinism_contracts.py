@@ -5,8 +5,8 @@ Entry for entry with the reference's ``records/determinism_contracts.py``,
 keyed by the port's relpaths: the replay roots, injection seams,
 observability sinks and canonical-serialization writers the port has.
 The reference's roots and writers in ``tools/`` map to the port's copies
-under ``bench/`` (``fleet_assemble``); those with no port module
-(``tools/trace_assemble.py``, ``tools/bench_sched.py``,
+under ``bench/``: the operators' readers ``fleet_assemble`` and
+``trace_assemble``.  Those with no port module (``tools/bench_sched.py``,
 ``tools/bench_download.py``: measuring harnesses, which come with the
 port's benchmark) have no entry.  One root is
 the port's own: ``sim/qos.deterministic_summary``, the projection the
@@ -92,6 +92,14 @@ DETERMINISM_CONTRACTS = {
         "fleet_assemble.build_report": {
             "file": "dragonfly2_tpu_torch/bench/fleet_assemble.py",
             "qual": "build_report",
+        },
+        "trace_assemble.critical_path": {
+            "file": "dragonfly2_tpu_torch/bench/trace_assemble.py",
+            "qual": "critical_path",
+        },
+        "trace_assemble.summarize_trace": {
+            "file": "dragonfly2_tpu_torch/bench/trace_assemble.py",
+            "qual": "summarize_trace",
         },
         "lifecycle.arbitrate": {
             "file": "dragonfly2_tpu_torch/lifecycle/arbiter.py",
@@ -210,6 +218,11 @@ DETERMINISM_CONTRACTS = {
         },
         "fleet_assemble.json": {
             "file": "dragonfly2_tpu_torch/bench/fleet_assemble.py",
+            "qual": "main",
+            "format": "json",
+        },
+        "trace_assemble.json": {
+            "file": "dragonfly2_tpu_torch/bench/trace_assemble.py",
             "qual": "main",
             "format": "json",
         },

@@ -23,11 +23,13 @@ import threading
 import urllib.parse
 import urllib.request
 from http.server import BaseHTTPRequestHandler
-from typing import Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
-from ..trainer.service import TrainerService, TrainSession
 from ._server import ThreadedHTTPService
 from .retry import retry_call
+
+if TYPE_CHECKING:  # the service (and torch) only where a trainer serves
+    from ..trainer.service import TrainerService, TrainSession
 
 UPLOAD_CHUNK_BYTES = 128 << 20  # announcer.go:39-41
 
@@ -134,6 +136,10 @@ class TrainerHTTPServer:
                             "metrics": {
                                 k: m.to_dict() for k, m in run.metrics.items()
                             },
+                            # The port's own: where and how long the round
+                            # trained (a reference client reads neither).
+                            "device": run.device,
+                            "seconds": run.seconds,
                         },
                     )
                 else:
@@ -265,4 +271,7 @@ class _RemoteRuns:
         # EvalMetrics and done answers is_set().
         run.metrics = {k: EvalMetrics(**v) for k, v in data["metrics"].items()}
         run.done = _DoneView(bool(data["done"]))
+        # Absent from a reference trainer's answer.
+        run.device = data.get("device", "")
+        run.seconds = data.get("seconds", 0.0)
         return run

@@ -92,6 +92,10 @@ class TrainRun:
     leaf_digests: Dict[str, Dict[str, str]] = field(default_factory=dict)
     # On rank 0 of a RankGroup: every rank's TrainerService.summary.
     ranks: List[Dict[str, Any]] = field(default_factory=list)
+    # The device the round's trained parameters lie on ("" until a model
+    # trains) and the round's wall seconds, ingest normalization included.
+    device: str = ""
+    seconds: float = 0.0
 
 
 def leaf_digests(state) -> Dict[str, str]:
@@ -373,7 +377,8 @@ class TrainerService:
                 run.topology_rows, run.models,
             )
         finally:
-            trainer_metrics.TRAINING_DURATION.observe(time.perf_counter() - t0)
+            run.seconds = time.perf_counter() - t0
+            trainer_metrics.TRAINING_DURATION.observe(run.seconds)
             run.done.set()
 
     def _train_models(self, run: TrainRun, session: TrainSession, mesh) -> None:
@@ -403,6 +408,7 @@ class TrainerService:
     def _keep(self, run: TrainRun, name: str, state, history) -> None:
         run.history[name] = [dict(h) for h in history]
         run.leaf_digests[name] = leaf_digests(state)
+        run.device = str(next(state.model.parameters()).device)
 
     # -- ranks ---------------------------------------------------------------
 

@@ -489,7 +489,7 @@ class DurableSpanExporter(SpanExporter):
     O_APPEND fd (the kernel serializes appends), written at export time —
     by default every finished span becomes durable IMMEDIATELY
     (``batch_size=1``), so a SIGKILLed daemon's log still holds every
-    span that ended before the kill and ``tools/trace_assemble.py`` can
+    span that ended before the kill and ``bench/trace_assemble.py`` can
     stitch the surviving per-process logs into the end-to-end trace.
 
     ``sample_rate`` head-samples BY TRACE ID (``trace_sampled``):

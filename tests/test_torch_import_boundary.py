@@ -260,6 +260,11 @@ print("OK")
         "dragonfly2_tpu_torch.tools.stress",
         "dragonfly2_tpu_torch.version",
         "dragonfly2_tpu_torch.bench.manager_failover",
+        "dragonfly2_tpu_torch.deploy",
+        "dragonfly2_tpu_torch.deploy.run_local",
+        "dragonfly2_tpu_torch.deploy.e2e_loop",
+        "dragonfly2_tpu_torch.deploy.k8s_validate",
+        "dragonfly2_tpu_torch.bench.trace_assemble",
         "chip_smoke",
     ],
 )

@@ -20,10 +20,10 @@ Proven:
   that lands before it still steers to the dead owner and is retried),
   and the download completes with the remaining pieces;
 - every completed download digest-checks against the origin bytes;
-- ``tools/trace_assemble.py`` (the JAX package's tool; it reads the
-  port's DFTL1 logs) stitches the three surviving logs into ONE trace
-  spanning both shards and the client, with ZERO corrupt frames, and
-  renders the cross-shard handoff span on the critical path.
+- the port's reader, ``bench/trace_assemble.py``, stitches the three
+  surviving logs into ONE trace spanning both shards and the client,
+  with ZERO corrupt frames, and renders the cross-shard handoff span on
+  the critical path.
 """
 
 from __future__ import annotations
@@ -292,7 +292,7 @@ class TestTorchShardKillDrill:
             manager.stop()
 
         # -- flight-recorder evidence ------------------------------------
-        from tools.trace_assemble import build_report, render_report
+        from dragonfly2_tpu_torch.bench.trace_assemble import build_report, render_report
 
         logs = [
             str(tmp_path / "shard0.dftrace"),
